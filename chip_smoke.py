@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. card: name and power limit (nvidia-smi);
+2. kernels: builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, in parallel), then holds every kernel against its
+   plain PyTorch version on the card, in fp32 and bf16, at the serving
+   path's full-width shapes of granite-moe-3b-a800m and at the ragged edge
+   cases (empty expert, one expert, extreme skew); times the kernel alone
+   (CUDA events, median), its plain version, a library call that computes
+   the same function, and the card's bound for the same work;
+3. small parity: the reduced model's forward on the card (kernels) against
+   the same weights on the CPU (plain versions), both dispatch modes;
+4. serving: ``repro_torch.launch.serve.serve`` at full width (32 layers,
+   random bf16 weights), first under capacity and then under ragged
+   dispatch.  The kernels' launch counts are zeroed just before each run
+   and read just after it, and every kernel of that dispatch's path must
+   have been launched;
+5. parity: ``repro_torch.launch.serve.decode_parity``, the fp32 ragged
+   paged decode of the ragged run's first request against the uncached
+   forward, held to the serve driver's bound;
+6. profile: ``torch.profiler`` over one prefill and eight decode steps of
+   ``Engine.step`` under each dispatch: wall time, the card's busy time and
+   idle share, device activities and the top kernels.
+
+The last two lines are a JSON object of per-kernel numbers and the result
+line ``{"ok": true, "device": {...}}``.  Without a card, or without the
+repository's ``src/repro_torch`` beside this file, it exits 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# The card's rates (H100 SXM data sheet, dense, at the 700 W limit).
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor, fp32 CUDA-core
+ARCH = "granite-moe-3b-a800m"
+# Serving workload: 8 seeded requests of 64-512 prompt tokens, 32 new tokens
+# each, 4 sequences decoding together.
+SERVE_ARGS = ["--arch", ARCH, "--requests", "8", "--prompt-min", "64",
+              "--prompt-max", "512", "--max-new", "32", "--max-seqs", "4",
+              "--block-size", "16", "--num-blocks", "256", "--seed", "0"]
+GEMM_TOL = dict(rtol=2e-5, atol=1.6e-4)  # both sides: fp32 sums of exact products
+# Flash attention computes in fp32 and rounds once to q's dtype; its plain
+# version here runs in fp32 on the same inputs and is rounded once too, so
+# bf16 outputs may differ by one bf16 step (2^-7 relative at most).
+FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
+          torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+RAGGED_COUNTS = [[7, 0, 83, 1, 9], [0, 0, 0, 100], [25, 25, 25, 25], [100],
+                 [1, 1, 1, 1, 1, 96, 1, 1]]
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median device time of one ``fn()`` in ms: CUDA events around each
+    call, all queued behind a busy-wait kernel so the card runs them back to
+    back (host launch cost stays out, unless ``fn`` itself synchronizes)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def check(name: str, got, want, tol) -> float:
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **tol)
+    log(f"[check] {name}: max_abs_err={err:.3e} tol(rtol={tol['rtol']:g}, "
+        f"atol={tol['atol']:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def kernel_phase(dev):
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    kernels.build()
+    log(f"[build] {', '.join(kernels._build.SOURCES)} built in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc, sm_90a)")
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    arch = get_arch(ARCH)
+    d, f, E, k = arch.d_model, arch.moe.d_ff, arch.moe.num_experts, arch.moe.top_k
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def routed_offsets(tokens: int):
+        """Per-expert row offsets of ``tokens`` tokens routed top-k of E."""
+        ids = torch.rand((tokens, E), generator=g, device=dev).argsort(dim=1)[:, :k]
+        counts = torch.bincount(ids.reshape(-1), minlength=E)
+        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+    entries = {}
+
+    def report(name, shape, dtype, launch, plain, library, nbytes, flops, err,
+               source, replaces):
+        ms = device_ms(launch)
+        plain_ms = device_ms(plain, reps=5, warmup=1)
+        lib_ms = None
+        if library is not None:
+            try:
+                lib_ms = device_ms(library)
+            except (RuntimeError, TypeError, NotImplementedError) as e:
+                log(f"[time] {name}: library call unavailable ({type(e).__name__}: {e})")
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        log(f"[time] {name} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {b_ms:.4f} ms ({b_by})")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "shape": f"{shape} {str(dtype)[6:]}", "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms}
+
+    src_mm = "src/repro_torch/kernels/csrc/moe_gemm.cu"
+    src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
+
+    def rate_dtype(*ts):
+        return torch.float32 if any(t.dtype == torch.float32 for t in ts) else torch.bfloat16
+
+    # Down-projections take the fp32 hidden activation, as in the model.
+    # -- grouped_matmul_f32 (capacity dispatch) ------------------------------
+    C_pre = -(-512 * k * 5 // (E * 4))  # ceil(T*k/E * 1.25) at the 512 bucket
+    for dtype in (torch.float32, torch.bfloat16):
+        for (M, K, N, tag) in ((C_pre, d, f, "prefill gate/up"), (C_pre, f, d, "prefill down"),
+                               (1, d, f, "decode gate/up"), (1, f, d, "decode down"),
+                               (100, 96, 56, "edge"), (3, 64, 40, "edge")):
+            xdt = torch.float32 if "down" in tag else dtype
+            x, w = randn(E, M, K, dtype=xdt), randn(E, K, N, scale=K ** -0.5, dtype=dtype)
+            err = check(f"grouped_matmul_f32 {tag} ({E},{M},{K})x({K},{N}) {xdt}x{dtype}",
+                        mm_ops.grouped_matmul_f32(x, w), mm_ref.grouped_matmul_f32(x, w),
+                        GEMM_TOL)
+            if tag == "edge":
+                continue
+            e = report("grouped_matmul_f32", f"{tag} ({E},{M},{K})x({K},{N})", rate_dtype(x, w),
+                       mm_ops.grouped_matmul_f32_launch(x, w)[1],
+                       lambda: mm_ref.grouped_matmul_f32(x, w),
+                       (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
+                       x.numel() * x.element_size() + w.numel() * w.element_size()
+                       + E * M * N * 4, 2 * E * M * K * N, err, src_mm,
+                       "src/repro/kernels/moe_gemm/moe_gemm.py:67")
+            if tag == "prefill gate/up" and dtype == torch.bfloat16:
+                entries["grouped_matmul_f32"] = e
+
+    # -- ragged_matmul_f32 / ragged_gate_up_silu_f32 (ragged dispatch) --------
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    cases = [(f"prefill T={512 * k}", routed_offsets(512)),
+             (f"decode T={4 * k}", routed_offsets(4))]
+    cases += [(f"edge {c}", torch.tensor([0] + np.cumsum(c).tolist(), dtype=torch.int32,
+                                         device=dev)) for c in RAGGED_COUNTS]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, offs in cases:
+            Ec, rows = offs.numel() - 1, int(offs[-1])
+            edge = tag.startswith("edge")
+            T = rows + (5 if edge else 0)  # edge cases carry tail rows
+            K_, F_ = (48, 64) if edge else (d, f)
+            x = randn(T, K_, dtype=dtype)
+            wg, wu = (randn(Ec, K_, F_, scale=K_ ** -0.5, dtype=dtype) for _ in range(2))
+            wd = randn(Ec, F_, K_, scale=F_ ** -0.5, dtype=dtype)
+            h = randn(T, F_)  # fp32 hidden
+            gate = mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs)
+            errs = [check(f"ragged_gate_up_silu_f32 {tag} {n} {dtype}", a, b, GEMM_TOL)
+                    for n, a, b in zip(("h", "a_g", "a_u"), gate,
+                                       mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs))]
+            down = mm_ops.ragged_matmul_f32(h, wd, offs)
+            err = check(f"ragged_matmul_f32 {tag} fp32x{dtype}", down,
+                        mm_ref.ragged_matmul_f32(h, wd, offs), GEMM_TOL)
+            if any(not (a[rows:] == 0).all() for a in (*gate, down)):
+                fail(f"ragged kernels {tag}: rows past offsets[E] are not 0")
+            if edge:
+                continue
+            touched = int((offs[1:] > offs[:-1]).sum())
+            sz = x.element_size()
+            e_gu = report("ragged_gate_up_silu_f32", f"{tag} ({T},{K_})x2({Ec},{K_},{F_})",
+                          dtype, mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
+                          lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
+                          rows * K_ * sz + 2 * touched * K_ * F_ * sz + 3 * T * F_ * 4,
+                          4 * rows * K_ * F_, max(errs), src_mm,
+                          "src/repro/kernels/moe_gemm/moe_gemm.py:253")
+            e_mm = report("ragged_matmul_f32", f"{tag} ({T},{F_})x({Ec},{F_},{K_})",
+                          torch.float32, mm_ops.ragged_matmul_f32_launch(h, wd, offs)[1],
+                          lambda: mm_ref.ragged_matmul_f32(h, wd, offs), None,
+                          rows * F_ * 4 + touched * F_ * K_ * sz + T * K_ * 4,
+                          2 * rows * F_ * K_, err, src_mm,
+                          "src/repro/kernels/moe_gemm/moe_gemm.py:178")
+            if dtype == torch.bfloat16:
+                # the same kernel on bf16 rows, beside the library's grouped GEMM
+                hb = h.to(dtype)
+                report("ragged_matmul_f32", f"{tag} bf16 rows ({T},{F_})x({Ec},{F_},{K_})",
+                       dtype, mm_ops.ragged_matmul_f32_launch(hb, wd, offs)[1],
+                       lambda: mm_ref.ragged_matmul_f32(hb, wd, offs),
+                       (lambda: grouped_mm(hb, wd, offs=offs[1:])) if grouped_mm else None,
+                       rows * F_ * sz + touched * F_ * K_ * sz + T * K_ * 4,
+                       2 * rows * F_ * K_, err, src_mm,
+                       "src/repro/kernels/moe_gemm/moe_gemm.py:178")
+                if tag.startswith("prefill"):
+                    entries["ragged_matmul_f32"] = e_mm
+                    entries["ragged_gate_up_silu_f32"] = e_gu
+
+    # -- flash_attention (prefill) -------------------------------------------
+    hq, hkv, hd_ = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    fa_cases = [(1, 512, hq, hkv, hd_, None, None, "prefill"),
+                (1, 64, hq, hkv, hd_, None, None, "prefill"),
+                (1, 100, hq, hkv, hd_, None, None, "edge"),
+                (2, 96, 4, 1, 16, None, 50.0, "edge"),
+                (1, 256, 8, 8, 64, 64, None, "edge"),
+                (1, 64, 2, 2, 128, 32, 30.0, "edge")]
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s, h1, h2, dh, win, cap, tag in fa_cases:
+            qkv = randn(b, s, h1 + 2 * h2, dh, dtype=dtype)  # strided views, as the model's
+            q, kk, v = qkv[:, :, :h1], qkv[:, :, h1:h1 + h2], qkv[:, :, h1 + h2:]
+            want = fa_ref.attention(q.transpose(1, 2).float(), kk.transpose(1, 2).float(),
+                                    v.transpose(1, 2).float(), window=win,
+                                    softcap=cap).transpose(1, 2).to(dtype)
+            got = fa_ops.flash_attention(q, kk, v, window=win, logit_softcap=cap)
+            err = check(f"flash_attention {tag} b={b} s={s} hq={h1} hkv={h2} d={dh} "
+                        f"window={win} softcap={cap} {dtype}", got, want, FA_TOL[dtype])
+            if tag == "edge":
+                continue
+            qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
+            sz = q.element_size()
+            e = report("flash_attention", f"b={b} s={s} hq={h1} hkv={h2} d={dh}", dtype,
+                       fa_ops.flash_attention_launch(q, kk, v)[1],
+                       lambda: fa_ref.attention(qc, kc, vc),
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           qc, kc, vc, is_causal=True, enable_gqa=True),
+                       2 * b * s * h1 * dh * sz + 2 * b * s * h2 * dh * sz,
+                       4 * b * h1 * dh * s * (s + 1) / 2, err, src_fa,
+                       "src/repro/kernels/flash_attention/flash_attention.py:103")
+            if s == 512 and dtype == torch.bfloat16:
+                entries["flash_attention"] = e
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the reduced model on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def small_parity_phase(dev):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, map_tree
+
+    base = get_arch(ARCH).reduced()
+    params_cpu = init_params(base, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = map_tree(lambda t: t.to(dev), params_cpu)
+    toks = torch.randint(0, base.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    for mode in ("capacity", "ragged"):
+        arch = base.replace(moe=dataclasses.replace(base.moe, dispatch=mode))
+        lm = LanguageModel(arch)
+        want, _, _ = lm.forward(params_cpu, {"tokens": toks})
+        got, _, _ = lm.forward(params_gpu, {"tokens": toks.to(dev)})
+        check(f"reduced forward logits, card vs cpu, {mode}", got.cpu(), want,
+              dict(rtol=0.0, atol=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serving at full width
+# ---------------------------------------------------------------------------
+
+
+PATH_KERNELS = {"capacity": ("flash_attention", "grouped_matmul_f32"),
+                "ragged": ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matmul_f32")}
+
+
+def serving_phase():
+    """Serve under each dispatch; returns each run's launch counts and the
+    ragged run's parity case."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    counts, case = {}, None
+    for mode in PATH_KERNELS:
+        args = serve.parse_args(SERVE_ARGS + ["--dispatch", mode])
+        kernels.reset_launch_counts()
+        s, c = serve.serve(args)
+        counts[mode] = kernels.launch_counts()
+        log(f"[serving] {mode}: {s['finished']}/{s['requests']} requests finished, "
+            f"decode {s['decode_tok_s']:.1f} tok/s, decode step p50 "
+            f"{s['decode_step_p50_ms']:.2f} ms, prefill mean {s['prefill_ms_mean']:.2f} ms "
+            f"({s['prefill_tokens']} prompt tokens, {s['steps']} engine steps, "
+            f"{s['decode_steps']} decode steps), launches {counts[mode]}")
+        if s["finished"] != s["requests"]:
+            fail(f"{mode}: only {s['finished']}/{s['requests']} requests finished")
+        for name in PATH_KERNELS[mode]:
+            if counts[mode][name] == 0:
+                fail(f"{mode} serving never launched {name}")
+        if mode == "ragged":
+            case = c
+    return counts, case
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the fp32 ragged paged-decode parity probe
+# ---------------------------------------------------------------------------
+
+
+def parity_phase(case) -> None:
+    from repro_torch.launch import serve
+
+    err = serve.decode_parity(case, ["ragged"])["ragged"]
+    ok = err <= serve.PARITY_BOUND
+    log(f"[parity] ragged paged decode vs uncached forward, fp32 full width: max "
+        f"|dlogits| = {err:.3e} (bound {serve.PARITY_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("ragged paged decode disagrees with the uncached forward")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: where a serving step's time goes (torch.profiler)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_name(name: str) -> str:
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    if name.startswith(("grouped_mm_kernel", "ragged_kernel", "fa_fwd_kernel")):
+        return name.split("(")[0]  # the port's kernels, with their template args
+    return name.split("<")[0].split("(")[0]
+
+
+def _profiled(fn, label: str) -> None:
+    """Run ``fn`` under torch.profiler and print its wall time, the card's
+    busy time (union of device activity), the idle share, the number of
+    device activities and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = ev.time_range
+        spans.append((r.start, r.end))
+        n = _kernel_name(ev.name)
+        t, c = by_name.get(n, (0.0, 0))
+        by_name[n] = (t + r.elapsed_us(), c + 1)
+    if not spans:
+        fail(f"profile {label}: torch.profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(spans):  # union of intervals
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"(idle {100 * (1 - busy / wall_us):.1f}%), {len(spans)} device activities")
+    for n, (t, c) in top:
+        log(f"[profile]   {t / 1e3:9.3f} ms {c:6d}x  {n}")
+
+
+def profile_phase(dev) -> None:
+    """One 512-bucket prefill and 8 decode steps over 4 running sequences at
+    full width, bf16, under each dispatch, each through ``Engine.step``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    base = get_arch(ARCH)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    rng = np.random.default_rng(0)
+    cfg = ServeConfig(max_seqs=4, block_size=16, num_blocks=256, max_blocks_per_seq=40,
+                      cache_dtype="bfloat16")
+    for mode in ("capacity", "ragged"):
+        arch = base.replace(moe=dataclasses.replace(base.moe, dispatch=mode))
+        eng = Engine(LanguageModel(arch), params, cfg)
+        for rid in range(6):  # 0-1: prefill only (warm-up, profiled); 2-5 decode
+            eng.submit(Request(rid=rid, tokens=rng.integers(0, arch.vocab_size, 500),
+                               max_new_tokens=1 if rid < 2 else 64))
+        eng.step()  # rid 0 prefills and retires
+        _profiled(eng.step, f"{mode} prefill (500 tokens, bucket 512), 1 engine step")
+        while eng.queue:
+            eng.step()
+        eng.step()
+        _profiled(lambda: [eng.step() for _ in range(8)],
+                  f"{mode} decode, 4 sequences, 8 engine steps")
+        del eng
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout of the repository")
+    sys.path.insert(0, str(src))
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    entries = kernel_phase(dev)
+    log(f"[phase] kernels done at {time.perf_counter() - t0:.1f}s")
+    small_parity_phase(dev)
+    log(f"[phase] small parity done at {time.perf_counter() - t0:.1f}s")
+    counts, case = serving_phase()
+    log(f"[phase] serving done at {time.perf_counter() - t0:.1f}s")
+    parity_phase(case)
+    log(f"[phase] parity done at {time.perf_counter() - t0:.1f}s")
+    profile_phase(dev)
+    log(f"[phase] profile done at {time.perf_counter() - t0:.1f}s")
+    for name, e in entries.items():  # the serving runs' counts, per path and in all
+        e["launches_by_path"] = {mode: counts[mode][name] for mode in PATH_KERNELS}
+        e["launches"] = sum(e["launches_by_path"].values())
+    names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
+             "ragged_matmul_f32")
+    if sorted(entries) != sorted(names):
+        fail(f"kernel entries {sorted(entries)}")
+    log(card)
+    print(json.dumps({"kernels": [entries[n] for n in names]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

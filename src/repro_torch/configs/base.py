@@ -1,0 +1,151 @@
+"""Architecture configuration: the port's own copy of the fields it serves.
+
+Mirrors ``ArchConfig`` and ``MoECfg`` of the JAX package (same names, same
+defaults, same parameter accounting and ``reduced()`` shrink rule) for the
+attention + MoE family this slice runs.  SSM, modality frontends and
+M-RoPE are not carried: no config in this package's registry uses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+# Expert dispatch modes: "capacity" = GShard/Tutel (E, C, d) zero-padded
+# buffers, overflow dropped; "ragged" = sort-based dropless dispatch
+# (expert-sorted rows + per-expert offsets, ragged grouped GEMM).
+DISPATCH_MODES: Tuple[str, ...] = ("capacity", "ragged")
+DEFAULT_DISPATCH = "capacity"
+
+
+@dataclass(frozen=True)
+class MoECfg:
+    """Mixture-of-Experts FFN sub-layer configuration."""
+
+    num_experts: int
+    top_k: int
+    d_ff: int  # intermediate dim of EACH expert
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01  # Switch-style load balancing loss
+    z_loss_coef: float = 1e-3  # router z-loss
+    dispatch: str = DEFAULT_DISPATCH
+
+    def __post_init__(self):
+        if self.dispatch not in DISPATCH_MODES:
+            raise ValueError(f"unknown dispatch {self.dispatch!r}")
+
+
+# Per-layer block description: (mixer, ffn)
+#   mixer: "attn" | "attn_local";  ffn: "dense" | "moe" | "none"
+Block = Tuple[str, str]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A complete architecture description; ``block_pattern`` is tiled to
+    cover ``num_layers``."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int  # dense FFN intermediate dim (0 if no dense FFN layers)
+    vocab_size: int
+    block_pattern: Tuple[Block, ...]
+    moe: Optional[MoECfg] = None
+    rope_type: str = "rope"  # rope | none
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None  # window for "attn_local" mixers
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    ffn_activation: str = "swiglu"  # swiglu (3 matrices) | gelu (2)
+    source: str = ""
+
+    def __post_init__(self):
+        if self.num_heads % self.num_kv_heads:
+            raise ValueError(f"{self.name}: heads not a multiple of kv heads")
+        if self.num_layers % len(self.block_pattern):
+            raise ValueError(f"{self.name}: layers not a multiple of pattern")
+
+    @property
+    def layers(self) -> Tuple[Block, ...]:
+        return self.block_pattern * (self.num_layers // len(self.block_pattern))
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def n_mat(self) -> int:
+        return 3 if self.ffn_activation == "swiglu" else 2
+
+    # -- parameter accounting (exact, matches models/model.py init) --------
+
+    def attn_params(self) -> int:
+        d, hq, hkv = self.d_model, self.q_dim, self.kv_dim
+        return d * hq + 2 * d * hkv + hq * d
+
+    def dense_ffn_params(self) -> int:
+        return self.n_mat * self.d_model * self.d_ff if self.d_ff else 0
+
+    def moe_ffn_params(self) -> int:
+        m = self.moe
+        return m.num_experts * self.n_mat * self.d_model * m.d_ff + (
+            self.d_model * m.num_experts
+        )
+
+    def layer_params(self, block: Block) -> int:
+        _, ffn = block
+        p = 2 * self.d_model + self.attn_params()
+        if ffn == "dense":
+            p += self.dense_ffn_params()
+        elif ffn == "moe":
+            p += self.moe_ffn_params()
+        elif ffn == "none":
+            p -= self.d_model
+        return p
+
+    def total_params(self) -> int:
+        body = sum(self.layer_params(b) for b in self.layers)
+        embed = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return body + embed + head + self.d_model
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        return -(-self.vocab_size // multiple) * multiple
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """A tiny same-family config for CPU tests (the JAX rule)."""
+        period = len(self.block_pattern)
+        n_layers = period * min(2, self.num_layers // period)
+        kw = dict(
+            num_layers=max(n_layers, period),
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=2,
+            head_dim=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab_size=512,
+            sliding_window=32 if self.sliding_window else None,
+        )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_ff=64,
+            )
+        return self.replace(name=self.name + "-reduced", **kw)

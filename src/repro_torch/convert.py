@@ -1,0 +1,39 @@
+"""Parameter trees between the JAX package and the port, as numpy.
+
+The two packages' trees have the same paths (``models.model.param_tree``):
+dicts keyed alike and a tuple of per-pattern-position block dicts with
+leaves stacked (reps, ...).  The JAX side is handed over as numpy arrays
+(``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import map_tree
+
+
+def params_from_numpy(tree, device=None, dtype=torch.float32):
+    """numpy tree -> torch tree on ``device`` (default ``cuda``): float
+    leaves become ``dtype``, integer tables int32."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.from_numpy(a.astype(np.int32)).to(device)
+        return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+
+    return map_tree(leaf, tree)
+
+
+def params_to_numpy(tree):
+    """torch tree -> numpy tree (float leaves as float32)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+    return map_tree(leaf, tree)

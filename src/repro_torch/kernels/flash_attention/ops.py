@@ -1,0 +1,75 @@
+"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+Takes the model layout (b, s, h, d), as the JAX wrapper does.  For CUDA
+tensors the kernel reads q/k/v through their strides (no transpose copy)
+and writes a contiguous (b, s, hq, d) output in q's dtype; only when every
+input lies on the CPU does the wrapper take the plain version in ``ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels._build import Kernel, check_cuda, dtype_code, on_cpu
+from repro_torch.kernels.flash_attention import ref
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+_FLASH = Kernel(
+    "flash_attention", "flash_attention",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
+    + [_L] * 9 + [_I, _I, ctypes.c_float, ctypes.c_float],
+)
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_launch(q, k, v, *, causal: bool = True,
+                           window: Optional[int] = None,
+                           logit_softcap: Optional[float] = None):
+    """Validate a flash-attention call on CUDA tensors and allocate its
+    output; returns (out, launch), where ``launch()`` enqueues the kernel
+    alone."""
+    check_cuda(q, k, v)
+    b, sq, hq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    skv, hkv = k.shape[1], k.shape[2]
+    if hq % hkv or d not in _HEAD_DIMS or sq == 0 or skv == 0:
+        raise ValueError(f"flash_attention: hq={hq} hkv={hkv} d={d} (d in {_HEAD_DIMS})")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_attention: q, k, v dtypes differ")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if logit_softcap is not None and logit_softcap <= 0:
+        raise ValueError(f"flash_attention: softcap {logit_softcap} <= 0")
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1), t.stride(2))]
+    args = (q, k, v, out, dtype_code("q", q), b, hq, hkv, sq, skv, d, *strides,
+            int(causal), window or 0, logit_softcap or 0.0, 1.0 / math.sqrt(d))
+    return out, lambda: _FLASH(*args)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (b, sq, hq, d) — model layout
+    k: torch.Tensor,  # (b, skv, hkv, d)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    if on_cpu(q, k, v):
+        return ref.attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window, softcap=logit_softcap,
+        ).transpose(1, 2)
+    out, launch = flash_attention_launch(q, k, v, causal=causal, window=window,
+                                         logit_softcap=logit_softcap)
+    launch()
+    return out

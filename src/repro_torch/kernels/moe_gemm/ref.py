@@ -1,0 +1,44 @@
+"""Plain PyTorch versions of the grouped and ragged expert GEMMs.
+
+The plain versions of the three CUDA kernels (same arguments, fp32
+results): the wrappers in ``ops`` take them for CPU tensors, so ``ops``'
+``grouped_ffn`` / ``ragged_ffn`` compositions are themselves the plain
+FFNs there, and ``chip_smoke.py`` holds the kernels against them on the
+card.  Products are formed in fp32 from fp32-widened operands, so bf16
+inputs accumulate in fp32 as in the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def grouped_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[e] = x[e] @ w[e] in fp32: x (E, M, K), w (E, K, N)."""
+    return torch.bmm(x.float(), w.float())
+
+
+def ragged_matmul_f32(x: torch.Tensor, w: torch.Tensor,
+                      offsets: torch.Tensor) -> torch.Tensor:
+    """out[t] = x[t] @ w[expert(t)] in fp32 for expert-sorted rows; rows at
+    or past offsets[E] are exactly 0."""
+    out = x.new_zeros((x.shape[0], w.shape[2]), dtype=torch.float32)
+    bounds = offsets.tolist()
+    for e in range(w.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            out[lo:hi] = x[lo:hi].float() @ w[e].float()
+    return out
+
+
+def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):
+    """(h, a_g, a_u) = (silu(x@Wg[e]) * x@Wu[e], x@Wg[e], x@Wu[e]) in fp32."""
+    a_g = ragged_matmul_f32(x, w_gate, offsets)
+    a_u = ragged_matmul_f32(x, w_up, offsets)
+    return F.silu(a_g) * a_u, a_g, a_u
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")

@@ -1,0 +1,258 @@
+"""Language model: parameter tree, init, forward and paged serving steps.
+
+The port of ``repro.models.model``.  The parameter tree has the JAX
+package's paths and leaf shapes: ``{"embed", "blocks": (one dict per
+pattern position, leaves stacked (reps, ...)), "final_norm"[, "lm_head"]}``,
+so ``repro_torch.convert`` maps one onto the other leaf by leaf.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import rms_norm, softcap
+from repro_torch.serving import kv_cache as kv_lib
+
+VOCAB_PAD_MULTIPLE = 256
+
+
+# ---------------------------------------------------------------------------
+# Parameter metadata
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParamMeta:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | embed | zeros | arange
+    fan_in: int = 0
+
+    def stacked(self, reps: int) -> "ParamMeta":
+        return ParamMeta((reps,) + self.shape, self.init, self.fan_in)
+
+
+def _attn_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
+    d, hq, hkv = a.d_model, a.q_dim, a.kv_dim
+    return {
+        "wq": ParamMeta((d, hq), fan_in=d),
+        "wk": ParamMeta((d, hkv), fan_in=d),
+        "wv": ParamMeta((d, hkv), fan_in=d),
+        "wo": ParamMeta((hq, d), fan_in=hq),
+    }
+
+
+def _dense_ffn_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
+    d, f = a.d_model, a.d_ff
+    t = {"w_up": ParamMeta((d, f), fan_in=d), "w_down": ParamMeta((f, d), fan_in=f)}
+    if a.ffn_activation == "swiglu":
+        t["w_gate"] = ParamMeta((d, f), fan_in=d)
+    return t
+
+
+def _moe_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
+    m = a.moe
+    d, f, E = a.d_model, m.d_ff, m.num_experts
+    t = {
+        "w_router": ParamMeta((d, E), fan_in=d),
+        "w_up": ParamMeta((E, d, f), fan_in=d),
+        "w_down": ParamMeta((E, f, d), fan_in=f),
+        # logical expert -> physical slot routing table (int32)
+        "assignment": ParamMeta((E,), init="arange"),
+    }
+    if a.ffn_activation == "swiglu":
+        t["w_gate"] = ParamMeta((E, d, f), fan_in=d)
+    return t
+
+
+def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
+    mixer, ffn = block
+    if not mixer.startswith("attn"):
+        raise ValueError(f"the port has attention mixers only, got {mixer!r}")
+    t: Dict[str, Any] = {
+        "norm_mixer": ParamMeta((a.d_model,), init="zeros"),
+        "mixer": _attn_tree(a),
+    }
+    if ffn != "none":
+        t["norm_ffn"] = ParamMeta((a.d_model,), init="zeros")
+        t["ffn"] = _dense_ffn_tree(a) if ffn == "dense" else _moe_tree(a)
+    return t
+
+
+def map_tree(fn, tree):
+    """``fn`` applied to every leaf of a nested dict/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def param_tree(a: ArchConfig) -> Dict[str, Any]:
+    reps = a.num_layers // len(a.block_pattern)
+    vp = a.padded_vocab(VOCAB_PAD_MULTIPLE)
+    tree: Dict[str, Any] = {
+        "embed": ParamMeta((vp, a.d_model), init="embed"),
+        "blocks": tuple(map_tree(lambda m: m.stacked(reps), _block_tree(a, blk))
+                        for blk in a.block_pattern),
+        "final_norm": ParamMeta((a.d_model,), init="zeros"),
+    }
+    if not a.tie_embeddings:
+        tree["lm_head"] = ParamMeta((a.d_model, vp), fan_in=a.d_model)
+    return tree
+
+
+def _init_leaf(meta: ParamMeta, gen: torch.Generator, device, dtype):
+    if meta.init == "arange":
+        return torch.arange(meta.shape[-1], dtype=torch.int32,
+                            device=device).expand(meta.shape).contiguous()
+    if meta.init == "zeros":
+        return torch.zeros(meta.shape, dtype=dtype, device=device)
+    std = 0.02 if meta.init == "embed" else 1.0 / math.sqrt(max(meta.fan_in, 1))
+    w = torch.randn(meta.shape, generator=gen, dtype=torch.float32, device=device)
+    return w.mul_(std).to(dtype)
+
+
+def init_params(a: ArchConfig, generator: torch.Generator, device=None,
+                dtype=torch.float32):
+    """Random weights by the JAX package's init rules, drawn in fp32 from
+    ``generator`` directly on ``device`` (default ``cuda``) and cast to
+    ``dtype``; the same seed gives the same fp32 values whatever ``dtype``.
+    (torch cannot reproduce ``jax.random``: parity tests convert the JAX
+    package's weights with ``repro_torch.convert`` instead.)"""
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, params on {device}")
+    return map_tree(lambda m: _init_leaf(m, generator, device, dtype), param_tree(a))
+
+
+# ---------------------------------------------------------------------------
+# Language model
+# ---------------------------------------------------------------------------
+
+
+class LanguageModel:
+    """An ArchConfig's forward and paged serving steps on single-rank
+    params (whatever device they live on)."""
+
+    def __init__(self, arch: ArchConfig):
+        self.arch = arch
+        self.vp = arch.padded_vocab(VOCAB_PAD_MULTIPLE)
+        self.reps = arch.num_layers // len(arch.block_pattern)
+
+    # -- embedding / head ---------------------------------------------------
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        return params["embed"][batch["tokens"].long()]
+
+    def _logits(self, w, x) -> torch.Tensor:
+        logits = (x @ w.to(x.dtype)).float()
+        logits = softcap(logits, self.arch.final_logit_softcap)
+        pad = torch.arange(self.vp, device=x.device) < self.arch.vocab_size
+        return torch.where(pad, logits, -1e30)
+
+    def _head(self, params, x) -> torch.Tensor:
+        w = params["embed"].T if self.arch.tie_embeddings else params["lm_head"]
+        return self._logits(w, x)
+
+    @staticmethod
+    def _positions(b: int, s: int, device) -> torch.Tensor:
+        return torch.arange(s, device=device)[None].expand(b, s)
+
+    # -- forward ------------------------------------------------------------
+
+    def forward(self, params, batch):
+        """Uncached forward: (logits (b, s, vp) fp32, {"moe_aux_loss",
+        "moe_z_loss"}, expert loads)."""
+        x = self._embed(params, batch)
+        b, s = x.shape[:2]
+        x, aux, loads = transformer.stack_forward(
+            params["blocks"], x, self.arch, positions=self._positions(b, s, x.device))
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        return self._head(params, x), aux, loads
+
+    # -- paged serving (continuous batching) --------------------------------
+
+    def init_paged_cache(self, layout: kv_lib.PagedLayout, dtype=torch.bfloat16,
+                         device=None):
+        """One {"k","v"} page pool per pattern position, each shaped
+        (reps, num_blocks, block_size, kv_heads, head_dim)."""
+        device = resolve_device(device)
+        a = self.arch
+        return tuple(kv_lib.init_pages(layout, self.reps, a.num_kv_heads,
+                                       a.head_dim, dtype, device)
+                     for _ in a.block_pattern)
+
+    def _layers(self, params):
+        for r in range(self.reps):
+            for pos, blk in enumerate(self.arch.block_pattern):
+                yield r, pos, blk, transformer.rep_params(params["blocks"][pos], r)
+
+    def prefill_paged(self, params, batch, cache, block_table, lengths):
+        """Prompt forward that writes K/V into the paged cache (in place).
+
+        batch: {"tokens": (b, s_pad)} right-padded prompts; lengths: (b,)
+        true prompt lengths; block_table: (b, nb).  Pad rows never reach the
+        pages.  Returns (last-valid-position logits (b, vp), cache).
+        """
+        x = self._embed(params, batch)
+        b, s = x.shape[:2]
+        positions = self._positions(b, s, x.device)
+        N, bs = cache[0]["k"].shape[1:3]
+        write = kv_lib.write_plan(block_table, torch.zeros_like(lengths), s, N, bs,
+                                  count=lengths)
+        for r, pos, blk, p in self._layers(params):
+            x, _, nc = transformer.apply_block(blk, p, x, self.arch,
+                                               positions=positions,
+                                               return_cache=True)
+            kv_lib.scatter_rows(cache[pos]["k"][r], write, nc["k"])
+            kv_lib.scatter_rows(cache[pos]["v"][r], write, nc["v"])
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        idx = (lengths.to(x.device).long() - 1).clamp(0, s - 1)
+        xt = x[torch.arange(b, device=x.device), idx][:, None]  # (b, 1, d)
+        return self._head(params, xt)[:, 0], cache
+
+    def decode_step_paged(self, params, cache, block_table, lengths, batch):
+        """One continuous-batching decode step over all sequence slots.
+
+        batch: {"tokens": (b, 1)}; lengths: (b,) cache fills (positions of
+        the new tokens); block_table: (b, nb).  Inactive slots (sentinel
+        rows) write nothing and give logits the engine ignores.  Returns
+        (logits (b, vp), cache), the cache updated in place.
+        """
+        x = self._embed(params, batch)
+        positions = lengths.long()[:, None]
+        N, bs = cache[0]["k"].shape[1:3]
+        write = kv_lib.write_plan(block_table, lengths, 1, N, bs)
+        for r, pos, blk, p in self._layers(params):
+            pc = {"k_pages": cache[pos]["k"][r], "v_pages": cache[pos]["v"][r],
+                  "block_table": block_table, "lengths": lengths.long()}
+            x, _, _ = transformer.apply_block(blk, p, x, self.arch,
+                                              positions=positions, cache=pc,
+                                              write=write)
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        return self._head(params, x)[:, 0], cache
+
+
+def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """Flat {"a/b/0/c": leaf} view of a nested dict/tuple tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+__all__ = ["LanguageModel", "ParamMeta", "VOCAB_PAD_MULTIPLE", "init_params",
+           "map_tree", "param_tree", "tree_paths"]

@@ -1,0 +1,82 @@
+"""Block composition: a repeated ``block_pattern`` tiled ``reps`` times.
+
+Parameters for each pattern position are stacked over reps, as in the JAX
+package; where it runs the stack as a ``lax.scan``, the port loops over
+reps in Python and indexes rep ``r`` of every leaf (:func:`rep_params`).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+
+
+def rep_params(tree, r: int):
+    """Rep ``r`` of every stacked ``(reps, ...)`` leaf of a param tree."""
+    if isinstance(tree, dict):
+        return {k: rep_params(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def apply_block(
+    block: Tuple[str, str],
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    arch: ArchConfig,
+    *,
+    positions: torch.Tensor,
+    cache: Optional[Dict[str, Any]] = None,
+    write=None,
+    return_cache: bool = False,
+):
+    """One (mixer, ffn) block with pre-norms and residuals.  Returns
+    (x, moe metrics or {}, new K/V cache or None)."""
+    mixer, ffn = block
+    if not mixer.startswith("attn"):
+        raise ValueError(f"the port runs attention mixers only, got {mixer!r}")
+    metrics: Dict[str, torch.Tensor] = {}
+    h = L.rms_norm(x, params["norm_mixer"], arch.norm_eps)
+    window = arch.sliding_window if mixer == "attn_local" else None
+    out, new_cache = L.attention_proj(
+        params["mixer"], h, arch, positions, window=window, cache=cache,
+        write=write, return_kv=return_cache and cache is None,
+    )
+    x = x + out
+    if ffn != "none":
+        h = L.rms_norm(x, params["norm_ffn"], arch.norm_eps)
+        if ffn == "dense":
+            out = L.dense_ffn(params["ffn"], h, arch.ffn_activation)
+        elif ffn == "moe":
+            out, metrics = moe_lib.moe_ffn_local(params["ffn"], h, arch)
+        else:
+            raise ValueError(ffn)
+        x = x + out
+    return x, metrics, new_cache
+
+
+def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
+                  positions: torch.Tensor):
+    """Run the full layer stack.  Returns (x, {"moe_aux_loss",
+    "moe_z_loss"} scalars, expert_load (reps, n_moe_positions, E) or
+    None)."""
+    reps = arch.num_layers // len(arch.block_pattern)
+    aux = z = x.new_zeros((), dtype=torch.float32)
+    loads = []
+    for r in range(reps):
+        rep_loads = []
+        for pos, blk in enumerate(arch.block_pattern):
+            x, metrics, _ = apply_block(blk, rep_params(block_params[pos], r),
+                                        x, arch, positions=positions)
+            if metrics:
+                aux = aux + metrics["moe_aux_loss"]
+                z = z + metrics["moe_z_loss"]
+                rep_loads.append(metrics["expert_load"])
+        if rep_loads:
+            loads.append(torch.stack(rep_loads))
+    return x, {"moe_aux_loss": aux, "moe_z_loss": z}, (
+        torch.stack(loads) if loads else None)

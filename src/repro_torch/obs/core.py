@@ -1,0 +1,109 @@
+"""Structured telemetry: spans and instants fanned out to sinks.
+
+The port's copy of what the serving engine uses of ``repro.obs.core``.
+Events are plain JSON-ready dicts, one schema for every sink:
+
+    {"name": str, "kind": "span"|"instant",
+     "ts": float seconds since the Telemetry epoch,
+     "dur": float seconds (spans only),
+     "depth": int, "parent": str|None, "attrs": {str: json-able}}
+
+A disabled ``Telemetry`` hands out one shared do-nothing span, so
+instrumented code costs next to nothing when recording is off.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """Records host wall time between enter and exit and emits one
+    ``kind="span"`` event on exit (with an ``error`` attr if it raised)."""
+
+    __slots__ = ("_tel", "name", "attrs", "t0", "depth", "parent")
+
+    def __init__(self, tel: "Telemetry", name: str, attrs: Dict[str, Any]):
+        self._tel = tel
+        self.name = name
+        self.attrs = attrs
+        self.t0 = 0.0
+        self.depth = 0
+        self.parent: Optional[str] = None
+
+    def set(self, **attrs) -> "_Span":
+        self.attrs.update(attrs)
+        return self
+
+    def __enter__(self) -> "_Span":
+        stack = self._tel._stack
+        self.depth = len(stack)
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter()
+        stack = self._tel._stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        if exc_type is not None:
+            self.attrs["error"] = exc_type.__name__
+        self._tel._emit({
+            "name": self.name, "kind": "span", "ts": self.t0 - self._tel.epoch,
+            "dur": t1 - self.t0, "depth": self.depth, "parent": self.parent,
+            "attrs": self.attrs,
+        })
+        return False
+
+
+class Telemetry:
+    """Event router: timestamps events and fans them out to ``sinks``.
+    Single-threaded (the engine's loop is)."""
+
+    def __init__(self, enabled: bool = True, sinks: Optional[List] = None):
+        self.enabled = enabled
+        self.sinks = list(sinks) if sinks else []
+        self.epoch = time.perf_counter()
+        self._stack: List[_Span] = []
+
+    def _emit(self, event: Dict[str, Any]) -> None:
+        for sink in self.sinks:
+            sink.emit(event)
+
+    def span(self, name: str, **attrs):
+        if not self.enabled:
+            return _NULL_SPAN
+        return _Span(self, name, attrs)
+
+    def instant(self, name: str, **attrs) -> None:
+        if not self.enabled:
+            return
+        self._emit({
+            "name": name, "kind": "instant",
+            "ts": time.perf_counter() - self.epoch, "depth": len(self._stack),
+            "parent": self._stack[-1].name if self._stack else None,
+            "attrs": attrs,
+        })
+
+    def close(self) -> None:
+        for sink in self.sinks:
+            sink.close()

@@ -10,6 +10,12 @@ from repro.configs import get_arch
 from repro.sharding import single_device_plan
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (from a fixture) without one"
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
