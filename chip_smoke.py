@@ -8,13 +8,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. card: name and power limit (nvidia-smi);
 2. kernels: builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), then holds every kernel against its
-   plain PyTorch version on the card, in fp32 and bf16, at the serving
-   path's full-width shapes of granite-moe-3b-a800m and at the ragged edge
-   cases (empty expert, one expert, extreme skew); times the kernel alone
-   (CUDA events, median), its plain version, a library call that computes
-   the same function, and the card's bound for the same work;
-3. small parity: the reduced model's forward on the card (kernels) against
-   the same weights on the CPU (plain versions), both dispatch modes;
+   plain PyTorch version on the card, in fp32 and bf16, at the serving and
+   training paths' full-width shapes of granite-moe-3b-a800m and at the
+   ragged edge cases (empty expert, one expert, extreme skew); times the
+   kernel alone (CUDA events, median), its plain version, a library call
+   that computes the same function, and the card's bound for the same work;
+3. small parity: the reduced model's forward, and two fp32 train steps
+   (loss, grad norm, params), on the card (kernels) against the same
+   weights on the CPU (plain versions), both dispatch modes;
 4. serving: ``repro_torch.launch.serve.serve`` at full width (32 layers,
    random bf16 weights), first under capacity and then under ragged
    dispatch.  The kernels' launch counts are zeroed just before each run
@@ -25,7 +26,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    forward, held to the serve driver's bound;
 6. profile: ``torch.profiler`` over one prefill and eight decode steps of
    ``Engine.step`` under each dispatch: wall time, the card's busy time and
-   idle share, device activities and the top kernels.
+   idle share, device activities and the top kernels;
+7. training: ``repro_torch.launch.train.train`` at full width and depth
+   (32 layers, fp32 masters and Adam moments, bf16 compute, ragged
+   dispatch), batch 2 x 512 tokens, 5 steps on ``SyntheticTokens``, the
+   launch counts zeroed just before and read just after: every step must
+   have a finite loss and none may be skipped, and each step must launch
+   the ragged kernels once per MoE layer (gate-up), four times (the
+   forward down-projection and the three backward GEMMs) and three times
+   (the weight gradients); then one more step under ``torch.profiler``.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -243,6 +252,39 @@ def kernel_phase(dev):
                     entries["ragged_matmul_f32"] = e_mm
                     entries["ragged_gate_up_silu_f32"] = e_gu
 
+    # -- ragged_dw_f32 (training backward, ragged dispatch) -------------------
+    # The two operand pairs of RaggedFFN's backward: (bf16 x, fp32 da) for
+    # dW_gate / dW_up and (fp32 h, fp32 dy) for dW_down, at T*k = 8192 rows
+    # (batch 2 x 512 tokens, top-8), then the edge cases with NaN tail rows.
+    offs = routed_offsets(1024)
+    for xdt, K_, N_, tag in ((torch.bfloat16, d, f, "dW_gate/up"),
+                             (torch.float32, f, d, "dW_down")):
+        rows = int(offs[-1])
+        x, gr = randn(rows, K_, dtype=xdt), randn(rows, N_, scale=1e-2)
+        err = check(f"ragged_dw_f32 {tag} ({rows},{K_})x({rows},{N_}) {xdt}xfp32",
+                    mm_ops.ragged_dw_f32(x, gr, offs), mm_ref.ragged_dw_f32(x, gr, offs),
+                    GEMM_TOL)
+        xb, gb = x.to(torch.bfloat16), gr.to(torch.bfloat16)
+        e = report("ragged_dw_f32", f"{tag} T={rows} ({rows},{K_})x({rows},{N_})",
+                   torch.float32, mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
+                   lambda: mm_ref.ragged_dw_f32(x, gr, offs),
+                   # the library's grouped GEMM with the ragged dimension as
+                   # its contraction (2-D x 2-D), on bf16 operands
+                   (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
+                   rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
+                   2 * rows * K_ * N_, err, src_mm,
+                   "src/repro/kernels/moe_gemm/moe_gemm.py:335")
+        if xdt == torch.bfloat16:
+            entries["ragged_dw_f32"] = e
+    for xdt in (torch.float32, torch.bfloat16):
+        for c in RAGGED_COUNTS + [[0, 0, 0]]:
+            o = torch.tensor([0] + np.cumsum(c).tolist(), dtype=torch.int32, device=dev)
+            rows = int(o[-1])
+            x, gr = randn(rows + 5, 48, dtype=xdt), randn(rows + 5, 40)
+            x[rows:], gr[rows:] = float("nan"), float("nan")
+            check(f"ragged_dw_f32 edge {c} {xdt}xfp32", mm_ops.ragged_dw_f32(x, gr, o),
+                  mm_ref.ragged_dw_f32(x, gr, o), GEMM_TOL)
+
     # -- flash_attention (prefill) -------------------------------------------
     hq, hkv, hd_ = arch.num_heads, arch.num_kv_heads, arch.head_dim
     fa_cases = [(1, 512, hq, hkv, hd_, None, None, "prefill"),
@@ -300,6 +342,54 @@ def small_parity_phase(dev):
         got, _, _ = lm.forward(params_gpu, {"tokens": toks.to(dev)})
         check(f"reduced forward logits, card vs cpu, {mode}", got.cpu(), want,
               dict(rtol=0.0, atol=1e-5))
+        train_parity(lm, params_cpu, dev, mode)
+
+
+def train_parity(lm, params_cpu, dev, mode: str) -> None:
+    """Two fp32 train steps of the reduced model on the card (kernels)
+    against the CPU (plain versions) from the same state.  Held as the CPU
+    trajectory test holds the port against the JAX package
+    (tests/test_torch_training.py): loss and grad norm within 1e-5
+    relative; params within 1e-4, and within 1e-6 for all but 0.1 % of
+    elements (an Adam step moves a weight by ~sign(g) * lr, so gradients
+    that are ~0 by cancellation may move by a part of lr)."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import map_tree, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import adamw_init
+    from repro_torch.training import make_train_step
+
+    step = make_train_step(lm, OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+                           compute_dtype=torch.float32)
+    states = []
+    for where in ("cpu", dev):  # copies: the update runs in place
+        p = map_tree(lambda t: t.to(where, copy=True), params_cpu)
+        states.append({"params": p, **adamw_init(p)})
+    data = SyntheticTokens(lm.arch.vocab_size, 2, 40)
+    for i in range(2):
+        batch = data.batch_at(i)
+        _, want = step(states[0], batch)
+        _, got = step(states[1], batch)
+        for k in ("loss", "grad_norm"):
+            w, g = float(want[k]), float(got[k])
+            ok = abs(g - w) <= 1e-5 * abs(w) and got["skipped"] == want["skipped"] == 0
+            log(f"[check] reduced train step {i} {k}, card vs cpu, {mode}: {g:.7f} vs "
+                f"{w:.7f} (rtol 1e-5) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"reduced train step {i} {k} disagrees between card and cpu ({mode})")
+    got = tree_paths(states[1]["params"])
+    n = off = 0
+    worst = 0.0
+    for path, w in tree_paths(states[0]["params"]).items():
+        diff = (got[path].cpu().double() - w.double()).abs()
+        n, off = n + diff.numel(), off + int((diff > 1e-6).sum())
+        worst = max(worst, float(diff.max()))
+    ok = worst <= 1e-4 and off <= 1e-3 * n
+    log(f"[check] reduced params after 2 train steps, card vs cpu, {mode}: max "
+        f"|dparam| {worst:.3e} (<= 1e-4), {off} of {n} beyond 1e-6 (<= 0.1%) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"reduced train trajectory disagrees between card and cpu ({mode})")
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +399,7 @@ def small_parity_phase(dev):
 
 PATH_KERNELS = {"capacity": ("flash_attention", "grouped_matmul_f32"),
                 "ragged": ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matmul_f32")}
+SERVE_MODES = ("capacity", "ragged")
 
 
 def serving_phase():
@@ -318,7 +409,7 @@ def serving_phase():
     from repro_torch.launch import serve
 
     counts, case = {}, None
-    for mode in PATH_KERNELS:
+    for mode in SERVE_MODES:
         args = serve.parse_args(SERVE_ARGS + ["--dispatch", mode])
         kernels.reset_launch_counts()
         s, c = serve.serve(args)
@@ -361,7 +452,8 @@ def parity_phase(case) -> None:
 
 def _kernel_name(name: str) -> str:
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
-    if name.startswith(("grouped_mm_kernel", "ragged_kernel", "fa_fwd_kernel")):
+    if name.startswith(("grouped_mm_kernel", "ragged_kernel", "ragged_dw_kernel",
+                        "fa_fwd_kernel")):
         return name.split("(")[0]  # the port's kernels, with their template args
     return name.split("<")[0].split("(")[0]
 
@@ -430,6 +522,54 @@ def profile_phase(dev) -> None:
         del eng
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", ARCH, "--steps", "5", "--batch", "2", "--seq", "512",
+              "--seed", "0"]
+# Launches of each kernel per MoE layer and train step under ragged dispatch:
+# RaggedFFN's forward (gate-up, down) and backward (dh, dx_g, dx_u; dW x 3).
+TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 1, "ragged_matmul_f32": 4,
+                  "ragged_dw_f32": 3, "flash_attention": 0, "grouped_matmul_f32": 0}
+PATH_KERNELS["train"] = tuple(n for n, c in TRAIN_LAUNCHES.items() if c)
+
+
+def training_phase():
+    """Train through `repro_torch.launch.train`; returns the run's launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    args = train.parse_args(TRAIN_ARGS)
+    kernels.reset_launch_counts()
+    summary, trainer, out = train.train(args)
+    counts = kernels.launch_counts()
+    steps = summary["steps"]
+    per_step = {n: c / steps for n, c in counts.items()}
+    log(f"[train] {summary['arch']} full width, {summary['params'] / 1e9:.3f} B params, "
+        f"batch {args.batch} x seq {args.seq}, {summary['dispatch']} dispatch: {steps} steps, "
+        f"{summary['skipped']} skipped, final loss {summary['loss']:.4f}, step times "
+        f"{[round(1e3 * t, 1) for t in summary['step_times_s']]} ms, step p50 "
+        f"{summary['step_p50_ms']:.1f} ms (steps 2-{steps}), {summary['tokens_per_s']:.0f} "
+        f"tokens/s, peak torch.cuda.max_memory_allocated {summary['peak_mem_gb']:.2f} GB")
+    log(f"[train] launches per step: {per_step}")
+    if steps != 5 or summary["skipped"] or not np.isfinite(summary["loss"]):
+        fail(f"training: {steps} steps, {summary['skipped']} skipped, loss {summary['loss']}")
+    n_moe = sum(1 for _, ffn in get_arch(ARCH).layers if ffn == "moe")
+    for name, k in TRAIN_LAUNCHES.items():
+        if counts[name] != k * n_moe * steps:
+            fail(f"training launched {name} {counts[name]} times, expected "
+                 f"{k} x {n_moe} MoE layers x {steps} steps")
+    batch = SyntheticTokens(get_arch(ARCH).vocab_size, args.batch, args.seq).batch_at(steps)
+    state = out["state"]
+    _profiled(lambda: trainer.train_step(state, batch),
+              f"train step (full width, batch {args.batch} x {args.seq}, ragged)")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -455,11 +595,13 @@ def main() -> None:
     log(f"[phase] parity done at {time.perf_counter() - t0:.1f}s")
     profile_phase(dev)
     log(f"[phase] profile done at {time.perf_counter() - t0:.1f}s")
-    for name, e in entries.items():  # the serving runs' counts, per path and in all
-        e["launches_by_path"] = {mode: counts[mode][name] for mode in PATH_KERNELS}
+    counts["train"] = training_phase()
+    log(f"[phase] training done at {time.perf_counter() - t0:.1f}s")
+    for name, e in entries.items():  # each main-path run's counts, and in all
+        e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
-             "ragged_matmul_f32")
+             "ragged_matmul_f32", "ragged_dw_f32")
     if sorted(entries) != sorted(names):
         fail(f"kernel entries {sorted(entries)}")
     log(card)

@@ -1,4 +1,5 @@
-"""Parameter trees between the JAX package and the port, as numpy.
+"""Parameter trees and train states between the JAX package and the port,
+as numpy.
 
 The two packages' trees have the same paths (``models.model.param_tree``):
 dicts keyed alike and a tuple of per-pattern-position block dicts with
@@ -37,3 +38,21 @@ def params_to_numpy(tree):
         return t.float().numpy() if t.is_floating_point() else t.numpy()
 
     return map_tree(leaf, tree)
+
+
+def state_from_numpy(state, device=None):
+    """numpy train state ``{"params", "m", "v", "step"}`` (the JAX
+    ``training.init_state`` tree, as numpy) -> the port's: params and
+    moments fp32 on ``device`` (default ``cuda``), the step a 0-d int32
+    tensor on the CPU, where ``training`` keeps it."""
+    return {"params": params_from_numpy(state["params"], device),
+            "m": params_from_numpy(state["m"], device),
+            "v": params_from_numpy(state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}
+
+
+def state_to_numpy(state):
+    """The port's train state -> numpy, the step as an int32 scalar array."""
+    return {"params": params_to_numpy(state["params"]),
+            "m": params_to_numpy(state["m"]), "v": params_to_numpy(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

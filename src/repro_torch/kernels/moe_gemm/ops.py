@@ -6,7 +6,9 @@ Two families, as in the JAX package:
   (E, C, d) buffers, three grouped launches.
 * ``ragged_matmul`` / ``ragged_ffn`` — the dropless path: one (T, d) matrix
   of token rows sorted by expert + per-expert ``offsets`` (E+1,) int32.
-  Forward only; the backward kernels come with the training slice.
+  ``ragged_ffn`` is differentiable through :class:`RaggedFFN`, whose
+  backward runs as ragged kernels too (``ragged_matmul_f32`` for dh/dx,
+  ``ragged_dw_f32`` for the expert weights).
 
 Precision contract: bf16 (or fp32) inputs, fp32 accumulation everywhere,
 and the hidden activation stays fp32 *between* launches — the only cast
@@ -42,6 +44,7 @@ _RAGGED = Kernel("moe_gemm", "ragged_matmul_f32",
 _GATE_UP = Kernel("moe_gemm", "ragged_gate_up_silu_f32",
                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I])
+_DW = Kernel("moe_gemm", "ragged_dw_f32", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I])
 
 
 def _row_block(rows_per_group: float) -> int:
@@ -193,19 +196,109 @@ def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):
     return outs
 
 
+def ragged_dw_f32_launch(x, g, offsets):
+    """Validate a ragged dgrad on CUDA tensors and allocate its output (the
+    kernel writes every element, zeros for empty experts); returns (out,
+    launch), ``launch()`` enqueuing the kernel alone."""
+    check_cuda(x, g, offsets)
+    if (x.dim() != 2 or g.dim() != 2 or x.shape[0] != g.shape[0]
+            or offsets.dim() != 1 or offsets.shape[0] < 2
+            or offsets.dtype != torch.int32):
+        raise ValueError(
+            f"ragged_dw_f32: x {tuple(x.shape)}, g {tuple(g.shape)}, offsets "
+            f"{tuple(offsets.shape)} {offsets.dtype} (need (T, K), (T, N), "
+            f"(E+1,) int32)")
+    check_contiguous(x=x, g=g, offsets=offsets)
+    T, K = x.shape
+    N, E = g.shape[1], offsets.shape[0] - 1
+    out = torch.empty((E, K, N), dtype=torch.float32, device=x.device)
+    args = (x, dtype_code("x", x), g, dtype_code("g", g), offsets, out, T, K, N, E)
+    return out, (lambda: _DW(*args)) if out.numel() else (lambda: None)
+
+
+def ragged_dw_f32(x, g, offsets):
+    """Ragged dgrad dW[e] = x[o_e:o_{e+1}]^T @ g[o_e:o_{e+1}] in fp32 for
+    expert-sorted rows x (T, K), g (T, N): (E, K, N), zeros for an expert
+    with no rows; rows at or past offsets[E] are never read."""
+    if on_cpu(x, g, offsets):
+        return ref.ragged_dw_f32(x, g, offsets)
+    out, launch = ragged_dw_f32_launch(x, g, offsets)
+    launch()
+    return out
+
+
 def ragged_matmul(x, w, offsets):
     return ragged_matmul_f32(x, w, offsets).to(x.dtype)
 
 
+def _transposed(w: torch.Tensor) -> torch.Tensor:
+    """(E, K, N) -> contiguous (E, N, K): the ragged kernel reads a
+    contiguous weight, so the backward's per-expert transposes are copies
+    (three per MoE layer and step; at granite's widths 63 MB each in bf16)."""
+    return w.transpose(1, 2).contiguous()
+
+
+class RaggedFFN(torch.autograd.Function):
+    """Differentiable dropless expert FFN over expert-sorted rows; the port
+    of the JAX package's ``_make_ragged_ffn`` custom VJP.
+
+    Forward: the fused gate-up-SiLU launch (gelu: one ragged GEMM), which
+    also yields the fp32 pre-activations kept for the backward, then one
+    ragged down-projection.  Returns fp32 (T, d).
+    Backward: ``dy`` in fp32; h recomputed from the saved pre-activations;
+    dh, dx_g, dx_u as ragged GEMMs against the transposed expert weights;
+    the three weight gradients as ``ragged_dw_f32``; each gradient cast
+    back to its primal's dtype.  Rows at or past offsets[E] get dx = 0:
+    the ragged GEMM writes exactly 0 there.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w_up, w_gate, w_down, offsets, activation: str):
+        if activation == "swiglu":
+            h, a_g, a_u = ragged_gate_up_silu_f32(x, w_gate, w_up, offsets)
+        else:
+            a_g, a_u = None, ragged_matmul_f32(x, w_up, offsets)
+            h = ref.gelu(a_u)
+        ctx.activation = activation
+        ctx.save_for_backward(x, w_up, w_gate, w_down, offsets, a_g, a_u)
+        return ragged_matmul_f32(h, w_down, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_up, w_gate, w_down, offsets, a_g, a_u = ctx.saved_tensors
+        dy = dy.float().contiguous()
+        if ctx.activation == "swiglu":
+            sig = torch.sigmoid(a_g)
+            silu_g = a_g * sig
+            h = silu_g * a_u
+        else:
+            h = ref.gelu(a_u)
+        dh = ragged_matmul_f32(dy, _transposed(w_down), offsets)
+        dwd = ragged_dw_f32(h, dy, offsets)
+        dwg = None
+        if ctx.activation == "swiglu":
+            d_silu = sig * (1.0 + a_g * (1.0 - sig))
+            da_g = dh * a_u * d_silu
+            da_u = dh * silu_g
+            dx = ragged_matmul_f32(da_g, _transposed(w_gate), offsets)
+            dx += ragged_matmul_f32(da_u, _transposed(w_up), offsets)
+            dwg = ragged_dw_f32(x, da_g, offsets).to(w_gate.dtype)
+        else:
+            da_u = torch.ops.aten.gelu_backward(dh, a_u, approximate="tanh")
+            dx = ragged_matmul_f32(da_u, _transposed(w_up), offsets)
+        dwu = ragged_dw_f32(x, da_u, offsets).to(w_up.dtype)
+        return (dx.to(x.dtype), dwu, dwg, dwd.to(w_down.dtype), None, None)
+
+
 def ragged_ffn(tokens, w_up, w_gate: Optional[torch.Tensor], w_down, offsets,
                activation: str = "swiglu"):
-    """Dropless grouped expert FFN over expert-sorted rows (forward):
-    fused gate-up-SiLU launch + one ragged down-projection; rows at or past
-    offsets[E] come back 0."""
-    if activation == "swiglu":
-        if w_gate is None:
-            raise ValueError("swiglu ragged_ffn requires w_gate")
-        h, _, _ = ragged_gate_up_silu_f32(tokens, w_gate, w_up, offsets)
-    else:
-        h = ref.gelu(ragged_matmul_f32(tokens, w_up, offsets))
-    return ragged_matmul_f32(h, w_down, offsets).to(tokens.dtype)
+    """Dropless grouped expert FFN over expert-sorted rows, differentiable
+    through :class:`RaggedFFN`: fused gate-up-SiLU launch + one ragged
+    down-projection forward; rows at or past offsets[E] come back 0 and get
+    no gradient."""
+    if activation == "swiglu" and w_gate is None:
+        raise ValueError("swiglu ragged_ffn requires w_gate")
+    if activation != "swiglu":
+        w_gate = None
+    return RaggedFFN.apply(tokens, w_up, w_gate, w_down, offsets,
+                           activation).to(tokens.dtype)

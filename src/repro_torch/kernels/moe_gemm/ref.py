@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the grouped and ragged expert GEMMs.
 
-The plain versions of the three CUDA kernels (same arguments, fp32
+The plain versions of the four CUDA kernels (same arguments, fp32
 results): the wrappers in ``ops`` take them for CPU tensors, so ``ops``'
 ``grouped_ffn`` / ``ragged_ffn`` compositions are themselves the plain
 FFNs there, and ``chip_smoke.py`` holds the kernels against them on the
@@ -37,6 +37,20 @@ def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):
     a_g = ragged_matmul_f32(x, w_gate, offsets)
     a_u = ragged_matmul_f32(x, w_up, offsets)
     return F.silu(a_g) * a_u, a_g, a_u
+
+
+def ragged_dw_f32(x: torch.Tensor, g: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """dW[e] = x[o_e:o_{e+1}]^T @ g[o_e:o_{e+1}] in fp32, (E, K, N); an expert
+    with no rows gets zeros, and rows at or past offsets[E] are never read."""
+    E = offsets.shape[0] - 1
+    out = x.new_zeros((E, x.shape[1], g.shape[1]), dtype=torch.float32)
+    bounds = offsets.tolist()
+    for e in range(E):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            out[e] = x[lo:hi].float().T @ g[lo:hi].float()
+    return out
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,9 @@
 Functions of tensors; parameters are plain dicts, as in the JAX package.
 Prefill attention runs the flash kernel (``kernels.flash_attention``);
 paged decode gathers its pages and runs the eager ``attention`` here, which
-the JAX package likewise leaves to XLA.
+the JAX package likewise leaves to XLA.  Training runs the eager
+``attention`` with autograd too: the flash kernel has no backward, in the
+JAX package or here.
 """
 
 from __future__ import annotations
@@ -136,11 +138,14 @@ def attention(q, k, v, *, q_offset=0, window: Optional[int] = None,
 
 
 def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
-                   write=None, return_kv=False):
+                   write=None, return_kv=False, train=False):
     """Full attention sub-layer: QKV proj -> rope -> attention -> out proj.
 
     ``cache=None`` (prefill / uncached forward): the flash kernel, and with
     ``return_kv`` the freshly computed K/V come back as ``{"k", "v"}``.
+    ``train=True`` (no cache): the eager ``attention`` instead, which
+    autograd differentiates, q-chunked at s >= 1024 as the reference's XLA
+    branch is.
     ``cache`` = {"k_pages", "v_pages", "block_table", "lengths"} (paged
     decode): the new K/V rows are written into their pages IN PLACE through
     ``write`` (a :class:`repro_torch.serving.kv_cache.WritePlan`, built here
@@ -168,8 +173,15 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
         out = attention(q, ck, cv, q_offset=lens, window=window,
                         logit_softcap=cfg.attn_logit_softcap, kv_len=lens + s)
     else:
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                     logit_softcap=cfg.attn_logit_softcap)
+        if train:
+            # Bound the fp32 score temp to ~512 query rows per chunk.
+            q_chunks = max(s // 512, 1) if s >= 1024 else 1
+            out = attention(q, k, v, window=window,
+                            logit_softcap=cfg.attn_logit_softcap,
+                            q_chunks=q_chunks)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                         logit_softcap=cfg.attn_logit_softcap)
         if return_kv:
             new_cache = {"k": k, "v": v}
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)

@@ -1,4 +1,5 @@
-"""Language model: parameter tree, init, forward and paged serving steps.
+"""Language model: parameter tree, init, forward, training loss and paged
+serving steps.
 
 The port of ``repro.models.model``.  The parameter tree has the JAX
 package's paths and leaf shapes: ``{"embed", "blocks": (one dict per
@@ -13,6 +14,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -138,8 +140,8 @@ def init_params(a: ArchConfig, generator: torch.Generator, device=None,
 
 
 class LanguageModel:
-    """An ArchConfig's forward and paged serving steps on single-rank
-    params (whatever device they live on)."""
+    """An ArchConfig's forward, training loss and paged serving steps on
+    single-rank params (whatever device they live on)."""
 
     def __init__(self, arch: ArchConfig):
         self.arch = arch
@@ -176,6 +178,57 @@ class LanguageModel:
             params["blocks"], x, self.arch, positions=self._positions(b, s, x.device))
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x), aux, loads
+
+    # -- training loss --------------------------------------------------------
+
+    def _loss_chunks(self, b: int, s: int) -> int:
+        """Chunk the CE loss so the fp32 logits stay <= ~128 MB: the
+        reference's rule with one device (no data or sequence shards to
+        divide the tokens by)."""
+        tokens = max(b * s, 1)
+        target_tokens = max(int(128e6 // (self.vp * 4)), 1)
+        need = max(1, -(-tokens // target_tokens))
+        for nc in range(need, min(s, 256) + 1):  # a divisor of s, capped
+            if s % nc == 0:
+                return nc
+        return 1
+
+    def _ce_sum(self, params, x, labels) -> torch.Tensor:
+        """Summed token cross-entropy of final-stack activations."""
+        h = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        logits = self._head(params, h)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None])[..., 0]
+        return (lse - ll).sum()
+
+    def loss(self, params, batch):
+        """Causal LM loss (sequence-chunked CE) on the training path of
+        every layer.  Returns (loss, {"loss", "ce", "moe_aux_loss",
+        "moe_z_loss", "expert_load"}).  Each CE chunk runs under
+        ``torch.utils.checkpoint``, so its (tokens, vocab) fp32 logits are
+        recomputed in the backward instead of kept."""
+        x = self._embed(params, batch)
+        b, s = x.shape[:2]
+        x, aux, loads = transformer.stack_forward(
+            params["blocks"], x, self.arch,
+            positions=self._positions(b, s, x.device), train=True)
+        labels = batch["labels"].long()
+        nc = self._loss_chunks(b, s)
+        if nc <= 1:
+            total_ce = self._ce_sum(params, x, labels)
+        else:
+            sc = s // nc
+            total_ce = x.new_zeros((), dtype=torch.float32)
+            for i in range(nc):
+                part = slice(i * sc, (i + 1) * sc)
+                total_ce = total_ce + checkpoint(
+                    self._ce_sum, params, x[:, part], labels[:, part],
+                    use_reentrant=False)
+        ce = total_ce / (b * s)
+        total = ce + aux["moe_aux_loss"] + aux["moe_z_loss"]
+        metrics = {"loss": total, "ce": ce, "moe_aux_loss": aux["moe_aux_loss"],
+                   "moe_z_loss": aux["moe_z_loss"], "expert_load": loads}
+        return total, metrics
 
     # -- paged serving (continuous batching) --------------------------------
 

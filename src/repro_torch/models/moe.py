@@ -7,12 +7,18 @@ the load-balancing and router z-losses, and the two dispatch modes
 * **capacity** (GShard/Tutel): (E, C, d) zero-padded buffers with
   C = ceil(T*k/E * cf); (token, k) pairs past an expert's C slots, counted
   in flat (token, k) order, are dropped.  The expert FFN is three grouped
-  GEMM launches (``kernels.moe_gemm.grouped_ffn``).
+  GEMM launches (``kernels.moe_gemm.grouped_ffn``) when serving; training
+  runs :func:`_expert_ffn` instead (see there).
 * **ragged** (MegaBlocks-style, dropless): a stable argsort of the flat
   expert ids gives contiguous per-expert row segments; the fused ragged
   gate-up-SiLU kernel and one ragged down-projection run over exactly the
-  occupied rows (``kernels.moe_gemm.ragged_ffn``); the inverse permutation
-  brings the rows back for the weighted combine.
+  occupied rows (``kernels.moe_gemm.ragged_ffn``, differentiable: its
+  backward is ragged kernels too); the inverse permutation brings the rows
+  back for the weighted combine.
+
+The router's gradient flows through the stable-sort top-k and the combine
+weights; the capacity scatter (``index_put_`` accumulate) and the gathers
+are differentiable as they are.
 
 At EP = 1 the reference's sharded ``moe_ffn`` reduces to this math in both
 prefill and decode, so :func:`moe_ffn_local` serves both.
@@ -24,6 +30,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoECfg
 from repro_torch.kernels.moe_gemm import ops as moe_ops
@@ -95,6 +102,22 @@ def _combine_expert_outputs(vals, flat_w, keep, T: int, k: int, d: int):
     return vals.reshape(T, k, d).sum(dim=1)
 
 
+def _expert_ffn(tokens, w_up, w_gate, w_down, activation: str):
+    """Capacity expert FFN for training, the twin of the JAX package's
+    ``_expert_ffn``: plain products in fp32 on the (bf16-valued) operands,
+    TF32 off (``device.resolve_device``), only the down-projection's result
+    cast back.  The reference computes it outside any Pallas kernel because
+    ``grouped_matmul_f32`` has no gradient there, so it is a plain product
+    here too.  tokens: (E, C, d)."""
+    f32 = torch.float32
+    t = tokens.to(f32)
+    if activation == "swiglu":
+        h = F.silu(torch.bmm(t, w_gate.to(f32))) * torch.bmm(t, w_up.to(f32))
+    else:
+        h = F.gelu(torch.bmm(t, w_up.to(f32)), approximate="tanh")
+    return torch.bmm(h, w_down.to(f32)).to(tokens.dtype)
+
+
 def _sort_dispatch(flat_e: torch.Tensor, E: int):
     """Stable argsort of the flat expert ids into contiguous per-expert
     segments (ties keep token order).  Returns (order, inv, offsets (E+1,)
@@ -121,9 +144,12 @@ def _moe_ragged_local(xt, top_phys, top_w, w_up, w_gate, w_down,
 
 
 def moe_ffn_local(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                  arch: ArchConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  arch: ArchConfig, *, train: bool = False
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Collective-free single-rank MoE sub-layer. x: (b, s, d) -> (y,
-    {"moe_aux_loss", "moe_z_loss", "expert_load"})."""
+    {"moe_aux_loss", "moe_z_loss", "expert_load"}).  ``train`` selects the
+    capacity path's differentiable :func:`_expert_ffn`; the ragged path is
+    the same in both."""
     moe = arch.moe
     E = moe.num_experts
     b, s, d = x.shape
@@ -142,8 +168,8 @@ def moe_ffn_local(params: Dict[str, torch.Tensor], x: torch.Tensor,
         capacity = _capacity(T, moe)
         flat_e, pos, keep, flat_w = _dispatch_indices(top_phys, top_w, E, capacity)
         buf = _scatter_to_buffers(xt, flat_e, pos, keep, E, capacity)
-        y_buf = moe_ops.grouped_ffn(buf, params["w_up"], wg, params["w_down"],
-                                    arch.ffn_activation)
+        ffn = _expert_ffn if train else moe_ops.grouped_ffn
+        y_buf = ffn(buf, params["w_up"], wg, params["w_down"], arch.ffn_activation)
         y = _combine_expert_outputs(y_buf[flat_e, pos], flat_w, keep, T,
                                     moe.top_k, d)
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z, "expert_load": counts}

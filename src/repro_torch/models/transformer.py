@@ -2,7 +2,10 @@
 
 Parameters for each pattern position are stacked over reps, as in the JAX
 package; where it runs the stack as a ``lax.scan``, the port loops over
-reps in Python and indexes rep ``r`` of every leaf (:func:`rep_params`).
+reps in Python.  The paged serving steps index rep ``r`` of every leaf
+(:func:`rep_params`); the uncached forward and the training loss split
+every leaf into its reps at once (:func:`unstack`), whose backward writes
+each stacked gradient once instead of once per rep.
 """
 
 from __future__ import annotations
@@ -23,6 +26,16 @@ def rep_params(tree, r: int):
     return tree[r]
 
 
+def unstack(tree, reps: int):
+    """All reps of a stacked param tree at once: a list of ``reps`` trees of
+    views (``torch.unbind``), so autograd stacks the per-rep gradients of a
+    leaf in one op."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(reps)]
+    return list(torch.unbind(tree, 0))
+
+
 def apply_block(
     block: Tuple[str, str],
     params: Dict[str, Any],
@@ -33,9 +46,11 @@ def apply_block(
     cache: Optional[Dict[str, Any]] = None,
     write=None,
     return_cache: bool = False,
+    train: bool = False,
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
-    (x, moe metrics or {}, new K/V cache or None)."""
+    (x, moe metrics or {}, new K/V cache or None).  ``train`` selects the
+    differentiable attention and capacity-FFN paths."""
     mixer, ffn = block
     if not mixer.startswith("attn"):
         raise ValueError(f"the port runs attention mixers only, got {mixer!r}")
@@ -44,7 +59,7 @@ def apply_block(
     window = arch.sliding_window if mixer == "attn_local" else None
     out, new_cache = L.attention_proj(
         params["mixer"], h, arch, positions, window=window, cache=cache,
-        write=write, return_kv=return_cache and cache is None,
+        write=write, return_kv=return_cache and cache is None, train=train,
     )
     x = x + out
     if ffn != "none":
@@ -52,7 +67,8 @@ def apply_block(
         if ffn == "dense":
             out = L.dense_ffn(params["ffn"], h, arch.ffn_activation)
         elif ffn == "moe":
-            out, metrics = moe_lib.moe_ffn_local(params["ffn"], h, arch)
+            out, metrics = moe_lib.moe_ffn_local(params["ffn"], h, arch,
+                                                 train=train)
         else:
             raise ValueError(ffn)
         x = x + out
@@ -60,18 +76,19 @@ def apply_block(
 
 
 def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
-                  positions: torch.Tensor):
-    """Run the full layer stack.  Returns (x, {"moe_aux_loss",
-    "moe_z_loss"} scalars, expert_load (reps, n_moe_positions, E) or
-    None)."""
+                  positions: torch.Tensor, train: bool = False):
+    """Run the full layer stack (``train``: see :func:`apply_block`).
+    Returns (x, {"moe_aux_loss", "moe_z_loss"} scalars, expert_load (reps,
+    n_moe_positions, E) or None)."""
     reps = arch.num_layers // len(arch.block_pattern)
+    per_rep = [unstack(p, reps) for p in block_params]
     aux = z = x.new_zeros((), dtype=torch.float32)
     loads = []
     for r in range(reps):
         rep_loads = []
         for pos, blk in enumerate(arch.block_pattern):
-            x, metrics, _ = apply_block(blk, rep_params(block_params[pos], r),
-                                        x, arch, positions=positions)
+            x, metrics, _ = apply_block(blk, per_rep[pos][r], x, arch,
+                                        positions=positions, train=train)
             if metrics:
                 aux = aux + metrics["moe_aux_loss"]
                 z = z + metrics["moe_z_loss"]

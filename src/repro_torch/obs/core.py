@@ -1,11 +1,14 @@
-"""Structured telemetry: spans and instants fanned out to sinks.
+"""Structured telemetry: spans, instants, gauges and histograms fanned out
+to sinks.
 
-The port's copy of what the serving engine uses of ``repro.obs.core``.
-Events are plain JSON-ready dicts, one schema for every sink:
+The port's copy of what the serving engine and the trainer use of
+``repro.obs.core``.  Events are plain JSON-ready dicts, one schema for
+every sink:
 
-    {"name": str, "kind": "span"|"instant",
+    {"name": str, "kind": "span"|"instant"|"gauge"|"hist",
      "ts": float seconds since the Telemetry epoch,
      "dur": float seconds (spans only),
+     "value": float (gauges and histograms only),
      "depth": int, "parent": str|None, "attrs": {str: json-able}}
 
 A disabled ``Telemetry`` hands out one shared do-nothing span, so
@@ -77,13 +80,15 @@ class _Span:
 
 class Telemetry:
     """Event router: timestamps events and fans them out to ``sinks``.
-    Single-threaded (the engine's loop is)."""
+    Single-threaded (the engine's and the trainer's loops are).
+    ``hists`` keeps every histogram value by name."""
 
     def __init__(self, enabled: bool = True, sinks: Optional[List] = None):
         self.enabled = enabled
         self.sinks = list(sinks) if sinks else []
         self.epoch = time.perf_counter()
         self._stack: List[_Span] = []
+        self.hists: Dict[str, List[float]] = {}
 
     def _emit(self, event: Dict[str, Any]) -> None:
         for sink in self.sinks:
@@ -94,15 +99,29 @@ class Telemetry:
             return _NULL_SPAN
         return _Span(self, name, attrs)
 
-    def instant(self, name: str, **attrs) -> None:
-        if not self.enabled:
-            return
+    def _point(self, name: str, kind: str, attrs, **fields) -> None:
         self._emit({
-            "name": name, "kind": "instant",
-            "ts": time.perf_counter() - self.epoch, "depth": len(self._stack),
+            "name": name, "kind": kind,
+            "ts": time.perf_counter() - self.epoch, **fields,
+            "depth": len(self._stack),
             "parent": self._stack[-1].name if self._stack else None,
             "attrs": attrs,
         })
+
+    def instant(self, name: str, **attrs) -> None:
+        if self.enabled:
+            self._point(name, "instant", attrs)
+
+    def gauge(self, name: str, value: float, **attrs) -> None:
+        """The current value of a quantity (e.g. the logged loss)."""
+        if self.enabled:
+            self._point(name, "gauge", attrs, value=float(value))
+
+    def histogram(self, name: str, value: float, **attrs) -> None:
+        """One sample of a distribution (e.g. a step's seconds)."""
+        if self.enabled:
+            self.hists.setdefault(name, []).append(float(value))
+            self._point(name, "hist", attrs, value=float(value))
 
     def close(self) -> None:
         for sink in self.sinks:

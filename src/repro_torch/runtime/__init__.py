@@ -1,1 +1,1 @@
-"""Runtime support: deterministic fault injection."""
+"""Runtime support: deterministic fault injection and the training loop."""

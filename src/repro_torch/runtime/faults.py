@@ -1,25 +1,47 @@
-"""Deterministic fault injection (the serving part of
+"""Deterministic fault injection (the serving and training parts of
 ``repro.runtime.faults``).
 
-A :class:`FaultPlan` lists :class:`FaultSpec` entries (site, step,
-count).  A spec arms its site from ``step`` on and fires on the first
-``count`` queries at or after it, then is spent.  The one site the port
-runs is ``serve.stall``: the engine loses one whole scheduler iteration.
+A :class:`FaultPlan` lists :class:`FaultSpec` entries (site, step, count,
+payload).  A spec arms its site from ``step`` on and fires on the first
+``count`` queries at or after it, then is spent.  The sites the port runs:
+
+==================== ======================================================
+``serve.stall``      the engine loses one whole scheduler iteration
+``data.transient``   the data source raises a retryable error: exercises
+                     the trainer's retry with backoff
+``train.nonfinite``  the step's loss and grads are scaled by ``payload``
+                     (default NaN): exercises the anomaly sentinel
+``train.slow_step``  sleep ``payload`` seconds inside the timed step:
+                     exercises the straggler monitor
+==================== ======================================================
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
-SITES = ("serve.stall",)
+SITES = ("serve.stall", "data.transient", "train.nonfinite", "train.slow_step")
+
+
+class TransientDataError(IOError):
+    """A retryable data-source failure (flaky filesystem or network read)."""
+
+
+_RAISES = {"data.transient": TransientDataError}
 
 
 @dataclass
 class FaultSpec:
+    """One planned fault: arm ``site`` at ``step``, fire ``count`` times.
+    ``payload`` is the loss/grad scale for ``train.nonfinite`` (NaN by
+    default) and seconds for ``train.slow_step``; ignored elsewhere."""
+
     site: str
     step: int
     count: int = 1
+    payload: float = float("nan")
 
     def __post_init__(self):
         if self.site not in SITES:
@@ -52,10 +74,29 @@ class FaultInjector:
             spec, remaining = entry
             if remaining > 0 and step >= spec.step:
                 entry[1] -= 1
-                self.log.append({"site": site, "step": step, "ordinal": len(self.log)})
+                self.log.append({"site": site, "step": step, "ordinal": len(self.log),
+                                 "payload": spec.payload})
                 self.log_fn(f"[fault] {site} fired at step {step}")
                 return spec
         return None
+
+    def raise_if(self, site: str, step: int) -> None:
+        """Raise the site's exception class if an armed spec fires."""
+        if self.fire(site, step) is not None:
+            raise _RAISES[site](f"injected {site} at step {step}")
+
+    def sleep_if(self, site: str, step: int) -> float:
+        """Sleep the spec's payload seconds if armed; returns seconds slept."""
+        spec = self.fire(site, step)
+        if spec is None:
+            return 0.0
+        time.sleep(spec.payload)
+        return spec.payload
+
+    def payload_if(self, site: str, step: int) -> Optional[float]:
+        """The spec's payload if armed, else None."""
+        spec = self.fire(site, step)
+        return None if spec is None else spec.payload
 
     def fired(self, site: Optional[str] = None) -> int:
         if site is None:

@@ -1,0 +1,107 @@
+"""Train state and the train step (the port of ``repro.training``).
+
+The step differentiates ``LanguageModel.loss`` with autograd on one
+device: the fp32 master weights are cast to the compute dtype inside the
+graph, so autograd carries the gradients back to fp32 through the casts;
+the AdamW update then runs in place (``optim.adamw_update``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+from repro_torch.optim.optimizer import (
+    OptimizerConfig, adamw_init, adamw_update, global_norm, lr_schedule,
+)
+
+
+def init_state(lm: LanguageModel, generator: torch.Generator, device=None):
+    """{"params": fp32 masters, "m", "v": fp32 moments, "step": 0-d int32
+    on the CPU}, the params drawn from ``generator`` on ``device`` (default
+    ``cuda``)."""
+    params = init_params(lm.arch, generator, resolve_device(device), torch.float32)
+    return {"params": params, **adamw_init(params)}
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``; through pinned memory on the card,
+    so the copy is queued behind the previous step's work instead of
+    waiting for it."""
+    t = torch.as_tensor(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
+                    gnorm_skip_cap: Optional[float] = None, *,
+                    compute_dtype: torch.dtype = torch.bfloat16,
+                    fetch: Callable[[torch.Tensor], Any] = torch.Tensor.item):
+    """Build ``train_step(state, batch) -> (state, metrics)``.
+
+    The step carries the reference's **anomaly sentinel**: a non-finite
+    loss or grad norm (or, with ``gnorm_skip_cap``, a grad norm at or above
+    the cap) skips the update.  The reference selects the old state inside
+    its jit because its state is donated; here the verdict is read on the
+    host once, through ``fetch`` (the step's one host sync), BEFORE the
+    update, and the update runs in place only when it passed: the same
+    semantics, with no second copy of the state.  ``metrics["skipped"]`` is
+    that verdict as an int.
+
+    An optional scalar ``batch["fault_scale"]`` (runtime.faults
+    ``train.nonfinite``) multiplies the loss AND the gradients after they
+    are computed.  ``batch`` holds host (numpy) or torch arrays.
+    """
+    def cast(params):
+        return map_tree(lambda p: p.to(compute_dtype) if p.is_floating_point() else p,
+                        params)
+
+    def train_step(state, batch):
+        batch = dict(batch)
+        fault_scale = batch.pop("fault_scale", None)
+        params = state["params"]
+        device = params["embed"].device
+        batch = {k: _to_device(v, device) for k, v in batch.items()}
+        leaves = [p for p in tree_paths(params).values() if p.is_floating_point()]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss, metrics = lm.loss(cast(params), batch)
+            flat_grads = iter(torch.autograd.grad(loss, leaves))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        grads = map_tree(lambda p: next(flat_grads) if p.is_floating_point() else None,
+                         params)
+        loss = loss.detach()
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        if fault_scale is not None:
+            fault_scale = float(np.asarray(fault_scale))
+            loss = loss * fault_scale
+            for g in tree_paths(grads).values():
+                if g is not None:
+                    g.mul_(fault_scale)
+            metrics["loss"] = loss
+        gnorm = global_norm(tree_paths(grads).values())
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        if gnorm_skip_cap is not None:
+            ok = ok & (gnorm < gnorm_skip_cap)
+        ok = bool(fetch(ok))
+        if ok:
+            opt_metrics = adamw_update(opt_cfg, params, grads, state, grad_norm=gnorm)
+        else:
+            opt_metrics = {"grad_norm": gnorm,
+                           "lr": lr_schedule(opt_cfg, int(state["step"]) + 1)}
+        metrics.update(opt_metrics)
+        if metrics.get("expert_load") is None:
+            metrics.pop("expert_load", None)
+        metrics["skipped"] = int(not ok)
+        return state, metrics
+
+    return train_step

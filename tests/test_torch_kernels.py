@@ -204,7 +204,8 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("reached the plain version")
 
-    for name in ("grouped_matmul_f32", "ragged_matmul_f32", "ragged_gate_up_silu_f32"):
+    for name in ("grouped_matmul_f32", "ragged_matmul_f32", "ragged_gate_up_silu_f32",
+                 "ragged_dw_f32"):
         monkeypatch.setattr(mm_ref, name, boom)
     monkeypatch.setattr(fa_ref, "attention", boom)
     meta = dict(device="meta")
@@ -217,6 +218,7 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
         lambda: mm_ops.grouped_ffn(x, w, w, w.transpose(1, 2)),
         lambda: mm_ops.ragged_matmul_f32(x[0], w, offs),
         lambda: mm_ops.ragged_gate_up_silu_f32(x[0], w, w, offs),
+        lambda: mm_ops.ragged_dw_f32(x[0], x[0], offs),
         lambda: fa_ops.flash_attention(q, q, q),
         # a mix of CPU and other tensors is refused too
         lambda: mm_ops.grouped_matmul_f32(torch.zeros((2, 4, 8)), w),
