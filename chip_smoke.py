@@ -9,13 +9,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. kernels: builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), then holds every kernel against its
    plain PyTorch version on the card, in fp32 and bf16, at the serving and
-   training paths' full-width shapes of granite-moe-3b-a800m and at the
-   ragged edge cases (empty expert, one expert, extreme skew); times the
+   training paths' full-width shapes of granite-moe-3b-a800m and
+   mamba2-370m and at the edge cases (empty expert, one expert, extreme
+   skew; a chunk of 1 or 100 tokens, strong and zero decay); times the
    kernel alone (CUDA events, median), its plain version, a library call
    that computes the same function, and the card's bound for the same work;
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
-   weights on the CPU (plain versions), both dispatch modes;
+   weights on the CPU (plain versions), both dispatch modes; the reduced
+   mamba2-370m's prefill and decode steps likewise;
 4. serving: ``repro_torch.launch.serve.serve`` at full width (32 layers,
    random bf16 weights), first under capacity and then under ragged
    dispatch.  The kernels' launch counts are zeroed just before each run
@@ -27,7 +29,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. profile: ``torch.profiler`` over one prefill and eight decode steps of
    ``Engine.step`` under each dispatch: wall time, the card's busy time and
    idle share, device activities and the top kernels;
-7. training: ``repro_torch.launch.train.train`` at full width and depth
+7. SSM serving: ``repro_torch.training.make_prefill_step`` /
+   ``make_decode_step`` on mamba2-370m at full width and depth (48 layers,
+   random bf16 weights from seed 0): 4 prompts x 2048 tokens then 32
+   greedy decode steps, then one 200-token prompt and 8 steps.  The launch
+   counts are zeroed just before and read just after every prefill and
+   every decode loop: exactly one ``ssd_intra_chunk`` launch per layer per
+   prefill and none in decode.  Prefill ms, decode-step p50, tokens/s and
+   peak memory;
+8. SSM parity: fp32 at full width, a prefill of 248 tokens and 8 decode
+   steps against the uncached forward over the 256 tokens, at 2e-4;
+9. SSM profile: ``torch.profiler`` over one 4 x 2048 prefill and 8 decode
+   steps;
+10. training: ``repro_torch.launch.train.train`` at full width and depth
    (32 layers, fp32 masters and Adam moments, bf16 compute, ragged
    dispatch), batch 2 x 512 tokens, 5 steps on ``SyntheticTokens``, the
    launch counts zeroed just before and read just after: every step must
@@ -70,6 +84,15 @@ FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
           torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
 RAGGED_COUNTS = [[7, 0, 83, 1, 9], [0, 0, 0, 100], [25, 25, 25, 25], [100],
                  [1, 1, 1, 1, 1, 96, 1, 1]]
+SSM_ARCH = "mamba2-370m"
+# ssd_intra_chunk computes in fp32 from its inputs' values and rounds once
+# to x's dtype.  fp32: the reference's atol 3e-5 (tests/test_kernels.py),
+# on inputs at the model's scale (x dt-scaled ~0.1, B and C ~0.5).  bf16:
+# against the plain version on the same bf16 values rounded once, so the
+# outputs may differ by one bf16 step (at most 2^-7 relative).
+SSD_TOL = {torch.float32: dict(rtol=0.0, atol=3e-5),
+           torch.bfloat16: dict(rtol=1e-2, atol=3e-5)}
+SSM_PARITY_BOUND = 2e-4  # chunked vs recurrent SSD in fp32 (tests/test_ssm.py)
 
 
 def fail(msg: str) -> None:
@@ -99,9 +122,17 @@ def device_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in ev]))
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes: float, ops) -> tuple:
+    """The card's least time for moving ``nbytes`` or for doing ``ops``, a
+    list of (operations, operand dtype) pairs, each at its type's peak rate."""
+    t_b, t_f = nbytes / HBM_BYTES_S, sum(f / PEAK_FLOPS[dt] for f, dt in ops)
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def rate_dtype(*ts):
+    """The peak rate's type for a product of these operands: bf16 tensor
+    cores with fp32 accumulation unless an operand is fp32."""
+    return torch.float32 if any(t.dtype == torch.float32 for t in ts) else torch.bfloat16
 
 
 def check(name: str, got, want, tol) -> float:
@@ -148,8 +179,10 @@ def kernel_phase(dev):
 
     entries = {}
 
-    def report(name, shape, dtype, launch, plain, library, nbytes, flops, err,
+    def report(name, shape, dtype, launch, plain, library, nbytes, ops, err,
                source, replaces):
+        """``dtype`` labels the entry; ``ops`` prices the work for the bound
+        (see ``bound_ms``)."""
         ms = device_ms(launch)
         plain_ms = device_ms(plain, reps=5, warmup=1)
         lib_ms = None
@@ -158,7 +191,7 @@ def kernel_phase(dev):
                 lib_ms = device_ms(library)
             except (RuntimeError, TypeError, NotImplementedError) as e:
                 log(f"[time] {name}: library call unavailable ({type(e).__name__}: {e})")
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        b_ms, b_by = bound_ms(nbytes, ops)
         log(f"[time] {name} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f", bound {b_ms:.4f} ms ({b_by})")
@@ -169,9 +202,6 @@ def kernel_phase(dev):
 
     src_mm = "src/repro_torch/kernels/csrc/moe_gemm.cu"
     src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
-
-    def rate_dtype(*ts):
-        return torch.float32 if any(t.dtype == torch.float32 for t in ts) else torch.bfloat16
 
     # Down-projections take the fp32 hidden activation, as in the model.
     # -- grouped_matmul_f32 (capacity dispatch) ------------------------------
@@ -192,7 +222,7 @@ def kernel_phase(dev):
                        lambda: mm_ref.grouped_matmul_f32(x, w),
                        (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
                        x.numel() * x.element_size() + w.numel() * w.element_size()
-                       + E * M * N * 4, 2 * E * M * K * N, err, src_mm,
+                       + E * M * N * 4, [(2 * E * M * K * N, rate_dtype(x, w))], err, src_mm,
                        "src/repro/kernels/moe_gemm/moe_gemm.py:67")
             if tag == "prefill gate/up" and dtype == torch.bfloat16:
                 entries["grouped_matmul_f32"] = e
@@ -230,13 +260,13 @@ def kernel_phase(dev):
                           dtype, mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
                           lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
                           rows * K_ * sz + 2 * touched * K_ * F_ * sz + 3 * T * F_ * 4,
-                          4 * rows * K_ * F_, max(errs), src_mm,
+                          [(4 * rows * K_ * F_, dtype)], max(errs), src_mm,
                           "src/repro/kernels/moe_gemm/moe_gemm.py:253")
             e_mm = report("ragged_matmul_f32", f"{tag} ({T},{F_})x({Ec},{F_},{K_})",
                           torch.float32, mm_ops.ragged_matmul_f32_launch(h, wd, offs)[1],
                           lambda: mm_ref.ragged_matmul_f32(h, wd, offs), None,
                           rows * F_ * 4 + touched * F_ * K_ * sz + T * K_ * 4,
-                          2 * rows * F_ * K_, err, src_mm,
+                          [(2 * rows * F_ * K_, torch.float32)], err, src_mm,
                           "src/repro/kernels/moe_gemm/moe_gemm.py:178")
             if dtype == torch.bfloat16:
                 # the same kernel on bf16 rows, beside the library's grouped GEMM
@@ -246,7 +276,7 @@ def kernel_phase(dev):
                        lambda: mm_ref.ragged_matmul_f32(hb, wd, offs),
                        (lambda: grouped_mm(hb, wd, offs=offs[1:])) if grouped_mm else None,
                        rows * F_ * sz + touched * F_ * K_ * sz + T * K_ * 4,
-                       2 * rows * F_ * K_, err, src_mm,
+                       [(2 * rows * F_ * K_, dtype)], err, src_mm,
                        "src/repro/kernels/moe_gemm/moe_gemm.py:178")
                 if tag.startswith("prefill"):
                     entries["ragged_matmul_f32"] = e_mm
@@ -265,14 +295,14 @@ def kernel_phase(dev):
                     mm_ops.ragged_dw_f32(x, gr, offs), mm_ref.ragged_dw_f32(x, gr, offs),
                     GEMM_TOL)
         xb, gb = x.to(torch.bfloat16), gr.to(torch.bfloat16)
-        e = report("ragged_dw_f32", f"{tag} T={rows} ({rows},{K_})x({rows},{N_})",
-                   torch.float32, mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
+        e = report("ragged_dw_f32", f"{tag} T={rows} ({rows},{K_})x({rows},{N_}) fp32 g",
+                   xdt, mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
                    lambda: mm_ref.ragged_dw_f32(x, gr, offs),
                    # the library's grouped GEMM with the ragged dimension as
                    # its contraction (2-D x 2-D), on bf16 operands
                    (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
                    rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
-                   2 * rows * K_ * N_, err, src_mm,
+                   [(2 * rows * K_ * N_, rate_dtype(x, gr))], err, src_mm,
                    "src/repro/kernels/moe_gemm/moe_gemm.py:335")
         if xdt == torch.bfloat16:
             entries["ragged_dw_f32"] = e
@@ -313,11 +343,64 @@ def kernel_phase(dev):
                        lambda: torch.nn.functional.scaled_dot_product_attention(
                            qc, kc, vc, is_causal=True, enable_gqa=True),
                        2 * b * s * h1 * dh * sz + 2 * b * s * h2 * dh * sz,
-                       4 * b * h1 * dh * s * (s + 1) / 2, err, src_fa,
+                       [(4 * b * h1 * dh * s * (s + 1) / 2, dtype)], err, src_fa,
                        "src/repro/kernels/flash_attention/flash_attention.py:103")
             if s == 512 and dtype == torch.bfloat16:
                 entries["flash_attention"] = e
+
+    entries["ssd_intra_chunk"] = ssd_kernel_checks(dev, g, report)
     return entries
+
+
+def ssd_kernel_checks(dev, g, report):
+    """ssd_intra_chunk against its plain version at mamba2-370m's prefill
+    shapes and the edge cases, B and C as stride-0 head views; returns the
+    4 x 2048 bf16 entry."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    s = get_arch(SSM_ARCH).ssm
+    h, p, n = s.num_heads(get_arch(SSM_ARCH).d_model), s.head_dim, s.state_size
+    src = "src/repro_torch/kernels/csrc/ssd.cu"
+    cases = [((4, 8, 256, h, p, n), "decay", "prefill 4 x 2048"),
+             ((4, 1, 100, h, p, n), "decay", "prefill 4 x 100"),
+             ((1, 1, 200, h, p, n), "decay", "prefill 1 x 200"),
+             ((1, 2, 32, 4, 16, 8), "decay", "edge"), ((2, 2, 64, 8, 32, 16), "decay", "edge"),
+             ((2, 3, 1, 4, 16, 8), "decay", "edge cl=1"),
+             ((1, 2, 100, 4, 16, 16), "decay", "edge cl=100"),
+             ((1, 2, 64, h, p, n), "strong", "edge dA~-50"),
+             ((1, 2, 64, h, p, n), "zero", "edge dA=0")]
+    entry = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, nc, cl, hh, pp, nn), law, tag in cases:
+            x = (torch.randn((b, nc, cl, hh, pp), generator=g, device=dev) * 0.1).to(dtype)
+            dA = {"decay": -torch.randn((b, nc, cl, hh), generator=g, device=dev).abs() * 0.1,
+                  "strong": torch.randn((b, nc, cl, hh), generator=g, device=dev) - 50.0,
+                  "zero": torch.zeros((b, nc, cl, hh), device=dev)}[law]
+            B, C = ((torch.randn((b, nc, cl, 1, nn), generator=g, device=dev) * 0.5).to(
+                dtype).expand(b, nc, cl, hh, nn) for _ in range(2))
+            fold = [t.flatten(0, 1) for t in (x, dA.to(dtype), B, C)]
+            want = ssd_ref.ssd_intra_chunk(*(t.float() for t in fold)).to(dtype)
+            got = ssd_ops.ssd_intra_chunk(x, dA, B, C).flatten(0, 1)
+            err = check(f"ssd_intra_chunk {tag} (g={b * nc}, cl={cl}, h={hh}, p={pp}, "
+                        f"n={nn}) B/C stride-0 views {dtype}", got, want, SSD_TOL[dtype])
+            if tag.startswith("edge"):
+                continue
+            sz, G = x.element_size(), b * nc
+            pairs = G * hh * cl * (cl + 1) / 2  # the causal (l, s <= l) pairs
+            # bytes: x, dA and y once, B and C once per (g, l) (head-broadcast
+            # views); operations: C.B^T on B and C's type, then (decayed fp32
+            # scores).x at the fp32 rate
+            e = report("ssd_intra_chunk", f"{tag} (g={G},cl={cl},h={hh},p={pp},n={nn})",
+                       dtype, ssd_ops.ssd_intra_chunk_launch(*fold)[1],
+                       lambda: ssd_ref.ssd_intra_chunk(*fold), None,
+                       2 * G * cl * hh * pp * sz + 2 * G * cl * nn * sz + G * cl * hh * sz,
+                       [(pairs * 2 * nn, rate_dtype(B, C)), (pairs * 2 * pp, torch.float32)],
+                       err, src, "src/repro/kernels/ssd/ssd.py:51")
+            if tag == "prefill 4 x 2048" and dtype == torch.bfloat16:
+                entry = e
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +426,40 @@ def small_parity_phase(dev):
         check(f"reduced forward logits, card vs cpu, {mode}", got.cpu(), want,
               dict(rtol=0.0, atol=1e-5))
         train_parity(lm, params_cpu, dev, mode)
+    ssm_small_parity(dev)
+
+
+def ssm_small_parity(dev) -> None:
+    """The reduced mamba2-370m, fp32: prefill of 64 tokens (two chunks) and
+    of 20 (one short chunk), then 4 decode steps, on the card (kernel)
+    against the CPU (plain version): logits and every cache leaf at 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    arch = get_arch(SSM_ARCH).reduced()
+    lm = LanguageModel(arch)
+    prefill, decode = make_prefill_step(lm, torch.float32), make_decode_step(lm, torch.float32)
+    params_cpu = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    params_gpu = map_tree(lambda t: t.to(dev), params_cpu)
+    toks = np.random.default_rng(2).integers(0, arch.vocab_size, (2, 68))
+    tol = dict(rtol=0.0, atol=1e-5)
+    for l in (64, 20):
+        runs = []
+        for p in (params_gpu, params_cpu):
+            logits, cache = prefill(p, {"tokens": toks[:, :l]})
+            out = [logits]
+            for i in range(l, l + 4):
+                logits, cache = decode(p, cache, {"tokens": toks[:, i:i + 1]}, i)
+                out.append(logits)
+            runs.append((out, tree_paths(cache)))
+        (got, got_c), (want, want_c) = runs
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(f"reduced {SSM_ARCH} prefill {l} + decode step {i}, card vs cpu",
+                  a.cpu(), b, tol)
+        for path, t in got_c.items():
+            check(f"reduced {SSM_ARCH} cache {path} after prefill {l} + 4 steps, card vs cpu",
+                  t.cpu(), want_c[path], tol)
 
 
 def train_parity(lm, params_cpu, dev, mode: str) -> None:
@@ -453,7 +570,7 @@ def parity_phase(case) -> None:
 def _kernel_name(name: str) -> str:
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
     if name.startswith(("grouped_mm_kernel", "ragged_kernel", "ragged_dw_kernel",
-                        "fa_fwd_kernel")):
+                        "fa_fwd_kernel", "ssd_intra_chunk_kernel")):
         return name.split("(")[0]  # the port's kernels, with their template args
     return name.split("<")[0].split("(")[0]
 
@@ -523,7 +640,131 @@ def profile_phase(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: training at full width and depth
+# Phases 7-9: mamba2-370m serving at full width and depth
+# ---------------------------------------------------------------------------
+
+PATH_KERNELS["ssm"] = ("ssd_intra_chunk",)
+
+
+def _ssm_model(dev, dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params
+
+    arch = get_arch(SSM_ARCH)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev, dtype)
+    return arch, LanguageModel(arch), params
+
+
+def ssm_serving_phase(dev):
+    """Greedy generation through make_prefill_step / make_decode_step, bf16;
+    returns the launch counts of the timed 4 x 2048 run (its prefill and
+    decode loop, no warm-up) and (lm, params) for the profile phase."""
+    from repro_torch import kernels
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    arch, lm, params = _ssm_model(dev, torch.bfloat16)
+    prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+    n_layers = arch.num_mamba_layers
+    rng = np.random.default_rng(0)
+
+    def counted(fn, label, want_ssd, total):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        if c["ssd_intra_chunk"] != want_ssd or sum(c.values()) != want_ssd:
+            fail(f"{label}: launches {c}, expected ssd_intra_chunk {want_ssd} and no other")
+        return out
+
+    def generate(b, l, steps, label):
+        """Returns the launch counts of this prefill and decode loop."""
+        toks = rng.integers(0, arch.vocab_size, (b, l))
+        total = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = counted(lambda: prefill(params, {"tokens": toks}),
+                                f"{label} prefill", n_layers, total)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        step_ms = []
+
+        def loop():
+            nonlocal logits
+            for i in range(steps):
+                tok = logits[:, :arch.vocab_size].argmax(-1, keepdim=True)
+                t = time.perf_counter()
+                logits, _ = decode(params, cache, {"tokens": tok}, l + i)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t))
+            return logits
+
+        counted(loop, f"{label} decode", 0, total)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if logits.shape != (b, lm.vp) or not torch.isfinite(logits[:, :arch.vocab_size]).all():
+            fail(f"{label}: logits {tuple(logits.shape)} not finite")
+        p50 = float(np.median(step_ms))
+        log(f"[ssm] {SSM_ARCH} full width ({n_layers} layers, {arch.total_params() / 1e6:.1f} M "
+            f"params, bf16) {label}: prefill {prefill_ms:.2f} ms ({b * l} tokens, "
+            f"{1e3 * b * l / prefill_ms:.0f} tokens/s, {n_layers} ssd_intra_chunk launches), "
+            f"{steps} decode steps p50 {p50:.2f} ms ({1e3 * b / p50:.1f} tokens/s, 0 kernel "
+            f"launches), peak torch.cuda.max_memory_allocated {peak:.2f} GB")
+        return total
+
+    # Each shape's first call pays cuBLAS and cuDNN set-up: warm up first.
+    runs = {}
+    for b, l, steps in ((4, 2048, 32), (1, 200, 8)):
+        generate(b, l, 2, f"warm-up {b} x {l}")
+        runs[b, l] = generate(b, l, steps, f"{b} x {l}")
+    return runs[4, 2048], (lm, params)
+
+
+def ssm_parity_phase(dev) -> None:
+    """fp32 at full width: prefill(248) + 8 decode steps against the
+    uncached forward over the 256 tokens."""
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    arch, lm, params = _ssm_model(dev, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, arch.vocab_size, (1, 256)))
+    with torch.no_grad():
+        full, _, _ = lm.forward(params, {"tokens": toks.to(dev)})
+    logits, cache = make_prefill_step(lm, torch.float32)(params, {"tokens": toks[:, :248]})
+    decode = make_decode_step(lm, torch.float32)
+    err = 0.0
+    for i in range(248, 256):
+        err = max(err, float((logits - full[:, i - 1]).abs().max()))
+        logits, cache = decode(params, cache, {"tokens": toks[:, i:i + 1]}, i)
+    err = max(err, float((logits - full[:, 255]).abs().max()))
+    ok = err <= SSM_PARITY_BOUND
+    log(f"[parity] {SSM_ARCH} prefill 248 + 8 decode steps vs uncached forward over 256, "
+        f"fp32 full width: max |dlogits| = {err:.3e} (bound {SSM_PARITY_BOUND:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("mamba2-370m decode disagrees with the uncached forward")
+
+
+def ssm_profile_phase(model) -> None:
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    lm, params = model
+    prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+    toks = np.random.default_rng(4).integers(0, lm.arch.vocab_size, (4, 2048))
+    out = {}
+
+    def run_prefill():
+        out["logits"], out["cache"] = prefill(params, {"tokens": toks})
+
+    def run_decode():
+        for i in range(8):
+            tok = out["logits"][:, :lm.arch.vocab_size].argmax(-1, keepdim=True)
+            out["logits"], _ = decode(params, out["cache"], {"tokens": tok}, 2048 + i)
+
+    _profiled(run_prefill, f"{SSM_ARCH} prefill 4 x 2048")
+    _profiled(run_decode, f"{SSM_ARCH} decode, 4 sequences, 8 steps")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training at full width and depth
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGS = ["--arch", ARCH, "--steps", "5", "--batch", "2", "--seq", "512",
@@ -531,7 +772,8 @@ TRAIN_ARGS = ["--arch", ARCH, "--steps", "5", "--batch", "2", "--seq", "512",
 # Launches of each kernel per MoE layer and train step under ragged dispatch:
 # RaggedFFN's forward (gate-up, down) and backward (dh, dx_g, dx_u; dW x 3).
 TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 1, "ragged_matmul_f32": 4,
-                  "ragged_dw_f32": 3, "flash_attention": 0, "grouped_matmul_f32": 0}
+                  "ragged_dw_f32": 3, "flash_attention": 0, "grouped_matmul_f32": 0,
+                  "ssd_intra_chunk": 0}
 PATH_KERNELS["train"] = tuple(n for n, c in TRAIN_LAUNCHES.items() if c)
 
 
@@ -595,13 +837,20 @@ def main() -> None:
     log(f"[phase] parity done at {time.perf_counter() - t0:.1f}s")
     profile_phase(dev)
     log(f"[phase] profile done at {time.perf_counter() - t0:.1f}s")
+    counts["ssm"], model = ssm_serving_phase(dev)
+    log(f"[phase] ssm serving done at {time.perf_counter() - t0:.1f}s")
+    ssm_parity_phase(dev)
+    log(f"[phase] ssm parity done at {time.perf_counter() - t0:.1f}s")
+    ssm_profile_phase(model)
+    del model
+    log(f"[phase] ssm profile done at {time.perf_counter() - t0:.1f}s")
     counts["train"] = training_phase()
     log(f"[phase] training done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
-             "ragged_matmul_f32", "ragged_dw_f32")
+             "ragged_matmul_f32", "ragged_dw_f32", "ssd_intra_chunk")
     if sorted(entries) != sorted(names):
         fail(f"kernel entries {sorted(entries)}")
     log(card)

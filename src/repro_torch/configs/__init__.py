@@ -6,10 +6,12 @@ from repro_torch.configs.base import (
     ArchConfig,
     Block,
     MoECfg,
+    SSMCfg,
 )
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B
+from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2_370M
 
-ARCHS = {c.name: c for c in (GRANITE_MOE_3B,)}
+ARCHS = {c.name: c for c in (GRANITE_MOE_3B, MAMBA2_370M)}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -19,6 +21,6 @@ def get_arch(name: str) -> ArchConfig:
 
 
 __all__ = [
-    "ArchConfig", "Block", "MoECfg", "DISPATCH_MODES", "DEFAULT_DISPATCH",
+    "ArchConfig", "Block", "MoECfg", "SSMCfg", "DISPATCH_MODES", "DEFAULT_DISPATCH",
     "ARCHS", "get_arch",
 ]

@@ -1,9 +1,10 @@
 """Architecture configuration: the port's own copy of the fields it serves.
 
-Mirrors ``ArchConfig`` and ``MoECfg`` of the JAX package (same names, same
-defaults, same parameter accounting and ``reduced()`` shrink rule) for the
-attention + MoE family this slice runs.  SSM, modality frontends and
-M-RoPE are not carried: no config in this package's registry uses them.
+Mirrors ``ArchConfig``, ``MoECfg`` and ``SSMCfg`` of the JAX package (same
+names, same defaults, same parameter accounting and ``reduced()`` shrink
+rule) for the attention + MoE and the Mamba2 (SSM) families the port runs.
+Modality frontends and M-RoPE are not carried: no config in this
+package's registry uses them.
 """
 
 from __future__ import annotations
@@ -36,8 +37,23 @@ class MoECfg:
             raise ValueError(f"unknown dispatch {self.dispatch!r}")
 
 
+@dataclass(frozen=True)
+class SSMCfg:
+    """Mamba2 (SSD, state-space duality) sub-layer configuration."""
+
+    state_size: int = 128  # N (dstate)
+    head_dim: int = 64  # P
+    expand: int = 2  # d_inner = expand * d_model
+    conv_width: int = 4
+    chunk_size: int = 256
+    n_groups: int = 1  # B/C groups
+
+    def num_heads(self, d_model: int) -> int:
+        return (self.expand * d_model) // self.head_dim
+
+
 # Per-layer block description: (mixer, ffn)
-#   mixer: "attn" | "attn_local";  ffn: "dense" | "moe" | "none"
+#   mixer: "attn" | "attn_local" | "mamba";  ffn: "dense" | "moe" | "none"
 Block = Tuple[str, str]
 
 
@@ -47,7 +63,7 @@ class ArchConfig:
     cover ``num_layers``."""
 
     name: str
-    family: str
+    family: str  # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -57,6 +73,7 @@ class ArchConfig:
     vocab_size: int
     block_pattern: Tuple[Block, ...]
     moe: Optional[MoECfg] = None
+    ssm: Optional[SSMCfg] = None
     rope_type: str = "rope"  # rope | none
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # window for "attn_local" mixers
@@ -65,6 +82,9 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     ffn_activation: str = "swiglu"  # swiglu (3 matrices) | gelu (2)
+    # True if the mixers' cost is sub-quadratic in context (SSM / hybrid
+    # with bounded-window attention).
+    subquadratic: bool = False
     source: str = ""
 
     def __post_init__(self):
@@ -76,6 +96,10 @@ class ArchConfig:
     @property
     def layers(self) -> Tuple[Block, ...]:
         return self.block_pattern * (self.num_layers // len(self.block_pattern))
+
+    @property
+    def num_mamba_layers(self) -> int:
+        return sum(1 for m, _ in self.layers if m == "mamba")
 
     @property
     def q_dim(self) -> int:
@@ -104,9 +128,23 @@ class ArchConfig:
             self.d_model * m.num_experts
         )
 
+    def mamba_params(self) -> int:
+        s = self.ssm
+        d_in = s.expand * self.d_model
+        nh = s.num_heads(self.d_model)
+        conv_dim = d_in + 2 * s.n_groups * s.state_size
+        in_proj = self.d_model * (2 * d_in + 2 * s.n_groups * s.state_size + nh)
+        conv = conv_dim * s.conv_width + conv_dim
+        extras = nh * 3  # A_log, D, dt_bias
+        return in_proj + conv + extras + d_in + d_in * self.d_model  # + norm, out_proj
+
     def layer_params(self, block: Block) -> int:
-        _, ffn = block
-        p = 2 * self.d_model + self.attn_params()
+        mixer, ffn = block
+        p = 2 * self.d_model  # two RMSNorm scales
+        if mixer.startswith("attn"):
+            p += self.attn_params()
+        elif mixer == "mamba":
+            p += self.mamba_params()
         if ffn == "dense":
             p += self.dense_ffn_params()
         elif ffn == "moe":
@@ -147,5 +185,9 @@ class ArchConfig:
                 num_experts=min(self.moe.num_experts, 8),
                 top_k=min(self.moe.top_k, 2),
                 d_ff=64,
+            )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, state_size=16, head_dim=16, chunk_size=32
             )
         return self.replace(name=self.name + "-reduced", **kw)

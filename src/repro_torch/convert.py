@@ -1,5 +1,5 @@
-"""Parameter trees and train states between the JAX package and the port,
-as numpy.
+"""Parameter trees, train states and dense serving caches between the JAX
+package and the port, as numpy.
 
 The two packages' trees have the same paths (``models.model.param_tree``):
 dicts keyed alike and a tuple of per-pattern-position block dicts with
@@ -56,3 +56,17 @@ def state_to_numpy(state):
     return {"params": params_to_numpy(state["params"]),
             "m": params_to_numpy(state["m"]), "v": params_to_numpy(state["v"]),
             "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def cache_from_numpy(cache, device=None):
+    """numpy dense cache (``LanguageModel.init_cache`` / ``prefill``'s
+    tuple of per-pattern-position dicts, leaves stacked (reps, ...)) ->
+    torch, fp32 leaves on ``device`` (default ``cuda``), contiguous and
+    writable, as ``decode_step`` updates them in place."""
+    device = resolve_device(device)
+    return map_tree(lambda a: torch.from_numpy(np.array(a, np.float32)).to(device), cache)
+
+
+def cache_to_numpy(cache):
+    """The port's dense cache -> numpy (float32 leaves)."""
+    return map_tree(lambda t: t.detach().cpu().float().numpy(), cache)

@@ -1,5 +1,5 @@
-"""Language model: parameter tree, init, forward, training loss and paged
-serving steps.
+"""Language model: parameter tree, init, forward, training loss, paged
+serving steps (attention) and dense-cache serving steps (Mamba2).
 
 The port of ``repro.models.model``.  The parameter tree has the JAX
 package's paths and leaf shapes: ``{"embed", "blocks": (one dict per
@@ -18,11 +18,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer
 from repro_torch.models.layers import rms_norm, softcap
 from repro_torch.serving import kv_cache as kv_lib
 
 VOCAB_PAD_MULTIPLE = 256
+# Where a dense attention cache stands (ROADMAP.md, Queue 1).
+DENSE_ATTN_CACHE_TODO = ("the dense cache holds mamba mixers only; attention in "
+                         "it (jamba and other hybrids) is not ported yet "
+                         "(ROADMAP.md Queue 1, item 5: Jamba)")
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +38,7 @@ VOCAB_PAD_MULTIPLE = 256
 @dataclass(frozen=True)
 class ParamMeta:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | embed | zeros | arange
+    init: str = "normal"  # normal | embed | zeros | ones | arange | a_log | dt_bias
     fan_in: int = 0
 
     def stacked(self, reps: int) -> "ParamMeta":
@@ -73,14 +78,42 @@ def _moe_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
     return t
 
 
+def _mamba_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
+    s = a.ssm
+    d = a.d_model
+    d_in = s.expand * d
+    gn = s.n_groups * s.state_size
+    nh = s.num_heads(d)
+    w = s.conv_width
+    return {
+        "w_z": ParamMeta((d, d_in), fan_in=d),
+        "w_x": ParamMeta((d, d_in), fan_in=d),
+        "w_B": ParamMeta((d, gn), fan_in=d),
+        "w_C": ParamMeta((d, gn), fan_in=d),
+        "w_dt": ParamMeta((d, nh), fan_in=d),
+        "conv_x_w": ParamMeta((d_in, w), fan_in=w),
+        "conv_x_b": ParamMeta((d_in,), init="zeros"),
+        "conv_B_w": ParamMeta((gn, w), fan_in=w),
+        "conv_B_b": ParamMeta((gn,), init="zeros"),
+        "conv_C_w": ParamMeta((gn, w), fan_in=w),
+        "conv_C_b": ParamMeta((gn,), init="zeros"),
+        "A_log": ParamMeta((nh,), init="a_log"),
+        "D": ParamMeta((nh,), init="ones"),
+        "dt_bias": ParamMeta((nh,), init="dt_bias"),
+        "norm_scale": ParamMeta((d_in,), init="zeros"),
+        "out_proj": ParamMeta((d_in, d), fan_in=d_in),
+    }
+
+
 def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
     mixer, ffn = block
-    if not mixer.startswith("attn"):
-        raise ValueError(f"the port has attention mixers only, got {mixer!r}")
-    t: Dict[str, Any] = {
-        "norm_mixer": ParamMeta((a.d_model,), init="zeros"),
-        "mixer": _attn_tree(a),
-    }
+    t: Dict[str, Any] = {"norm_mixer": ParamMeta((a.d_model,), init="zeros")}
+    if mixer.startswith("attn"):
+        t["mixer"] = _attn_tree(a)
+    elif mixer == "mamba":
+        t["mixer"] = _mamba_tree(a)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     if ffn != "none":
         t["norm_ffn"] = ParamMeta((a.d_model,), init="zeros")
         t["ffn"] = _dense_ffn_tree(a) if ffn == "dense" else _moe_tree(a)
@@ -116,6 +149,15 @@ def _init_leaf(meta: ParamMeta, gen: torch.Generator, device, dtype):
                             device=device).expand(meta.shape).contiguous()
     if meta.init == "zeros":
         return torch.zeros(meta.shape, dtype=dtype, device=device)
+    if meta.init == "ones":
+        return torch.ones(meta.shape, dtype=dtype, device=device)
+    if meta.init in ("a_log", "dt_bias"):
+        u = torch.empty(meta.shape, dtype=torch.float32, device=device)
+        if meta.init == "a_log":  # A = -exp(A_log), |A| ~ U(1, 16)
+            return u.uniform_(1.0, 16.0, generator=gen).log_().to(dtype)
+        # inverse softplus of dt ~ exp U(log 1e-3, log 0.1)
+        dt = u.uniform_(math.log(1e-3), math.log(0.1), generator=gen).exp_()
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     std = 0.02 if meta.init == "embed" else 1.0 / math.sqrt(max(meta.fan_in, 1))
     w = torch.randn(meta.shape, generator=gen, dtype=torch.float32, device=device)
     return w.mul_(std).to(dtype)
@@ -140,8 +182,9 @@ def init_params(a: ArchConfig, generator: torch.Generator, device=None,
 
 
 class LanguageModel:
-    """An ArchConfig's forward, training loss and paged serving steps on
-    single-rank params (whatever device they live on)."""
+    """An ArchConfig's forward, training loss and serving steps on
+    single-rank params (whatever device they live on): paged for attention
+    mixers, a dense per-layer cache for mamba mixers."""
 
     def __init__(self, arch: ArchConfig):
         self.arch = arch
@@ -235,9 +278,16 @@ class LanguageModel:
     def init_paged_cache(self, layout: kv_lib.PagedLayout, dtype=torch.bfloat16,
                          device=None):
         """One {"k","v"} page pool per pattern position, each shaped
-        (reps, num_blocks, block_size, kv_heads, head_dim)."""
+        (reps, num_blocks, block_size, kv_heads, head_dim).  SSM mixers
+        have no paged form (their state is O(1) in context): they are
+        refused, as in the reference."""
         device = resolve_device(device)
         a = self.arch
+        for mixer, _ in a.block_pattern:
+            if not mixer.startswith("attn"):
+                raise NotImplementedError(
+                    f"paged serving supports attention mixers only, got "
+                    f"{mixer!r} in {a.name}")
         return tuple(kv_lib.init_pages(layout, self.reps, a.num_kv_heads,
                                        a.head_dim, dtype, device)
                      for _ in a.block_pattern)
@@ -289,6 +339,57 @@ class LanguageModel:
             x, _, _ = transformer.apply_block(blk, p, x, self.arch,
                                               positions=positions, cache=pc,
                                               write=write)
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        return self._head(params, x)[:, 0], cache
+
+    # -- dense-cache serving (mamba mixers) ----------------------------------
+
+    def _dense_cache_only(self) -> None:
+        if any(m != "mamba" for m, _ in self.arch.block_pattern):
+            raise NotImplementedError(DENSE_ATTN_CACHE_TODO)
+
+    def init_cache(self, batch: int, dtype=torch.bfloat16, device=None):
+        """One dense cache per pattern position, leaves stacked (reps, ...):
+        {"ssm", "conv_x", "conv_B", "conv_C"} for a mamba mixer.  Zeros,
+        allocated (``decode_step`` updates them in place).  Attention
+        mixers, whose cache the reference sizes by a ``cache_len``, are not
+        ported and raise."""
+        device = resolve_device(device)
+        self._dense_cache_only()
+        caches = []
+        for _ in self.arch.block_pattern:
+            c = ssm_lib.init_ssm_cache(self.arch, batch, dtype, device)
+            caches.append({k: v[None].repeat((self.reps,) + (1,) * v.dim())
+                           for k, v in c.items()})
+        return tuple(caches)
+
+    def prefill(self, params, batch):
+        """Forward over a prompt (one length for the whole batch), emitting
+        (last-position logits (b, vp), cache): one dict per pattern position,
+        leaves stacked (reps, ...) as ``init_cache`` makes them."""
+        self._dense_cache_only()
+        x = self._embed(params, batch)
+        caches = [[] for _ in self.arch.block_pattern]
+        for _, pos, blk, p in self._layers(params):
+            x, _, nc = transformer.apply_block(blk, p, x, self.arch, positions=None,
+                                               return_cache=True)
+            caches[pos].append(nc)
+        x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
+        logits = self._head(params, x[:, -1:])[:, 0]
+        return logits, tuple({k: torch.stack([c[k] for c in per_rep])
+                              for k in per_rep[0]} for per_rep in caches)
+
+    def decode_step(self, params, cache, batch, index):
+        """One token: batch {"tokens": (b, 1)}; ``index``: the current cache
+        fill, the reference's argument (the new token's position, which
+        only attention mixers read).  Returns (logits (b, vp), cache), the
+        cache updated IN PLACE (the reference returns a new one)."""
+        self._dense_cache_only()
+        x = self._embed(params, batch)
+        for r, pos, blk, p in self._layers(params):
+            x, _, _ = transformer.apply_block(
+                blk, p, x, self.arch, positions=None,
+                cache={k: v[r] for k, v in cache[pos].items()})
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x)[:, 0], cache
 

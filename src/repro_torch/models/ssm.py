@@ -1,0 +1,216 @@
+"""Mamba2 (SSD, state-space duality) mixer: the port of ``repro.models.ssm``.
+
+The chunked SSD algorithm (arXiv:2405.21060) splits the selective-state-
+space recurrence into an intra-chunk, attention-like product (the
+``ssd_intra_chunk`` kernel, ``kernels/ssd``) and a recurrence over
+per-chunk states.  The reference runs that recurrence as a
+``lax.associative_scan`` over chunks; here it is a loop over them (a
+prefill has at most a few dozen chunks).  The projections stay separate
+matrices (z, x, B, C, dt), as in the reference, so the parameter trees
+match leaf for leaf.
+
+Forward only: the intra-chunk kernel has no backward, in the reference or
+here, and Mamba2 training is not ported yet.  Layouts and dtype casts
+follow the reference, so fp32 runs agree with it to rounding.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.models.layers import rms_norm
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(b, l, g, n) -> (b, l, h, n), head i reading group i // (h // g):
+    a stride-0 view for one group (no copy), else a repeat."""
+    b, l, g, n = t.shape
+    if g == 1:
+        return t.expand(b, l, h, n)
+    return t.repeat_interleave(h // g, dim=2)
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # (b, l, h, p): per-head inputs, not yet dt-scaled
+    dt: torch.Tensor,  # (b, l, h): softplus'd step sizes
+    a: torch.Tensor,  # (h,): negative decay rates (-exp(A_log))
+    B: torch.Tensor,  # (b, l, g, n)
+    C: torch.Tensor,  # (b, l, g, n)
+    chunk: int,
+    initial_state: Optional[torch.Tensor] = None,  # (b, h, p, n)
+    head_group: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD.  Returns (y (b, l, h, p), final_state (b, h, p, n)).
+
+    With many heads (jamba: 256) the reference walks head groups of
+    ``head_group`` one after another to bound the live memory; heads are
+    independent, so the loop here is exact (and needs no remat in a
+    forward).
+    """
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if h > head_group and h % head_group == 0 and g == 1 and initial_state is None:
+        ys, fins = [], []
+        for i in range(0, h, head_group):
+            part = slice(i, i + head_group)
+            y, fin = ssd_chunked(x[:, :, part], dt[:, :, part], a[part], B, C, chunk,
+                                 head_group=h)
+            ys.append(y)
+            fins.append(fin)
+        return torch.cat(ys, dim=2), torch.cat(fins, dim=1)
+    if l % chunk:
+        raise ValueError(f"sequence length {l} is not a multiple of the chunk {chunk}")
+    nc = l // chunk
+    Bh, Ch = _heads(B, h), _heads(C, h)  # (b, l, h, n)
+
+    dA = dt.float() * a.float()  # (b, l, h)
+    xdt = x * dt[..., None].to(x.dtype)
+
+    def to_chunks(t):
+        return t.reshape(b, nc, chunk, *t.shape[2:])
+
+    xc, dAc, Bc, Cc = map(to_chunks, (xdt, dA, Bh, Ch))
+    # (b, nc, cl, h): the kernel's prefixes, summed in fp64 and rounded
+    # once (kernels/ssd/ref.py says why)
+    A_cs = torch.cumsum(dAc.double(), dim=2).float()
+
+    # Intra-chunk ("diagonal block") term: the kernel.
+    Y_diag = ssd_ops.ssd_intra_chunk(xc, dAc, Bc, Cc)
+
+    # Per-chunk states.
+    decay_states = torch.exp(A_cs[:, :, -1:, :] - A_cs)  # (b, nc, cl, h)
+    states = torch.einsum("bclhn,bclhp->bchpn", Bc,
+                          decay_states.to(Bc.dtype)[..., None] * xc)
+
+    # Inter-chunk recurrence s_c = exp(sum dA_c) * s_{c-1} + u_c, taken in
+    # order (the reference's associative scan, sequentially).
+    decay_chunk = torch.exp(A_cs[:, :, -1, :]).to(states.dtype)  # (b, nc, h)
+    prev = (initial_state.to(states.dtype) if initial_state is not None
+            else torch.zeros_like(states[:, 0]))
+    states_prev = []
+    for c in range(nc):
+        states_prev.append(prev)
+        prev = decay_chunk[:, c, :, None, None] * prev + states[:, c]
+    final_state = prev
+    states_prev = torch.stack(states_prev, dim=1)  # state entering each chunk
+
+    # Off-diagonal (cross-chunk) term.
+    state_decay = torch.exp(A_cs).to(Cc.dtype)  # (b, nc, cl, h)
+    Y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, states_prev) * state_decay[..., None]
+
+    y = (Y_diag + Y_off).reshape(b, l, h, p)
+    return y, final_state
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d, a cross-correlation as the reference's
+    ``lax.conv``: out[t, c] = sum_k w[c, k] x[t - (width - 1) + k, c].
+    x: (b, l, c); w: (c, width)."""
+    width = w.shape[-1]
+    xp = F.pad(x.transpose(1, 2), (width - 1, 0))  # (b, c, l + width - 1)
+    out = F.conv1d(xp, w[:, None, :].to(x.dtype), groups=x.shape[-1])
+    return out.transpose(1, 2).contiguous() + bias.to(out.dtype)
+
+
+def _conv_step(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """window: (b, width, c); w: (c, width) -> (b, c) in fp32."""
+    return torch.einsum("bwc,cw->bc", window.float(), w.float()) + b.float()
+
+
+def mamba_block(
+    params: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (b, l, d)
+    arch: ArchConfig,
+    *,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    return_cache: bool = False,
+):
+    """Mamba2 mixer sub-layer.  Returns (out (b, l, d), new cache or None).
+
+    cache = {"ssm": (b, h, p, n), "conv_x": (b, w-1, d_in), "conv_B",
+    "conv_C"} runs one decode token (l = 1) and updates the cache IN PLACE
+    (the returned dict is ``cache``); ``return_cache=True`` makes a prefill
+    emit a new one: the final SSM state in x's dtype and the last w - 1
+    PRE-conv projections, left-padded with zeros when l < w - 1.
+    """
+    s = arch.ssm
+    b, l, _ = x.shape
+    d_in = s.expand * arch.d_model
+    nh = s.num_heads(arch.d_model)
+
+    z = x @ params["w_z"]
+    xs = x @ params["w_x"]
+    Bp = x @ params["w_B"]
+    Cp = x @ params["w_C"]
+    dt = x @ params["w_dt"]  # (b, l, nh)
+    a = -torch.exp(params["A_log"].float())  # (nh,)
+    new_cache = None
+
+    if cache is not None:
+        if l != 1:
+            raise ValueError(f"a cached mamba step takes one token, got {l}")
+        win_x = torch.cat([cache["conv_x"], xs], dim=1)
+        win_B = torch.cat([cache["conv_B"], Bp], dim=1)
+        win_C = torch.cat([cache["conv_C"], Cp], dim=1)
+        xs_c = F.silu(_conv_step(win_x, params["conv_x_w"], params["conv_x_b"]))
+        B_c = F.silu(_conv_step(win_B, params["conv_B_w"], params["conv_B_b"]))
+        C_c = F.silu(_conv_step(win_C, params["conv_C_w"], params["conv_C_b"]))
+        dt_s = F.softplus(dt[:, 0].float() + params["dt_bias"])  # (b, nh)
+        xh = xs_c.reshape(b, nh, s.head_dim).to(x.dtype)
+        rep = nh // s.n_groups
+        Bh = B_c.reshape(b, s.n_groups, s.state_size).repeat_interleave(rep, 1).to(x.dtype)
+        Ch = C_c.reshape(b, s.n_groups, s.state_size).repeat_interleave(rep, 1).to(x.dtype)
+        decay = torch.exp(dt_s * a)  # (b, nh)
+        update = (dt_s.to(x.dtype)[:, :, None] * xh)[..., None] * Bh[:, :, None, :]
+        ssm = cache["ssm"]
+        ssm.mul_(decay[..., None, None].to(x.dtype)).add_(update)
+        y = torch.einsum("bhpn,bhn->bhp", ssm, Ch)
+        y = y + xh * params["D"][None, :, None].to(x.dtype)
+        y = y.reshape(b, 1, d_in)
+        for key, win in (("conv_x", win_x), ("conv_B", win_B), ("conv_C", win_C)):
+            cache[key].copy_(win[:, 1:])
+        new_cache = cache
+    else:
+        xs_c = F.silu(_causal_conv(xs, params["conv_x_w"], params["conv_x_b"])).to(x.dtype)
+        B_c = F.silu(_causal_conv(Bp, params["conv_B_w"], params["conv_B_b"])).to(x.dtype)
+        C_c = F.silu(_causal_conv(Cp, params["conv_C_w"], params["conv_C_b"])).to(x.dtype)
+        dt_s = F.softplus(dt.float() + params["dt_bias"])  # (b, l, nh)
+        xh = xs_c.reshape(b, l, nh, s.head_dim)
+        Bg = B_c.reshape(b, l, s.n_groups, s.state_size)
+        Cg = C_c.reshape(b, l, s.n_groups, s.state_size)
+        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, l))
+        y = y + xh * params["D"][None, None, :, None].to(x.dtype)
+        y = y.reshape(b, l, d_in)
+        if return_cache:
+            w = s.conv_width
+
+            def tail(t):
+                tl = t[:, -(w - 1):, :]
+                return F.pad(tl, (0, 0, (w - 1) - tl.shape[1], 0))
+
+            new_cache = {"ssm": final.to(x.dtype), "conv_x": tail(xs),
+                         "conv_B": tail(Bp), "conv_C": tail(Cp)}
+
+    # Gated RMSNorm + output projection.
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm_scale"], arch.norm_eps)
+    return y @ params["out_proj"], new_cache
+
+
+def init_ssm_cache(arch: ArchConfig, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
+    s = arch.ssm
+    nh = s.num_heads(arch.d_model)
+    d_in = s.expand * arch.d_model
+    gn = s.n_groups * s.state_size
+    w = s.conv_width
+    return {
+        "ssm": torch.zeros((batch, nh, s.head_dim, s.state_size), dtype=dtype, device=device),
+        "conv_x": torch.zeros((batch, w - 1, d_in), dtype=dtype, device=device),
+        "conv_B": torch.zeros((batch, w - 1, gn), dtype=dtype, device=device),
+        "conv_C": torch.zeros((batch, w - 1, gn), dtype=dtype, device=device),
+    }
+

@@ -17,6 +17,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+
+# Where Mamba2 training stands (ROADMAP.md, Queue 1).
+SSM_TRAINING_TODO = ("Mamba2 training is not ported yet (ROADMAP.md Queue 1, "
+                     "item 5: Mamba2 training)")
 
 
 def rep_params(tree, r: int):
@@ -49,18 +54,26 @@ def apply_block(
     train: bool = False,
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
-    (x, moe metrics or {}, new K/V cache or None).  ``train`` selects the
-    differentiable attention and capacity-FFN paths."""
+    (x, moe metrics or {}, new cache or None): K/V for an attention mixer,
+    the dense SSM/conv cache for a mamba mixer (``models.ssm``).  ``train``
+    selects the differentiable attention and capacity-FFN paths; a mamba
+    mixer has none yet and raises."""
     mixer, ffn = block
-    if not mixer.startswith("attn"):
-        raise ValueError(f"the port runs attention mixers only, got {mixer!r}")
     metrics: Dict[str, torch.Tensor] = {}
     h = L.rms_norm(x, params["norm_mixer"], arch.norm_eps)
-    window = arch.sliding_window if mixer == "attn_local" else None
-    out, new_cache = L.attention_proj(
-        params["mixer"], h, arch, positions, window=window, cache=cache,
-        write=write, return_kv=return_cache and cache is None, train=train,
-    )
+    if mixer.startswith("attn"):
+        window = arch.sliding_window if mixer == "attn_local" else None
+        out, new_cache = L.attention_proj(
+            params["mixer"], h, arch, positions, window=window, cache=cache,
+            write=write, return_kv=return_cache and cache is None, train=train,
+        )
+    elif mixer == "mamba":
+        if train:
+            raise NotImplementedError(SSM_TRAINING_TODO)
+        out, new_cache = ssm_lib.mamba_block(params["mixer"], h, arch, cache=cache,
+                                             return_cache=return_cache)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
     x = x + out
     if ffn != "none":
         h = L.rms_norm(x, params["norm_ffn"], arch.norm_eps)

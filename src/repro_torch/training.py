@@ -1,9 +1,13 @@
-"""Train state and the train step (the port of ``repro.training``).
+"""Train state, the train step and the dense-cache serving steps (the
+port of ``repro.training``).
 
 The step differentiates ``LanguageModel.loss`` with autograd on one
 device: the fp32 master weights are cast to the compute dtype inside the
 graph, so autograd carries the gradients back to fp32 through the casts;
 the AdamW update then runs in place (``optim.adamw_update``).
+``make_prefill_step`` / ``make_decode_step`` cast every floating leaf to
+the compute dtype and run ``LanguageModel.prefill`` / ``decode_step``
+without autograd.
 """
 
 from __future__ import annotations
@@ -29,13 +33,42 @@ def init_state(lm: LanguageModel, generator: torch.Generator, device=None):
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:
-    """A host batch array on ``device``; through pinned memory on the card,
-    so the copy is queued behind the previous step's work instead of
-    waiting for it."""
+    """A host batch array (or a tensor) on ``device``; from the host through
+    pinned memory on the card, so the copy is queued behind the previous
+    step's work instead of waiting for it."""
     t = torch.as_tensor(a)
-    if device.type == "cuda":
+    if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _cast(params, dtype: torch.dtype):
+    """Every floating leaf in ``dtype`` (a leaf already in it is not copied)."""
+    return map_tree(lambda p: p.to(dtype) if p.is_floating_point() else p, params)
+
+
+def make_prefill_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloat16):
+    """``prefill_step(params, batch) -> (last-position logits, cache)``;
+    ``batch["tokens"]`` is a host (numpy) or torch (b, l) array."""
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        device = params["embed"].device
+        batch = {k: _to_device(v, device) for k, v in batch.items()}
+        return lm.prefill(_cast(params, compute_dtype), batch)
+
+    return prefill_step
+
+
+def make_decode_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloat16):
+    """``decode_step(params, cache, batch, index) -> (logits, cache)``, the
+    cache updated in place."""
+    @torch.no_grad()
+    def decode_step(params, cache, batch, index):
+        device = params["embed"].device
+        batch = {k: _to_device(v, device) for k, v in batch.items()}
+        return lm.decode_step(_cast(params, compute_dtype), cache, batch, index)
+
+    return decode_step
 
 
 def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
@@ -57,10 +90,6 @@ def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
     ``train.nonfinite``) multiplies the loss AND the gradients after they
     are computed.  ``batch`` holds host (numpy) or torch arrays.
     """
-    def cast(params):
-        return map_tree(lambda p: p.to(compute_dtype) if p.is_floating_point() else p,
-                        params)
-
     def train_step(state, batch):
         batch = dict(batch)
         fault_scale = batch.pop("fault_scale", None)
@@ -71,7 +100,7 @@ def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss, metrics = lm.loss(cast(params), batch)
+            loss, metrics = lm.loss(_cast(params, compute_dtype), batch)
             flat_grads = iter(torch.autograd.grad(loss, leaves))
         finally:
             for p in leaves:

@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.moe_gemm import ops as mm_ops
 from repro_torch.kernels.moe_gemm import ref as mm_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 F32 = dict(rtol=2e-5, atol=1.6e-4)
@@ -208,6 +210,7 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
                  "ragged_dw_f32"):
         monkeypatch.setattr(mm_ref, name, boom)
     monkeypatch.setattr(fa_ref, "attention", boom)
+    monkeypatch.setattr(ssd_ref, "ssd_intra_chunk", boom)
     meta = dict(device="meta")
     x = torch.empty((2, 4, 8), **meta)
     w = torch.empty((2, 8, 4), **meta)
@@ -220,6 +223,10 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu(monkeypatch):
         lambda: mm_ops.ragged_gate_up_silu_f32(x[0], w, w, offs),
         lambda: mm_ops.ragged_dw_f32(x[0], x[0], offs),
         lambda: fa_ops.flash_attention(q, q, q),
+        lambda: ssd_ops.ssd_intra_chunk(torch.empty((1, 2, 8, 2, 16), **meta),
+                                        torch.empty((1, 2, 8, 2), **meta),
+                                        *[torch.empty((1, 2, 8, 1, 8), **meta).expand(
+                                            1, 2, 8, 2, 8)] * 2),
         # a mix of CPU and other tensors is refused too
         lambda: mm_ops.grouped_matmul_f32(torch.zeros((2, 4, 8)), w),
     ]

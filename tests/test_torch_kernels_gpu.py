@@ -14,6 +14,11 @@ Flash attention computes in fp32 and rounds once to q's dtype; it is held
 against its plain version run in fp32 on the same inputs and rounded once,
 so bf16 outputs may differ by one bf16 step (rtol 1e-2, atol 2e-3); fp32
 outputs are held at rtol 2e-5, atol 8e-5.
+``ssd_intra_chunk`` likewise computes in fp32 from its inputs' values and
+rounds once: fp32 at the reference's atol 3e-5 (on inputs at the model's
+scale: x dt-scaled, ~0.1; B and C ~0.5), bf16 against the plain version on
+the same bf16 values rounded once, rtol 1e-2 (one bf16 step is at most
+2^-7 relative) and atol 3e-5.
 """
 
 import numpy as np
@@ -25,12 +30,16 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.moe_gemm import ops as mm_ops
 from repro_torch.kernels.moe_gemm import ref as mm_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
 
 GEMM_TOL = dict(rtol=2e-5, atol=1.6e-4)
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
           torch.bfloat16: dict(rtol=1e-2, atol=2e-3)}
+SSD_TOL = {torch.float32: dict(rtol=0.0, atol=3e-5),
+           torch.bfloat16: dict(rtol=1e-2, atol=3e-5)}
 RAGGED_COUNTS = [
     [7, 0, 83, 1, 9],
     [0, 0, 0, 100],
@@ -55,7 +64,7 @@ def no_plain(monkeypatch):
         raise AssertionError("a CUDA call reached the plain version")
     for mod, names in ((mm_ref, ("grouped_matmul_f32", "ragged_matmul_f32",
                                  "ragged_gate_up_silu_f32", "ragged_dw_f32")),
-                       (fa_ref, ("attention",))):
+                       (fa_ref, ("attention",)), (ssd_ref, ("ssd_intra_chunk",))):
         for n in names:
             monkeypatch.setattr(mod, n, boom)
 
@@ -188,8 +197,10 @@ def test_cuda_calls_never_reach_plain(dev, no_plain):
     mm_ops.grouped_ffn(x[None], w[:1], w2[:1], w2[:1].transpose(1, 2).contiguous())
     q = x[:8].reshape(1, 8, 4, 8).repeat(1, 1, 1, 2)
     fa_ops.flash_attention(q, q, q)
+    ssd_ops.ssd_intra_chunk(*_ssd_inputs((1, 2, 16, 4, 16, 8), "decay", torch.bfloat16, dev))
     torch.cuda.synchronize()
     after = launch_counts()
+    assert after["ssd_intra_chunk"] == before["ssd_intra_chunk"] + 1
     assert after["ragged_gate_up_silu_f32"] == before["ragged_gate_up_silu_f32"] + 1
     assert after["ragged_matmul_f32"] == before["ragged_matmul_f32"] + 1
     assert after["grouped_matmul_f32"] == before["grouped_matmul_f32"] + 3
@@ -219,6 +230,80 @@ def test_flash_attention_kernel(dev, b, hq, hkv, s, d, window, cap, dtype):
     _close(got, want, **FA_TOL[dtype])
 
 
+def _ssd_inputs(shape, law, dtype, dev, seed=0):
+    """(x, dA, B, C) in the wrapper's (b, nc, cl, ...) layout at the model's
+    scale, B and C as head-broadcast views (stride 0 on the head axis)."""
+    b, nc, cl, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    x = _t(rng.standard_normal((b, nc, cl, h, p)) * 0.1, dtype, dev)
+    dA = {"decay": -np.abs(rng.standard_normal((b, nc, cl, h))) * 0.1,
+          "strong": -50.0 + rng.standard_normal((b, nc, cl, h)),
+          "zero": np.zeros((b, nc, cl, h))}[law]
+    B, C = (_t(rng.standard_normal((b, nc, cl, 1, n)) * 0.5, dtype, dev).expand(
+        b, nc, cl, h, n) for _ in range(2))
+    return x, _t(dA, torch.float32, dev), B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,law", [
+    ((1, 2, 32, 4, 16, 8), "decay"), ((2, 2, 64, 8, 32, 16), "decay"),
+    ((2, 3, 1, 4, 16, 8), "decay"), ((1, 2, 100, 4, 16, 16), "decay"),
+    ((1, 2, 64, 4, 16, 8), "strong"), ((1, 2, 64, 4, 16, 8), "zero"),
+    ((1, 1, 200, 2, 128, 256), "decay"),  # the widest p and n it takes
+    ((4, 8, 256, 32, 64, 128), "decay"),  # mamba2-370m, 4 x 2048 prompt
+    ((4, 1, 100, 32, 64, 128), "decay"),  # mamba2-370m, 100-token prompt
+])
+def test_ssd_intra_chunk_kernel(dev, shape, law, dtype):
+    x, dA, B, C = _ssd_inputs(shape, law, dtype, dev)
+    assert B.stride(3) == 0
+    before = launch_counts()["ssd_intra_chunk"]
+    got = ssd_ops.ssd_intra_chunk(x, dA, B, C)
+    torch.cuda.synchronize()
+    assert launch_counts()["ssd_intra_chunk"] == before + 1
+    fold = lambda t: t.flatten(0, 1).float()  # noqa: E731
+    want = ssd_ref.ssd_intra_chunk(fold(x), fold(dA.to(dtype)), fold(B), fold(C))
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    assert torch.isfinite(got).all()
+    _close(got.flatten(0, 1), want.to(dtype), **SSD_TOL[dtype])
+
+
+def test_mamba_prefill_and_decode_on_card_match_cpu(dev):
+    """The reduced mamba2-370m, fp32: prefill (two chunks) and 4 decode
+    steps on the card (the kernel, once per layer per prefill, never the
+    plain version) against the same weights on the CPU (plain version):
+    logits and every cache leaf at 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    arch = get_arch("mamba2-370m").reduced()
+    lm = LanguageModel(arch)
+    prefill, decode = make_prefill_step(lm, torch.float32), make_decode_step(lm, torch.float32)
+    params = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(1).integers(0, arch.vocab_size, (2, 68))
+
+    def run(p):
+        logits, cache = prefill(p, {"tokens": toks[:, :64]})
+        out = [logits]
+        for i in range(64, 68):
+            logits, cache = decode(p, cache, {"tokens": toks[:, i:i + 1]}, i)
+            out.append(logits)
+        return out, cache
+
+    want, want_cache = run(params)
+    before = launch_counts()["ssd_intra_chunk"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ssd_ref, "ssd_intra_chunk", lambda *a: pytest.fail("plain version"))
+        got, got_cache = run(map_tree(lambda t: t.to(dev), params))
+        torch.cuda.synchronize()
+    assert launch_counts()["ssd_intra_chunk"] == before + arch.num_layers
+    for a, b in zip(got, want):
+        _close(a, b, rtol=0, atol=1e-5)
+    want_cache = tree_paths(want_cache)
+    for path, t in tree_paths(got_cache).items():
+        _close(t, want_cache[path], rtol=0, atol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs(dev):
     x = torch.zeros((2, 4, 8), device=dev)
     with pytest.raises(ValueError):
@@ -234,3 +319,10 @@ def test_wrappers_reject_bad_inputs(dev):
     q = torch.zeros((1, 8, 2, 24), device=dev)  # head_dim 24 unsupported
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q, q)
+    x, dA, B, C = _ssd_inputs((1, 1, 300, 2, 16, 8), "decay", torch.float32, dev)
+    with pytest.raises(ValueError):  # a chunk longer than 256
+        ssd_ops.ssd_intra_chunk(x, dA, B, C)
+    x, dA, B, C = _ssd_inputs((1, 1, 64, 2, 16, 8), "decay", torch.float32, dev)
+    B2 = torch.zeros((1, 1, 64, 2, 16), device=dev)[..., ::2]
+    with pytest.raises(ValueError):  # n not contiguous
+        ssd_ops.ssd_intra_chunk(x, dA, B2, B2)

@@ -73,11 +73,16 @@ def _t(a, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("reduced", [True, False])
-def test_param_tree_matches_reference(reduced):
+@pytest.mark.parametrize("name,reduced,vocab", [
+    pytest.param(NAME, True, 512, id="True"),
+    pytest.param(NAME, False, 49408, id="False"),
+    pytest.param("mamba2-370m", True, 512, id="mamba2-370m-True"),
+    pytest.param("mamba2-370m", False, 50432, id="mamba2-370m-False"),
+])
+def test_param_tree_matches_reference(name, reduced, vocab):
     """Same paths, shapes and integer/float kinds as the JAX tree, at the
     reduced size and at full width (shapes only, nothing materialized)."""
-    arch_j, arch_t = jget_arch(NAME), get_arch(NAME)
+    arch_j, arch_t = jget_arch(name), get_arch(name)
     if reduced:
         arch_j, arch_t = arch_j.reduced(), arch_t.reduced()
     want = {p: (tuple(s.shape), jnp.issubdtype(s.dtype, jnp.integer))
@@ -85,7 +90,7 @@ def test_param_tree_matches_reference(reduced):
     got = {p: (m.shape, m.init == "arange") for p, m in tree_paths(param_tree(arch_t)).items()}
     assert got == want
     assert arch_t.total_params() == arch_j.total_params()
-    assert arch_t.padded_vocab() == arch_j.padded_vocab() == (49408 if not reduced else 512)
+    assert arch_t.padded_vocab() == arch_j.padded_vocab() == vocab
 
 
 def test_init_params_rules():
