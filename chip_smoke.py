@@ -9,11 +9,15 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. kernels: builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel), then holds every kernel against its
    plain PyTorch version on the card, in fp32 and bf16, at the serving and
-   training paths' full-width shapes of granite-moe-3b-a800m and
-   mamba2-370m and at the edge cases (empty expert, one expert, extreme
+   training paths' full-width shapes of granite-moe-3b-a800m (the grouped
+   GEMM at the expert capacity of every prefill bucket serving reaches, so
+   at each of its tile shapes) and mamba2-370m and at the edge cases (empty expert, one expert, extreme
    skew; a chunk of 1 or 100 tokens, strong and zero decay); times the
    kernel alone (CUDA events, median), its plain version, a library call
-   that computes the same function, and the card's bound for the same work;
+   that computes the same function, and the card's bound for the same work,
+   naming the kernel design that ran (``flash_attention/tc`` or ``/fma``,
+   ``grouped_matmul_f32/tc``, ``/skinny`` or ``/fma``; the checks name the
+   grouped tile shape too);
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
    weights on the CPU (plain versions), both dispatch modes; the reduced
@@ -22,13 +26,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    random bf16 weights), first under capacity and then under ragged
    dispatch.  The kernels' launch counts are zeroed just before each run
    and read just after it, and every kernel of that dispatch's path must
-   have been launched;
+   have been launched, its bf16 calls through the tensor-core designs and
+   never through an ``/fma`` one;
 5. parity: ``repro_torch.launch.serve.decode_parity``, the fp32 ragged
    paged decode of the ragged run's first request against the uncached
    forward, held to the serve driver's bound;
 6. profile: ``torch.profiler`` over one prefill and eight decode steps of
    ``Engine.step`` under each dispatch: wall time, the card's busy time and
-   idle share, device activities and the top kernels;
+   idle share, device activities and the top kernels; no bf16 launch may
+   reach an ``/fma`` design;
 7. SSM serving: ``repro_torch.training.make_prefill_step`` /
    ``make_decode_step`` on mamba2-370m at full width and depth (48 layers,
    random bf16 weights from seed 0): 4 prompts x 2048 tokens then 32
@@ -158,6 +164,7 @@ def kernel_phase(dev):
     from repro_torch.kernels.moe_gemm import ops as mm_ops
     from repro_torch.kernels.moe_gemm import ref as mm_ref
     from repro_torch.configs import get_arch
+    from repro_torch.models.moe import _capacity
 
     t0 = time.perf_counter()
     kernels.build()
@@ -180,9 +187,10 @@ def kernel_phase(dev):
     entries = {}
 
     def report(name, shape, dtype, launch, plain, library, nbytes, ops, err,
-               source, replaces):
+               source, replaces, design=None):
         """``dtype`` labels the entry; ``ops`` prices the work for the bound
-        (see ``bound_ms``)."""
+        (see ``bound_ms``); ``design`` names the kernel design the launch
+        takes, counted as ``<name>/<design>``."""
         ms = device_ms(launch)
         plain_ms = device_ms(plain, reps=5, warmup=1)
         lib_ms = None
@@ -192,38 +200,47 @@ def kernel_phase(dev):
             except (RuntimeError, TypeError, NotImplementedError) as e:
                 log(f"[time] {name}: library call unavailable ({type(e).__name__}: {e})")
         b_ms, b_by = bound_ms(nbytes, ops)
-        log(f"[time] {name} {shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
+        via = f" via {name}/{design}" if design else ""
+        log(f"[time] {name} {shape} {str(dtype)[6:]}{via}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f", bound {b_ms:.4f} ms ({b_by})")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "shape": f"{shape} {str(dtype)[6:]}", "launches": 0,
+                "shape": f"{shape} {str(dtype)[6:]}", "design": design, "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms}
 
-    src_mm = "src/repro_torch/kernels/csrc/moe_gemm.cu"
-    src_fa = "src/repro_torch/kernels/csrc/flash_attention.cu"
-
     # Down-projections take the fp32 hidden activation, as in the model.
     # -- grouped_matmul_f32 (capacity dispatch) ------------------------------
-    C_pre = -(-512 * k * 5 // (E * 4))  # ceil(T*k/E * 1.25) at the 512 bucket
+    # Expert capacity C of each prefill bucket the serving phase's 64-512
+    # token prompts reach (64 .. 512): 16, 32, 64 and 128 rows, which between
+    # them take every tile shape of the tensor-core kernel.
+    C_pre = _capacity(512, arch.moe)
+    buckets = [(_capacity(t, arch.moe), d, f, f"bucket {t} gate/up") for t in (64, 128, 256)]
     for dtype in (torch.float32, torch.bfloat16):
         for (M, K, N, tag) in ((C_pre, d, f, "prefill gate/up"), (C_pre, f, d, "prefill down"),
                                (1, d, f, "decode gate/up"), (1, f, d, "decode down"),
-                               (100, 96, 56, "edge"), (3, 64, 40, "edge")):
+                               *buckets, (100, 96, 56, "edge"), (3, 64, 40, "edge"),
+                               (16, 64, 40, "edge"), (17, 96, 56, "edge")):
             xdt = torch.float32 if "down" in tag else dtype
             x, w = randn(E, M, K, dtype=xdt), randn(E, K, N, scale=K ** -0.5, dtype=dtype)
-            err = check(f"grouped_matmul_f32 {tag} ({E},{M},{K})x({K},{N}) {xdt}x{dtype}",
-                        mm_ops.grouped_matmul_f32(x, w), mm_ref.grouped_matmul_f32(x, w),
-                        GEMM_TOL)
-            if tag == "edge":
+            design = mm_ops.grouped_design(x.dtype, w.dtype, M)
+            via = design if design == "fma" else f"{design}/{mm_ops.grouped_tile(x.dtype, M)}"
+            err = check(f"grouped_matmul_f32 {tag} ({E},{M},{K})x({K},{N}) {xdt}x{dtype} "
+                        f"via {via}", mm_ops.grouped_matmul_f32(x, w),
+                        mm_ref.grouped_matmul_f32(x, w), GEMM_TOL)
+            if tag.split()[0] in ("edge", "bucket"):  # checked, not timed
                 continue
+            # fp32 x on the tensor cores is three bf16 products: 3x the bf16 work
+            flops = 2 * E * M * K * N
+            ops = ([(3 * flops, torch.bfloat16)] if (x.dtype, w.dtype) == (torch.float32, torch.bfloat16)
+                   else [(flops, rate_dtype(x, w))])
             e = report("grouped_matmul_f32", f"{tag} ({E},{M},{K})x({K},{N})", rate_dtype(x, w),
                        mm_ops.grouped_matmul_f32_launch(x, w)[1],
                        lambda: mm_ref.grouped_matmul_f32(x, w),
                        (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
                        x.numel() * x.element_size() + w.numel() * w.element_size()
-                       + E * M * N * 4, [(2 * E * M * K * N, rate_dtype(x, w))], err, src_mm,
-                       "src/repro/kernels/moe_gemm/moe_gemm.py:67")
+                       + E * M * N * 4, ops, err, mm_ops._GROUPED[design].path,
+                       "src/repro/kernels/moe_gemm/moe_gemm.py:67", design)
             if tag == "prefill gate/up" and dtype == torch.bfloat16:
                 entries["grouped_matmul_f32"] = e
 
@@ -260,13 +277,13 @@ def kernel_phase(dev):
                           dtype, mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
                           lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
                           rows * K_ * sz + 2 * touched * K_ * F_ * sz + 3 * T * F_ * 4,
-                          [(4 * rows * K_ * F_, dtype)], max(errs), src_mm,
+                          [(4 * rows * K_ * F_, dtype)], max(errs), mm_ops._GATE_UP.path,
                           "src/repro/kernels/moe_gemm/moe_gemm.py:253")
             e_mm = report("ragged_matmul_f32", f"{tag} ({T},{F_})x({Ec},{F_},{K_})",
                           torch.float32, mm_ops.ragged_matmul_f32_launch(h, wd, offs)[1],
                           lambda: mm_ref.ragged_matmul_f32(h, wd, offs), None,
                           rows * F_ * 4 + touched * F_ * K_ * sz + T * K_ * 4,
-                          [(2 * rows * F_ * K_, torch.float32)], err, src_mm,
+                          [(2 * rows * F_ * K_, torch.float32)], err, mm_ops._RAGGED.path,
                           "src/repro/kernels/moe_gemm/moe_gemm.py:178")
             if dtype == torch.bfloat16:
                 # the same kernel on bf16 rows, beside the library's grouped GEMM
@@ -276,7 +293,7 @@ def kernel_phase(dev):
                        lambda: mm_ref.ragged_matmul_f32(hb, wd, offs),
                        (lambda: grouped_mm(hb, wd, offs=offs[1:])) if grouped_mm else None,
                        rows * F_ * sz + touched * F_ * K_ * sz + T * K_ * 4,
-                       [(2 * rows * F_ * K_, dtype)], err, src_mm,
+                       [(2 * rows * F_ * K_, dtype)], err, mm_ops._RAGGED.path,
                        "src/repro/kernels/moe_gemm/moe_gemm.py:178")
                 if tag.startswith("prefill"):
                     entries["ragged_matmul_f32"] = e_mm
@@ -302,7 +319,7 @@ def kernel_phase(dev):
                    # its contraction (2-D x 2-D), on bf16 operands
                    (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
                    rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
-                   [(2 * rows * K_ * N_, rate_dtype(x, gr))], err, src_mm,
+                   [(2 * rows * K_ * N_, rate_dtype(x, gr))], err, mm_ops._DW.path,
                    "src/repro/kernels/moe_gemm/moe_gemm.py:335")
         if xdt == torch.bfloat16:
             entries["ragged_dw_f32"] = e
@@ -331,8 +348,10 @@ def kernel_phase(dev):
                                     v.transpose(1, 2).float(), window=win,
                                     softcap=cap).transpose(1, 2).to(dtype)
             got = fa_ops.flash_attention(q, kk, v, window=win, logit_softcap=cap)
+            design = fa_ops.design(dtype, dh)
             err = check(f"flash_attention {tag} b={b} s={s} hq={h1} hkv={h2} d={dh} "
-                        f"window={win} softcap={cap} {dtype}", got, want, FA_TOL[dtype])
+                        f"window={win} softcap={cap} {dtype} via {design}", got, want,
+                        FA_TOL[dtype])
             if tag == "edge":
                 continue
             qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
@@ -343,8 +362,9 @@ def kernel_phase(dev):
                        lambda: torch.nn.functional.scaled_dot_product_attention(
                            qc, kc, vc, is_causal=True, enable_gqa=True),
                        2 * b * s * h1 * dh * sz + 2 * b * s * h2 * dh * sz,
-                       [(4 * b * h1 * dh * s * (s + 1) / 2, dtype)], err, src_fa,
-                       "src/repro/kernels/flash_attention/flash_attention.py:103")
+                       [(4 * b * h1 * dh * s * (s + 1) / 2, dtype)], err,
+                       fa_ops._FLASH[design].path,
+                       "src/repro/kernels/flash_attention/flash_attention.py:103", design)
             if s == 512 and dtype == torch.bfloat16:
                 entries["flash_attention"] = e
 
@@ -362,7 +382,7 @@ def ssd_kernel_checks(dev, g, report):
 
     s = get_arch(SSM_ARCH).ssm
     h, p, n = s.num_heads(get_arch(SSM_ARCH).d_model), s.head_dim, s.state_size
-    src = "src/repro_torch/kernels/csrc/ssd.cu"
+    src = ssd_ops._SSD.path
     cases = [((4, 8, 256, h, p, n), "decay", "prefill 4 x 2048"),
              ((4, 1, 100, h, p, n), "decay", "prefill 4 x 100"),
              ((1, 1, 200, h, p, n), "decay", "prefill 1 x 200"),
@@ -517,6 +537,26 @@ def train_parity(lm, params_cpu, dev, mode: str) -> None:
 PATH_KERNELS = {"capacity": ("flash_attention", "grouped_matmul_f32"),
                 "ragged": ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matmul_f32")}
 SERVE_MODES = ("capacity", "ragged")
+def check_designs(counts, label: str) -> str:
+    """Fail unless every launch of a kernel with several designs in
+    ``counts`` went through a design for bf16 weights, never the one the
+    ops module picks for fp32 (serving's weights and activations are bf16,
+    the down projection's hidden rows fp32 against bf16 weights); returns
+    the per-design counts for the log."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+
+    f32 = torch.float32
+    shown = []
+    for name, designs, fp32_design in (
+            ("flash_attention", fa_ops._FLASH, fa_ops.design(f32, 64)),
+            ("grouped_matmul_f32", mm_ops._GROUPED, mm_ops.grouped_design(f32, f32, 1))):
+        per = {dz: counts[f"{name}/{dz}"] for dz in designs}
+        shown.append(f"{name}: " + ", ".join(f"/{dz} {n}" for dz, n in per.items()))
+        if per[fp32_design] or sum(per.values()) != counts[name]:
+            fail(f"{label}: {name} launches {counts[name]} by design {per}: a bf16 call "
+                 f"reached /{fp32_design}")
+    return "; ".join(shown)
 
 
 def serving_phase():
@@ -541,6 +581,7 @@ def serving_phase():
         for name in PATH_KERNELS[mode]:
             if counts[mode][name] == 0:
                 fail(f"{mode} serving never launched {name}")
+        log(f"[serving] {mode}: designs {check_designs(counts[mode], f'{mode} serving')}")
         if mode == "ragged":
             case = c
     return counts, case
@@ -569,8 +610,9 @@ def parity_phase(case) -> None:
 
 def _kernel_name(name: str) -> str:
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
-    if name.startswith(("grouped_mm_kernel", "ragged_kernel", "ragged_dw_kernel",
-                        "fa_fwd_kernel", "ssd_intra_chunk_kernel")):
+    if name.startswith(("grouped_mm_kernel", "grouped_tc_kernel", "ragged_kernel",
+                        "ragged_dw_kernel", "fa_fwd_kernel", "fa_tc_kernel",
+                        "ssd_intra_chunk_kernel")):
         return name.split("(")[0]  # the port's kernels, with their template args
     return name.split("<")[0].split("(")[0]
 
@@ -611,9 +653,11 @@ def _profiled(fn, label: str) -> None:
 
 def profile_phase(dev) -> None:
     """One 512-bucket prefill and 8 decode steps over 4 running sequences at
-    full width, bf16, under each dispatch, each through ``Engine.step``."""
+    full width, bf16, under each dispatch, each through ``Engine.step``; no
+    launch may reach an ``/fma`` design."""
     import dataclasses
 
+    from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.models.model import LanguageModel, init_params
     from repro_torch.serving import Engine, Request, ServeConfig
@@ -626,6 +670,7 @@ def profile_phase(dev) -> None:
     for mode in ("capacity", "ragged"):
         arch = base.replace(moe=dataclasses.replace(base.moe, dispatch=mode))
         eng = Engine(LanguageModel(arch), params, cfg)
+        kernels.reset_launch_counts()
         for rid in range(6):  # 0-1: prefill only (warm-up, profiled); 2-5 decode
             eng.submit(Request(rid=rid, tokens=rng.integers(0, arch.vocab_size, 500),
                                max_new_tokens=1 if rid < 2 else 64))
@@ -636,6 +681,9 @@ def profile_phase(dev) -> None:
         eng.step()
         _profiled(lambda: [eng.step() for _ in range(8)],
                   f"{mode} decode, 4 sequences, 8 engine steps")
+        torch.cuda.synchronize()
+        log(f"[profile] {mode}: designs "
+            f"{check_designs(kernels.launch_counts(), f'{mode} profile')}")
         del eng
 
 
@@ -825,7 +873,8 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(card)
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     entries = kernel_phase(dev)
     log(f"[phase] kernels done at {time.perf_counter() - t0:.1f}s")
@@ -853,7 +902,6 @@ def main() -> None:
              "ragged_matmul_f32", "ragged_dw_f32", "ssd_intra_chunk")
     if sorted(entries) != sorted(names):
         fail(f"kernel entries {sorted(entries)}")
-    log(card)
     print(json.dumps({"kernels": [entries[n] for n in names]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

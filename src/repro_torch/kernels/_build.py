@@ -9,7 +9,9 @@ starts one ``nvcc`` per missing library, all at once.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises when that is not 0, and
-counts its launches so a run can show which kernels it went through.
+counts its launches so a run can show which kernels it went through: under
+the wrapper's name (one per wrapper call, whichever design ran) and, where
+a wrapper has several designs, under ``<wrapper>/<design>`` as well.
 """
 
 from __future__ import annotations
@@ -26,14 +28,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("moe_gemm", "flash_attention", "ssd")
+SOURCES = ("moe_gemm", "moe_gemm_tc", "flash_attention", "flash_attention_tc", "ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-KERNELS: Dict[str, "Kernel"] = {}
+COUNTS: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -92,22 +94,32 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of a built library, with its launch count.
+    """One C entry point of a built library, with its launch counts.
 
     ``argtypes`` lists the C arguments before the trailing stream; every
     pointer and the stream travel as ``c_void_p`` (a bare Python int would
     be cut to 32 bits).  Tensor arguments are passed as their data
     pointers, converted at the call, so whoever holds the arguments keeps
-    the tensors alive.
+    the tensors alive.  Each launch adds one to every name in ``counters``
+    (default: the symbol), e.g. ``("flash_attention", "flash_attention/tc")``;
+    two designs built from one entry point are two instances with their
+    own counters.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 counters: Sequence[str] = ()):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
-        self.launches = 0
+        self.counters = tuple(counters) or (symbol,)
         self._fn = None
-        KERNELS[symbol] = self
+        for name in self.counters:
+            COUNTS.setdefault(name, 0)
+
+    @property
+    def path(self) -> str:
+        """The kernel's source file, relative to the root of the checkout."""
+        return (CSRC / f"{self.source}.cu").relative_to(CSRC.parents[3]).as_posix()
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -119,19 +131,20 @@ class Kernel:
         stream = torch.cuda.current_stream().cuda_stream
         rc = self._fn(*(ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
                         else a for a in args), stream)
-        self.launches += 1
+        for name in self.counters:
+            COUNTS[name] += 1
         if rc != 0:
             msg = load(self.source).repro_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: {msg} ({rc})")
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    return dict(COUNTS)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    for name in COUNTS:
+        COUNTS[name] = 0
 
 
 def check_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -1,30 +1,33 @@
-// Flash-attention forward for Hopper (sm_90a): online softmax in fp32.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores: the fp32
+// path, online softmax and products in fp32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
-// flash_attention.py:103 flash_attention (body _fa_kernel :30): causal
-// masking, GQA through kv-head indexing (h // groups, no K/V repeat),
-// sliding window, logit softcap and the l == 0 guard, forward only (the JAX
-// package has no flash backward either).
+// flash_attention.py:103 flash_attention (body _fa_kernel :30) for fp32
+// inputs: causal masking, GQA through kv-head indexing (h // groups, no K/V
+// repeat), sliding window, logit softcap and the l == 0 guard, forward only
+// (the JAX package has no flash backward either).  bf16 inputs, as on the
+// serving path, go to fa_tc_kernel (flash_attention_tc.cu, tensor cores);
+// fp32 stays here because the fp32 paged-decode parity probe is held to
+// 1e-5, which TF32 or bf16 products would break.  The wrapper chooses by
+// dtype.
 //
 // What bounds it on an H100: at granite-moe-3b's serving shapes (24 query
 // heads over 8 KV heads, head_dim 64, prompts of at most 512 tokens) the
 // work is ~4*s^2/2*d FLOPs per head, a few hundred MFLOP per layer, and the
-// bytes are q/k/v/out once; both bounds are microseconds, so this first
-// version is limited by its own CUDA-core arithmetic and occupancy, not by
-// the card.
+// bytes are q/k/v/out once; both bounds are microseconds, so this kernel is
+// limited by its own CUDA-core arithmetic and occupancy, not by the card.
 //
-// Design (first, simple version): one 64-thread block per (query tile of
-// 64 rows, query head, batch); each thread owns one query row, holding q
-// and its fp32 accumulator in registers.  The TPU's sequential KV grid axis
-// becomes a loop inside the block over 32-key K/V tiles staged in shared
-// memory as fp32 (every thread reads the same key: broadcast).  Softmax
-// state is updated every 16 keys with the TPU kernel's rule: scores of
-// masked keys are -1e30 and still enter exp(s - m), so rows agree with the
-// TPU kernel; keys past the sequence end are excluded outright.  KV tiles
-// wholly above the causal diagonal or left of the window are skipped.
-// Inputs are read through strides, so the model's (b, s, h, d) layout
-// needs no transpose copy; the output is written in that layout.  No
-// tensor cores yet.
+// Design: one 64-thread block per (query tile of 64 rows, query head,
+// batch); each thread owns one query row, holding q and its fp32
+// accumulator in registers.  The TPU's sequential KV grid axis becomes a
+// loop inside the block over 32-key K/V tiles staged in shared memory as
+// fp32 (every thread reads the same key: broadcast).  Softmax state is
+// updated every 16 keys with the TPU kernel's rule: scores of masked keys
+// are -1e30 and still enter exp(s - m), so rows agree with the TPU kernel;
+// keys past the sequence end are excluded outright.  KV tiles wholly above
+// the causal diagonal or left of the window are skipped.  Inputs are read
+// through strides, so the model's (b, s, h, d) layout needs no transpose
+// copy; the output is written in that layout.
 
 #include "common.cuh"
 
@@ -135,14 +138,14 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 }  // namespace
 
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int dt, int B, int HQ, int HKV,
-                               int SQ, int SKV, int D, long long q_sb,
-                               long long q_ss, long long q_sh, long long k_sb,
-                               long long k_ss, long long k_sh, long long v_sb,
-                               long long v_ss, long long v_sh, int causal,
-                               int window, float softcap, float scale,
-                               void* stream) {
+extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
+                                   void* out, int dt, int B, int HQ, int HKV,
+                                   int SQ, int SKV, int D, long long q_sb,
+                                   long long q_ss, long long q_sh, long long k_sb,
+                                   long long k_ss, long long k_sh, long long v_sb,
+                                   long long v_ss, long long v_sh, int causal,
+                                   int window, float softcap, float scale,
+                                   void* stream) {
   if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};

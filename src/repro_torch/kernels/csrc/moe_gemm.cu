@@ -1,7 +1,10 @@
-// Grouped and ragged expert GEMMs for Hopper (sm_90a), fp32 accumulation.
+// Grouped and ragged expert GEMMs for Hopper (sm_90a) on the CUDA cores,
+// fp32 accumulation.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/moe_gemm/moe_gemm.py:
-//   grouped_matmul_f32       (:67,  body _matmul_kernel :45)
+//   grouped_matmul_f32       (:67,  body _matmul_kernel :45), fp32 weights
+//                            only; bf16 weights, as on the serving path, go
+//                            to the tensor-core kernels of moe_gemm_tc.cu
 //   ragged_matmul_f32        (:178, body _ragged_mm_kernel :154)
 //   ragged_gate_up_silu_f32  (:253, body _ragged_gate_up_kernel :225)
 //   ragged_dw_f32            (:335, body _ragged_dw_kernel :310)
@@ -16,10 +19,12 @@
 // output tile, looping over K in 32-deep slabs staged through shared memory
 // as fp32 (bf16 operands are widened on load), each thread owning a
 // (BM/16) x 4 register tile.  All arithmetic is fp32 FMA on the CUDA cores,
-// so fp32 inputs keep full fp32 precision (no TF32).  Each output element
-// is summed over k in ascending order whatever the tile shape, so a row's
-// result does not depend on which other rows share its launch.  BM is 16
-// for skinny launches (decode) and 64 otherwise.  No wgmma / TMA yet.
+// so fp32 inputs keep full fp32 precision (no TF32).  In these kernels each
+// output element is summed over k in ascending order whatever the tile
+// shape, so a row's result does not depend on which other rows share its
+// launch.  BM is 16 for skinny launches (decode) and 64 otherwise.  These
+// kernels use neither tensor cores nor TMA (moe_gemm_tc.cu uses mma.sync
+// and cp.async for the bf16-weight grouped GEMM).
 //
 // The TPU grid walks (tile, expert) work items in order and blend-stores
 // tiles that straddle an expert boundary into a VMEM-resident block.  Here
@@ -253,9 +258,9 @@ template <typename F> bool dispatch(int bm, int xdt, int wdt, F&& f) {
 
 }  // namespace
 
-extern "C" int grouped_matmul_f32(const void* x, int xdt, const void* w, int wdt,
-                                  void* out, int E, int M, int K, int N, int bm,
-                                  void* stream) {
+extern "C" int grouped_matmul_f32_fma(const void* x, int xdt, const void* w, int wdt,
+                                      void* out, int E, int M, int K, int N, int bm,
+                                      void* stream) {
   const bool ok = dispatch(bm, xdt, wdt, [&](auto bmt, auto* xp, auto* wp) {
     using TX = elem_t<decltype(xp)>;
     using TW = elem_t<decltype(wp)>;

@@ -14,7 +14,8 @@ Precision contract: bf16 (or fp32) inputs, fp32 accumulation everywhere,
 and the hidden activation stays fp32 *between* launches — the only cast
 back to the input dtype happens after the final down-projection.
 
-Each ``*_f32`` wrapper launches its CUDA kernel (``csrc/moe_gemm.cu``) for
+Each ``*_f32`` wrapper launches its CUDA kernel (``csrc/moe_gemm.cu``;
+``csrc/moe_gemm_tc.cu`` for ``grouped_matmul_f32`` with bf16 weights) for
 CUDA tensors, takes the plain version in ``ref`` only when every input lies
 on the CPU, and raises on any other device, dtype, shape or layout.  The
 kernels mask ragged row and column edges themselves, so rows are never
@@ -37,8 +38,18 @@ from repro_torch.kernels.moe_gemm import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
-_GROUPED = Kernel("moe_gemm", "grouped_matmul_f32",
-                  [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I])
+_GROUPED_ARGS = [_P, _I, _P, _P, _I, _I, _I, _I, _I]
+_GROUPED = {
+    "tc": Kernel("moe_gemm_tc", "grouped_matmul_f32_tc", _GROUPED_ARGS,
+                 ("grouped_matmul_f32", "grouped_matmul_f32/tc")),
+    "skinny": Kernel("moe_gemm_tc", "grouped_matmul_f32_tc", _GROUPED_ARGS,
+                     ("grouped_matmul_f32", "grouped_matmul_f32/skinny")),
+    "fma": Kernel("moe_gemm", "grouped_matmul_f32_fma", [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I],
+                  ("grouped_matmul_f32", "grouped_matmul_f32/fma")),
+}
+# Tile shapes of csrc/moe_gemm_tc.cu, in the order of its tile codes.
+TILES = ("Tile128", "Tile64", "Tile64Split", "Skinny")
+SKINNY_ROWS = 16  # at most this many rows per expert: the weight-streaming design
 _RAGGED = Kernel("moe_gemm", "ragged_matmul_f32",
                  [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 _GATE_UP = Kernel("moe_gemm", "ragged_gate_up_silu_f32",
@@ -58,19 +69,55 @@ def _row_block(rows_per_group: float) -> int:
 # ---------------------------------------------------------------------------
 
 
+def grouped_design(x_dtype: torch.dtype, w_dtype: torch.dtype, M: int) -> str:
+    """The kernel design a CUDA grouped GEMM launches for x of ``x_dtype``
+    with M rows per expert and weights of ``w_dtype``: bf16 weights go to
+    the tensor cores, "tc" or, for M <= 16, "skinny" (the decode weight
+    stream), with fp32 x split into three bf16 pieces; fp32 weights to
+    "fma" (fp32 CUDA cores, no TF32)."""
+    for name, dt in (("x", x_dtype), ("w", w_dtype)):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"grouped_matmul_f32: {name} dtype {dt} not supported (fp32, bf16)")
+    if w_dtype == torch.float32:
+        return "fma"
+    return "skinny" if M <= SKINNY_ROWS else "tc"
+
+
+def grouped_tile(x_dtype: torch.dtype, M: int) -> str:
+    """The tile shape (of ``TILES``) a tensor-core grouped GEMM launches
+    with, tuned on the card: the 16-row weight stream for M <= 16; for more
+    rows, 64 x 64 tiles for fp32 x (three bf16 pieces) and for bf16 x up to
+    64 rows, 128 x 64 tiles above."""
+    if M <= SKINNY_ROWS:
+        return "Skinny"
+    if x_dtype == torch.float32:
+        return "Tile64Split"
+    return "Tile128" if M > 64 else "Tile64"
+
+
 def grouped_matmul_f32_launch(x: torch.Tensor, w: torch.Tensor):
     """Validate a grouped GEMM on CUDA tensors and allocate its output;
-    returns (out, launch), where ``launch()`` enqueues the kernel alone."""
+    returns (out, launch), where ``launch()`` enqueues the kernel of
+    :func:`grouped_design` alone."""
     check_cuda(x, w)
     if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(f"grouped_matmul_f32: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     check_contiguous(x=x, w=w)
     E, M, K = x.shape
     N = w.shape[2]
+    kind = grouped_design(x.dtype, w.dtype, M)
+    if kind != "fma" and (x.data_ptr() % 16 or w.data_ptr() % 16
+                          or K % (16 // x.element_size()) or N % 8):
+        raise ValueError(
+            f"grouped_matmul_f32: the tensor-core kernel needs 16-byte aligned rows "
+            f"(x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}: K a multiple of "
+            f"{16 // x.element_size()}, N of 8, 16-byte aligned data)")
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
-    args = (x, dtype_code("x", x), w, dtype_code("w", w), out,
-            E, M, K, N, _row_block(M))
-    return out, (lambda: _GROUPED(*args)) if out.numel() else (lambda: None)
+    if kind == "fma":
+        args = (x, dtype_code("x", x), w, dtype_code("w", w), out, E, M, K, N, _row_block(M))
+    else:
+        args = (x, dtype_code("x", x), w, out, E, M, K, N, TILES.index(grouped_tile(x.dtype, M)))
+    return out, (lambda: _GROUPED[kind](*args)) if out.numel() else (lambda: None)
 
 
 def grouped_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

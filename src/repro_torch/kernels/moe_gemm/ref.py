@@ -19,6 +19,25 @@ def grouped_matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.float(), w.float())
 
 
+def split_bf16x3(x: torch.Tensor):
+    """fp32 x as three bf16 pieces (hi, mid, lo), each the bf16 rounding of
+    what the pieces before it leave: hi + mid + lo == x exactly for finite x
+    away from the ends of fp32's exponent range (8 + 8 + 8 significant bits
+    cover fp32's 24, and every residual is exact in fp32)."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def grouped_matmul_bf16x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic for fp32 x and bf16 w: the sum of
+    three products of bf16 pieces of x with w, each exact in fp32."""
+    return sum(torch.bmm(p.float(), w.float()) for p in split_bf16x3(x))
+
+
 def ragged_matmul_f32(x: torch.Tensor, w: torch.Tensor,
                       offsets: torch.Tensor) -> torch.Tensor:
     """out[t] = x[t] @ w[expert(t)] in fp32 for expert-sorted rows; rows at

@@ -5,15 +5,21 @@ no CUDA card is present.  The file imports no JAX, so on a machine with a
 card it runs as ``python -m pytest --noconftest tests/test_torch_kernels_gpu.py``.
 
 Tolerances: the GEMM kernels (``ragged_dw_f32`` too) return fp32 sums of
-the same fp32-widened products as the plain version, so both dtypes are
-held at the reference's fp32 bound (rtol 2e-5, atol 1.6e-4) — only the
-summation order differs.  ``RaggedFFN``'s gradients on the card against
+the same exact products as the plain version (bf16 weights on the tensor
+cores, fp32 x split there into three bf16 pieces whose products sum to
+the fp32 product), so both dtypes are held at the reference's fp32 bound
+(rtol 2e-5, atol 1.6e-4) — only the summation order differs.  ``RaggedFFN``'s gradients on the card against
 the same function on the CPU, fp32: rtol = atol = 2e-5, the reference's
 custom-VJP bound.
-Flash attention computes in fp32 and rounds once to q's dtype; it is held
+Flash attention computes its softmax in fp32 and rounds once to q's
+dtype; for bf16 inputs P enters P.V as two bf16 pieces (hi + lo, 16
+significant bits), so its rounding stays under the output's own bf16 step
+(a single bf16 piece failed the bf16 bound at s = 512).  It is held
 against its plain version run in fp32 on the same inputs and rounded once,
-so bf16 outputs may differ by one bf16 step (rtol 1e-2, atol 2e-3); fp32
-outputs are held at rtol 2e-5, atol 8e-5.
+so bf16 outputs may differ by about one bf16 step (rtol 1e-2, atol 2e-3);
+fp32 outputs are held at rtol 2e-5, atol 8e-5.
+Each design counts its launches (``<wrapper>/tc``, ``/skinny``, ``/fma``);
+bf16 calls must never reach ``/fma``.
 ``ssd_intra_chunk`` likewise computes in fp32 from its inputs' values and
 rounds once: fp32 at the reference's atol 3e-5 (on inputs at the model's
 scale: x dt-scaled, ~0.1; B and C ~0.5), bf16 against the plain version on
@@ -26,6 +32,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels._build import dtype_code
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.moe_gemm import ops as mm_ops
@@ -34,6 +41,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
+_ATTN = fa_ref.attention  # unpoisoned by ``no_plain``: the CPU side of a check
 
 GEMM_TOL = dict(rtol=2e-5, atol=1.6e-4)
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
@@ -204,7 +212,11 @@ def test_cuda_calls_never_reach_plain(dev, no_plain):
     assert after["ragged_gate_up_silu_f32"] == before["ragged_gate_up_silu_f32"] + 1
     assert after["ragged_matmul_f32"] == before["ragged_matmul_f32"] + 1
     assert after["grouped_matmul_f32"] == before["grouped_matmul_f32"] + 3
+    assert after["grouped_matmul_f32/tc"] == before["grouped_matmul_f32/tc"] + 3  # M = 17
     assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention/tc"] == before["flash_attention/tc"] + 1
+    for name in ("grouped_matmul_f32/fma", "flash_attention/fma"):
+        assert after[name] == before[name]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -326,3 +338,115 @@ def test_wrappers_reject_bad_inputs(dev):
     B2 = torch.zeros((1, 1, 64, 2, 16), device=dev)[..., ::2]
     with pytest.raises(ValueError):  # n not contiguous
         ssd_ops.ssd_intra_chunk(x, dA, B2, B2)
+
+
+def _designs(name):
+    c = launch_counts()
+    return {k: v for k, v in c.items() if k == name or k.startswith(name + "/")}
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 3, 16, 17, 64, 100, 128])
+@pytest.mark.parametrize("K,N", [(96, 56), (1536, 512), (512, 1536)])
+def test_grouped_matmul_tensor_core_designs(dev, M, K, N, xdt, no_plain):
+    """bf16 weights with bf16 x (gate/up) or fp32 x (down, three bf16
+    pieces): the skinny design for M <= 16, the tile design above, never
+    the fma kernel; at the reference's fp32 bound against the fp32 product
+    on the CPU, including ragged M, N = 56 and K = 96 edges."""
+    rng = np.random.default_rng(M)
+    E = 5
+    x = _t(rng.standard_normal((E, M, K)), xdt, dev)
+    w = _t(rng.standard_normal((E, K, N)) * K ** -0.5, torch.bfloat16, dev)
+    before = _designs("grouped_matmul_f32")
+    got = mm_ops.grouped_matmul_f32(x, w)
+    torch.cuda.synchronize()
+    kind = "skinny" if M <= 16 else "tc"
+    assert _delta(before, _designs("grouped_matmul_f32")) == {
+        "grouped_matmul_f32": 1, "grouped_matmul_f32/tc": int(kind == "tc"),
+        "grouped_matmul_f32/skinny": int(kind == "skinny"), "grouped_matmul_f32/fma": 0}
+    want = torch.bmm(x.cpu().float(), w.cpu().float())
+    assert got.dtype == torch.float32 and got.shape == (E, M, N)
+    _close(got, want, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (6, 2), (8, 2)])
+@pytest.mark.parametrize("s,window,cap", [(100, None, None), (130, 40, None),
+                                          (64, None, 30.0), (200, 64, 50.0)])
+def test_flash_attention_tensor_core_design(dev, d, hq, hkv, s, window, cap, no_plain):
+    """bf16 through the tensor-core kernel at every head dim, GQA 1, 3 and
+    4, ragged lengths, window and softcap, the inputs strided views of one
+    fused projection; never the fma kernel."""
+    rng = np.random.default_rng(d + hq + s)
+    qkv = _t(rng.standard_normal((2, s, hq + 2 * hkv, d)), torch.bfloat16, dev)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    before = _designs("flash_attention")
+    got = fa_ops.flash_attention(q, k, v, window=window, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("flash_attention")) == {
+        "flash_attention": 1, "flash_attention/tc": 1, "flash_attention/fma": 0}
+    f = lambda t: t.transpose(1, 2).float().cpu()  # noqa: E731
+    want = _ATTN(f(q), f(k), f(v), window=window, softcap=cap).transpose(1, 2)
+    _close(got, want.to(torch.bfloat16), **FA_TOL[torch.bfloat16])
+
+
+def test_fp32_calls_take_the_fma_designs(dev):
+    x = torch.randn((3, 20, 32), device=dev)
+    w = torch.randn((3, 32, 24), device=dev)
+    q = torch.randn((1, 40, 2, 32), device=dev)
+    before = launch_counts()
+    mm_ops.grouped_matmul_f32(x, w)
+    mm_ops.grouped_matmul_f32(x.to(torch.bfloat16), w)  # bf16 x, fp32 w
+    fa_ops.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    d = _delta(before, launch_counts())
+    assert d["grouped_matmul_f32/fma"] == d["grouped_matmul_f32"] == 2
+    assert d["flash_attention/fma"] == d["flash_attention"] == 1
+    assert d["grouped_matmul_f32/tc"] == d["grouped_matmul_f32/skinny"] == 0
+    assert d["flash_attention/tc"] == 0
+
+
+def test_refused_launch_raises_and_never_returns_the_plain_result(dev, no_plain):
+    """A shape the wrappers accept but the card refuses (grid.z = 70000
+    experts or batch rows > 65535): the C entry returns the launch error
+    and the wrapper raises; no plain version runs."""
+    for xdt in (torch.bfloat16, torch.float32):
+        x = torch.zeros((70000, 1, 8), dtype=xdt, device=dev)
+        w = torch.zeros((70000, 8, 8), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            mm_ops.grouped_matmul_f32(x, w)
+    q = torch.zeros((70000, 1, 1, 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa_ops.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("xdt,tile", [(torch.float32, "Tile128"), (torch.float32, "Tile64"),
+                                      (torch.bfloat16, "Tile64Split"), (torch.bfloat16, None)])
+def test_grouped_tile_not_built_for_x_dtype_is_refused(dev, xdt, tile, no_plain):
+    """The tensor-core entry point launches only the tiles built for x's
+    dtype; another tile code (or one past the last) returns an error, and
+    the launch raises."""
+    x = torch.zeros((2, 32, 64), dtype=xdt, device=dev)
+    w = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((2, 32, 64), device=dev)
+    code = len(mm_ops.TILES) if tile is None else mm_ops.TILES.index(tile)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mm_ops._GROUPED["tc"](x, dtype_code("x", x), w, out, 2, 32, 64, 64, code)
+
+
+def test_tensor_core_wrappers_refuse_unaligned_rows(dev):
+    x = torch.zeros((2, 4, 12), dtype=torch.bfloat16, device=dev)  # K = 12: 24-byte rows
+    with pytest.raises(ValueError, match="aligned"):
+        mm_ops.grouped_matmul_f32(x, torch.zeros((2, 12, 8), dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="aligned"):  # N = 12
+        mm_ops.grouped_matmul_f32(torch.zeros((2, 4, 8), dtype=torch.bfloat16, device=dev),
+                                  torch.zeros((2, 8, 12), dtype=torch.bfloat16, device=dev))
+    base = torch.zeros((1, 8, 2, 24), dtype=torch.bfloat16, device=dev)
+    q = base[..., 1:17]  # d = 16, rows start 2 bytes into the allocation
+    with pytest.raises(ValueError, match="aligned"):
+        fa_ops.flash_attention(q, q, q)
