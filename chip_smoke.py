@@ -14,10 +14,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    at each of its tile shapes) and mamba2-370m and at the edge cases (empty expert, one expert, extreme
    skew; a chunk of 1 or 100 tokens, strong and zero decay); times the
    kernel alone (CUDA events, median), its plain version, a library call
-   that computes the same function, and the card's bound for the same work,
+   that computes the same function, and the card's bound for the same work
+   (fp32 operands of the tensor-core designs priced as their bf16 pieces),
    naming the kernel design that ran (``flash_attention/tc`` or ``/fma``,
-   ``grouped_matmul_f32/tc``, ``/skinny`` or ``/fma``; the checks name the
-   grouped tile shape too);
+   ``grouped_matmul_f32`` and ``ragged_matmul_f32`` ``/tc``, ``/skinny`` or
+   ``/fma``, ``ragged_dw_f32/tc``; the checks and the ragged times name the
+   tile shape too); the training step's ragged GEMMs at T*k = 8192 rows
+   too;
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
    weights on the CPU (plain versions), both dispatch modes; the reduced
@@ -54,7 +57,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    have a finite loss and none may be skipped, and each step must launch
    the ragged kernels once per MoE layer (gate-up), four times (the
    forward down-projection and the three backward GEMMs) and three times
-   (the weight gradients); then one more step under ``torch.profiler``.
+   (the weight gradients), none through an ``/fma`` design; then one more
+   step under ``torch.profiler``.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -99,6 +103,10 @@ SSM_ARCH = "mamba2-370m"
 SSD_TOL = {torch.float32: dict(rtol=0.0, atol=3e-5),
            torch.bfloat16: dict(rtol=1e-2, atol=3e-5)}
 SSM_PARITY_BOUND = 2e-4  # chunked vs recurrent SSD in fp32 (tests/test_ssm.py)
+# Tokens of the expert GEMMs the kernel phase times (scripts/port_kernel_ab.py
+# times the same): a 512-token prefill, a decode step of 4 sequences, and a
+# train step of 2 x 512 tokens.
+PREFILL_TOKENS, DECODE_TOKENS, TRAIN_TOKENS = 512, 4, 1024
 
 
 def fail(msg: str) -> None:
@@ -141,6 +149,53 @@ def rate_dtype(*ts):
     return torch.float32 if any(t.dtype == torch.float32 for t in ts) else torch.bfloat16
 
 
+def gemm_ops(flops: float, a, b) -> list:
+    """A GEMM's operations for ``bound_ms`` as the tensor-core designs do
+    them: bf16 operands once on the bf16 tensor cores; one fp32 operand in
+    three bf16 pieces (3x), two in six products (6x); each at the lesser
+    time of that and the fp32 CUDA-core rate."""
+    n32 = (a.dtype == torch.float32) + (b.dtype == torch.float32)
+    pieces = (1, 3, 6)[n32]
+    if n32 and flops / PEAK_FLOPS[torch.float32] < pieces * flops / PEAK_FLOPS[torch.bfloat16]:
+        return [(flops, torch.float32)]
+    return [(pieces * flops, torch.bfloat16)]
+
+
+def seeded_inputs(dev, E: int, k: int, seed: int = 0):
+    """(generator, randn, routed_offsets) on ``dev`` from ``seed``:
+    ``randn(*shape, scale=, dtype=)`` draws normal values times ``scale``;
+    ``routed_offsets(tokens)`` gives the per-expert row offsets, (E+1,)
+    int32, of ``tokens`` tokens each routed to k of E experts at random."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def routed_offsets(tokens: int):
+        ids = torch.rand((tokens, E), generator=g, device=dev).argsort(dim=1)[:, :k]
+        counts = torch.bincount(ids.reshape(-1), minlength=E)
+        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+    return g, randn, routed_offsets
+
+
+def expert_gemm_cases(arch, capacity) -> dict:
+    """The expert GEMMs the kernel phase times, at ``arch``'s widths:
+    ``grouped`` (M, K, N, tag) capacity GEMMs, M = ``capacity(tokens, moe)``
+    (down projections take fp32 x); ``serve`` (tag, tokens) ragged serving
+    steps, gate-up d -> f and down f -> d; ``train`` (K, N, tag) the train
+    step's ragged GEMMs over ``TRAIN_TOKENS`` tokens, fp32 x; ``dw`` (x
+    dtype, K, N, tag) its weight gradients against an fp32 g."""
+    d, f, k = arch.d_model, arch.moe.d_ff, arch.moe.top_k
+    C = capacity(PREFILL_TOKENS, arch.moe)
+    return {"grouped": [(C, d, f, "prefill gate/up"), (C, f, d, "prefill down"),
+                        (1, d, f, "decode gate/up"), (1, f, d, "decode down")],
+            "serve": [(f"prefill T={PREFILL_TOKENS * k}", PREFILL_TOKENS),
+                      (f"decode T={DECODE_TOKENS * k}", DECODE_TOKENS)],
+            "train": [(f, d, "train down"), (d, f, "train dh")],
+            "dw": [(torch.bfloat16, d, f, "dW_gate/up"), (torch.float32, f, d, "dW_down")]}
+
+
 def check(name: str, got, want, tol) -> float:
     got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -171,18 +226,10 @@ def kernel_phase(dev):
     log(f"[build] {', '.join(kernels._build.SOURCES)} built in "
         f"{time.perf_counter() - t0:.1f}s (nvcc, sm_90a)")
 
-    g = torch.Generator(device=dev).manual_seed(0)
     arch = get_arch(ARCH)
     d, f, E, k = arch.d_model, arch.moe.d_ff, arch.moe.num_experts, arch.moe.top_k
-
-    def randn(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
-    def routed_offsets(tokens: int):
-        """Per-expert row offsets of ``tokens`` tokens routed top-k of E."""
-        ids = torch.rand((tokens, E), generator=g, device=dev).argsort(dim=1)[:, :k]
-        counts = torch.bincount(ids.reshape(-1), minlength=E)
-        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    g, randn, routed_offsets = seeded_inputs(dev, E, k)
+    timed = expert_gemm_cases(arch, _capacity)
 
     entries = {}
 
@@ -214,13 +261,10 @@ def kernel_phase(dev):
     # Expert capacity C of each prefill bucket the serving phase's 64-512
     # token prompts reach (64 .. 512): 16, 32, 64 and 128 rows, which between
     # them take every tile shape of the tensor-core kernel.
-    C_pre = _capacity(512, arch.moe)
     buckets = [(_capacity(t, arch.moe), d, f, f"bucket {t} gate/up") for t in (64, 128, 256)]
     for dtype in (torch.float32, torch.bfloat16):
-        for (M, K, N, tag) in ((C_pre, d, f, "prefill gate/up"), (C_pre, f, d, "prefill down"),
-                               (1, d, f, "decode gate/up"), (1, f, d, "decode down"),
-                               *buckets, (100, 96, 56, "edge"), (3, 64, 40, "edge"),
-                               (16, 64, 40, "edge"), (17, 96, 56, "edge")):
+        for (M, K, N, tag) in (*timed["grouped"], *buckets, (100, 96, 56, "edge"),
+                               (3, 64, 40, "edge"), (16, 64, 40, "edge"), (17, 96, 56, "edge")):
             xdt = torch.float32 if "down" in tag else dtype
             x, w = randn(E, M, K, dtype=xdt), randn(E, K, N, scale=K ** -0.5, dtype=dtype)
             design = mm_ops.grouped_design(x.dtype, w.dtype, M)
@@ -230,26 +274,46 @@ def kernel_phase(dev):
                         mm_ref.grouped_matmul_f32(x, w), GEMM_TOL)
             if tag.split()[0] in ("edge", "bucket"):  # checked, not timed
                 continue
-            # fp32 x on the tensor cores is three bf16 products: 3x the bf16 work
-            flops = 2 * E * M * K * N
-            ops = ([(3 * flops, torch.bfloat16)] if (x.dtype, w.dtype) == (torch.float32, torch.bfloat16)
-                   else [(flops, rate_dtype(x, w))])
             e = report("grouped_matmul_f32", f"{tag} ({E},{M},{K})x({K},{N})", rate_dtype(x, w),
                        mm_ops.grouped_matmul_f32_launch(x, w)[1],
                        lambda: mm_ref.grouped_matmul_f32(x, w),
                        (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
                        x.numel() * x.element_size() + w.numel() * w.element_size()
-                       + E * M * N * 4, ops, err, mm_ops._GROUPED[design].path,
+                       + E * M * N * 4, gemm_ops(2 * E * M * K * N, x, w), err,
+                       mm_ops._GROUPED[design].path,
                        "src/repro/kernels/moe_gemm/moe_gemm.py:67", design)
             if tag == "prefill gate/up" and dtype == torch.bfloat16:
                 entries["grouped_matmul_f32"] = e
 
     # -- ragged_matmul_f32 / ragged_gate_up_silu_f32 (ragged dispatch) --------
     grouped_mm = getattr(torch, "_grouped_mm", None)
-    cases = [(f"prefill T={512 * k}", routed_offsets(512)),
-             (f"decode T={4 * k}", routed_offsets(4))]
+    cases = [(tag, routed_offsets(tokens)) for tag, tokens in timed["serve"]]
     cases += [(f"edge {c}", torch.tensor([0] + np.cumsum(c).tolist(), dtype=torch.int32,
                                          device=dev)) for c in RAGGED_COUNTS]
+
+    def ragged_via(x, w) -> str:
+        """The design (and tile) the wrapper picks for this ragged GEMM."""
+        design = mm_ops.ragged_design(x.dtype, w.dtype, x.shape[0] / w.shape[0])
+        return design if design == "fma" else (
+            f"{design}/{mm_ops.ragged_tile(x.dtype, x.shape[0] / w.shape[0])}")
+
+    def ragged_mm(x, w, offs, tag, err):
+        """Time one ragged GEMM (design and tile as the wrapper picks them),
+        beside the library's grouped GEMM where x and w share a dtype."""
+        T, (Ec, K_, N_), rows = x.shape[0], w.shape, int(offs[-1])
+        design, _, tile = ragged_via(x, w).partition("/")
+        touched = int((offs[1:] > offs[:-1]).sum())
+        return report("ragged_matmul_f32",
+                      f"{tag} ({T},{K_})x({Ec},{K_},{N_}){f' {tile}' if tile else ''}",
+                      rate_dtype(x, w), mm_ops.ragged_matmul_f32_launch(x, w, offs)[1],
+                      lambda: mm_ref.ragged_matmul_f32(x, w, offs),
+                      (lambda: grouped_mm(x, w, offs=offs[1:]))
+                      if grouped_mm and x.dtype == w.dtype else None,
+                      rows * K_ * x.element_size() + touched * K_ * N_ * w.element_size()
+                      + T * N_ * 4, gemm_ops(2 * rows * K_ * N_, x, w), err,
+                      mm_ops._RAGGED[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:178",
+                      design)
+
     for dtype in (torch.float32, torch.bfloat16):
         for tag, offs in cases:
             Ec, rows = offs.numel() - 1, int(offs[-1])
@@ -265,8 +329,13 @@ def kernel_phase(dev):
                     for n, a, b in zip(("h", "a_g", "a_u"), gate,
                                        mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs))]
             down = mm_ops.ragged_matmul_f32(h, wd, offs)
-            err = check(f"ragged_matmul_f32 {tag} fp32x{dtype}", down,
+            err = check(f"ragged_matmul_f32 {tag} fp32x{dtype} via {ragged_via(h, wd)}", down,
                         mm_ref.ragged_matmul_f32(h, wd, offs), GEMM_TOL)
+            if dtype == torch.bfloat16:  # the same kernel on bf16 rows
+                hb = h.to(dtype)
+                err_b = check(f"ragged_matmul_f32 {tag} bf16 rows via {ragged_via(hb, wd)}",
+                              mm_ops.ragged_matmul_f32(hb, wd, offs),
+                              mm_ref.ragged_matmul_f32(hb, wd, offs), GEMM_TOL)
             if any(not (a[rows:] == 0).all() for a in (*gate, down)):
                 fail(f"ragged kernels {tag}: rows past offsets[E] are not 0")
             if edge:
@@ -279,36 +348,33 @@ def kernel_phase(dev):
                           rows * K_ * sz + 2 * touched * K_ * F_ * sz + 3 * T * F_ * 4,
                           [(4 * rows * K_ * F_, dtype)], max(errs), mm_ops._GATE_UP.path,
                           "src/repro/kernels/moe_gemm/moe_gemm.py:253")
-            e_mm = report("ragged_matmul_f32", f"{tag} ({T},{F_})x({Ec},{F_},{K_})",
-                          torch.float32, mm_ops.ragged_matmul_f32_launch(h, wd, offs)[1],
-                          lambda: mm_ref.ragged_matmul_f32(h, wd, offs), None,
-                          rows * F_ * 4 + touched * F_ * K_ * sz + T * K_ * 4,
-                          [(2 * rows * F_ * K_, torch.float32)], err, mm_ops._RAGGED.path,
-                          "src/repro/kernels/moe_gemm/moe_gemm.py:178")
+            e_mm = ragged_mm(h, wd, offs, tag, err)
             if dtype == torch.bfloat16:
-                # the same kernel on bf16 rows, beside the library's grouped GEMM
-                hb = h.to(dtype)
-                report("ragged_matmul_f32", f"{tag} bf16 rows ({T},{F_})x({Ec},{F_},{K_})",
-                       dtype, mm_ops.ragged_matmul_f32_launch(hb, wd, offs)[1],
-                       lambda: mm_ref.ragged_matmul_f32(hb, wd, offs),
-                       (lambda: grouped_mm(hb, wd, offs=offs[1:])) if grouped_mm else None,
-                       rows * F_ * sz + touched * F_ * K_ * sz + T * K_ * 4,
-                       [(2 * rows * F_ * K_, dtype)], err, mm_ops._RAGGED.path,
-                       "src/repro/kernels/moe_gemm/moe_gemm.py:178")
+                ragged_mm(hb, wd, offs, f"{tag} bf16 rows", err_b)
                 if tag.startswith("prefill"):
                     entries["ragged_matmul_f32"] = e_mm
                     entries["ragged_gate_up_silu_f32"] = e_gu
 
+    # The training step's ragged GEMMs at T*k = 8192 rows (batch 2 x 512
+    # tokens, top-8): the forward down projection (fp32 h, K = 512 -> 1536)
+    # and the backward's dh (fp32 dy, 1536 -> 512), bf16 weights.
+    offs = routed_offsets(TRAIN_TOKENS)
+    rows = int(offs[-1])
+    for K_, N_, tag in timed["train"]:
+        x, w = randn(rows, K_), randn(E, K_, N_, scale=K_ ** -0.5, dtype=torch.bfloat16)
+        err = check(f"ragged_matmul_f32 {tag} T={rows} ({rows},{K_})x({E},{K_},{N_}) fp32x"
+                    f"bf16 via {ragged_via(x, w)}",
+                    mm_ops.ragged_matmul_f32(x, w, offs), mm_ref.ragged_matmul_f32(x, w, offs),
+                    GEMM_TOL)
+        ragged_mm(x, w, offs, f"{tag} T={rows}", err)
+
     # -- ragged_dw_f32 (training backward, ragged dispatch) -------------------
     # The two operand pairs of RaggedFFN's backward: (bf16 x, fp32 da) for
-    # dW_gate / dW_up and (fp32 h, fp32 dy) for dW_down, at T*k = 8192 rows
-    # (batch 2 x 512 tokens, top-8), then the edge cases with NaN tail rows.
-    offs = routed_offsets(1024)
-    for xdt, K_, N_, tag in ((torch.bfloat16, d, f, "dW_gate/up"),
-                             (torch.float32, f, d, "dW_down")):
-        rows = int(offs[-1])
+    # dW_gate / dW_up and (fp32 h, fp32 dy) for dW_down, at T*k = 8192 rows,
+    # then the edge cases with NaN tail rows.
+    for xdt, K_, N_, tag in timed["dw"]:
         x, gr = randn(rows, K_, dtype=xdt), randn(rows, N_, scale=1e-2)
-        err = check(f"ragged_dw_f32 {tag} ({rows},{K_})x({rows},{N_}) {xdt}xfp32",
+        err = check(f"ragged_dw_f32 {tag} ({rows},{K_})x({rows},{N_}) {xdt}xfp32 via tc",
                     mm_ops.ragged_dw_f32(x, gr, offs), mm_ref.ragged_dw_f32(x, gr, offs),
                     GEMM_TOL)
         xb, gb = x.to(torch.bfloat16), gr.to(torch.bfloat16)
@@ -319,17 +385,17 @@ def kernel_phase(dev):
                    # its contraction (2-D x 2-D), on bf16 operands
                    (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
                    rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
-                   [(2 * rows * K_ * N_, rate_dtype(x, gr))], err, mm_ops._DW.path,
-                   "src/repro/kernels/moe_gemm/moe_gemm.py:335")
+                   gemm_ops(2 * rows * K_ * N_, x, gr), err, mm_ops._DW.path,
+                   "src/repro/kernels/moe_gemm/moe_gemm.py:335", "tc")
         if xdt == torch.bfloat16:
             entries["ragged_dw_f32"] = e
     for xdt in (torch.float32, torch.bfloat16):
         for c in RAGGED_COUNTS + [[0, 0, 0]]:
             o = torch.tensor([0] + np.cumsum(c).tolist(), dtype=torch.int32, device=dev)
-            rows = int(o[-1])
-            x, gr = randn(rows + 5, 48, dtype=xdt), randn(rows + 5, 40)
-            x[rows:], gr[rows:] = float("nan"), float("nan")
-            check(f"ragged_dw_f32 edge {c} {xdt}xfp32", mm_ops.ragged_dw_f32(x, gr, o),
+            n = int(o[-1])
+            x, gr = randn(n + 5, 48, dtype=xdt), randn(n + 5, 40)
+            x[n:], gr[n:] = float("nan"), float("nan")
+            check(f"ragged_dw_f32 edge {c} {xdt}xfp32 via tc", mm_ops.ragged_dw_f32(x, gr, o),
                   mm_ref.ragged_dw_f32(x, gr, o), GEMM_TOL)
 
     # -- flash_attention (prefill) -------------------------------------------
@@ -540,9 +606,10 @@ SERVE_MODES = ("capacity", "ragged")
 def check_designs(counts, label: str) -> str:
     """Fail unless every launch of a kernel with several designs in
     ``counts`` went through a design for bf16 weights, never the one the
-    ops module picks for fp32 (serving's weights and activations are bf16,
-    the down projection's hidden rows fp32 against bf16 weights); returns
-    the per-design counts for the log."""
+    ops module picks for fp32 (serving's and training's weights are bf16,
+    the down projection's hidden rows and the backward's gradients fp32
+    against bf16 weights), and every ``ragged_dw_f32`` launch through its
+    one design; returns the per-design counts for the log."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_gemm import ops as mm_ops
 
@@ -550,12 +617,14 @@ def check_designs(counts, label: str) -> str:
     shown = []
     for name, designs, fp32_design in (
             ("flash_attention", fa_ops._FLASH, fa_ops.design(f32, 64)),
-            ("grouped_matmul_f32", mm_ops._GROUPED, mm_ops.grouped_design(f32, f32, 1))):
+            ("grouped_matmul_f32", mm_ops._GROUPED, mm_ops.grouped_design(f32, f32, 1)),
+            ("ragged_matmul_f32", mm_ops._RAGGED, mm_ops.ragged_design(f32, f32, 1)),
+            ("ragged_dw_f32", {"tc": mm_ops._DW}, None)):
         per = {dz: counts[f"{name}/{dz}"] for dz in designs}
         shown.append(f"{name}: " + ", ".join(f"/{dz} {n}" for dz, n in per.items()))
-        if per[fp32_design] or sum(per.values()) != counts[name]:
+        if per.get(fp32_design) or sum(per.values()) != counts[name]:
             fail(f"{label}: {name} launches {counts[name]} by design {per}: a bf16 call "
-                 f"reached /{fp32_design}")
+                 f"reached /{fp32_design}, or a launch no design counted")
     return "; ".join(shown)
 
 
@@ -611,8 +680,8 @@ def parity_phase(case) -> None:
 def _kernel_name(name: str) -> str:
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
     if name.startswith(("grouped_mm_kernel", "grouped_tc_kernel", "ragged_kernel",
-                        "ragged_dw_kernel", "fa_fwd_kernel", "fa_tc_kernel",
-                        "ssd_intra_chunk_kernel")):
+                        "ragged_tc_kernel", "ragged_dw_tc_kernel", "fa_fwd_kernel",
+                        "fa_tc_kernel", "ssd_intra_chunk_kernel")):
         return name.split("(")[0]  # the port's kernels, with their template args
     return name.split("<")[0].split("(")[0]
 
@@ -846,6 +915,7 @@ def training_phase():
         f"{summary['step_p50_ms']:.1f} ms (steps 2-{steps}), {summary['tokens_per_s']:.0f} "
         f"tokens/s, peak torch.cuda.max_memory_allocated {summary['peak_mem_gb']:.2f} GB")
     log(f"[train] launches per step: {per_step}")
+    log(f"[train] designs {check_designs(counts, 'training')}")
     if steps != 5 or summary["skipped"] or not np.isfinite(summary["loss"]):
         fail(f"training: {steps} steps, {summary['skipped']} skipped, loss {summary['loss']}")
     n_moe = sum(1 for _, ffn in get_arch(ARCH).layers if ffn == "moe")

@@ -1,13 +1,17 @@
 // Grouped and ragged expert GEMMs for Hopper (sm_90a) on the CUDA cores,
-// fp32 accumulation.
+// fp32 FMA with fp32 accumulation: the designs for fp32 weights, and the
+// fused ragged gate-up-SiLU for every dtype.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/moe_gemm/moe_gemm.py:
-//   grouped_matmul_f32       (:67,  body _matmul_kernel :45), fp32 weights
-//                            only; bf16 weights, as on the serving path, go
-//                            to the tensor-core kernels of moe_gemm_tc.cu
-//   ragged_matmul_f32        (:178, body _ragged_mm_kernel :154)
+//   grouped_matmul_f32       (:67,  body _matmul_kernel :45) and
+//   ragged_matmul_f32        (:178, body _ragged_mm_kernel :154) where the
+//                            weights are fp32 (design fma: the card's fp32
+//                            parity runs); bf16 weights, as on the serving
+//                            and training paths, go to the tensor-core
+//                            kernels of moe_gemm_tc.cu
 //   ragged_gate_up_silu_f32  (:253, body _ragged_gate_up_kernel :225)
-//   ragged_dw_f32            (:335, body _ragged_dw_kernel :310)
+// (ragged_dw_f32, :335, runs on the tensor cores for every operand pair:
+// moe_gemm_tc.cu.)
 //
 // What bounds them on an H100: the expert weights.  At granite-moe-3b's
 // widths (d=1536, expert d_ff=512, 40 experts) a decode step has ~1 row per
@@ -24,7 +28,7 @@
 // shape, so a row's result does not depend on which other rows share its
 // launch.  BM is 16 for skinny launches (decode) and 64 otherwise.  These
 // kernels use neither tensor cores nor TMA (moe_gemm_tc.cu uses mma.sync
-// and cp.async for the bf16-weight grouped GEMM).
+// and cp.async).
 //
 // The TPU grid walks (tile, expert) work items in order and blend-stores
 // tiles that straddle an expert boundary into a VMEM-resident block.  Here
@@ -171,76 +175,6 @@ ragged_kernel(const TX* __restrict__ x, const TW* __restrict__ w0,
   }
 }
 
-// Ragged dgrad: dW[e] = x[o_e:o_{e+1}]^T . g[o_e:o_{e+1}] in fp32, (E, K, N),
-// the expert-weight gradient of a ragged GEMM (training backward).
-//
-// What bounds it on an H100: operations.  At granite-moe-3b's training
-// shape (T*k = 8192 rows, K = 1536, N = 512) one call is 12.9 GFLOP against
-// 168 MB of operands and output, far above the fp32 CUDA-core ridge.
-//
-// Design (first, simple version): one 256-thread block per (expert, 64-wide
-// K tile, 64-wide N tile).  The block reads its expert's row range from
-// `offsets` on the device (no work table, no host sync) and walks it in
-// 32-row slabs, ascending; each slab of x (32 x 64) and g (32 x 64) is
-// staged through shared memory as fp32 and each thread keeps a 4 x 4 tile
-// of the output in registers.  Every output element is thus the sum over
-// the expert's rows in row order, in one thread: deterministic, with no
-// atomics, as the TPU kernel's one accumulator per expert.  Rows outside
-// [offsets[e], offsets[e+1]) are stored as 0 in BOTH operands and never
-// read, so 0 * NaN is never formed (rows past offsets[E] may hold
-// anything); an expert with no rows writes its zeros.
-constexpr int DW_TILE = 64;
-constexpr int DW_ROWS = 32;
-
-template <typename TX, typename TG>
-__global__ void __launch_bounds__(THREADS)
-ragged_dw_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
-                 const int* __restrict__ offsets, float* __restrict__ out,
-                 int T, int K, int N) {
-  __shared__ __align__(16) float xs[DW_ROWS][DW_TILE];
-  __shared__ __align__(16) float gs[DW_ROWS][DW_TILE];
-  const int e = blockIdx.z, k0 = blockIdx.y * DW_TILE, n0 = blockIdx.x * DW_TILE;
-  const int lo = min(offsets[e], T), hi = min(offsets[e + 1], T);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = lo; r0 < hi; r0 += DW_ROWS) {  // lo, hi uniform per block
-    for (int i = tid; i < DW_ROWS * DW_TILE; i += THREADS) {
-      const int r = i / DW_TILE, c = i % DW_TILE, row = r0 + r;
-      const bool own = row < hi;
-      xs[r][c] = (own && k0 + c < K) ? to_f32(x[(size_t)row * K + k0 + c]) : 0.f;
-      gs[r][c] = (own && n0 + c < N) ? to_f32(g[(size_t)row * N + n0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < DW_ROWS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[((size_t)e * K + k) * N + n] = acc[i][j];
-    }
-  }
-}
-
 // f(Int<BM>, const TX*, const TW*) for the runtime (bm, x dtype, w dtype);
 // false if any of the three is not supported.
 template <typename F> bool dispatch(int bm, int xdt, int wdt, F&& f) {
@@ -316,23 +250,4 @@ extern "C" int ragged_gate_up_silu_f32(const void* x, int xdt, const void* w_gat
                                        int G, int bm, void* stream) {
   return ragged_launch(2, x, xdt, w_gate, w_up, wdt, offsets, tile_m, grp, valid,
                        h, a_g, a_u, T, K, F, G, bm, stream);
-}
-
-extern "C" int ragged_dw_f32(const void* x, int xdt, const void* g, int gdt,
-                             const int* offsets, void* out, int T, int K,
-                             int N, int E, void* stream) {
-  auto known = [](int code) { return code == kF32 || code == kBF16; };
-  if (E <= 0 || K <= 0 || N <= 0 || E > 65535 || !known(xdt) || !known(gdt))
-    return (int)cudaErrorInvalidValue;
-  with_dtype(xdt, [&](auto* xp) {
-    with_dtype(gdt, [&](auto* gp) {
-      using TX = elem_t<decltype(xp)>;
-      using TG = elem_t<decltype(gp)>;
-      const dim3 grid((N + DW_TILE - 1) / DW_TILE, (K + DW_TILE - 1) / DW_TILE, E);
-      ragged_dw_kernel<TX, TG><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          static_cast<const TX*>(x), static_cast<const TG*>(g), offsets,
-          static_cast<float*>(out), T, K, N);
-    });
-  });
-  return (int)cudaGetLastError();
 }

@@ -14,13 +14,19 @@ Precision contract: bf16 (or fp32) inputs, fp32 accumulation everywhere,
 and the hidden activation stays fp32 *between* launches — the only cast
 back to the input dtype happens after the final down-projection.
 
-Each ``*_f32`` wrapper launches its CUDA kernel (``csrc/moe_gemm.cu``;
-``csrc/moe_gemm_tc.cu`` for ``grouped_matmul_f32`` with bf16 weights) for
-CUDA tensors, takes the plain version in ``ref`` only when every input lies
-on the CPU, and raises on any other device, dtype, shape or layout.  The
-kernels mask ragged row and column edges themselves, so rows are never
-padded to the tile height (the JAX wrapper's ``_pad_rows``); the output is
-(T, N) for T input rows.
+Each ``*_f32`` wrapper launches its CUDA kernel for CUDA tensors, takes the
+plain version in ``ref`` only when every input lies on the CPU, and raises
+on any other device, dtype, shape or layout.  Kernel designs, chosen here
+by dtype and rows per expert before any launch (never after a failed one):
+``grouped_matmul_f32`` and ``ragged_matmul_f32`` with bf16 weights run on
+the tensor cores (``csrc/moe_gemm_tc.cu``: "tc", or "skinny" for <= 16 rows
+an expert), fp32 x split into three bf16 pieces; with fp32 weights on the
+fp32 CUDA cores (``csrc/moe_gemm.cu``: "fma").  ``ragged_dw_f32`` runs on
+the tensor cores for every operand pair ("tc"), fp32 operands in bf16
+pieces; ``ragged_gate_up_silu_f32`` on the CUDA cores.  The kernels mask
+ragged row and column edges themselves, so rows are never padded to the
+tile height (the JAX wrapper's ``_pad_rows``); the output is (T, N) for T
+input rows.
 """
 
 from __future__ import annotations
@@ -47,21 +53,55 @@ _GROUPED = {
     "fma": Kernel("moe_gemm", "grouped_matmul_f32_fma", [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I],
                   ("grouped_matmul_f32", "grouped_matmul_f32/fma")),
 }
-# Tile shapes of csrc/moe_gemm_tc.cu, in the order of its tile codes.
+# Tile shapes of csrc/moe_gemm_tc.cu, in the order of its tile codes, and
+# their heights (the rows of one ragged work item).
 TILES = ("Tile128", "Tile64", "Tile64Split", "Skinny")
+TILE_ROWS = {"Tile128": 128, "Tile64": 64, "Tile64Split": 64, "Skinny": 16}
 SKINNY_ROWS = 16  # at most this many rows per expert: the weight-streaming design
-_RAGGED = Kernel("moe_gemm", "ragged_matmul_f32",
-                 [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+_RAGGED_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+_RAGGED = {
+    "tc": Kernel("moe_gemm_tc", "ragged_matmul_f32_tc", _RAGGED_ARGS,
+                 ("ragged_matmul_f32", "ragged_matmul_f32/tc")),
+    "skinny": Kernel("moe_gemm_tc", "ragged_matmul_f32_tc", _RAGGED_ARGS,
+                     ("ragged_matmul_f32", "ragged_matmul_f32/skinny")),
+    "fma": Kernel("moe_gemm", "ragged_matmul_f32",
+                  [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+                  ("ragged_matmul_f32", "ragged_matmul_f32/fma")),
+}
 _GATE_UP = Kernel("moe_gemm", "ragged_gate_up_silu_f32",
                   [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I])
-_DW = Kernel("moe_gemm", "ragged_dw_f32", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I])
+_DW = Kernel("moe_gemm_tc", "ragged_dw_f32_tc", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I],
+             ("ragged_dw_f32", "ragged_dw_f32/tc"))
 
 
 def _row_block(rows_per_group: float) -> int:
-    """Kernel tile height: 16 for skinny groups (decode: ~1 row per
-    expert), 64 otherwise.  The CUDA source instantiates exactly these."""
+    """Tile height of the fp32 CUDA-core kernels (``csrc/moe_gemm.cu``, design
+    "fma" and the fused gate-up-SiLU): 16 for skinny groups (decode: ~1 row
+    per expert), 64 otherwise.  That source instantiates exactly these."""
     return 16 if rows_per_group <= 16 else 64
+
+
+def _design(name: str, x_dtype: torch.dtype, w_dtype: torch.dtype, rows: float) -> str:
+    for arg, dt in (("x", x_dtype), ("w", w_dtype)):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{name}: {arg} dtype {dt} not supported (fp32, bf16)")
+    if w_dtype == torch.float32:
+        return "fma"
+    return "skinny" if rows <= SKINNY_ROWS else "tc"
+
+
+def _check_tc_rows(name: str, x: torch.Tensor, w: torch.Tensor, K: int, N: int,
+                   w_name: str = "w") -> None:
+    """The tensor-core kernels copy 16-byte rows (x's of K elements, the
+    second operand's of N), as the C entries' ``rows16``: refuse anything
+    else."""
+    kx, kw = 16 // x.element_size(), 16 // w.element_size()
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or K % kx or N % kw:
+        raise ValueError(
+            f"{name}: the tensor-core kernel needs 16-byte aligned rows (x "
+            f"{tuple(x.shape)} {x.dtype}, {w_name} {tuple(w.shape)} {w.dtype}: K a multiple "
+            f"of {kx}, N of {kw}, 16-byte aligned data)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,12 +115,7 @@ def grouped_design(x_dtype: torch.dtype, w_dtype: torch.dtype, M: int) -> str:
     the tensor cores, "tc" or, for M <= 16, "skinny" (the decode weight
     stream), with fp32 x split into three bf16 pieces; fp32 weights to
     "fma" (fp32 CUDA cores, no TF32)."""
-    for name, dt in (("x", x_dtype), ("w", w_dtype)):
-        if dt not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"grouped_matmul_f32: {name} dtype {dt} not supported (fp32, bf16)")
-    if w_dtype == torch.float32:
-        return "fma"
-    return "skinny" if M <= SKINNY_ROWS else "tc"
+    return _design("grouped_matmul_f32", x_dtype, w_dtype, M)
 
 
 def grouped_tile(x_dtype: torch.dtype, M: int) -> str:
@@ -106,12 +141,8 @@ def grouped_matmul_f32_launch(x: torch.Tensor, w: torch.Tensor):
     E, M, K = x.shape
     N = w.shape[2]
     kind = grouped_design(x.dtype, w.dtype, M)
-    if kind != "fma" and (x.data_ptr() % 16 or w.data_ptr() % 16
-                          or K % (16 // x.element_size()) or N % 8):
-        raise ValueError(
-            f"grouped_matmul_f32: the tensor-core kernel needs 16-byte aligned rows "
-            f"(x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}: K a multiple of "
-            f"{16 // x.element_size()}, N of 8, 16-byte aligned data)")
+    if kind != "fma":
+        _check_tc_rows("grouped_matmul_f32", x, w, K, N)
     out = torch.empty((E, M, N), dtype=torch.float32, device=x.device)
     if kind == "fma":
         args = (x, dtype_code("x", x), w, dtype_code("w", w), out, E, M, K, N, _row_block(M))
@@ -175,8 +206,27 @@ def ragged_metadata(offsets: torch.Tensor, bm: int, E: int, G: int):
     return tile_m.to(torch.int32), grp.to(torch.int32), valid
 
 
+def ragged_design(x_dtype: torch.dtype, w_dtype: torch.dtype, rows_per_expert: float) -> str:
+    """The kernel design a CUDA ragged GEMM launches for x of ``x_dtype``
+    with ``rows_per_expert`` = T / E and weights of ``w_dtype``, as
+    :func:`grouped_design`: bf16 weights on the tensor cores, "skinny" for
+    <= 16 rows an expert (decode) and "tc" above; fp32 weights "fma"."""
+    return _design("ragged_matmul_f32", x_dtype, w_dtype, rows_per_expert)
+
+
+def ragged_tile(x_dtype: torch.dtype, rows_per_expert: float) -> str:
+    """The tile shape (of ``TILES``) a tensor-core ragged GEMM launches with:
+    the 16-row weight stream for <= 16 rows an expert; above, 64 x 64 tiles,
+    fp32 x in three bf16 pieces (``Tile64Split``) or bf16 x (``Tile64``: a
+    tile straddling two experts is one work item each, so taller tiles add
+    more straddled rows than they save, timed on the card)."""
+    if rows_per_expert <= SKINNY_ROWS:
+        return "Skinny"
+    return "Tile64Split" if x_dtype == torch.float32 else "Tile64"
+
+
 def _ragged_prepare(x, ws, offsets):
-    """Validate a ragged launch; returns (T, K, N, E, bm, work tables)."""
+    """Validate a ragged launch; returns (T, K, N, E)."""
     check_cuda(x, offsets, *ws)
     if x.dim() != 2 or any(w.dim() != 3 or w.shape != ws[0].shape for w in ws):
         raise ValueError("ragged: x must be (T, K) and weights (E, K, N)")
@@ -188,23 +238,37 @@ def _ragged_prepare(x, ws, offsets):
             f"{tuple(offsets.shape)} {offsets.dtype} (need (E+1,) int32)"
         )
     check_contiguous(x=x, offsets=offsets, **{f"w{i}": w for i, w in enumerate(ws)})
-    wdt = dtype_code("w", ws[0])
     if any(w.dtype != ws[0].dtype for w in ws):
         raise ValueError("ragged: weight dtypes differ")
-    bm = _row_block(T / E)
+    return T, K, N, E
+
+
+def _work_table(offsets, T: int, E: int, bm: int):
+    """(G, (tile_m, grp, valid)) for row tiles of height ``bm``."""
     G = -(-T // bm) + E
-    return T, K, N, E, bm, G, ragged_metadata(offsets, bm, E, G), wdt
+    return G, ragged_metadata(offsets, bm, E, G)
 
 
 def ragged_matmul_f32_launch(x, w, offsets):
-    """Validate a ragged GEMM on CUDA tensors, build its work table and
-    zeroed output; returns (out, launch), ``launch()`` enqueuing the kernel
+    """Validate a ragged GEMM on CUDA tensors, build its work table (at the
+    height of :func:`ragged_tile`'s tile) and zeroed output; returns (out,
+    launch), ``launch()`` enqueuing the kernel of :func:`ragged_design`
     alone."""
-    T, K, N, E, bm, G, (tm, gr, vl), wdt = _ragged_prepare(x, [w], offsets)
+    T, K, N, E = _ragged_prepare(x, [w], offsets)
+    kind = ragged_design(x.dtype, w.dtype, T / E)
     out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
-    args = (x, dtype_code("x", x), w, wdt, offsets, tm,
-            gr, vl, out, T, K, N, G, bm)
-    return out, (lambda: _RAGGED(*args)) if out.numel() else (lambda: None)
+    if kind == "fma":
+        bm = _row_block(T / E)
+        G, (tm, gr, vl) = _work_table(offsets, T, E, bm)
+        args = (x, dtype_code("x", x), w, dtype_code("w", w), offsets, tm, gr, vl, out,
+                T, K, N, G, bm)
+    else:
+        _check_tc_rows("ragged_matmul_f32", x, w, K, N)
+        tile = ragged_tile(x.dtype, T / E)
+        G, (tm, gr, vl) = _work_table(offsets, T, E, TILE_ROWS[tile])
+        args = (x, dtype_code("x", x), w, offsets, tm, gr, vl, out, T, K, N, G,
+                TILES.index(tile))
+    return out, (lambda: _RAGGED[kind](*args)) if out.numel() else (lambda: None)
 
 
 def ragged_matmul_f32(x, w, offsets):
@@ -221,12 +285,12 @@ def ragged_matmul_f32(x, w, offsets):
 def ragged_gate_up_silu_f32_launch(x, w_gate, w_up, offsets):
     """As :func:`ragged_matmul_f32_launch` for the fused gate-up-SiLU
     kernel; the output is the triple (h, a_g, a_u)."""
-    T, K, Fd, E, bm, G, (tm, gr, vl), wdt = _ragged_prepare(
-        x, [w_gate, w_up], offsets
-    )
+    T, K, Fd, E = _ragged_prepare(x, [w_gate, w_up], offsets)
+    bm = _row_block(T / E)
+    G, (tm, gr, vl) = _work_table(offsets, T, E, bm)
     outs = tuple(torch.zeros((T, Fd), dtype=torch.float32, device=x.device)
                  for _ in range(3))
-    args = (x, dtype_code("x", x), w_gate, w_up, wdt,
+    args = (x, dtype_code("x", x), w_gate, w_up, dtype_code("w", w_gate),
             offsets, tm, gr, vl, *outs, T, K, Fd,
             G, bm)
     return outs, (lambda: _GATE_UP(*args)) if outs[0].numel() else (lambda: None)
@@ -246,7 +310,8 @@ def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):
 def ragged_dw_f32_launch(x, g, offsets):
     """Validate a ragged dgrad on CUDA tensors and allocate its output (the
     kernel writes every element, zeros for empty experts); returns (out,
-    launch), ``launch()`` enqueuing the kernel alone."""
+    launch), ``launch()`` enqueuing the tensor-core kernel alone (design
+    "tc" for every pair of fp32 and bf16 operands)."""
     check_cuda(x, g, offsets)
     if (x.dim() != 2 or g.dim() != 2 or x.shape[0] != g.shape[0]
             or offsets.dim() != 1 or offsets.shape[0] < 2
@@ -258,8 +323,10 @@ def ragged_dw_f32_launch(x, g, offsets):
     check_contiguous(x=x, g=g, offsets=offsets)
     T, K = x.shape
     N, E = g.shape[1], offsets.shape[0] - 1
+    xdt, gdt = dtype_code("x", x), dtype_code("g", g)
+    _check_tc_rows("ragged_dw_f32", x, g, K, N, "g")
     out = torch.empty((E, K, N), dtype=torch.float32, device=x.device)
-    args = (x, dtype_code("x", x), g, dtype_code("g", g), offsets, out, T, K, N, E)
+    args = (x, xdt, g, gdt, offsets, out, T, K, N, E)
     return out, (lambda: _DW(*args)) if out.numel() else (lambda: None)
 
 

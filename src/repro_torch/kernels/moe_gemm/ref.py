@@ -5,7 +5,10 @@ results): the wrappers in ``ops`` take them for CPU tensors, so ``ops``'
 ``grouped_ffn`` / ``ragged_ffn`` compositions are themselves the plain
 FFNs there, and ``chip_smoke.py`` holds the kernels against them on the
 card.  Products are formed in fp32 from fp32-widened operands, so bf16
-inputs accumulate in fp32 as in the kernels.
+inputs accumulate in fp32 as in the kernels.  Beside them, the
+tensor-core designs' arithmetic on bf16 pieces (``grouped_matmul_bf16x3``,
+``ragged_matmul_bf16x3``, ``ragged_dw_pieces``), which the CPU tests hold
+against the fp32 versions and the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ def ragged_matmul_f32(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def ragged_matmul_bf16x3(x: torch.Tensor, w: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """The tensor-core ragged kernel's arithmetic for fp32 x and bf16 w: the
+    sum of three ragged products of bf16 pieces of x with w, each exact in
+    fp32."""
+    return sum(ragged_matmul_f32(p, w, offsets) for p in split_bf16x3(x))
+
+
 def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):
     """(h, a_g, a_u) = (silu(x@Wg[e]) * x@Wu[e], x@Wg[e], x@Wu[e]) in fp32."""
     a_g = ragged_matmul_f32(x, w_gate, offsets)
@@ -70,6 +81,23 @@ def ragged_dw_f32(x: torch.Tensor, g: torch.Tensor,
         if hi > lo:
             out[e] = x[lo:hi].float().T @ g[lo:hi].float()
     return out
+
+
+def ragged_dw_pieces(x: torch.Tensor, g: torch.Tensor,
+                     offsets: torch.Tensor) -> torch.Tensor:
+    """The tensor-core dgrad's arithmetic: each fp32 operand as its three
+    bf16 pieces (a bf16 one as itself), and the sum of the ragged dgrads of
+    the piece pairs (i, j) with i + j below the larger piece count: three
+    products for one fp32 operand, all exact; for two, the six that keep
+    hi.hi, hi.mid, mid.hi, hi.lo, mid.mid and lo.hi (the three dropped are
+    below 2^-24 of |x.g|)."""
+    def pieces(t):
+        return split_bf16x3(t) if t.dtype == torch.float32 else (t,)
+
+    px, pg = pieces(x), pieces(g)
+    n = max(len(px), len(pg))
+    return sum(ragged_dw_f32(a, b, offsets) for i, a in enumerate(px)
+               for j, b in enumerate(pg) if i + j < n)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,10 @@ against its plain version run in fp32 on the same inputs and rounded once,
 so bf16 outputs may differ by about one bf16 step (rtol 1e-2, atol 2e-3);
 fp32 outputs are held at rtol 2e-5, atol 8e-5.
 Each design counts its launches (``<wrapper>/tc``, ``/skinny``, ``/fma``);
-bf16 calls must never reach ``/fma``.
+bf16-weight calls must never reach ``/fma``.  ``ragged_dw_f32`` runs on the
+tensor cores for every operand pair (``/tc``): fp32 operands as three bf16
+pieces, an fp32 x fp32 pair as six products whose three dropped terms are
+below 2^-24 of |x.g|, held at the same fp32 bound.
 ``ssd_intra_chunk`` likewise computes in fp32 from its inputs' values and
 rounds once: fp32 at the reference's atol 3e-5 (on inputs at the model's
 scale: x dt-scaled, ~0.1; B and C ~0.5), bf16 against the plain version on
@@ -42,6 +45,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
 _ATTN = fa_ref.attention  # unpoisoned by ``no_plain``: the CPU side of a check
+_RAGGED_MM, _RAGGED_DW = mm_ref.ragged_matmul_f32, mm_ref.ragged_dw_f32
 
 GEMM_TOL = dict(rtol=2e-5, atol=1.6e-4)
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
@@ -139,10 +143,11 @@ def test_ragged_dw_kernel(dev, counts, xdt):
     x, _, _, offs, T = _ragged(counts, 48, 64, xdt, dev)
     g = _t(np.random.default_rng(1).standard_normal((x.shape[0], 40)), torch.float32, dev)
     x[T:], g[T:] = float("nan"), float("nan")
-    before = launch_counts()["ragged_dw_f32"]
+    before = _designs("ragged_dw_f32")
     got = mm_ops.ragged_dw_f32(x, g, offs)
     torch.cuda.synchronize()
-    assert launch_counts()["ragged_dw_f32"] == before + 1
+    assert _delta(before, _designs("ragged_dw_f32")) == {"ragged_dw_f32": 1,
+                                                         "ragged_dw_f32/tc": 1}
     assert got.shape == (len(counts), 48, 40) and torch.isfinite(got).all()
     for e, c in enumerate(counts):
         if c == 0:
@@ -194,7 +199,10 @@ def test_ragged_ffn_backward_never_reaches_plain(dev, no_plain):
     after = launch_counts()
     assert after["ragged_gate_up_silu_f32"] == before["ragged_gate_up_silu_f32"] + 1
     assert after["ragged_matmul_f32"] == before["ragged_matmul_f32"] + 4
+    assert after["ragged_matmul_f32/skinny"] == before["ragged_matmul_f32/skinny"] + 4  # 17 rows
+    assert after["ragged_matmul_f32/fma"] == before["ragged_matmul_f32/fma"]
     assert after["ragged_dw_f32"] == before["ragged_dw_f32"] + 3
+    assert after["ragged_dw_f32/tc"] == before["ragged_dw_f32/tc"] + 3
     assert all(t.grad is not None and t.grad.dtype == t.dtype for t in leaves)
 
 
@@ -211,11 +219,12 @@ def test_cuda_calls_never_reach_plain(dev, no_plain):
     assert after["ssd_intra_chunk"] == before["ssd_intra_chunk"] + 1
     assert after["ragged_gate_up_silu_f32"] == before["ragged_gate_up_silu_f32"] + 1
     assert after["ragged_matmul_f32"] == before["ragged_matmul_f32"] + 1
+    assert after["ragged_matmul_f32/skinny"] == before["ragged_matmul_f32/skinny"] + 1
     assert after["grouped_matmul_f32"] == before["grouped_matmul_f32"] + 3
     assert after["grouped_matmul_f32/tc"] == before["grouped_matmul_f32/tc"] + 3  # M = 17
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert after["flash_attention/tc"] == before["flash_attention/tc"] + 1
-    for name in ("grouped_matmul_f32/fma", "flash_attention/fma"):
+    for name in ("grouped_matmul_f32/fma", "ragged_matmul_f32/fma", "flash_attention/fma"):
         assert after[name] == before[name]
 
 
@@ -398,15 +407,20 @@ def test_fp32_calls_take_the_fma_designs(dev):
     x = torch.randn((3, 20, 32), device=dev)
     w = torch.randn((3, 32, 24), device=dev)
     q = torch.randn((1, 40, 2, 32), device=dev)
+    offs = torch.tensor([0, 20, 20, 60], dtype=torch.int32, device=dev)
     before = launch_counts()
     mm_ops.grouped_matmul_f32(x, w)
     mm_ops.grouped_matmul_f32(x.to(torch.bfloat16), w)  # bf16 x, fp32 w
+    mm_ops.ragged_matmul_f32(x.reshape(60, 32), w, offs)
+    mm_ops.ragged_matmul_f32(x.reshape(60, 32).to(torch.bfloat16), w, offs)
     fa_ops.flash_attention(q, q, q)
     torch.cuda.synchronize()
     d = _delta(before, launch_counts())
     assert d["grouped_matmul_f32/fma"] == d["grouped_matmul_f32"] == 2
+    assert d["ragged_matmul_f32/fma"] == d["ragged_matmul_f32"] == 2
     assert d["flash_attention/fma"] == d["flash_attention"] == 1
     assert d["grouped_matmul_f32/tc"] == d["grouped_matmul_f32/skinny"] == 0
+    assert d["ragged_matmul_f32/tc"] == d["ragged_matmul_f32/skinny"] == 0
     assert d["flash_attention/tc"] == 0
 
 
@@ -422,6 +436,10 @@ def test_refused_launch_raises_and_never_returns_the_plain_result(dev, no_plain)
     q = torch.zeros((70000, 1, 1, 16), dtype=torch.bfloat16, device=dev)
     with pytest.raises(RuntimeError, match="launch failed"):
         fa_ops.flash_attention(q, q, q)
+    offs = torch.zeros((70001,), dtype=torch.int32, device=dev)  # 70000 experts
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mm_ops.ragged_dw_f32(torch.zeros((1, 8), dtype=torch.bfloat16, device=dev),
+                             torch.zeros((1, 8), device=dev), offs)
     torch.cuda.synchronize()
 
 
@@ -439,6 +457,23 @@ def test_grouped_tile_not_built_for_x_dtype_is_refused(dev, xdt, tile, no_plain)
         mm_ops._GROUPED["tc"](x, dtype_code("x", x), w, out, 2, 32, 64, 64, code)
 
 
+@pytest.mark.parametrize("xdt,tile", [(torch.bfloat16, "Tile128"), (torch.float32, "Tile64"),
+                                      (torch.bfloat16, "Tile64Split"), (torch.bfloat16, None)])
+def test_ragged_tile_not_built_is_refused(dev, xdt, tile, no_plain):
+    """The ragged tensor-core entry launches only the tiles ``ragged_tile``
+    can pick for x's dtype (no Tile128); another code returns an error, and
+    the launch raises."""
+    x = torch.zeros((32, 64), dtype=xdt, device=dev)
+    w = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    offs = torch.tensor([0, 16, 32], dtype=torch.int32, device=dev)
+    G, (tm, gr, vl) = mm_ops._work_table(offs, 32, 2, 64)
+    out = torch.zeros((32, 64), device=dev)
+    code = len(mm_ops.TILES) if tile is None else mm_ops.TILES.index(tile)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mm_ops._RAGGED["tc"](x, dtype_code("x", x), w, offs, tm, gr, vl, out, 32, 64, 64, G,
+                             code)
+
+
 def test_tensor_core_wrappers_refuse_unaligned_rows(dev):
     x = torch.zeros((2, 4, 12), dtype=torch.bfloat16, device=dev)  # K = 12: 24-byte rows
     with pytest.raises(ValueError, match="aligned"):
@@ -450,3 +485,110 @@ def test_tensor_core_wrappers_refuse_unaligned_rows(dev):
     q = base[..., 1:17]  # d = 16, rows start 2 bytes into the allocation
     with pytest.raises(ValueError, match="aligned"):
         fa_ops.flash_attention(q, q, q)
+    # the ragged tensor-core designs: refused before any launch, no fallback
+    offs = torch.tensor([0, 30, 60], dtype=torch.int32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    before = launch_counts()
+    for x, w in ((torch.zeros((60, 12), **bf), torch.zeros((2, 12, 8), **bf)),  # K = 12
+                 (torch.zeros((60, 6), device=dev), torch.zeros((2, 6, 8), **bf)),  # fp32, K = 6
+                 (torch.zeros((60, 8), **bf), torch.zeros((2, 8, 12), **bf))):  # N = 12
+        with pytest.raises(ValueError, match="aligned"):
+            mm_ops.ragged_matmul_f32(x, w, offs)
+    for x, g in ((torch.zeros((60, 12), **bf), torch.zeros((60, 8), device=dev)),  # K = 12
+                 (torch.zeros((60, 8), device=dev), torch.zeros((60, 6), device=dev)),  # N = 6
+                 (torch.zeros(481, device=dev)[1:].view(60, 8),  # 4 bytes off
+                  torch.zeros((60, 8), device=dev))):
+        with pytest.raises(ValueError, match="aligned"):
+            mm_ops.ragged_dw_f32(x, g, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, launch_counts()) == {k: 0 for k in before}
+
+
+def _routed(T, E, dev, seed):
+    """Expert offsets of T rows spread over E experts at random."""
+    counts = np.random.default_rng(seed).multinomial(T, np.full(E, 1 / E))
+    return torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                        device=dev)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", [(512, 1536), (1536, 512)])
+@pytest.mark.parametrize("T", [32, 4096, 8192])
+def test_ragged_matmul_tensor_core_designs(dev, T, K, N, xdt, no_plain):
+    """granite-moe-3b's ragged GEMMs at full width (40 experts, d = 1536,
+    d_ff = 512): decode (T = 32) through /skinny, prefill (4096) and the
+    training step (8192) through /tc, bf16 rows or fp32 rows in three
+    pieces against bf16 weights; 5 tail rows come back 0."""
+    offs = _routed(T, 40, dev, T + K)
+    rng = np.random.default_rng(T)
+    x = _t(rng.standard_normal((T + 5, K)), xdt, dev)
+    w = _t(rng.standard_normal((40, K, N)) * K ** -0.5, torch.bfloat16, dev)
+    kind = mm_ops.ragged_design(xdt, torch.bfloat16, (T + 5) / 40)
+    assert kind == ("skinny" if T == 32 else "tc")
+    before = _designs("ragged_matmul_f32")
+    got = mm_ops.ragged_matmul_f32(x, w, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ragged_matmul_f32")) == {
+        "ragged_matmul_f32": 1, "ragged_matmul_f32/tc": int(kind == "tc"),
+        "ragged_matmul_f32/skinny": int(kind == "skinny"), "ragged_matmul_f32/fma": 0}
+    assert got.shape == (T + 5, N) and (got[T:] == 0).all()
+    _close(got, _RAGGED_MM(x, w, offs), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("counts", RAGGED_COUNTS + [[0, 0, 0, 3], [130, 0, 1]])
+def test_ragged_matmul_tensor_core_designs_at_edge_counts(dev, counts, xdt, no_plain):
+    """Empty experts, one expert, straddled tiles and skew, both bf16-weight
+    designs (skinny at <= 16 rows an expert), the ragged N = 56 edge."""
+    x, _, _, offs, T = _ragged(counts, 48, 56, xdt, dev)
+    w = _t(np.random.default_rng(5).standard_normal((len(counts), 48, 56)) * 0.2,
+           torch.bfloat16, dev)
+    kind = mm_ops.ragged_design(xdt, torch.bfloat16, x.shape[0] / len(counts))
+    before = _designs("ragged_matmul_f32")
+    got = mm_ops.ragged_matmul_f32(x, w, offs)
+    torch.cuda.synchronize()
+    d = _delta(before, _designs("ragged_matmul_f32"))
+    assert d["ragged_matmul_f32"] == d[f"ragged_matmul_f32/{kind}"] == 1
+    assert d["ragged_matmul_f32/fma"] == 0 and (got[T:] == 0).all()
+    _close(got, _RAGGED_MM(x, w, offs), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("xdt,gdt,K,N", [(torch.bfloat16, torch.float32, 1536, 512),
+                                         (torch.float32, torch.float32, 512, 1536)])
+@pytest.mark.parametrize("T", [32, 4096, 8192])
+def test_ragged_dw_tensor_core_design(dev, T, xdt, gdt, K, N, no_plain):
+    """The dgrad's two pairs of the training backward at full width (bf16 x
+    with fp32 da for dW_gate / dW_up, fp32 h with fp32 dy for dW_down), 40
+    experts, NaN tail rows never read, empty experts zero."""
+    offs = _routed(T, 40, dev, T + N)
+    rng = np.random.default_rng(T + K)
+    x = _t(rng.standard_normal((T + 5, K)), xdt, dev)
+    g = _t(rng.standard_normal((T + 5, N)) * 0.01, gdt, dev)
+    x[T:], g[T:] = float("nan"), float("nan")
+    before = _designs("ragged_dw_f32")
+    got = mm_ops.ragged_dw_f32(x, g, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ragged_dw_f32")) == {"ragged_dw_f32": 1,
+                                                         "ragged_dw_f32/tc": 1}
+    assert got.shape == (40, K, N) and torch.isfinite(got).all()
+    empty = (offs[1:] == offs[:-1]).nonzero().flatten().tolist()
+    assert all((got[e] == 0).all() for e in empty)
+    _close(got, _RAGGED_DW(x, g, offs), **GEMM_TOL)
+
+
+@pytest.mark.parametrize("xdt,gdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("counts", RAGGED_COUNTS + [[0, 0, 0]])
+def test_ragged_dw_tensor_core_pairs_at_edge_counts(dev, counts, xdt, gdt, no_plain):
+    """The other operand pairs (one or three products) at the edge counts,
+    with NaN tail rows and a 40-wide g."""
+    x, _, _, offs, T = _ragged(counts, 48, 64, xdt, dev)
+    g = _t(np.random.default_rng(7).standard_normal((x.shape[0], 40)), gdt, dev)
+    x[T:], g[T:] = float("nan"), float("nan")
+    before = _designs("ragged_dw_f32")
+    got = mm_ops.ragged_dw_f32(x, g, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ragged_dw_f32"))["ragged_dw_f32/tc"] == 1
+    assert torch.isfinite(got).all()
+    _close(got, _RAGGED_DW(x, g, offs), **GEMM_TOL)
