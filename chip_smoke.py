@@ -17,10 +17,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    that computes the same function, and the card's bound for the same work
    (fp32 operands of the tensor-core designs priced as their bf16 pieces),
    naming the kernel design that ran (``flash_attention/tc`` or ``/fma``,
-   ``grouped_matmul_f32`` and ``ragged_matmul_f32`` ``/tc``, ``/skinny`` or
-   ``/fma``, ``ragged_dw_f32/tc``; the checks and the ragged times name the
-   tile shape too); the training step's ragged GEMMs at T*k = 8192 rows
-   too;
+   ``grouped_matmul_f32``, ``ragged_matmul_f32`` and
+   ``ragged_gate_up_silu_f32`` ``/tc``, ``/skinny`` or ``/fma``,
+   ``ragged_dw_f32/tc``, ``ssd_intra_chunk/tc`` or ``/fma``; the checks and
+   the ragged times name the tile shape too); the training step's ragged
+   GEMMs and gate-up at T*k = 8192 rows too, and beside each gate-up the
+   time of two ``torch._grouped_mm`` calls and a SiLU (informative: not one
+   call);
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
    weights on the CPU (plain versions), both dispatch modes; the reduced
@@ -44,8 +47,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    greedy decode steps, then one 200-token prompt and 8 steps.  The launch
    counts are zeroed just before and read just after every prefill and
    every decode loop: exactly one ``ssd_intra_chunk`` launch per layer per
-   prefill and none in decode.  Prefill ms, decode-step p50, tokens/s and
-   peak memory;
+   prefill, each through ``/tc``, and none in decode.  Prefill ms,
+   decode-step p50, tokens/s and peak memory;
 8. SSM parity: fp32 at full width, a prefill of 248 tokens and 8 decode
    steps against the uncached forward over the 256 tokens, at 2e-4;
 9. SSM profile: ``torch.profiler`` over one 4 x 2048 prefill and 8 decode
@@ -149,12 +152,13 @@ def rate_dtype(*ts):
     return torch.float32 if any(t.dtype == torch.float32 for t in ts) else torch.bfloat16
 
 
-def gemm_ops(flops: float, a, b) -> list:
-    """A GEMM's operations for ``bound_ms`` as the tensor-core designs do
-    them: bf16 operands once on the bf16 tensor cores; one fp32 operand in
-    three bf16 pieces (3x), two in six products (6x); each at the lesser
-    time of that and the fp32 CUDA-core rate."""
-    n32 = (a.dtype == torch.float32) + (b.dtype == torch.float32)
+def gemm_ops(flops: float, a: torch.dtype, b: torch.dtype) -> list:
+    """A GEMM's operations for ``bound_ms`` on operands of dtypes ``a`` and
+    ``b``, as the tensor-core designs do them: bf16 operands once on the
+    bf16 tensor cores; one fp32 operand in three bf16 pieces (3x), two in
+    six products (6x); each at the lesser time of that and the fp32
+    CUDA-core rate."""
+    n32 = (a == torch.float32) + (b == torch.float32)
     pieces = (1, 3, 6)[n32]
     if n32 and flops / PEAK_FLOPS[torch.float32] < pieces * flops / PEAK_FLOPS[torch.bfloat16]:
         return [(flops, torch.float32)]
@@ -279,7 +283,7 @@ def kernel_phase(dev):
                        lambda: mm_ref.grouped_matmul_f32(x, w),
                        (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
                        x.numel() * x.element_size() + w.numel() * w.element_size()
-                       + E * M * N * 4, gemm_ops(2 * E * M * K * N, x, w), err,
+                       + E * M * N * 4, gemm_ops(2 * E * M * K * N, x.dtype, w.dtype), err,
                        mm_ops._GROUPED[design].path,
                        "src/repro/kernels/moe_gemm/moe_gemm.py:67", design)
             if tag == "prefill gate/up" and dtype == torch.bfloat16:
@@ -297,6 +301,29 @@ def kernel_phase(dev):
         return design if design == "fma" else (
             f"{design}/{mm_ops.ragged_tile(x.dtype, x.shape[0] / w.shape[0])}")
 
+    def gate_up(x, wg, wu, offs, tag, err):
+        """Time the fused gate-up-SiLU (design and tile as the wrapper picks
+        them), and beside it, where x is bf16, two ``torch._grouped_mm`` and
+        a SiLU: the same function in three calls, so printed, not an entry's
+        library time."""
+        T, (Ec, K_, F_), rows = x.shape[0], wg.shape, int(offs[-1])
+        design, _, tile = ragged_via(x, wg).partition("/")
+        touched = int((offs[1:] > offs[:-1]).sum())
+        e = report("ragged_gate_up_silu_f32",
+                   f"{tag} ({T},{K_})x2({Ec},{K_},{F_}){f' {tile}' if tile else ''}",
+                   rate_dtype(x, wg), mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
+                   lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
+                   rows * K_ * x.element_size() + 2 * touched * K_ * F_ * wg.element_size()
+                   + 3 * T * F_ * 4, gemm_ops(4 * rows * K_ * F_, x.dtype, wg.dtype), err,
+                   mm_ops._GATE_UP[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:253",
+                   design)
+        if grouped_mm and x.dtype == wg.dtype == torch.bfloat16:
+            ms = device_ms(lambda: torch.nn.functional.silu(grouped_mm(x, wg, offs=offs[1:]))
+                           * grouped_mm(x, wu, offs=offs[1:]))
+            log(f"[time] ragged_gate_up_silu_f32 {tag}: two torch._grouped_mm + SiLU "
+                f"{ms:.4f} ms (informative: three calls, bf16 out)")
+        return e
+
     def ragged_mm(x, w, offs, tag, err):
         """Time one ragged GEMM (design and tile as the wrapper picks them),
         beside the library's grouped GEMM where x and w share a dtype."""
@@ -310,7 +337,7 @@ def kernel_phase(dev):
                       (lambda: grouped_mm(x, w, offs=offs[1:]))
                       if grouped_mm and x.dtype == w.dtype else None,
                       rows * K_ * x.element_size() + touched * K_ * N_ * w.element_size()
-                      + T * N_ * 4, gemm_ops(2 * rows * K_ * N_, x, w), err,
+                      + T * N_ * 4, gemm_ops(2 * rows * K_ * N_, x.dtype, w.dtype), err,
                       mm_ops._RAGGED[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:178",
                       design)
 
@@ -325,7 +352,8 @@ def kernel_phase(dev):
             wd = randn(Ec, F_, K_, scale=F_ ** -0.5, dtype=dtype)
             h = randn(T, F_)  # fp32 hidden
             gate = mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs)
-            errs = [check(f"ragged_gate_up_silu_f32 {tag} {n} {dtype}", a, b, GEMM_TOL)
+            errs = [check(f"ragged_gate_up_silu_f32 {tag} {n} {dtype} via {ragged_via(x, wg)}",
+                          a, b, GEMM_TOL)
                     for n, a, b in zip(("h", "a_g", "a_u"), gate,
                                        mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs))]
             down = mm_ops.ragged_matmul_f32(h, wd, offs)
@@ -340,14 +368,7 @@ def kernel_phase(dev):
                 fail(f"ragged kernels {tag}: rows past offsets[E] are not 0")
             if edge:
                 continue
-            touched = int((offs[1:] > offs[:-1]).sum())
-            sz = x.element_size()
-            e_gu = report("ragged_gate_up_silu_f32", f"{tag} ({T},{K_})x2({Ec},{K_},{F_})",
-                          dtype, mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
-                          lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
-                          rows * K_ * sz + 2 * touched * K_ * F_ * sz + 3 * T * F_ * 4,
-                          [(4 * rows * K_ * F_, dtype)], max(errs), mm_ops._GATE_UP.path,
-                          "src/repro/kernels/moe_gemm/moe_gemm.py:253")
+            e_gu = gate_up(x, wg, wu, offs, tag, max(errs))
             e_mm = ragged_mm(h, wd, offs, tag, err)
             if dtype == torch.bfloat16:
                 ragged_mm(hb, wd, offs, f"{tag} bf16 rows", err_b)
@@ -356,10 +377,18 @@ def kernel_phase(dev):
                     entries["ragged_gate_up_silu_f32"] = e_gu
 
     # The training step's ragged GEMMs at T*k = 8192 rows (batch 2 x 512
-    # tokens, top-8): the forward down projection (fp32 h, K = 512 -> 1536)
-    # and the backward's dh (fp32 dy, 1536 -> 512), bf16 weights.
+    # tokens, top-8): the forward gate-up (bf16 rows, d -> 2 x d_ff), the
+    # forward down projection (fp32 h, K = 512 -> 1536) and the backward's
+    # dh (fp32 dy, 1536 -> 512), bf16 weights.
     offs = routed_offsets(TRAIN_TOKENS)
     rows = int(offs[-1])
+    x = randn(rows, d, dtype=torch.bfloat16)
+    wg, wu = (randn(E, d, f, scale=d ** -0.5, dtype=torch.bfloat16) for _ in range(2))
+    errs = [check(f"ragged_gate_up_silu_f32 train T={rows} {n} via {ragged_via(x, wg)}", a, b,
+                  GEMM_TOL)
+            for n, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
+                               mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs))]
+    gate_up(x, wg, wu, offs, f"train T={rows}", max(errs))
     for K_, N_, tag in timed["train"]:
         x, w = randn(rows, K_), randn(E, K_, N_, scale=K_ ** -0.5, dtype=torch.bfloat16)
         err = check(f"ragged_matmul_f32 {tag} T={rows} ({rows},{K_})x({E},{K_},{N_}) fp32x"
@@ -385,7 +414,7 @@ def kernel_phase(dev):
                    # its contraction (2-D x 2-D), on bf16 operands
                    (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
                    rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
-                   gemm_ops(2 * rows * K_ * N_, x, gr), err, mm_ops._DW.path,
+                   gemm_ops(2 * rows * K_ * N_, x.dtype, gr.dtype), err, mm_ops._DW.path,
                    "src/repro/kernels/moe_gemm/moe_gemm.py:335", "tc")
         if xdt == torch.bfloat16:
             entries["ragged_dw_f32"] = e
@@ -440,15 +469,18 @@ def kernel_phase(dev):
 
 def ssd_kernel_checks(dev, g, report):
     """ssd_intra_chunk against its plain version at mamba2-370m's prefill
-    shapes and the edge cases, B and C as stride-0 head views; returns the
-    4 x 2048 bf16 entry."""
+    shapes and the edge cases, B and C as stride-0 head views (one 1 x 200
+    case with per-head B and C); returns the 4 x 2048 bf16 entry.  The
+    /tc rows are priced as the kernel works: C.B^T once per chunk for
+    head-broadcast B and C, the fp32 decayed scores . bf16 x as three bf16
+    pieces (``gemm_ops``); the first version's pricing (C.B^T per head, the
+    scores . x at the fp32 rate) is printed beside it."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
 
     s = get_arch(SSM_ARCH).ssm
     h, p, n = s.num_heads(get_arch(SSM_ARCH).d_model), s.head_dim, s.state_size
-    src = ssd_ops._SSD.path
     cases = [((4, 8, 256, h, p, n), "decay", "prefill 4 x 2048"),
              ((4, 1, 100, h, p, n), "decay", "prefill 4 x 100"),
              ((1, 1, 200, h, p, n), "decay", "prefill 1 x 200"),
@@ -456,34 +488,49 @@ def ssd_kernel_checks(dev, g, report):
              ((2, 3, 1, 4, 16, 8), "decay", "edge cl=1"),
              ((1, 2, 100, 4, 16, 16), "decay", "edge cl=100"),
              ((1, 2, 64, h, p, n), "strong", "edge dA~-50"),
-             ((1, 2, 64, h, p, n), "zero", "edge dA=0")]
+             ((1, 2, 64, h, p, n), "zero", "edge dA=0"),
+             ((1, 1, 200, h, p, n), "per-head", "edge per-head B/C 1 x 200")]
     entry = None
     for dtype in (torch.float32, torch.bfloat16):
         for (b, nc, cl, hh, pp, nn), law, tag in cases:
             x = (torch.randn((b, nc, cl, hh, pp), generator=g, device=dev) * 0.1).to(dtype)
-            dA = {"decay": -torch.randn((b, nc, cl, hh), generator=g, device=dev).abs() * 0.1,
-                  "strong": torch.randn((b, nc, cl, hh), generator=g, device=dev) - 50.0,
-                  "zero": torch.zeros((b, nc, cl, hh), device=dev)}[law]
-            B, C = ((torch.randn((b, nc, cl, 1, nn), generator=g, device=dev) * 0.5).to(
-                dtype).expand(b, nc, cl, hh, nn) for _ in range(2))
+            decay = -torch.randn((b, nc, cl, hh), generator=g, device=dev).abs() * 0.1
+            dA = {"strong": torch.randn((b, nc, cl, hh), generator=g, device=dev) - 50.0,
+                  "zero": torch.zeros((b, nc, cl, hh), device=dev)}.get(law, decay)
+            bc = (b, nc, cl, hh if law == "per-head" else 1, nn)
+            B, C = ((torch.randn(bc, generator=g, device=dev) * 0.5).to(dtype).expand(
+                b, nc, cl, hh, nn) for _ in range(2))
             fold = [t.flatten(0, 1) for t in (x, dA.to(dtype), B, C)]
             want = ssd_ref.ssd_intra_chunk(*(t.float() for t in fold)).to(dtype)
             got = ssd_ops.ssd_intra_chunk(x, dA, B, C).flatten(0, 1)
+            design = ssd_ops.design(dtype)
+            shared = B.stride(3) == 0
+            via = design if design == "fma" else (
+                f"tc, {ssd_ops.heads_per_block(b * nc, cl, hh, pp, shared)} heads a block")
             err = check(f"ssd_intra_chunk {tag} (g={b * nc}, cl={cl}, h={hh}, p={pp}, "
-                        f"n={nn}) B/C stride-0 views {dtype}", got, want, SSD_TOL[dtype])
+                        f"n={nn}) B/C {'stride-0 views' if shared else 'per head'} {dtype} "
+                        f"via {via}", got, want, SSD_TOL[dtype])
             if tag.startswith("edge"):
                 continue
             sz, G = x.element_size(), b * nc
             pairs = G * hh * cl * (cl + 1) / 2  # the causal (l, s <= l) pairs
             # bytes: x, dA and y once, B and C once per (g, l) (head-broadcast
-            # views); operations: C.B^T on B and C's type, then (decayed fp32
-            # scores).x at the fp32 rate
+            # views); operations as the design does them (see the docstring)
+            nbytes = 2 * G * cl * hh * pp * sz + 2 * G * cl * nn * sz + G * cl * hh * sz
+            first = [(pairs * 2 * nn, rate_dtype(B, C)), (pairs * 2 * pp, torch.float32)]
+            ops = first if design == "fma" else [
+                (pairs / hh * 2 * nn, torch.bfloat16),
+                *gemm_ops(pairs * 2 * pp, torch.float32, torch.bfloat16)]
             e = report("ssd_intra_chunk", f"{tag} (g={G},cl={cl},h={hh},p={pp},n={nn})",
                        dtype, ssd_ops.ssd_intra_chunk_launch(*fold)[1],
-                       lambda: ssd_ref.ssd_intra_chunk(*fold), None,
-                       2 * G * cl * hh * pp * sz + 2 * G * cl * nn * sz + G * cl * hh * sz,
-                       [(pairs * 2 * nn, rate_dtype(B, C)), (pairs * 2 * pp, torch.float32)],
-                       err, src, "src/repro/kernels/ssd/ssd.py:51")
+                       lambda: ssd_ref.ssd_intra_chunk(*fold), None, nbytes, ops, err,
+                       ssd_ops._SSD[design].path, "src/repro/kernels/ssd/ssd.py:51", design)
+            if design == "tc":
+                old_ms, old_by = bound_ms(nbytes, first)
+                log(f"[time] ssd_intra_chunk {tag} bf16: the first version's pricing "
+                    f"(C.B^T per head, scores . x at the fp32 rate) gives a bound of "
+                    f"{old_ms:.4f} ms ({old_by}); this design's {e['bound_ms']:.4f} ms "
+                    f"({e['bound_by']})")
             if tag == "prefill 4 x 2048" and dtype == torch.bfloat16:
                 entry = e
     return entry
@@ -605,13 +652,15 @@ PATH_KERNELS = {"capacity": ("flash_attention", "grouped_matmul_f32"),
 SERVE_MODES = ("capacity", "ragged")
 def check_designs(counts, label: str) -> str:
     """Fail unless every launch of a kernel with several designs in
-    ``counts`` went through a design for bf16 weights, never the one the
-    ops module picks for fp32 (serving's and training's weights are bf16,
-    the down projection's hidden rows and the backward's gradients fp32
-    against bf16 weights), and every ``ragged_dw_f32`` launch through its
-    one design; returns the per-design counts for the log."""
+    ``counts`` went through a design for bf16 weights (or bf16 inputs:
+    ``ssd_intra_chunk``), never the one the ops module picks for fp32
+    (serving's and training's weights are bf16, the down projection's
+    hidden rows and the backward's gradients fp32 against bf16 weights),
+    and every ``ragged_dw_f32`` launch through its one design; returns the
+    per-design counts for the log."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     f32 = torch.float32
     shown = []
@@ -619,7 +668,9 @@ def check_designs(counts, label: str) -> str:
             ("flash_attention", fa_ops._FLASH, fa_ops.design(f32, 64)),
             ("grouped_matmul_f32", mm_ops._GROUPED, mm_ops.grouped_design(f32, f32, 1)),
             ("ragged_matmul_f32", mm_ops._RAGGED, mm_ops.ragged_design(f32, f32, 1)),
-            ("ragged_dw_f32", {"tc": mm_ops._DW}, None)):
+            ("ragged_gate_up_silu_f32", mm_ops._GATE_UP, mm_ops.ragged_design(f32, f32, 1)),
+            ("ragged_dw_f32", {"tc": mm_ops._DW}, None),
+            ("ssd_intra_chunk", ssd_ops._SSD, ssd_ops.design(f32))):
         per = {dz: counts[f"{name}/{dz}"] for dz in designs}
         shown.append(f"{name}: " + ", ".join(f"/{dz} {n}" for dz, n in per.items()))
         if per.get(fp32_design) or sum(per.values()) != counts[name]:
@@ -681,7 +732,7 @@ def _kernel_name(name: str) -> str:
     name = name.replace("void ", "").replace("(anonymous namespace)::", "")
     if name.startswith(("grouped_mm_kernel", "grouped_tc_kernel", "ragged_kernel",
                         "ragged_tc_kernel", "ragged_dw_tc_kernel", "fa_fwd_kernel",
-                        "fa_tc_kernel", "ssd_intra_chunk_kernel")):
+                        "fa_tc_kernel", "ssd_intra_chunk_kernel", "ssd_tc_kernel")):
         return name.split("(")[0]  # the port's kernels, with their template args
     return name.split("<")[0].split("(")[0]
 
@@ -791,8 +842,12 @@ def ssm_serving_phase(dev):
         c = kernels.launch_counts()
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
-        if c["ssd_intra_chunk"] != want_ssd or sum(c.values()) != want_ssd:
-            fail(f"{label}: launches {c}, expected ssd_intra_chunk {want_ssd} and no other")
+        others = {k: v for k, v in c.items() if v and not k.startswith("ssd_intra_chunk")}
+        if (c["ssd_intra_chunk"] != want_ssd or c["ssd_intra_chunk/tc"] != want_ssd
+                or c["ssd_intra_chunk/fma"] or others):
+            fail(f"{label}: launches {c}, expected ssd_intra_chunk {want_ssd}, all through "
+                 f"/tc, and no other kernel")
+        check_designs(c, label)
         return out
 
     def generate(b, l, steps, label):

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("moe_gemm", "moe_gemm_tc", "flash_attention", "flash_attention_tc", "ssd")
+SOURCES = ("moe_gemm", "moe_gemm_tc", "flash_attention", "flash_attention_tc", "ssd",
+           "ssd_tc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

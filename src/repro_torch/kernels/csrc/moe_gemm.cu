@@ -1,6 +1,6 @@
 // Grouped and ragged expert GEMMs for Hopper (sm_90a) on the CUDA cores,
-// fp32 FMA with fp32 accumulation: the designs for fp32 weights, and the
-// fused ragged gate-up-SiLU for every dtype.
+// fp32 FMA with fp32 accumulation: the designs for fp32 weights (design
+// fma), the fused ragged gate-up-SiLU included.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/moe_gemm/moe_gemm.py:
 //   grouped_matmul_f32       (:67,  body _matmul_kernel :45) and
@@ -9,7 +9,8 @@
 //                            parity runs); bf16 weights, as on the serving
 //                            and training paths, go to the tensor-core
 //                            kernels of moe_gemm_tc.cu
-//   ragged_gate_up_silu_f32  (:253, body _ragged_gate_up_kernel :225)
+//   ragged_gate_up_silu_f32  (:253, body _ragged_gate_up_kernel :225),
+//                            likewise for fp32 weights
 // (ragged_dw_f32, :335, runs on the tensor cores for every operand pair:
 // moe_gemm_tc.cu.)
 //

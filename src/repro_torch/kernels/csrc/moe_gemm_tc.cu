@@ -4,15 +4,19 @@
 //                          w (E, K, N) bf16;
 //   ragged_matmul_f32_tc   out[t] = x[t] @ w[expert(t)] for expert-sorted
 //                          rows x (T, K) bf16 or fp32, w (E, K, N) bf16;
+//   ragged_gate_up_silu_f32_tc
+//                          (h, a_g, a_u) = (silu(a_g) * a_u, x[t] @ Wg[e],
+//                          x[t] @ Wu[e]) on the same rows, Wg, Wu bf16;
 //   ragged_dw_f32_tc       dW[e] = x_e^T @ g_e, x (T, K), g (T, N), each
 //                          bf16 or fp32, dW (E, K, N) fp32.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/moe_gemm/moe_gemm.py
 //   grouped_matmul_f32 (:67, body _matmul_kernel :45) and ragged_matmul_f32
-//   (:178, body _ragged_mm_kernel :154) where the weights are bf16, as on
-//   the serving and training paths (fp32 weights keep the fp32 FMA kernels
-//   of moe_gemm.cu, no TF32), and ragged_dw_f32 (:335, body
-//   _ragged_dw_kernel :310) for every operand pair.  The wrappers in
+//   (:178, body _ragged_mm_kernel :154) and ragged_gate_up_silu_f32 (:253,
+//   body _ragged_gate_up_kernel :225) where the weights are bf16, as on the
+//   serving and training paths (fp32 weights keep the fp32 FMA kernels of
+//   moe_gemm.cu, no TF32), and ragged_dw_f32 (:335, body _ragged_dw_kernel
+//   :310) for every operand pair.  The wrappers in
 //   kernels/moe_gemm/ops.py choose the design and tile by (x dtype,
 //   w dtype, rows per expert), never because a launch failed.
 //
@@ -22,7 +26,9 @@
 // 0.008 ms of bf16 mma against 0.024-0.031 ms of HBM traffic; a decode step
 // streams the 63 MB of expert weights (0.019 ms at 3.35 TB/s).  The ragged
 // down projection of a 4096-row prefill is 6.4 GFLOP (19 as three bf16
-// pieces, 0.020 ms) against ~96 MB (0.029 ms); the dgrad of 8192 rows
+// pieces, 0.020 ms) against ~96 MB (0.029 ms), its fused gate-up 12.9
+// GFLOP of bf16 mma (0.013 ms) against ~164 MB, mostly the three fp32
+// outputs (0.049 ms); the dgrad of 8192 rows
 // writes 126 MB of fp32 dW alone (0.038 ms) against 3 x 12.9 GFLOP (0.039
 // ms) for bf16 x, 6 x for fp32 pairs (0.078 ms).  So bf16 mma.sync
 // (m16n8k16) has the rate to approach the bound; wgmma's higher rate
@@ -32,7 +38,7 @@
 // block computes a BM x BN output tile from a row window [lo, hi) of x and
 // one expert's weights.  The grouped kernel is one block per (N tile, M
 // tile, expert) with the window [0, M) of expert e's buffer; the ragged
-// kernel is one block per (N tile, work item) of the (tile, expert) table
+// kernels are one block per (N tile, work item) of the (tile, expert) table
 // built by ops.ragged_metadata at the tile's BM, with the window
 // [offsets[e], min(offsets[e+1], T)): a row tile straddling experts is one
 // item per expert, its stores masked to the window, so items sharing a
@@ -59,6 +65,12 @@
 //       are in flight per block; the decode grids (320 and 960 blocks at
 //       ~46-55 KB of shared memory, up to 4 per SM) are resident in one
 //       wave, so no second wave is left near-empty.
+// The fused gate-up (ragged_tc_kernel with OPS = 2) runs on the same tiles
+// and work tables: its weight slab holds 8-column blocks of Wg and Wu in
+// turn, so BN slab columns are BN / 2 output columns of both, x's
+// fragments (or their three pieces) feed the gate and the up mma of the
+// same k step (x is read once for both), and each thread forms h =
+// silu(a_g) * a_u in registers from its own accumulators.
 // These kernels issue many instructions per mma (copies, ldmatrix, the
 // split, the promotion below), and on the card that, not bytes, holds the
 // prefill and training tiles at ~2-5x their bound; wgmma would cut it.
@@ -120,6 +132,13 @@ using Tile64 = Shape<64, 64, 32, 4, 32, 32, 128, 4>;
 using Tile64Split = Shape<64, 64, 32, 4, 16, 64, 64, 2>;
 // M <= 16 (decode): the weight stream, 4 warps of 16 columns.
 using Skinny = Shape<16, 64, 64, 4, 16, 16, 64, 1>;
+// The fused gate-up's tile for bf16 x where ragged_tile picks Tile64: 64
+// rows x 128 slab columns (64 output columns of gate and up), 8 warps of
+// Tile64's warp tile.  Timed on the card against Tile64 itself (32 output
+// columns): 7-8 % faster at prefill and training, x being read from L2 half
+// as often; at decode the same widening of Skinny was 2 % slower, so the
+// gate-up's skinny and fp32-x tiles are the ragged GEMM's.
+using Tile64Pair = Shape<64, 128, 32, 4, 32, 32, 128, 2>;
 // Dgrad, timed on the card against 64 x 64 (4 warps), 128 x 64 with 4 warps
 // of 64 x 32 and 128 x 128 (16 warps): 128 (k) x 64 (n) outputs, 32-row
 // slabs in a 3-stage ring, 8 warps of 32 x 32, runs of 64 rows summed
@@ -131,13 +150,23 @@ template <typename S, typename TX> constexpr int smem_bytes() {
   return S::STAGES * (S::BM * (S::BK + 8) * (int)sizeof(TX) + S::BK * (S::BN + 8) * 2);
 }
 
-// out[row] = x[row] . w for the rows of the BM x BN tile at (row0, col0)
-// that lie in [lo, hi): x (rows, K) and out (rows, N) indexed by absolute
-// row, w one expert's (K, N).  Other rows of x read as 0 and are not stored.
-template <typename S, typename TX>
+// For the rows of the tile at (row0, col0) that lie in [lo, hi), with x
+// (rows, K) and the outputs (rows, N) indexed by absolute row and w0, w1
+// one expert's (K, N) weights; other rows of x read as 0 and are not stored.
+// OPS = 1: out0 = x . w0 over BM x BN outputs (w1, out1, out2 unused).
+// OPS = 2, the fused gate-up-SiLU over BM x BN/2 outputs: out0 = h =
+// silu(a_g) * a_u, out1 = a_g = x . w0, out2 = a_u = x . w1.  The weight
+// slab interleaves 8-column blocks of w0 and w1, so the two n tiles of each
+// ldmatrix.x4.trans are gate and up of the same 8 output columns: each
+// thread holds a_g and a_u of the same (row, column) in its accumulators
+// and forms h in registers, with no exchange through shared memory.
+template <typename S, int OPS, typename TX>
 __device__ __forceinline__ void tc_tile(const TX* __restrict__ x, int row0, int lo, int hi,
-                                        int K, const bf16* __restrict__ w, int N, int col0,
-                                        float* __restrict__ out, unsigned char* smem) {
+                                        int K, const bf16* __restrict__ w0,
+                                        const bf16* __restrict__ w1, int N, int col0,
+                                        float* __restrict__ out0, float* __restrict__ out1,
+                                        float* __restrict__ out2, unsigned char* smem) {
+  static_assert(OPS == 1 || OPS == 2, "one weight operand, or gate and up");
   constexpr int BM = S::BM, BN = S::BN, BK = S::BK, STAGES = S::STAGES, THREADS = S::THREADS;
   constexpr int PK = S::PK;
   constexpr int WM = S::WM, WN = S::WN, MI = WM / 16, NI = WN / 8;
@@ -170,10 +199,11 @@ __device__ __forceinline__ void tc_tile(const TX* __restrict__ x, int row0, int 
   }
 #pragma unroll
   for (int j = 0; j < NW; ++j) {
-    const int i = tid + j * THREADS, r = i / WC, c = (i % WC) * 8;
+    // slab chunk ci: operand ci % OPS, output columns (ci / OPS) * 8 ..
+    const int i = tid + j * THREADS, r = i / WC, ci = i % WC, c = (ci / OPS) * 8;
     w_ok[j] = col0 + c < N;
-    w_src[j] = w + (size_t)r * N + (w_ok[j] ? col0 + c : 0);
-    w_dst[j] = r * WLD + c;
+    w_src[j] = (ci % OPS ? w1 : w0) + (size_t)r * N + (w_ok[j] ? col0 + c : 0);
+    w_dst[j] = r * WLD + ci * 8;
     w_k[j] = r;
   }
   auto load_stage = [&](int st, int k0) {
@@ -185,7 +215,7 @@ __device__ __forceinline__ void tc_tile(const TX* __restrict__ x, int row0, int 
 #pragma unroll
     for (int j = 0; j < NW; ++j) {
       const bool ok = w_ok[j] && w_k[j] + k0 < K;
-      cp_async16(ws + st * BK * WLD + w_dst[j], ok ? w_src[j] + (size_t)k0 * N : w, ok);
+      cp_async16(ws + st * BK * WLD + w_dst[j], ok ? w_src[j] + (size_t)k0 * N : w0, ok);
     }
   };
 
@@ -267,19 +297,44 @@ __device__ __forceinline__ void tc_tile(const TX* __restrict__ x, int row0, int 
   }
   cp_async_wait<0>();
 
+  if constexpr (OPS == 1) {
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-    const int row = row0 + wr + mi * 16 + g;
+    for (int mi = 0; mi < MI; ++mi) {
+      const int row = row0 + wr + mi * 16 + g;
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int col = col0 + wc + ni * 8 + 2 * t;  // N % 8 == 0: col < N covers col + 1
-      if (col >= N) continue;
-      float* o = out + (size_t)row * N + col;
-      if (row >= lo && row < hi)
-        *reinterpret_cast<float2*>(o) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 >= lo && row + 8 < hi)
-        *reinterpret_cast<float2*>(o + 8 * (size_t)N) =
-            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = col0 + wc + ni * 8 + 2 * t;  // N % 8 == 0: col < N covers col + 1
+        if (col >= N) continue;
+        float* o = out0 + (size_t)row * N + col;
+        if (row >= lo && row < hi)
+          *reinterpret_cast<float2*>(o) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+        if (row + 8 >= lo && row + 8 < hi)
+          *reinterpret_cast<float2*>(o + 8 * (size_t)N) =
+              make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+      }
+    }
+  } else {
+    // n tiles 2j (gate) and 2j + 1 (up) cover output columns wc / 2 + 8 j ..
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < NI; ni += 2) {
+        const int col = col0 + wc / 2 + (ni / 2) * 8 + 2 * t;
+        if (col >= N) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows g and g + 8 of the mma tile
+          const int row = row0 + wr + mi * 16 + g + 8 * half;
+          if (row < lo || row >= hi) continue;
+          const size_t o = (size_t)row * N + col;
+          const float2 a = make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
+          const float2 u =
+              make_float2(acc[mi][ni + 1][2 * half], acc[mi][ni + 1][2 * half + 1]);
+          *reinterpret_cast<float2*>(out0 + o) =
+              make_float2(a.x / (1.f + expf(-a.x)) * u.x, a.y / (1.f + expf(-a.y)) * u.y);
+          *reinterpret_cast<float2*>(out1 + o) = a;
+          *reinterpret_cast<float2*>(out2 + o) = u;
+        }
+      }
     }
   }
 }
@@ -290,23 +345,29 @@ grouped_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
                   float* __restrict__ out, int M, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int e = blockIdx.z;
-  tc_tile<S>(x + (size_t)e * M * K, blockIdx.y * S::BM, 0, M, K, w + (size_t)e * K * N, N,
-             blockIdx.x * S::BN, out + (size_t)e * M * N, smem);
+  const bf16* we = w + (size_t)e * K * N;
+  float* oe = out + (size_t)e * M * N;
+  tc_tile<S, 1>(x + (size_t)e * M * K, blockIdx.y * S::BM, 0, M, K, we, we, N,
+                blockIdx.x * S::BN, oe, oe, oe, smem);
 }
 
-// One block = one (row tile, expert) work item x one N tile.
-template <typename S, typename TX>
+// One block = one (row tile, expert) work item x one tile of BN / OPS
+// output columns: OPS = 1 the ragged GEMM (out0), OPS = 2 the fused
+// gate-up-SiLU (out0, out1, out2 = h, a_g, a_u from w0 = Wg, w1 = Wu).
+template <typename S, int OPS, typename TX>
 __global__ void __launch_bounds__(S::THREADS, S::MINB)
-ragged_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ w,
-                 const int* __restrict__ offsets, const int* __restrict__ tile_m,
-                 const int* __restrict__ grp, const int* __restrict__ valid,
-                 float* __restrict__ out, int T, int K, int N) {
+ragged_tc_kernel(const TX* __restrict__ x, const bf16* __restrict__ w0,
+                 const bf16* __restrict__ w1, const int* __restrict__ offsets,
+                 const int* __restrict__ tile_m, const int* __restrict__ grp,
+                 const int* __restrict__ valid, float* __restrict__ out0,
+                 float* __restrict__ out1, float* __restrict__ out2, int T, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int item = blockIdx.y;
   if (!valid[item]) return;  // surplus item: uniform per block, before any barrier
   const int e = grp[item];
-  tc_tile<S>(x, tile_m[item] * S::BM, offsets[e], min(offsets[e + 1], T), K,
-             w + (size_t)e * K * N, N, blockIdx.x * S::BN, out, smem);
+  const size_t we = (size_t)e * K * N;
+  tc_tile<S, OPS>(x, tile_m[item] * S::BM, offsets[e], min(offsets[e + 1], T), K, w0 + we,
+                  w1 + we, N, blockIdx.x * (S::BN / OPS), out0, out1, out2, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -537,18 +598,19 @@ int launch_grouped(const void* x, const void* w, void* out, int E, int M, int K,
   return (int)cudaGetLastError();
 }
 
-template <typename S, typename TX>
-int launch_ragged(const void* x, const void* w, const int* offsets, const int* tile_m,
-                  const int* grp, const int* valid, void* out, int T, int K, int N, int G,
-                  void* stream) {
-  constexpr int SMEM = smem_bytes<S, TX>();
+template <typename S, int OPS, typename TX>
+int launch_ragged(const void* x, const void* w0, const void* w1, const int* offsets,
+                  const int* tile_m, const int* grp, const int* valid, void* out0, void* out1,
+                  void* out2, int T, int K, int N, int G, void* stream) {
+  constexpr int SMEM = smem_bytes<S, TX>(), BNO = S::BN / OPS;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      ragged_tc_kernel<S, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      ragged_tc_kernel<S, OPS, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + S::BN - 1) / S::BN, G);
-  ragged_tc_kernel<S, TX><<<grid, S::THREADS, SMEM, (cudaStream_t)stream>>>(
-      static_cast<const TX*>(x), static_cast<const bf16*>(w), offsets, tile_m, grp, valid,
-      static_cast<float*>(out), T, K, N);
+  const dim3 grid((N + BNO - 1) / BNO, G);
+  ragged_tc_kernel<S, OPS, TX><<<grid, S::THREADS, SMEM, (cudaStream_t)stream>>>(
+      static_cast<const TX*>(x), static_cast<const bf16*>(w0), static_cast<const bf16*>(w1),
+      offsets, tile_m, grp, valid, static_cast<float*>(out0), static_cast<float*>(out1),
+      static_cast<float*>(out2), T, K, N);
   return (int)cudaGetLastError();
 }
 
@@ -611,8 +673,28 @@ extern "C" int ragged_matmul_f32_tc(const void* x, int xdt, const void* w, const
     // work item each, so taller tiles add straddled rows): not built here.
     if constexpr (std::is_same<decltype(s), Tile128>::value) return (int)cudaErrorInvalidValue;
     else
-      return launch_ragged<decltype(s), elem_t<decltype(xp)>>(x, w, offsets, tile_m, grp,
-                                                             valid, out, T, K, N, G, stream);
+      return launch_ragged<decltype(s), 1, elem_t<decltype(xp)>>(
+          x, w, w, offsets, tile_m, grp, valid, out, out, out, T, K, N, G, stream);
+  });
+}
+
+// The fused gate-up-SiLU on the ragged tiles (ragged_tile's codes, as
+// ragged_matmul_f32_tc; Tile64 runs as Tile64Pair, of the same height): h,
+// a_g, a_u (T, F) fp32, F a multiple of 8.
+extern "C" int ragged_gate_up_silu_f32_tc(const void* x, int xdt, const void* w_gate,
+                                          const void* w_up, const int* offsets,
+                                          const int* tile_m, const int* grp, const int* valid,
+                                          void* h, void* a_g, void* a_u, int T, int K, int F,
+                                          int G, int tile, void* stream) {
+  if (T <= 0 || G <= 0 || !rows16(xdt, K) || !rows16(kBF16, F))
+    return (int)cudaErrorInvalidValue;
+  return with_tile(xdt, tile, [&](auto s, auto* xp) {
+    using S = decltype(s);
+    if constexpr (std::is_same<S, Tile128>::value) return (int)cudaErrorInvalidValue;
+    else
+      return launch_ragged<std::conditional_t<std::is_same<S, Tile64>::value, Tile64Pair, S>, 2,
+                           elem_t<decltype(xp)>>(x, w_gate, w_up, offsets, tile_m, grp, valid,
+                                                 h, a_g, a_u, T, K, F, G, stream);
   });
 }
 

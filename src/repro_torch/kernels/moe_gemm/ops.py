@@ -21,9 +21,10 @@ by dtype and rows per expert before any launch (never after a failed one):
 ``grouped_matmul_f32`` and ``ragged_matmul_f32`` with bf16 weights run on
 the tensor cores (``csrc/moe_gemm_tc.cu``: "tc", or "skinny" for <= 16 rows
 an expert), fp32 x split into three bf16 pieces; with fp32 weights on the
-fp32 CUDA cores (``csrc/moe_gemm.cu``: "fma").  ``ragged_dw_f32`` runs on
-the tensor cores for every operand pair ("tc"), fp32 operands in bf16
-pieces; ``ragged_gate_up_silu_f32`` on the CUDA cores.  The kernels mask
+fp32 CUDA cores (``csrc/moe_gemm.cu``: "fma"); ``ragged_gate_up_silu_f32``
+is routed as ``ragged_matmul_f32`` and runs the same tile body with gate
+and up in one slab.  ``ragged_dw_f32`` runs on the tensor cores for every
+operand pair ("tc"), fp32 operands in bf16 pieces.  The kernels mask
 ragged row and column edges themselves, so rows are never padded to the
 tile height (the JAX wrapper's ``_pad_rows``); the output is (T, N) for T
 input rows.
@@ -68,17 +69,24 @@ _RAGGED = {
                   [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
                   ("ragged_matmul_f32", "ragged_matmul_f32/fma")),
 }
-_GATE_UP = Kernel("moe_gemm", "ragged_gate_up_silu_f32",
-                  [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _I, _I])
+_GATE_UP_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+_GATE_UP = {
+    "tc": Kernel("moe_gemm_tc", "ragged_gate_up_silu_f32_tc", _GATE_UP_ARGS,
+                 ("ragged_gate_up_silu_f32", "ragged_gate_up_silu_f32/tc")),
+    "skinny": Kernel("moe_gemm_tc", "ragged_gate_up_silu_f32_tc", _GATE_UP_ARGS,
+                     ("ragged_gate_up_silu_f32", "ragged_gate_up_silu_f32/skinny")),
+    "fma": Kernel("moe_gemm", "ragged_gate_up_silu_f32",
+                  [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+                  ("ragged_gate_up_silu_f32", "ragged_gate_up_silu_f32/fma")),
+}
 _DW = Kernel("moe_gemm_tc", "ragged_dw_f32_tc", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I],
              ("ragged_dw_f32", "ragged_dw_f32/tc"))
 
 
 def _row_block(rows_per_group: float) -> int:
     """Tile height of the fp32 CUDA-core kernels (``csrc/moe_gemm.cu``, design
-    "fma" and the fused gate-up-SiLU): 16 for skinny groups (decode: ~1 row
-    per expert), 64 otherwise.  That source instantiates exactly these."""
+    "fma"): 16 for skinny groups (decode: ~1 row per expert), 64 otherwise.
+    That source instantiates exactly these."""
     return 16 if rows_per_group <= 16 else 64
 
 
@@ -207,8 +215,9 @@ def ragged_metadata(offsets: torch.Tensor, bm: int, E: int, G: int):
 
 
 def ragged_design(x_dtype: torch.dtype, w_dtype: torch.dtype, rows_per_expert: float) -> str:
-    """The kernel design a CUDA ragged GEMM launches for x of ``x_dtype``
-    with ``rows_per_expert`` = T / E and weights of ``w_dtype``, as
+    """The kernel design a CUDA ragged GEMM (``ragged_matmul_f32`` or the
+    fused ``ragged_gate_up_silu_f32``) launches for x of ``x_dtype`` with
+    ``rows_per_expert`` = T / E and weights of ``w_dtype``, as
     :func:`grouped_design`: bf16 weights on the tensor cores, "skinny" for
     <= 16 rows an expert (decode) and "tc" above; fp32 weights "fma"."""
     return _design("ragged_matmul_f32", x_dtype, w_dtype, rows_per_expert)
@@ -249,26 +258,33 @@ def _work_table(offsets, T: int, E: int, bm: int):
     return G, ragged_metadata(offsets, bm, E, G)
 
 
-def ragged_matmul_f32_launch(x, w, offsets):
-    """Validate a ragged GEMM on CUDA tensors, build its work table (at the
-    height of :func:`ragged_tile`'s tile) and zeroed output; returns (out,
-    launch), ``launch()`` enqueuing the kernel of :func:`ragged_design`
-    alone."""
-    T, K, N, E = _ragged_prepare(x, [w], offsets)
-    kind = ragged_design(x.dtype, w.dtype, T / E)
-    out = torch.zeros((T, N), dtype=torch.float32, device=x.device)
+def _ragged_launch(name, kernels, x, ws, offsets):
+    """Validate a ragged launch over the weights ``ws`` on CUDA tensors, build
+    its work table (at the height of :func:`ragged_tile`'s tile, or of
+    ``_row_block`` for "fma") and zeroed fp32 outputs, one per ``kernels``
+    output; returns (outs, launch), ``launch()`` enqueuing the kernel of
+    :func:`ragged_design` alone."""
+    T, K, N, E = _ragged_prepare(x, ws, offsets)
+    kind = _design(name, x.dtype, ws[0].dtype, T / E)
+    outs = tuple(torch.zeros((T, N), dtype=torch.float32, device=x.device)
+                 for _ in range(1 if len(ws) == 1 else 3))
     if kind == "fma":
         bm = _row_block(T / E)
-        G, (tm, gr, vl) = _work_table(offsets, T, E, bm)
-        args = (x, dtype_code("x", x), w, dtype_code("w", w), offsets, tm, gr, vl, out,
-                T, K, N, G, bm)
+        wdt, last = (dtype_code("w", ws[0]),), bm
     else:
-        _check_tc_rows("ragged_matmul_f32", x, w, K, N)
+        for i, w in enumerate(ws):
+            _check_tc_rows(name, x, w, K, N, f"w{i}")
         tile = ragged_tile(x.dtype, T / E)
-        G, (tm, gr, vl) = _work_table(offsets, T, E, TILE_ROWS[tile])
-        args = (x, dtype_code("x", x), w, offsets, tm, gr, vl, out, T, K, N, G,
-                TILES.index(tile))
-    return out, (lambda: _RAGGED[kind](*args)) if out.numel() else (lambda: None)
+        bm, wdt, last = TILE_ROWS[tile], (), TILES.index(tile)
+    G, table = _work_table(offsets, T, E, bm)
+    args = (x, dtype_code("x", x), *ws, *wdt, offsets, *table, *outs, T, K, N, G, last)
+    return outs, (lambda: kernels[kind](*args)) if outs[0].numel() else (lambda: None)
+
+
+def ragged_matmul_f32_launch(x, w, offsets):
+    """As :func:`_ragged_launch` for one ragged GEMM; returns (out, launch)."""
+    (out,), launch = _ragged_launch("ragged_matmul_f32", _RAGGED, x, [w], offsets)
+    return out, launch
 
 
 def ragged_matmul_f32(x, w, offsets):
@@ -285,15 +301,7 @@ def ragged_matmul_f32(x, w, offsets):
 def ragged_gate_up_silu_f32_launch(x, w_gate, w_up, offsets):
     """As :func:`ragged_matmul_f32_launch` for the fused gate-up-SiLU
     kernel; the output is the triple (h, a_g, a_u)."""
-    T, K, Fd, E = _ragged_prepare(x, [w_gate, w_up], offsets)
-    bm = _row_block(T / E)
-    G, (tm, gr, vl) = _work_table(offsets, T, E, bm)
-    outs = tuple(torch.zeros((T, Fd), dtype=torch.float32, device=x.device)
-                 for _ in range(3))
-    args = (x, dtype_code("x", x), w_gate, w_up, dtype_code("w", w_gate),
-            offsets, tm, gr, vl, *outs, T, K, Fd,
-            G, bm)
-    return outs, (lambda: _GATE_UP(*args)) if outs[0].numel() else (lambda: None)
+    return _ragged_launch("ragged_gate_up_silu_f32", _GATE_UP, x, [w_gate, w_up], offsets)
 
 
 def ragged_gate_up_silu_f32(x, w_gate, w_up, offsets):

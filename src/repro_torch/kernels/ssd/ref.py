@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.moe_gemm.ref import split_bf16x3
+
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
     """out[..., i, j] = sum_{k in (j, i]} x[..., k] for i >= j, else -inf;
@@ -36,3 +38,20 @@ def ssd_intra_chunk(x, dA, B, C):
     L = torch.exp(segsum(dA.float().transpose(1, 2)))  # (g, h, cl, cl)
     scores = torch.einsum("glhn,gshn->ghls", C.float(), B.float()) * L
     return torch.einsum("ghls,gshp->glhp", scores, x.float()).to(x.dtype)
+
+
+def ssd_intra_chunk_pieces(x, dA, B, C):
+    """The tensor-core kernel's arithmetic (``csrc/ssd_tc.cu``) for bf16
+    inputs: C·Bᵀ, exact bf16 products summed in fp32, taken once per chunk
+    where B and C are head-broadcast (head stride 0) and per head otherwise;
+    the decay exp(cs[l] - cs[s]) on the causal pairs only; the fp32 decayed
+    scores cut into three bf16 pieces (hi + mid + lo, exactly the score), each
+    product with x exact in fp32 and summed in fp32; one rounding to x's
+    dtype.  Shapes as :func:`ssd_intra_chunk`."""
+    if B.stride(2) == 0 and C.stride(2) == 0:
+        S = torch.einsum("gln,gsn->gls", C[:, :, 0].float(), B[:, :, 0].float())[:, None]
+    else:
+        S = torch.einsum("glhn,gshn->ghls", C.float(), B.float())
+    P = S * torch.exp(segsum(dA.float().transpose(1, 2)))  # exp(-inf) = 0 above the diagonal
+    y = sum(torch.einsum("ghls,gshp->glhp", p.float(), x.float()) for p in split_bf16x3(P))
+    return y.to(x.dtype)

@@ -9,7 +9,13 @@ arithmetic, written in plain PyTorch (``ref.grouped_matmul_bf16x3``,
 ``ref.ragged_matmul_bf16x3``, ``ref.ragged_dw_pieces``), is held against
 the fp32 product and against the JAX package's Pallas kernels in interpret
 mode, at the GEMMs' fp32 bound (rtol 2e-5, atol 1.6e-4: the same exact
-products, summed in another order).  The wrappers' choice of kernel design,
+products, summed in another order).  ``ssd_intra_chunk``'s tensor-core
+kernel takes C.B^T once for head-broadcast B and C and the fp32 decayed
+scores as three bf16 pieces (``ssd.ref.ssd_intra_chunk_pieces``), held
+against the plain version and the JAX kernel at chip_smoke.py's bf16
+``SSD_TOL``.  The fused gate-up's and the SSD's ``*_launch`` functions are run on
+CPU tensors with their kernels replaced by a recorder, to hold which design,
+tile, work table and heads per block each call takes.  The wrappers' choice of kernel design,
 by (x dtype, w dtype, rows per expert) and by (dtype, head dim), and of the
 tensor-core tile shape, is pure Python and is held case by case, as are
 the C entry points' tile codes, tile heights and argument lists.  The
@@ -27,12 +33,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.moe_gemm import moe_gemm as jmm
+from repro.kernels.ssd import ssd as jssd
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels._build import CSRC, Kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gemm import ops as mm_ops
 from repro_torch.kernels.moe_gemm import ref as mm_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 
 F32 = dict(rtol=2e-5, atol=1.6e-4)
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -279,8 +287,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
         return {"long": ctypes.c_int64, "float": ctypes.c_float}.get(param.split()[0],
                                                                     ctypes.c_int)
 
-    kernels = [*mm_ops._GROUPED.values(), *mm_ops._RAGGED.values(), mm_ops._GATE_UP,
-               mm_ops._DW, *fa_ops._FLASH.values(), ssd_ops._SSD]
+    kernels = [*mm_ops._GROUPED.values(), *mm_ops._RAGGED.values(),
+               *mm_ops._GATE_UP.values(), mm_ops._DW, *fa_ops._FLASH.values(),
+               *ssd_ops._SSD.values()]
     assert all(isinstance(k, Kernel) for k in kernels)
     for k in kernels:
         params = _c_params(k.source, k.symbol)
@@ -298,3 +307,160 @@ def test_every_ragged_design_has_its_own_counter():
     assert {k.symbol for k in mm_ops._RAGGED.values()} == {"ragged_matmul_f32_tc",
                                                            "ragged_matmul_f32"}
     assert mm_ops._DW.source == "moe_gemm_tc" and mm_ops._RAGGED["fma"].source == "moe_gemm"
+
+
+# ---------------------------------------------------------------------------
+# The fused gate-up-SiLU and the SSD intra-chunk term on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Each wrapper's ``*_launch`` function on CPU tensors (device check off), the
+    kernels replaced by a recorder: which design ran, with which args."""
+    calls = []
+    for mod, table in ((mm_ops, mm_ops._GATE_UP), (ssd_ops, ssd_ops._SSD)):
+        monkeypatch.setattr(mod, "check_cuda", lambda *t: None)
+        for kind in table:
+            monkeypatch.setitem(table, kind, lambda *a, _k=kind: calls.append((_k, a)))
+    return calls
+
+
+@pytest.mark.parametrize("xdt,wdt,counts,kind,tile", [
+    (BF16, BF16, [7, 0, 83, 1, 9], "tc", "Tile64"),
+    (BF16, BF16, [1, 1, 1, 1, 1, 96, 1, 1], "skinny", "Skinny"),  # 13.5 rows an expert
+    (BF16, BF16, [16, 16, 0, 32], "skinny", "Skinny"),  # 16 exactly
+    (BF16, BF16, [17, 16, 0, 35], "tc", "Tile64"),
+    (FP32, BF16, [7, 0, 83, 1, 9], "tc", "Tile64Split"),
+    (FP32, BF16, [0, 0, 0, 3], "skinny", "Skinny"),
+    (FP32, FP32, [7, 0, 83, 1, 9], "fma", None),
+    (BF16, FP32, [0, 0, 0, 3], "fma", None),
+])
+def test_gate_up_launch_routes_by_dtype_and_rows(recorded, xdt, wdt, counts, kind, tile):
+    """bf16 weights: /skinny at <= 16 rows an expert, /tc above, at the
+    tile's code and with the work table built at the tile's height; fp32
+    weights /fma at ``_row_block``'s height.  Three zeroed fp32 outputs."""
+    offs = torch.from_numpy(_offsets(counts))
+    T, E = int(offs[-1]), len(counts)
+    x = torch.zeros((T, 48), dtype=xdt)
+    wg, wu = torch.zeros((E, 48, 56), dtype=wdt), torch.ones((E, 48, 56), dtype=wdt)
+    outs, launch = mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)
+    launch()
+    ((got, args),) = recorded
+    assert got == kind == mm_ops.ragged_design(xdt, wdt, T / E)
+    assert len(outs) == 3 and all(o.shape == (T, 56) and o.dtype == FP32 and not o.any()
+                                  for o in outs)
+    bm = mm_ops.TILE_ROWS[tile] if tile else mm_ops._row_block(T / E)
+    assert args[-2] == -(-T // bm) + E  # G: work items at the table's height
+    assert args[-1] == (mm_ops.TILES.index(tile) if tile else bm)
+    assert args[2] is wg and args[3] is wu
+
+
+@pytest.mark.parametrize("dtype,kind", [(BF16, "tc"), (FP32, "fma")])
+def test_ssd_design(dtype, kind):
+    assert ssd_ops.design(dtype) == kind
+    with pytest.raises(ValueError):
+        ssd_ops.design(torch.float16)
+
+
+@pytest.mark.parametrize("g,cl,h,p,shared,hb", [
+    (32, 256, 32, 64, True, 2),   # mamba2-370m, 4 x 2048
+    (32, 256, 32, 64, False, 1),  # per-head B and C
+    (4, 100, 32, 64, True, 1),    # 4 x 100: the first version's 256 blocks
+    (1, 200, 32, 64, True, 1),    # 1 x 200: its 128 blocks
+    (8, 256, 32, 64, True, 2),    # 512 blocks
+    (4, 256, 32, 64, True, 1),    # two heads a block would leave 256
+    (64, 256, 3, 64, True, 1),    # 2 does not divide 3
+    (128, 256, 32, 128, True, 1),  # p = 128: one head a block
+])
+def test_ssd_heads_per_block(g, cl, h, p, shared, hb):
+    """Heads sharing one C.B^T a block: two where that keeps the grid at or
+    above MIN_BLOCKS, at p <= 64 and head-broadcast B and C only."""
+    got = ssd_ops.heads_per_block(g, cl, h, p, shared)
+    assert got == hb
+    assert got == 1 or -(-cl // 64) * (h // got) * g >= ssd_ops.MIN_BLOCKS
+
+
+def test_ssd_c_entry_takes_the_heads_per_block_python_picks():
+    src = (CSRC / "ssd_tc.cu").read_text()
+    assert "HB != 1 && HB != 2" in src
+    assert "HB > 1 && (b_sh != 0 || c_sh != 0 || P > 64)" in src
+
+
+@pytest.mark.parametrize("dtype,shared,hb", [(BF16, True, 2), (BF16, False, 1),
+                                             (FP32, True, None)])
+def test_ssd_launch_routes_by_dtype(recorded, dtype, shared, hb):
+    """bf16 -> /tc with the heads per block of ``heads_per_block`` (2 for
+    head-broadcast B and C at the model's 4 x 2048 prefill, 1 per head);
+    fp32 -> /fma; the strides of x, B, C and dA in the C entry's order."""
+    g, cl, h, p, n = 32, 256, 32, 64, 128
+    x, dA = torch.zeros((g, cl, h, p), dtype=dtype), torch.zeros((g, cl, h), dtype=dtype)
+    B = (torch.zeros((g, cl, 1, n), dtype=dtype).expand(g, cl, h, n) if shared
+         else torch.zeros((g, cl, h, n), dtype=dtype))
+    out, launch = ssd_ops.ssd_intra_chunk_launch(x, dA, B, B)
+    launch()
+    ((kind, args),) = recorded
+    assert kind == ssd_ops.design(dtype) and out.shape == x.shape and out.dtype == dtype
+    strides = [s for t in (x, B, B, dA) for s in t.stride()[:3]]
+    if kind == "tc":
+        assert list(args[5:11]) == [g, cl, h, p, n, hb] and list(args[11:]) == strides
+    else:
+        assert list(args[5:11]) == [0, g, cl, h, p, n] and list(args[11:]) == strides
+
+
+def test_every_gate_up_and_ssd_design_has_its_own_counter():
+    counts = launch_counts()
+    for name, table in (("ragged_gate_up_silu_f32", mm_ops._GATE_UP),
+                        ("ssd_intra_chunk", ssd_ops._SSD)):
+        for kind, kernel in table.items():
+            assert kernel.counters == (name, f"{name}/{kind}")
+            assert f"{name}/{kind}" in counts
+    assert set(mm_ops._GATE_UP) == {"tc", "skinny", "fma"} and set(ssd_ops._SSD) == {"tc", "fma"}
+    assert {k.symbol for k in mm_ops._GATE_UP.values()} == {"ragged_gate_up_silu_f32_tc",
+                                                            "ragged_gate_up_silu_f32"}
+    assert mm_ops._GATE_UP["tc"].source == "moe_gemm_tc" and ssd_ops._SSD["tc"].source == "ssd_tc"
+
+
+def _ssd_case(shape, law, per_head, seed):
+    """bf16 values (as numpy fp32) of x, dA, B, C at the model's scale."""
+    g, cl, h, p, n = shape
+    rng = np.random.default_rng(seed)
+    x = _bf16_values(rng.standard_normal((g, cl, h, p)) * 0.1)
+    dA = _bf16_values({"decay": -np.abs(rng.standard_normal((g, cl, h))) * 0.1,
+                       "strong": rng.standard_normal((g, cl, h)) - 50.0,
+                       "zero": np.zeros((g, cl, h))}[law])
+    bc = (g, cl, h if per_head else 1, n)
+    B, C = (_bf16_values(rng.standard_normal(bc) * 0.5) for _ in range(2))
+    return x, dA, B, C
+
+
+SSD_BF16 = dict(rtol=1e-2, atol=3e-5)  # chip_smoke.py's SSD_TOL for bf16
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+@pytest.mark.parametrize("shape,law", [
+    ((2, 64, 4, 16, 16), "decay"), ((3, 1, 4, 16, 8), "decay"), ((2, 100, 4, 16, 16), "decay"),
+    ((2, 64, 4, 16, 8), "strong"), ((2, 64, 4, 16, 8), "zero"), ((1, 256, 2, 64, 128), "decay"),
+    ((1, 200, 2, 64, 128), "zero"),
+])
+def test_ssd_tensor_core_arithmetic_matches_plain_and_jax(shape, law, per_head):
+    """The /tc kernel's arithmetic (``ref.ssd_intra_chunk_pieces``: C.B^T once
+    for head-broadcast B and C, the decayed scores as three bf16 pieces)
+    on bf16 inputs, against the fp32 plain version rounded once and the JAX
+    package's Pallas kernel in interpret mode, at chip_smoke.py's bf16
+    SSD_TOL; the strong-decay edge (dA ~ -50) stays finite."""
+    x, dA, B, C = _ssd_case(shape, law, per_head, seed=sum(shape))
+    g, cl, h, p, n = shape
+    tx, tdA = torch.from_numpy(x).to(BF16), torch.from_numpy(dA).to(BF16)
+    tB, tC = (torch.from_numpy(a).to(BF16).expand(g, cl, h, n) for a in (B, C))
+    assert (tB.stride(2) == 0) == (not per_head)
+    got = ssd_ref.ssd_intra_chunk_pieces(tx, tdA, tB, tC)
+    assert got.dtype == BF16 and got.shape == (g, cl, h, p) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().numpy(),
+                               ssd_ref.ssd_intra_chunk(tx, tdA, tB, tC).float().numpy(),
+                               **SSD_BF16)
+    jb = lambda a: jnp.broadcast_to(jnp.asarray(a, jnp.bfloat16), (g, cl, h, n))  # noqa: E731
+    want = jssd.ssd_intra_chunk(jnp.asarray(x, jnp.bfloat16), jnp.asarray(dA, jnp.bfloat16),
+                                jb(B), jb(C), interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               **SSD_BF16)

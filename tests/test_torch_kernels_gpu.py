@@ -23,11 +23,16 @@ bf16-weight calls must never reach ``/fma``.  ``ragged_dw_f32`` runs on the
 tensor cores for every operand pair (``/tc``): fp32 operands as three bf16
 pieces, an fp32 x fp32 pair as six products whose three dropped terms are
 below 2^-24 of |x.g|, held at the same fp32 bound.
+The fused ``ragged_gate_up_silu_f32`` runs the ragged GEMM's tile with gate
+and up in one slab (``/tc``, ``/skinny``; fp32 weights ``/fma``), held at
+the same fp32 bound, NaN rows past offsets[E] left 0.
 ``ssd_intra_chunk`` likewise computes in fp32 from its inputs' values and
 rounds once: fp32 at the reference's atol 3e-5 (on inputs at the model's
 scale: x dt-scaled, ~0.1; B and C ~0.5), bf16 against the plain version on
 the same bf16 values rounded once, rtol 1e-2 (one bf16 step is at most
-2^-7 relative) and atol 3e-5.
+2^-7 relative) and atol 3e-5.  bf16 runs on the tensor cores (``/tc``:
+C.B^T exact products, the decayed scores as three bf16 pieces that sum to
+them exactly), with head-broadcast or per-head B and C; fp32 ``/fma``.
 """
 
 import numpy as np
@@ -46,6 +51,7 @@ from repro_torch.kernels.ssd import ref as ssd_ref
 pytestmark = pytest.mark.gpu
 _ATTN = fa_ref.attention  # unpoisoned by ``no_plain``: the CPU side of a check
 _RAGGED_MM, _RAGGED_DW = mm_ref.ragged_matmul_f32, mm_ref.ragged_dw_f32
+_SSD = ssd_ref.ssd_intra_chunk
 
 GEMM_TOL = dict(rtol=2e-5, atol=1.6e-4)
 FA_TOL = {torch.float32: dict(rtol=2e-5, atol=8e-5),
@@ -592,3 +598,174 @@ def test_ragged_dw_tensor_core_pairs_at_edge_counts(dev, counts, xdt, gdt, no_pl
     assert _delta(before, _designs("ragged_dw_f32"))["ragged_dw_f32/tc"] == 1
     assert torch.isfinite(got).all()
     _close(got, _RAGGED_DW(x, g, offs), **GEMM_TOL)
+
+
+GATE_UP_COUNTS = RAGGED_COUNTS + [[0, 0, 0, 3], [130, 0, 1]]
+
+
+def _gate_up_case(counts, K, F, xdt, wdt, dev, seed=0):
+    """x with 5 NaN tail rows past offsets[E], bf16-scaled gate and up."""
+    x, _, _, offs, T = _ragged(counts, K, F, xdt, dev, seed)
+    x[T:] = float("nan")
+    rng = np.random.default_rng(seed + 11)
+    wg, wu = (_t(rng.standard_normal((len(counts), K, F)) * K ** -0.5, wdt, dev)
+              for _ in range(2))
+    return x, wg, wu, offs, T
+
+
+def _check_gate_up(got, x, wg, wu, offs, T):
+    """(h, a_g, a_u) against the plain product of the rows inside the
+    experts; rows past offsets[E] exactly 0."""
+    assert all(t.shape == (x.shape[0], wg.shape[2]) and t.dtype == torch.float32 for t in got)
+    assert all((t[T:] == 0).all() and torch.isfinite(t).all() for t in got)
+    a_g, a_u = _RAGGED_MM(x[:T], wg, offs), _RAGGED_MM(x[:T], wu, offs)
+    for name, a, b in zip(("h", "a_g", "a_u"), got, (torch.nn.functional.silu(a_g) * a_u,
+                                                     a_g, a_u)):
+        _close(a[:T], b, err_msg=name, **GEMM_TOL)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["tc", "skinny"])
+@pytest.mark.parametrize("K,F", [(48, 56), (48, 512), (1536, 56), (1536, 512)])
+@pytest.mark.parametrize("counts", GATE_UP_COUNTS)
+def test_gate_up_tensor_core_designs(dev, counts, K, F, kind, xdt, no_plain):
+    """Each tensor-core design of the fused gate-up-SiLU over the edge counts
+    (launched through its C entry at its tile, whatever rows per expert the
+    router would see), the F = 56 column edge, K = 1536 (granite's d), NaN
+    tail rows never read and left 0; at the GEMMs' fp32 bound."""
+    x, wg, wu, offs, T = _gate_up_case(counts, K, F, xdt, torch.bfloat16, dev)
+    tile = "Skinny" if kind == "skinny" else mm_ops.ragged_tile(xdt, 100)
+    G, table = mm_ops._work_table(offs, x.shape[0], len(counts), mm_ops.TILE_ROWS[tile])
+    outs = tuple(torch.zeros((x.shape[0], F), device=dev) for _ in range(3))
+    before = _designs("ragged_gate_up_silu_f32")
+    mm_ops._GATE_UP[kind](x, dtype_code("x", x), wg, wu, offs, *table, *outs, x.shape[0], K, F,
+                          G, mm_ops.TILES.index(tile))
+    torch.cuda.synchronize()
+    d = _delta(before, _designs("ragged_gate_up_silu_f32"))
+    assert d["ragged_gate_up_silu_f32"] == d[f"ragged_gate_up_silu_f32/{kind}"] == 1
+    _check_gate_up(outs, x, wg, wu, offs, T)
+
+
+@pytest.mark.parametrize("xdt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("counts", GATE_UP_COUNTS)
+def test_gate_up_wrapper_routes_by_dtype_and_rows(dev, counts, xdt, wdt, no_plain):
+    """The wrapper's design: bf16 weights /skinny at <= 16 rows an expert and
+    /tc above, fp32 weights /fma; one launch, counted under its design."""
+    x, wg, wu, offs, T = _gate_up_case(counts, 48, 56, xdt, wdt, dev, seed=1)
+    kind = mm_ops.ragged_design(xdt, wdt, x.shape[0] / len(counts))
+    assert kind == ("fma" if wdt == torch.float32
+                    else "skinny" if x.shape[0] / len(counts) <= 16 else "tc")
+    before = _designs("ragged_gate_up_silu_f32")
+    got = mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ragged_gate_up_silu_f32")) == {
+        "ragged_gate_up_silu_f32": 1,
+        **{f"ragged_gate_up_silu_f32/{k}": int(k == kind) for k in ("tc", "skinny", "fma")}}
+    _check_gate_up(got, x, wg, wu, offs, T)
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [32, 4096, 8192])
+def test_gate_up_full_width(dev, T, xdt, no_plain):
+    """granite-moe-3b's gate-up at full width (40 experts, d = 1536, d_ff =
+    512): decode (T = 32) through /skinny, prefill (4096) and the training
+    step (8192) through /tc, bf16 rows or fp32 rows in three pieces."""
+    offs = _routed(T, 40, dev, T + 3)
+    rng = np.random.default_rng(T + 1)
+    x = _t(rng.standard_normal((T + 5, 1536)), xdt, dev)
+    x[T:] = float("nan")
+    wg, wu = (_t(rng.standard_normal((40, 1536, 512)) * 1536 ** -0.5, torch.bfloat16, dev)
+              for _ in range(2))
+    kind = mm_ops.ragged_design(xdt, torch.bfloat16, (T + 5) / 40)
+    assert kind == ("skinny" if T == 32 else "tc")
+    before = _designs("ragged_gate_up_silu_f32")
+    got = mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ragged_gate_up_silu_f32"))[
+        f"ragged_gate_up_silu_f32/{kind}"] == 1
+    _check_gate_up(got, x, wg, wu, offs, T)
+
+
+@pytest.mark.parametrize("xdt,tile", [(torch.bfloat16, "Tile128"), (torch.float32, "Tile64"),
+                                      (torch.bfloat16, "Tile64Split"), (torch.bfloat16, None)])
+def test_gate_up_tile_not_built_is_refused(dev, xdt, tile, no_plain):
+    """The gate-up tensor-core entry takes the ragged tiles only; another
+    code returns an error, and the launch raises."""
+    x = torch.zeros((32, 64), dtype=xdt, device=dev)
+    w = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    offs = torch.tensor([0, 16, 32], dtype=torch.int32, device=dev)
+    G, table = mm_ops._work_table(offs, 32, 2, 64)
+    outs = [torch.zeros((32, 64), device=dev) for _ in range(3)]
+    code = len(mm_ops.TILES) if tile is None else mm_ops.TILES.index(tile)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mm_ops._GATE_UP["tc"](x, dtype_code("x", x), w, w, offs, *table, *outs, 32, 64, 64, G,
+                              code)
+
+
+def _ssd_per_head(shape, dtype, dev, seed=0):
+    """(x, dA, B, C) with B and C per head (contiguous, head stride n), as
+    several B/C groups give them after ``repeat_interleave``."""
+    x, dA, B, C = _ssd_inputs(shape, "decay", dtype, dev, seed)
+    rng = np.random.default_rng(seed + 5)
+    B, C = (_t(rng.standard_normal(B.shape) * 0.5, dtype, dev) for _ in range(2))
+    return x, dA, B, C
+
+
+@pytest.mark.parametrize("bc", ["broadcast", "per-head"])
+@pytest.mark.parametrize("shape,law", [
+    ((1, 2, 32, 4, 16, 8), "decay"), ((2, 2, 64, 8, 32, 16), "decay"),
+    ((2, 3, 1, 4, 16, 8), "decay"), ((1, 2, 100, 4, 16, 16), "decay"),
+    ((1, 2, 64, 32, 64, 128), "strong"), ((1, 2, 64, 4, 16, 8), "zero"),
+    ((1, 1, 200, 2, 128, 256), "decay"),
+    ((4, 8, 256, 32, 64, 128), "decay"),  # mamba2-370m, 4 x 2048 prompt
+    ((4, 1, 100, 32, 64, 128), "decay"),  # 4 x 100
+    ((1, 1, 200, 32, 64, 128), "decay"),  # 1 x 200
+])
+def test_ssd_intra_chunk_tensor_core_design(dev, shape, law, bc, no_plain):
+    """bf16 through /tc, with head-broadcast B and C (C.B^T shared by the
+    block's heads) and with per-head B and C (one head a block); never the
+    fma kernel; at SSD_TOL against the plain version on the same values."""
+    if bc == "broadcast":
+        x, dA, B, C = _ssd_inputs(shape, law, torch.bfloat16, dev)
+        assert B.stride(3) == 0 and C.stride(3) == 0
+    else:
+        x, dA, B, C = _ssd_per_head(shape, torch.bfloat16, dev)
+        if law != "decay":
+            dA = _ssd_inputs(shape, law, torch.bfloat16, dev)[1]
+    b, nc, cl, h, p = x.shape
+    if bc == "per-head":
+        assert ssd_ops.heads_per_block(b * nc, cl, h, p, False) == 1
+    before = _designs("ssd_intra_chunk")
+    got = ssd_ops.ssd_intra_chunk(x, dA, B, C)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("ssd_intra_chunk")) == {
+        "ssd_intra_chunk": 1, "ssd_intra_chunk/tc": 1, "ssd_intra_chunk/fma": 0}
+    fold = lambda t: t.flatten(0, 1).float()  # noqa: E731
+    want = _SSD(fold(x), fold(dA.to(torch.bfloat16)), fold(B), fold(C))
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape and torch.isfinite(got).all()
+    _close(got.flatten(0, 1), want.to(torch.bfloat16), **SSD_TOL[torch.bfloat16])
+
+
+def test_fp32_gate_up_and_ssd_take_the_fma_designs(dev, no_plain):
+    x, wg, wu, offs, _ = _gate_up_case([20, 0, 40], 32, 24, torch.float32, torch.float32, dev)
+    before = launch_counts()
+    mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs)
+    ssd_ops.ssd_intra_chunk(*_ssd_inputs((1, 2, 32, 4, 16, 8), "decay", torch.float32, dev))
+    torch.cuda.synchronize()
+    d = _delta(before, launch_counts())
+    assert d["ragged_gate_up_silu_f32"] == d["ragged_gate_up_silu_f32/fma"] == 1
+    assert d["ssd_intra_chunk"] == d["ssd_intra_chunk/fma"] == 1
+    assert d["ssd_intra_chunk/tc"] == d["ragged_gate_up_silu_f32/tc"] == 0
+
+
+def test_ssd_tensor_core_refuses_unaligned_rows(dev, no_plain):
+    """bf16 with p or n not a multiple of 8: refused before any launch."""
+    before = launch_counts()
+    for shape in ((1, 1, 32, 2, 12, 8), (1, 1, 32, 2, 16, 12)):
+        with pytest.raises(ValueError, match="aligned"):
+            ssd_ops.ssd_intra_chunk(*_ssd_inputs(shape, "decay", torch.bfloat16, dev))
+    torch.cuda.synchronize()
+    assert _delta(before, launch_counts()) == {k: 0 for k in before}

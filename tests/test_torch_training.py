@@ -27,7 +27,6 @@ Tolerances:
 """
 
 import dataclasses
-import time
 from functools import lru_cache
 
 import jax
@@ -421,15 +420,21 @@ def test_trainer_host_fetch_cadence():
 
 
 class _VirtualTime:
-    """``time`` for the trainer and the injector: sleeps advance a virtual
-    offset of ``perf_counter`` instead of waiting, so an injected slow step
-    is slow by exactly its payload whatever the machine's load."""
+    """``time`` for the trainer and the injector, with no host clock in it:
+    ``perf_counter`` advances by a fixed tick per call and ``sleep`` adds
+    to it instead of waiting.  So every step takes the same virtual time
+    and an injected slow step is slow by exactly its payload.  Reading
+    the host's clock here let a loaded machine stall an ordinary step
+    past the straggler threshold and report a second straggler."""
+
+    TICK = 0.01
 
     def __init__(self):
         self.offset = 0.0
 
     def perf_counter(self):
-        return time.perf_counter() + self.offset
+        self.offset += self.TICK
+        return self.offset
 
     def sleep(self, seconds):
         self.offset += seconds
