@@ -61,7 +61,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    the ragged kernels once per MoE layer (gate-up), four times (the
    forward down-projection and the three backward GEMMs) and three times
    (the weight gradients), none through an ``/fma`` design; then one more
-   step under ``torch.profiler``.
+   step under ``torch.profiler``;
+11. checkpoint: ``repro_torch.runtime.trainer.Trainer`` on granite at full
+   width and depth 2 (ragged, batch 2 x 512): runs A and A2, 12 steps
+   each with no checkpoint (the launch counts zeroed before A and read
+   after it, held per step as in phase 10); run B, checkpoints every 4
+   steps, keep 2, NaN at steps 5-7 (rolled back to 4) and SIGTERM at 10
+   (final save), then a fresh trainer on a state from another seed that
+   resumes at 10 and ends at 12.  After each restore the live state's
+   CRC32s must equal the manifest's; the resumed state and loss must equal
+   A's bit for bit when A2 equals A, and otherwise lie no further from A
+   than A2 does.  A byte flipped in the newest checkpoint must be
+   quarantined and the restore fall back.  Prints the bytes a checkpoint,
+   the snapshot, save (CRC and write), verify and restore seconds and
+   GB/s, the step p50 with and without an async write in flight, and the
+   peak device memory.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -74,6 +88,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -985,6 +1000,216 @@ def training_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: checkpoint, rollback and preemption at full width, depth 2
+# ---------------------------------------------------------------------------
+
+CKPT_DEPTH, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 2, 12, 4, 2
+CKPT_NAN_AT, CKPT_SIGTERM_AT = 5, 10  # train.nonfinite x 3 from 5; train.sigterm at 10
+PATH_KERNELS["checkpoint"] = PATH_KERNELS["train"]
+
+
+def _state_on_host(state) -> dict:
+    from repro_torch.models.model import tree_paths
+
+    return {k: t.detach().cpu() for k, t in tree_paths(state).items()}
+
+
+def _max_gap(a: dict, b: dict) -> dict:
+    """max |a - b| over the params, m and v leaves of two host states."""
+    out = {}
+    for part in ("params", "m", "v"):
+        keys = [k for k in a if k.startswith(part + "/") and a[k].is_floating_point()]
+        out[part] = max(float((a[k].double() - b[k].double()).abs().max()) for k in keys)
+    return out
+
+
+def checkpoint_phase(dev):
+    """Runs A and A2 (12 uninterrupted steps each), run B (checkpoints every
+    4 steps, keep 2, NaN at steps 5-7 -> rollback to 4, SIGTERM at 10 ->
+    final save) and its resume on a state from another seed, then a flipped
+    byte in the newest checkpoint; returns run A's launch counts."""
+    import dataclasses
+    import json
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels, obs
+    from repro_torch.checkpoint import checkpoint_steps, leaf_crc32s, restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.training import init_state
+
+    arch = get_arch(ARCH).replace(num_layers=CKPT_DEPTH)
+    arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch="ragged"))
+    data = SyntheticTokens(arch.vocab_size, 2, 512)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    restores = []  # (step, live CRC32s == the manifest's, seconds of the check)
+
+    def check_restores(mgr):
+        """After each restore, the live state's CRC32s must be the manifest's."""
+        real = mgr.restore_latest
+
+        def restore(state):
+            state, s = real(state)
+            t0 = time.perf_counter()
+            manifest = json.loads((mgr.directory / f"step_{s:08d}" / "manifest.json").read_text())
+            restores.append((s, leaf_crc32s(state) == manifest["crc32"],
+                             time.perf_counter() - t0))
+            return state, s
+        mgr.restore_latest = restore
+
+    def run(seed, ckpt_dir=None, plan=None):
+        ring = obs.RingBufferSink() if ckpt_dir is not None else None
+        lm = LanguageModel(arch)
+        trainer = Trainer(
+            lm, OptimizerConfig(total_steps=CKPT_STEPS),
+            TrainerConfig(total_steps=CKPT_STEPS, checkpoint_dir=ckpt_dir,
+                          checkpoint_every=CKPT_EVERY, checkpoint_keep=CKPT_KEEP,
+                          log_every=1000),
+            log_fn=lambda m: log(f"[checkpoint] {m}"),
+            injector=FaultInjector(FaultPlan(plan or []), log_fn=lambda m: log(f"[checkpoint] {m}")),
+            telemetry=obs.Telemetry(sinks=[ring]) if ring is not None else None)
+        if trainer.ckpt is not None:
+            check_restores(trainer.ckpt)
+        state = init_state(lm, torch.Generator(device=dev).manual_seed(seed), dev)
+        out = trainer.fit(state, data)
+        return trainer, out, ring
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    tr_a, out_a, _ = run(0)
+    counts = kernels.launch_counts()
+    host_a, loss_a = _state_on_host(out_a["state"]), float(out_a["metrics"]["loss"])
+    del out_a
+    _, out_a2, _ = run(0)
+    host_a2, loss_a2 = _state_on_host(out_a2["state"]), float(out_a2["metrics"]["loss"])
+    del out_a2
+    n_moe = sum(1 for _, ffn in arch.layers if ffn == "moe")
+    per_step = {n: counts[n] / CKPT_STEPS for n in TRAIN_LAUNCHES}
+    log(f"[checkpoint] {arch.name} full width, depth {CKPT_DEPTH}, batch 2 x 512, ragged: run A "
+        f"{CKPT_STEPS} steps, loss {loss_a:.6f}, step p50 "
+        f"{1e3 * float(np.median(tr_a.step_times[1:])):.1f} ms; launches per step {per_step}")
+    log(f"[checkpoint] designs {check_designs(counts, 'checkpoint run A')}")
+    for name, k in TRAIN_LAUNCHES.items():
+        if counts[name] != k * n_moe * CKPT_STEPS:
+            fail(f"checkpoint run A launched {name} {counts[name]} times, expected "
+                 f"{k} x {n_moe} MoE layers x {CKPT_STEPS} steps")
+    gap_a2 = _max_gap(host_a2, host_a)
+    deterministic = all(torch.equal(host_a[k], host_a2[k]) for k in host_a) and loss_a == loss_a2
+    log(f"[checkpoint] run A2 against A: bitwise equal {deterministic}, max |gap| {gap_a2}, "
+        f"loss {loss_a2:.9g} vs {loss_a:.9g}")
+    del host_a2
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        log(f"[checkpoint] {root.parent}: {free_gb:.1f} GB free")
+        if free_gb < 12:
+            fail(f"checkpoint phase: {free_gb:.1f} GB free under {root.parent}, needs 12 "
+                 f"(keep {CKPT_KEEP} checkpoints of ~3.3 GB and one in flight)")
+        ckpt_dir = root / "ckpt"
+        plan = [FaultSpec("train.nonfinite", step=CKPT_NAN_AT, count=3),
+                FaultSpec("train.sigterm", step=CKPT_SIGTERM_AT)]
+        _, out_b, ring_b = run(0, ckpt_dir, plan)
+        steps_b = checkpoint_steps(ckpt_dir)
+        anomalies = [a["step"] for a in out_b["anomalies"]]
+        want_rb = [{"at_step": CKPT_NAN_AT + 2, "to_step": CKPT_EVERY}]
+        log(f"[checkpoint] run B: anomalies {anomalies}, rollbacks {out_b['rollbacks']}, "
+            f"stopped after step {out_b['last_step']}, checkpoints {steps_b}")
+        if (anomalies != list(range(CKPT_NAN_AT, CKPT_NAN_AT + 3))
+                or out_b["rollbacks"] != want_rb or out_b["last_step"] != CKPT_SIGTERM_AT - 1
+                or steps_b != [2 * CKPT_EVERY, CKPT_SIGTERM_AT]):
+            fail("checkpoint run B: wrong anomalies, rollbacks, stop or checkpoints")
+        del out_b
+        tr_r, out_r, ring_r = run(1, ckpt_dir)  # another seed: the restore must overwrite it
+        log(f"[checkpoint] resume: from step {tr_r.resumed_from}, {len(tr_r.step_times)} steps, "
+            f"ended after step {out_r['last_step']}, checkpoints {checkpoint_steps(ckpt_dir)}")
+        if tr_r.resumed_from != CKPT_SIGTERM_AT or out_r["last_step"] != CKPT_STEPS - 1:
+            fail("checkpoint resume: wrong start or end step")
+        host_b, loss_b = _state_on_host(out_r["state"]), float(out_r["metrics"]["loss"])
+        gap_b = _max_gap(host_b, host_a)
+        if deterministic:
+            ok = all(torch.equal(host_a[k], host_b[k]) for k in host_a) and loss_b == loss_a
+            rule = "bitwise equal, as A2 is"
+        else:
+            ok = all(gap_b[p] <= gap_a2[p] for p in gap_b) and \
+                abs(loss_b - loss_a) <= abs(loss_a2 - loss_a)
+            rule = "no further from A than A2 is"
+        log(f"[check] checkpoint: resumed run B against A, {rule}: max |gap| {gap_b}, loss "
+            f"{loss_b:.9g} vs {loss_a:.9g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("checkpoint: the resumed run disagrees with the uninterrupted one")
+        del host_b, host_a
+
+        # A flipped byte in the newest checkpoint: quarantined, restore falls back.
+        newest = ckpt_dir / f"step_{CKPT_STEPS:08d}"
+        leaf = newest / "params.embed.npy"
+        with open(leaf, "r+b") as f:
+            f.seek(-1000, 2)
+            b = f.read(1)
+            f.seek(-1000, 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+        ring_f = obs.RingBufferSink()
+        _, s = restore_checkpoint(ckpt_dir, out_r["state"], log_fn=lambda m: log(f"[checkpoint] {m}"),
+                                  telemetry=obs.Telemetry(sinks=[ring_f]))
+        manifest = json.loads((ckpt_dir / f"step_{s:08d}" / "manifest.json").read_text())
+        crc_ok = leaf_crc32s(out_r["state"]) == manifest["crc32"]
+        quarantined = (ckpt_dir / f"{newest.name}.corrupt" / "QUARANTINE_REASON").exists()
+        ok = s == CKPT_SIGTERM_AT and crc_ok and quarantined and not newest.exists()
+        log(f"[check] checkpoint: flipped byte in step {CKPT_STEPS}'s params/embed -> "
+            f"quarantined {quarantined}, restored step {s}, live CRC32s equal the manifest's "
+            f"{crc_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("checkpoint: corrupt checkpoint not quarantined or the fallback restore wrong")
+        ok = len(restores) == 2 and all(r[1] for r in restores)
+        log(f"[check] checkpoint: live CRC32s equal the manifest's after each trainer restore "
+            f"(step, equal, seconds): {restores} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("checkpoint: a restore did not reproduce the checkpoint bit for bit")
+        del out_r
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    events = [e for r in (ring_b, ring_r, ring_f) for e in r.events() if e["kind"] == "span"]
+    spans = {n: [e for e in events if e["name"] == n]
+             for n in ("ckpt.snapshot", "ckpt.save", "ckpt.verify", "ckpt.restore")}
+    nbytes = spans["ckpt.save"][0]["attrs"]["bytes"]
+    log(f"[checkpoint] bytes a checkpoint: {nbytes} ({nbytes / 1e9:.3f} GB)")
+    for e in spans["ckpt.snapshot"]:
+        log(f"[checkpoint] ckpt.snapshot (device -> host) step {e['attrs']['step']}: "
+            f"{e['dur']:.3f} s, {nbytes / e['dur'] / 1e9:.2f} GB/s")
+    for e in spans["ckpt.save"]:
+        a = e["attrs"]
+        log(f"[checkpoint] ckpt.save step {a['step']}: {e['dur']:.3f} s, "
+            f"{nbytes / e['dur'] / 1e9:.2f} GB/s (crc {a['crc_s']:.3f} s, "
+            f"{nbytes / a['crc_s'] / 1e9:.2f} GB/s; write {a['write_s']:.3f} s, "
+            f"{nbytes / a['write_s'] / 1e9:.2f} GB/s)")
+    for name in ("ckpt.verify", "ckpt.restore"):
+        for e in spans[name]:
+            log(f"[checkpoint] {name} step {e['attrs']['step']}: {e['dur']:.3f} s, "
+                f"{nbytes / e['dur'] / 1e9:.2f} GB/s")
+    during, other = [], []
+    for run_events in (ring_b.events(), ring_r.events()):  # one clock each
+        writes = [(e["ts"], e["ts"] + e["dur"]) for e in run_events
+                  if e["name"] == "ckpt.save" and e["tid"] != threading.get_ident()]
+        steps = [e for e in run_events if e["name"] == "train.step"][1:]  # 1st warms up
+        for e in steps:
+            t0, t1 = e["ts"], e["ts"] + e["dur"]
+            (during if any(a < t1 and t0 < b for a, b in writes) else other).append(e["dur"])
+    log(f"[checkpoint] step p50 with an async write in flight {1e3 * float(np.median(during)):.1f} "
+        f"ms ({len(during)} steps), without {1e3 * float(np.median(other)):.1f} ms "
+        f"({len(other)} steps); peak torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1020,6 +1245,8 @@ def main() -> None:
     log(f"[phase] ssm profile done at {time.perf_counter() - t0:.1f}s")
     counts["train"] = training_phase()
     log(f"[phase] training done at {time.perf_counter() - t0:.1f}s")
+    counts["checkpoint"] = checkpoint_phase(dev)
+    log(f"[phase] checkpoint done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -9,14 +9,22 @@ every sink:
      "ts": float seconds since the Telemetry epoch,
      "dur": float seconds (spans only),
      "value": float (gauges and histograms only),
+     "tid": int python thread id,
      "depth": int, "parent": str|None, "attrs": {str: json-able}}
 
 A disabled ``Telemetry`` hands out one shared do-nothing span, so
 instrumented code costs next to nothing when recording is off.
+
+Thread-safe: the checkpoint manager's writer thread emits ``ckpt.save``
+while the trainer emits ``train.step`` from the main thread.  Sink
+emission and histogram accumulation hold a lock; the span stack (depth
+and parent) is per thread, so concurrent spans never see each other as
+parents.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -56,7 +64,7 @@ class _Span:
         return self
 
     def __enter__(self) -> "_Span":
-        stack = self._tel._stack
+        stack = self._tel._stack()
         self.depth = len(stack)
         self.parent = stack[-1].name if stack else None
         stack.append(self)
@@ -65,34 +73,42 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = time.perf_counter()
-        stack = self._tel._stack
+        stack = self._tel._stack()
         if stack and stack[-1] is self:
             stack.pop()
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         self._tel._emit({
             "name": self.name, "kind": "span", "ts": self.t0 - self._tel.epoch,
-            "dur": t1 - self.t0, "depth": self.depth, "parent": self.parent,
-            "attrs": self.attrs,
+            "dur": t1 - self.t0, "tid": threading.get_ident(), "depth": self.depth,
+            "parent": self.parent, "attrs": self.attrs,
         })
         return False
 
 
 class Telemetry:
-    """Event router: timestamps events and fans them out to ``sinks``.
-    Single-threaded (the engine's and the trainer's loops are).
-    ``hists`` keeps every histogram value by name."""
+    """Event router: timestamps events and fans them out to ``sinks``
+    under a lock.  ``hists`` keeps every histogram value by name."""
 
     def __init__(self, enabled: bool = True, sinks: Optional[List] = None):
         self.enabled = enabled
         self.sinks = list(sinks) if sinks else []
         self.epoch = time.perf_counter()
-        self._stack: List[_Span] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
         self.hists: Dict[str, List[float]] = {}
 
+    def _stack(self) -> List[_Span]:
+        """This thread's stack of open spans."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
     def _emit(self, event: Dict[str, Any]) -> None:
-        for sink in self.sinks:
-            sink.emit(event)
+        with self._lock:
+            for sink in self.sinks:
+                sink.emit(event)
 
     def span(self, name: str, **attrs):
         if not self.enabled:
@@ -100,11 +116,12 @@ class Telemetry:
         return _Span(self, name, attrs)
 
     def _point(self, name: str, kind: str, attrs, **fields) -> None:
+        stack = self._stack()
         self._emit({
             "name": name, "kind": kind,
             "ts": time.perf_counter() - self.epoch, **fields,
-            "depth": len(self._stack),
-            "parent": self._stack[-1].name if self._stack else None,
+            "tid": threading.get_ident(), "depth": len(stack),
+            "parent": stack[-1].name if stack else None,
             "attrs": attrs,
         })
 
@@ -120,9 +137,11 @@ class Telemetry:
     def histogram(self, name: str, value: float, **attrs) -> None:
         """One sample of a distribution (e.g. a step's seconds)."""
         if self.enabled:
-            self.hists.setdefault(name, []).append(float(value))
+            with self._lock:
+                self.hists.setdefault(name, []).append(float(value))
             self._point(name, "hist", attrs, value=float(value))
 
     def close(self) -> None:
-        for sink in self.sinks:
-            sink.close()
+        with self._lock:
+            for sink in self.sinks:
+                sink.close()

@@ -1,19 +1,28 @@
-"""Deterministic fault injection (the serving and training parts of
-``repro.runtime.faults``).
+"""Deterministic fault injection (the port of ``repro.runtime.faults``).
 
 A :class:`FaultPlan` lists :class:`FaultSpec` entries (site, step, count,
 payload).  A spec arms its site from ``step`` on and fires on the first
-``count`` queries at or after it, then is spent.  The sites the port runs:
+``count`` queries at or after it, then is spent, so a rollback that
+re-runs a faulted step does not fire a spent spec again.  The sites:
 
-==================== ======================================================
-``serve.stall``      the engine loses one whole scheduler iteration
-``data.transient``   the data source raises a retryable error: exercises
-                     the trainer's retry with backoff
-``train.nonfinite``  the step's loss and grads are scaled by ``payload``
-                     (default NaN): exercises the anomaly sentinel
-``train.slow_step``  sleep ``payload`` seconds inside the timed step:
-                     exercises the straggler monitor
-==================== ======================================================
+============================ ==============================================
+``ckpt.crash_before_rename`` the process dies mid-checkpoint, before the
+                             atomic rename: the ``.tmp`` dir is left behind
+``ckpt.crash_after_rename``  the process dies right after the rename: the
+                             new checkpoint is complete and must verify
+``ckpt.write_fail``          the leaf write raises (full disk, I/O error):
+                             exercises the async writer's error path
+``data.transient``           the data source raises a retryable error:
+                             exercises the trainer's retry with backoff
+``train.nonfinite``          the step's loss and grads are scaled by
+                             ``payload`` (default NaN): exercises the
+                             anomaly sentinel and the rollback
+``train.slow_step``          sleep ``payload`` seconds inside the timed
+                             step: exercises the straggler monitor
+``train.sigterm``            a real SIGTERM is delivered to the process:
+                             exercises preemption (final save, clean stop)
+``serve.stall``              the engine loses one whole scheduler iteration
+============================ ==============================================
 """
 
 from __future__ import annotations
@@ -22,14 +31,27 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
-SITES = ("serve.stall", "data.transient", "train.nonfinite", "train.slow_step")
+SITES = ("ckpt.crash_before_rename", "ckpt.crash_after_rename", "ckpt.write_fail",
+         "data.transient", "train.nonfinite", "train.slow_step", "train.sigterm",
+         "serve.stall")
+
+
+class SimulatedCrash(RuntimeError):
+    """The injected stand-in for the process dying mid-operation."""
 
 
 class TransientDataError(IOError):
     """A retryable data-source failure (flaky filesystem or network read)."""
 
 
-_RAISES = {"data.transient": TransientDataError}
+class InjectedWriteError(IOError):
+    """An injected checkpoint-write failure (full disk, I/O error)."""
+
+
+_RAISES = {"ckpt.crash_before_rename": SimulatedCrash,
+           "ckpt.crash_after_rename": SimulatedCrash,
+           "ckpt.write_fail": InjectedWriteError,
+           "data.transient": TransientDataError}
 
 
 @dataclass

@@ -1,22 +1,32 @@
 """Training loop on one device (the port of ``repro.runtime.trainer``).
 
-Ported: the data retries with exponential backoff (``data.transient``),
-the one host sync per step (the anomaly sentinel's verdict) with every
-blocking fetch counted in ``host_fetches``, the straggler monitor on the
-step-time mean, the skip streak, the log cadence, and the ``train.data``
-/ ``train.step`` spans with the ``train.step_s`` histogram and the
-``train.loss`` gauge.
+* **checkpoint/restart**: with ``checkpoint_dir``, an async checkpoint
+  after every ``checkpoint_every``-th step and a blocking one when the
+  loop ends; ``fit`` resumes from the newest intact checkpoint.  The data
+  stream is a pure function of the step (``batch_at``), so resume is
+  exact.  SIGTERM and SIGINT stop the loop after a final checkpoint
+  (preemption).
+* **anomaly sentinel and rollback**: the step refuses a non-finite (or,
+  with ``gnorm_skip_cap``, spiking) update and reports
+  ``metrics["skipped"]``; after ``anomaly_rollback_after`` skips in a row
+  the trainer restores the newest intact checkpoint and re-enters the loop
+  at its step, at most ``max_rollbacks`` times.  The re-trained steps are
+  bit for bit the fault-free ones.
+* **straggler monitor** on the step-time mean; **transient data errors**
+  retried with exponential backoff (``data.transient``).
+* one host sync a step (the sentinel's verdict); every blocking fetch is
+  counted in ``host_fetches``.  The ``train.data`` / ``train.step`` spans,
+  the ``train.step_s`` histogram and the ``train.loss`` gauge.
+* every recovery path is driven through ``runtime.faults``.
 
-Not ported yet (ROADMAP Queue 1): checkpointing, rollback to a
-checkpoint, the SIGTERM path and expert migration (which returns at once
-at EP = 1 in the reference).  Asking for a checkpoint directory raises
-NotImplementedError; a skip streak that reaches
-``anomaly_rollback_after`` raises as the reference does when it has no
-checkpoint to roll back to.
+Not ported (ROADMAP Queue 1, item 2): expert migration, which returns at
+once at EP = 1 in the reference.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional
@@ -25,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.faults import FaultInjector, TransientDataError
@@ -34,13 +45,16 @@ from repro_torch.training import make_train_step
 @dataclass
 class TrainerConfig:
     total_steps: int = 100
-    checkpoint_dir: Optional[str] = None  # not ported: raises if set
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 50
+    checkpoint_keep: int = 3
     log_every: int = 10
     # straggler monitor
     straggler_factor: float = 2.0
-    # anomaly sentinel -> skip-step
+    # anomaly sentinel -> skip-step -> rollback
     gnorm_skip_cap: float = 0.0  # >0: also skip when grad_norm reaches this
-    anomaly_rollback_after: int = 3  # K consecutive skips would roll back
+    anomaly_rollback_after: int = 3  # K consecutive skips trigger a rollback
+    max_rollbacks: int = 3  # bounded retry budget for rollbacks
     # transient data-source errors
     data_retries: int = 3
     data_backoff_s: float = 0.05  # doubles per retry
@@ -51,9 +65,6 @@ class Trainer:
                  cfg: TrainerConfig, log_fn: Callable[[str], None] = print,
                  injector: Optional[FaultInjector] = None,
                  telemetry: Optional[obs.Telemetry] = None):
-        if cfg.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "the port has no checkpointing yet (the head of ROADMAP Queue 1)")
         self.lm = lm
         self.cfg = cfg
         self.opt_cfg = opt_cfg
@@ -64,17 +75,42 @@ class Trainer:
             lm, opt_cfg,
             gnorm_skip_cap=cfg.gnorm_skip_cap if cfg.gnorm_skip_cap > 0 else None,
             fetch=self._fetch)
+        # Unlike the reference, no router-load statistics ride along in the
+        # checkpoint's extras (saved as None): they exist only for the
+        # expert-migration controller, which is not ported.
+        self.ckpt = (CheckpointManager(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
+                                       every=cfg.checkpoint_every, injector=self.injector,
+                                       log_fn=log_fn, telemetry=self.telemetry)
+                     if cfg.checkpoint_dir else None)
         self.step_times: List[float] = []
         self.stragglers: List[int] = []
         self.anomalies: List[Dict[str, Any]] = []
+        self.rollbacks: List[Dict[str, int]] = []
+        self.resumed_from: Optional[int] = None
         # Every blocking device->host fetch goes through _fetch and is
         # counted here, so tests can pin the hot loop's sync cadence.
         self.host_fetches = 0
+        self._stop = False
 
     def _fetch(self, x):
         """Blocking device->host fetch of a metric value (counted)."""
         self.host_fetches += 1
         return x.item() if isinstance(x, torch.Tensor) else x
+
+    def _install_signals(self) -> Dict[int, Any]:
+        """SIGTERM and SIGINT stop the loop after a final checkpoint;
+        returns the handlers they replace (none off the main thread)."""
+        def handler(signum, frame):
+            self.log(f"[trainer] signal {signum}: checkpoint + stop")
+            self._stop = True
+
+        previous = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return previous
 
     def _next_batch(self, data, data_it, indexed: bool, step: int):
         """Fetch the step's batch, retrying transient data-source errors
@@ -93,10 +129,53 @@ class Trainer:
                 time.sleep(delay)
                 delay *= 2
 
+    def _rollback(self, state, step: int):
+        """Restore the newest intact checkpoint into ``state`` and return
+        (state, the step to re-enter the loop at)."""
+        if self.ckpt is None:
+            raise RuntimeError(
+                f"step {step}: {self.cfg.anomaly_rollback_after} consecutive "
+                f"anomalous steps and no checkpoint_dir to roll back to")
+        if len(self.rollbacks) >= self.cfg.max_rollbacks:
+            raise RuntimeError(f"step {step}: rollback budget exhausted "
+                               f"({self.cfg.max_rollbacks}), anomalies persist")
+        try:
+            state, ck_step = self.ckpt.restore_latest(state)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"step {step}: anomaly rollback requested but no "
+                               f"intact checkpoint exists") from e
+        self.rollbacks.append({"at_step": step, "to_step": ck_step})
+        self.log(f"[rollback] step={step}: {self.cfg.anomaly_rollback_after} "
+                 f"consecutive anomalies -> restored step {ck_step}")
+        return state, ck_step
+
     def fit(self, state, data: Iterator) -> Dict[str, Any]:
+        """Train until ``total_steps`` (or a stop signal); ``state`` is
+        updated in place and returned in the output."""
+        previous = self._install_signals()
+        try:
+            return self._fit(state, data)
+        finally:
+            # Unlike the reference, which leaves its handler installed, the
+            # handlers found on entry come back: a later SIGTERM (a caller's
+            # timeout) must end the process, not set _stop on a finished run.
+            for sig, h in previous.items():
+                signal.signal(sig, signal.SIG_DFL if h is None else h)
+
+    def _fit(self, state, data: Iterator) -> Dict[str, Any]:
         tel = self.telemetry
         # The step counter lives on the host (training.init_state): no fetch.
         start_step = int(state["step"])
+        if self.ckpt is not None:
+            try:
+                # The loop re-enters at the checkpoint's step, not at
+                # state["step"] (the count of applied updates): after skips
+                # the two differ.
+                state, start_step = self.ckpt.restore_latest(state)
+                self.resumed_from = start_step
+                self.log(f"[trainer] resumed from step {start_step}")
+            except FileNotFoundError:
+                pass
         metrics: Dict[str, Any] = {}
         # Datasets exposing batch_at(step) are pure functions of the step;
         # plain iterators are consumed in order.
@@ -105,6 +184,12 @@ class Trainer:
         step = start_step
         anomaly_streak = 0
         while step < self.cfg.total_steps:
+            # Simulated preemption: a real signal, so the installed handler
+            # (final checkpoint and stop) is what runs.
+            if self.injector.fire("train.sigterm", step) is not None:
+                os.kill(os.getpid(), signal.SIGTERM)
+            if self._stop:
+                break
             with tel.span("train.data", step=step):
                 batch = self._next_batch(data, data_it, indexed, step)
             scale = self.injector.payload_if("train.nonfinite", step)
@@ -141,10 +226,9 @@ class Trainer:
                          f"(loss={loss:.4g} gnorm={gnorm:.4g}) "
                          f"[{anomaly_streak}/{self.cfg.anomaly_rollback_after}]")
                 if anomaly_streak >= self.cfg.anomaly_rollback_after:
-                    raise RuntimeError(
-                        f"step {step}: {self.cfg.anomaly_rollback_after} consecutive "
-                        f"anomalous steps and no checkpoint to roll back to "
-                        f"(the port has no checkpointing yet, ROADMAP Queue 1)")
+                    state, step = self._rollback(state, step)
+                    anomaly_streak = 0
+                    continue
                 step += 1
                 continue
             anomaly_streak = 0
@@ -152,6 +236,12 @@ class Trainer:
                 loss = float(self._fetch(metrics["loss"]))
                 tel.gauge("train.loss", loss, step=step)
                 self.log(f"[train] step={step} loss={loss:.4f} ({dt * 1e3:.0f} ms/step)")
+            if self.ckpt is not None and self.ckpt.should_save(step + 1):
+                self.ckpt.save(step + 1, state, blocking=False)
             step += 1
+        last_step = max(step - 1, start_step)
+        if self.ckpt is not None:
+            self.ckpt.save(step, state, blocking=True)
         return {"state": state, "metrics": metrics, "stragglers": self.stragglers,
-                "anomalies": self.anomalies, "last_step": max(step - 1, start_step)}
+                "anomalies": self.anomalies, "rollbacks": self.rollbacks,
+                "last_step": last_step}

@@ -769,3 +769,51 @@ def test_ssd_tensor_core_refuses_unaligned_rows(dev, no_plain):
             ssd_ops.ssd_intra_chunk(*_ssd_inputs(shape, "decay", torch.bfloat16, dev))
     torch.cuda.synchronize()
     assert _delta(before, launch_counts()) == {k: 0 for k in before}
+
+
+def test_checkpoint_fallback_restores_bit_exact_on_the_card(dev, no_plain, tmp_path):
+    """Full-width granite-moe-3b-a800m at depth 2 on the card: two trained
+    steps checkpointed after each (the second async), a flipped byte in
+    the newest checkpoint, then a restore into a state from another seed:
+    the corrupt checkpoint is quarantined, the restore falls back to step
+    1, and the live state's CRC32s equal that manifest's."""
+    import dataclasses
+    import json
+
+    from repro_torch.checkpoint import checkpoint_steps, leaf_crc32s
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.training import init_state
+
+    arch = get_arch("granite-moe-3b-a800m").replace(num_layers=2)
+    arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch="ragged"))
+    lm = LanguageModel(arch)
+
+    def trainer():
+        return Trainer(lm, OptimizerConfig(total_steps=2),
+                       TrainerConfig(total_steps=2, checkpoint_dir=str(tmp_path),
+                                     checkpoint_every=1, checkpoint_keep=2, log_every=1000),
+                       log_fn=lambda m: None)
+
+    out = trainer().fit(init_state(lm, torch.Generator(device=dev).manual_seed(0), dev),
+                        SyntheticTokens(arch.vocab_size, 2, 512))
+    assert out["last_step"] == 1 and checkpoint_steps(tmp_path) == [1, 2]
+    del out
+    with open(tmp_path / "step_00000002" / "params.embed.npy", "r+b") as f:
+        f.seek(-1000, 2)
+        b = f.read(1)
+        f.seek(-1000, 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    state = init_state(lm, torch.Generator(device=dev).manual_seed(1), dev)
+    ptr = state["params"]["embed"].data_ptr()
+    state, step = trainer().ckpt.restore_latest(state)
+    assert step == 1 and state["params"]["embed"].data_ptr() == ptr
+    assert state["params"]["embed"].device.type == "cuda" and state["step"].device.type == "cpu"
+    assert (tmp_path / "step_00000002.corrupt" / "QUARANTINE_REASON").exists()
+    assert checkpoint_steps(tmp_path) == [1]
+    manifest = json.loads((tmp_path / "step_00000001" / "manifest.json").read_text())
+    assert leaf_crc32s(state) == manifest["crc32"]
+    assert int(state["step"]) == 1 and set(manifest["keys"]) == set(tree_paths(state))

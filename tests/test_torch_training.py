@@ -49,7 +49,7 @@ from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.data import pipeline as tdata
 from repro_torch.kernels.moe_gemm import ops as mm_ops
 from repro_torch.launch import train as train_launch
-from repro_torch.models.model import LanguageModel, tree_paths
+from repro_torch.models.model import LanguageModel, map_tree, tree_paths
 from repro_torch.optim import optimizer as topt
 from repro_torch.runtime import faults as faults_mod
 from repro_torch.runtime import trainer as trainer_mod
@@ -325,6 +325,63 @@ def test_three_step_trajectory_matches_reference(dispatch):
     assert off <= 1e-3 * n, (off, n)
 
 
+def test_trajectory_gap_enters_through_small_gradients():
+    """Why the 3-step params above need atol 1e-4 where the moments meet
+    1e-6.  (1) The port's ``adamw_update`` fed the JAX run's own gradients
+    gives the JAX params within 1e-7 but for at most 1e-5 of elements and
+    within 2e-7 for all (measured: one element of 255,296 beyond 1e-7,
+    1.79e-7, 3 fp32 ulps of its weight of 0.506; the two sides round the
+    update's terms in another order): the optimizer is not the cause.  (2) Every
+    param of the port's own run beyond 1e-6 of JAX's has a JAX gradient of
+    at most 1e-5 (1000 x eps) in magnitude at one of the three steps,
+    where an Adam step, ~lr * g / (|g| + eps), turns a last-bit difference
+    of the gradient into a sizeable part of lr.  Measured: 25 elements, 24
+    with |g| <= 1.1e-7 at step 1 or 2, one with |g| 3.4e-6 to 5.2e-6 at
+    every step."""
+    lm_j, state_np, lm_t = _setup("ragged")
+    opt_kw = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+    cfg_j = jopt.OptimizerConfig(**opt_kw)
+    grad_j = jax.jit(jax.value_and_grad(lm_j.loss, has_aux=True, allow_int=True))
+    update_j = jax.jit(lambda p, g, o: jopt.adamw_update(cfg_j, p, g, o))
+    step_t = make_train_step(lm_t, topt.OptimizerConfig(**opt_kw), compute_dtype=torch.float32)
+    state_t = state_from_numpy(state_np, "cpu")
+    fed = state_from_numpy(state_np, "cpu")
+    small = None  # per element: has a JAX gradient <= 1e-5 at some step
+    with lm_j.plan.mesh:
+        state_j = jax.tree.map(jnp.asarray, state_np)
+        for step in range(3):
+            batch = _batch(lm_t.arch.vocab_size, step=step)
+            _, g = grad_j(state_j["params"], jax.tree.map(jnp.asarray, batch))
+            p, o, _ = update_j(state_j["params"], g, {k: state_j[k] for k in ("m", "v", "step")})
+            state_j = {"params": p, **o}
+            g = {k: np.asarray(v) for k, v in tree_paths(g).items()
+                 if v.dtype != jax.dtypes.float0}
+            now = {k: np.abs(v) <= 1e-5 for k, v in g.items()}
+            small = now if small is None else {k: small[k] | now[k] for k in now}
+            fed_g = {k: torch.from_numpy(g[k].copy()) if k in g else None
+                     for k in tree_paths(fed["params"])}
+            it = iter(fed_g.values())
+            topt.adamw_update(topt.OptimizerConfig(**opt_kw), fed["params"],
+                              map_tree(lambda _: next(it), fed["params"]), fed)
+            state_t, _ = step_t(state_t, batch)
+    want = tree_paths(jax.tree.map(np.asarray, state_j["params"]))
+    fed_p = tree_paths(state_to_numpy(fed)["params"])
+    got = tree_paths(state_to_numpy(state_t)["params"])
+    off = fed_off = 0
+    for path, w in want.items():
+        fed_gap = np.abs(fed_p[path].astype(np.float64) - w)
+        assert fed_gap.max() <= 2e-7, path
+        fed_off += int((fed_gap > 1e-7).sum())
+        beyond = np.abs(got[path].astype(np.float64) - w) > 1e-6
+        off += int(beyond.sum())
+        if path in small:
+            assert small[path][beyond].all(), path
+        else:  # an integer table
+            assert not beyond.any(), path
+    n = sum(w.size for w in want.values())
+    assert 0 < off <= 1e-3 * n and fed_off <= 1e-5 * n, (off, fed_off, n)
+
+
 def test_sentinel_skips_and_leaves_state_bit_identical():
     _, state_np, lm_t = _setup("ragged")
     opt = topt.OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=3)
@@ -458,12 +515,13 @@ def test_trainer_recovers_from_injected_faults(monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(2, checkpoint_dir="ckpt")
+    """A skip streak that reaches ``anomaly_rollback_after`` with no
+    ``checkpoint_dir`` raises, as the reference does."""
     plan = FaultPlan([FaultSpec("train.nonfinite", step=0, count=3)])
     trainer, state, data, _, _ = _trainer(5, plan=plan)
-    with pytest.raises(RuntimeError, match="no checkpoint to roll back to"):
+    with pytest.raises(RuntimeError, match="no checkpoint_dir to roll back to"):
         trainer.fit(state, data)
+    assert [a["step"] for a in trainer.anomalies] == [0, 1, 2] and not trainer.rollbacks
 
 
 @pytest.mark.parametrize("dispatch", ["ragged", "capacity"])
