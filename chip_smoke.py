@@ -24,6 +24,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    GEMMs and gate-up at T*k = 8192 rows too, and beside each gate-up the
    time of two ``torch._grouped_mm`` calls and a SiLU (informative: not one
    call);
+2a. model: ``repro_torch.core.microbench``'s expert-GEMM curve ((4096,
+   1536) x (1536, d_ffn), d_ffn 32-2048) and attention curve (24 x 64
+   heads, s 512-4096, ``flash_attention/tc``) in bf16, CUDA events, each
+   row beside ``core.platform.H100``'s ``gemm_efficiency`` and
+   ``attn_eff``; the planner's 1-chip plan for the training phase's run
+   (must fit), its production training (256 H100s) and serving (16) plans;
+   fails on a non-finite or non-positive measurement;
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
    weights on the CPU (plain versions), both dispatch modes; the reduced
@@ -33,7 +40,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    dispatch.  The kernels' launch counts are zeroed just before each run
    and read just after it, and every kernel of that dispatch's path must
    have been launched, its bf16 calls through the tensor-core designs and
-   never through an ``/fma`` one;
+   never through an ``/fma`` one.  Each run has ``--metrics-out``: it
+   prints the planner's lines and the drift of ``decode`` and ``prefill``
+   against the H100 model, and fails unless both rows have samples and the
+   Chrome trace validates;
 5. parity: ``repro_torch.launch.serve.decode_parity``, the fp32 ragged
    paged decode of the ragged run's first request against the uncached
    forward, held to the serve driver's bound;
@@ -60,8 +70,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    have a finite loss and none may be skipped, and each step must launch
    the ragged kernels once per MoE layer (gate-up), four times (the
    forward down-projection and the three backward GEMMs) and three times
-   (the weight gradients), none through an ``/fma`` design; then one more
-   step under ``torch.profiler``;
+   (the weight gradients), none through an ``/fma`` design.  With
+   ``--metrics-out`` it prints the planner's lines and the drift report,
+   and fails unless the trace validates and the ``step`` row has 4
+   samples; the modeled t_step and mem_stage0 are printed beside the
+   measured step p50 and peak memory.  Then one more step under
+   ``torch.profiler``;
 11. checkpoint: ``repro_torch.runtime.trainer.Trainer`` on granite at full
    width and depth 2 (ragged, batch 2 x 512): runs A and A2, 12 steps
    each with no checkpoint (the launch counts zeroed before A and read
@@ -74,8 +88,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    than A2 does.  A byte flipped in the newest checkpoint must be
    quarantined and the restore fall back.  Prints the bytes a checkpoint,
    the snapshot, save (CRC and write), verify and restore seconds and
-   GB/s, the step p50 with and without an async write in flight, and the
-   peak device memory.
+   GB/s, their drift against the H100 model's t_ckpt (and the full-depth
+   t_ckpt; printed only), the step p50 with and without an async write in
+   flight, and the peak device memory.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -86,8 +101,10 @@ result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -701,11 +718,14 @@ def serving_phase():
     from repro_torch.launch import serve
 
     counts, case = {}, None
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
     for mode in SERVE_MODES:
-        args = serve.parse_args(SERVE_ARGS + ["--dispatch", mode])
+        args = serve.parse_args(SERVE_ARGS + ["--dispatch", mode,
+                                              "--metrics-out", str(tmp / f"{mode}.jsonl")])
         kernels.reset_launch_counts()
         s, c = serve.serve(args)
         counts[mode] = kernels.launch_counts()
+        check_telemetry(s, ("decode", "prefill"), f"{mode} serving")
         log(f"[serving] {mode}: {s['finished']}/{s['requests']} requests finished, "
             f"decode {s['decode_tok_s']:.1f} tok/s, decode step p50 "
             f"{s['decode_step_p50_ms']:.2f} ms, prefill mean {s['prefill_ms_mean']:.2f} ms "
@@ -719,7 +739,29 @@ def serving_phase():
         log(f"[serving] {mode}: designs {check_designs(counts[mode], f'{mode} serving')}")
         if mode == "ragged":
             case = c
+    shutil.rmtree(tmp, ignore_errors=True)
     return counts, case
+
+
+def check_telemetry(summary, phases, label: str, n=None) -> None:
+    """Fail unless the launcher's Chrome trace reads back and passes
+    ``validate_chrome_trace`` and its drift report has samples of each of
+    ``phases`` (exactly ``n`` each when given)."""
+    from repro_torch import obs
+
+    try:
+        obs.validate_chrome_trace(json.loads(Path(summary["trace"]).read_text()))
+    except ValueError as e:
+        fail(f"{label}: chrome trace {summary['trace']} does not validate: {e}")
+    rows = {p: summary["drift"].get(p, {}) for p in phases}
+    log(f"[drift] {label}: " + "; ".join(
+        f"{p} n={r.get('n', 0)} mean {r.get('mean_s', float('nan')) * 1e3:.3f} ms modeled "
+        f"{(r.get('modeled_s') or float('nan')) * 1e3:.3f} ms ratio {r.get('ratio', float('nan')):.3f}"
+        for p, r in rows.items()) + ", trace valid")
+    for p, r in rows.items():
+        if not r.get("n") or (n is not None and r["n"] != n):
+            fail(f"{label}: drift row {p!r} has {r.get('n', 0)} samples, want "
+                 f"{n if n is not None else 'some'}")
 
 
 # ---------------------------------------------------------------------------
@@ -954,8 +996,10 @@ def ssm_profile_phase(model) -> None:
 # Phase 10: training at full width and depth
 # ---------------------------------------------------------------------------
 
+# An explicit dispatch: the launch counts below must not hang on the H100
+# planner's table.  --metrics-out (a temporary directory) is added per run.
 TRAIN_ARGS = ["--arch", ARCH, "--steps", "5", "--batch", "2", "--seq", "512",
-              "--seed", "0"]
+              "--seed", "0", "--dispatch", "ragged"]
 # Launches of each kernel per MoE layer and train step under ragged dispatch:
 # RaggedFFN's forward (gate-up, down) and backward (dh, dx_g, dx_u; dW x 3).
 TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 1, "ragged_matmul_f32": 4,
@@ -972,10 +1016,18 @@ def training_phase():
     from repro_torch.launch import train
 
     torch.cuda.empty_cache()
-    args = train.parse_args(TRAIN_ARGS)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    args = train.parse_args(TRAIN_ARGS + ["--metrics-out", str(tmp / "train.jsonl")])
     kernels.reset_launch_counts()
     summary, trainer, out = train.train(args)
     counts = kernels.launch_counts()
+    check_telemetry(summary, ("step",), "training", n=summary["steps"] - 1)
+    shutil.rmtree(tmp, ignore_errors=True)
+    m = summary["model"]
+    log(f"[model] training, granite full width, 2 x 512, ragged, priced on H100: t_step "
+        f"{1e3 * m['t_step_s']:.2f} ms modeled vs step p50 {summary['step_p50_ms']:.1f} ms "
+        f"measured (ratio {summary['step_p50_ms'] / (1e3 * m['t_step_s']):.2f}); mem_stage0 "
+        f"{m['mem_stage0_gb']:.2f} GB modeled vs peak {summary['peak_mem_gb']:.2f} GB")
     steps = summary["steps"]
     per_step = {n: c / steps for n, c in counts.items()}
     log(f"[train] {summary['arch']} full width, {summary['params'] / 1e9:.3f} B params, "
@@ -1030,9 +1082,6 @@ def checkpoint_phase(dev):
     final save) and its resume on a state from another seed, then a flipped
     byte in the newest checkpoint; returns run A's launch counts."""
     import dataclasses
-    import json
-    import shutil
-    import tempfile
 
     from repro_torch import kernels, obs
     from repro_torch.checkpoint import checkpoint_steps, leaf_crc32s, restore_checkpoint
@@ -1194,6 +1243,7 @@ def checkpoint_phase(dev):
         for e in spans[name]:
             log(f"[checkpoint] {name} step {e['attrs']['step']}: {e['dur']:.3f} s, "
                 f"{nbytes / e['dur'] / 1e9:.2f} GB/s")
+    ckpt_drift(arch, [e for r in (ring_b, ring_r, ring_f) for e in r.events()])
     during, other = [], []
     for run_events in (ring_b.events(), ring_r.events()):  # one clock each
         writes = [(e["ts"], e["ts"] + e["dur"]) for e in run_events
@@ -1208,6 +1258,85 @@ def checkpoint_phase(dev):
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def ckpt_drift(arch, events) -> None:
+    """The checkpoint phase's ckpt.save and ckpt.restore spans against the
+    H100 model's t_ckpt of this depth-2 shape; the full-depth shape's
+    t_ckpt beside it (printed only)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.core import resource_model as rm
+    from repro_torch.core.platform import H100
+
+    setup = rm.TrainSetup(b=2, s=512, zero="world", dispatch="ragged")
+    tracker = obs.DriftTracker.for_train(rm.ModelShape.from_arch(arch), setup, H100)
+    tracker.observe_events(events)
+    log(tracker.format_report(f"drift {arch.name} depth {CKPT_DEPTH} checkpoint: measured "
+                              f"vs the H100 model"))
+    full = rm.ModelShape.from_arch(get_arch(ARCH))
+    log(f"[model] checkpoint, granite full depth, priced on H100: t_ckpt "
+        f"{rm.estimate(full, setup, H100).t_ckpt:.2f} s for "
+        f"{rm.checkpoint_bytes(full) / 1e9:.2f} GB "
+        f"(PERF.md: 26-30 s measured for 39.6 GB)")
+
+
+# ---------------------------------------------------------------------------
+# Phase "model": the micro-benchmarks and the planner on the card
+# ---------------------------------------------------------------------------
+
+GEMM_TOKENS, FFN_DIMS = 4096, (32, 64, 128, 256, 512, 1024, 2048)
+ATTN_SEQS = (512, 1024, 2048, 4096)
+
+
+def model_phase(dev) -> None:
+    """core.microbench's expert-GEMM and attention curves in bf16 at
+    granite's widths beside the H100 platform's gemm_efficiency and
+    attn_eff; the 1-chip plan of the training phase's run; the production
+    reports for training (256 H100s) and serving (16). Fails on a
+    non-finite or non-positive measurement and on a 1-chip plan that does
+    not fit; sets no bound on a drift ratio."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import microbench, planner
+    from repro_torch.core.platform import H100
+    from repro_torch.launch import train
+
+    arch = get_arch(ARCH)
+    peak = H100.peak_flops / 1e9  # GFLOP/s
+    rows = microbench.expert_gemm_curve(arch.d_model, GEMM_TOKENS, FFN_DIMS,
+                                        dtype=torch.bfloat16, device=dev)
+    att = microbench.attention_curve(arch.num_heads * arch.head_dim, arch.num_heads, ATTN_SEQS,
+                                     dtype=torch.bfloat16, device=dev)
+    for r in rows:
+        log(f"[model] expert GEMM ({GEMM_TOKENS},{arch.d_model})x({arch.d_model},{r['d_ffn']}) "
+            f"bf16: {1e3 * r['seconds']:.4f} ms, {r['gflops'] / 1e3:.1f} TFLOP/s, "
+            f"{r['gflops'] / peak:.4f} of peak (H100.gemm_efficiency({r['d_ffn']}) = "
+            f"{H100.gemm_efficiency(r['d_ffn'])}), {r['efficiency']:.4f} of a 2048^3 GEMM")
+    for r in att:
+        log(f"[model] attention s={r['seq']} {arch.num_heads} heads x {arch.head_dim} bf16 "
+            f"(flash_attention/tc): {1e3 * r['seconds']:.4f} ms, {r['gflops'] / 1e3:.1f} "
+            f"TFLOP/s, {r['gflops'] / peak:.4f} of peak (H100.attn_eff = {H100.attn_eff})")
+    log(f"[model] attention mean over s={ATTN_SEQS}: "
+        f"{float(np.mean([r['gflops'] for r in att])) / peak:.4f} of peak")
+    for r in rows + att:
+        if not (np.isfinite(r["seconds"]) and r["seconds"] > 0 and np.isfinite(r["gflops"])
+                and r["gflops"] > 0):
+            fail(f"microbench row {r} is not finite and positive")
+    one = planner.best_strategy(arch, H100, 1, batch=2, seq=512)
+    if one is None or not one.estimate.mem_ok:
+        fail("the planner found no 1-chip strategy that fits for granite, batch 2 x 512")
+    log(f"[model] 1-chip plan, granite, batch 2 x 512 on H100: {one.describe()}")
+    t0 = time.perf_counter()
+    prod = train.production_strategy(ARCH, H100)  # the train launcher's, cached
+    log(f"[model] production training plan, 256 x H100, batch 256 x 4096 "
+        f"({time.perf_counter() - t0:.1f} s): {prod.describe() if prod else 'none feasible'}")
+    srv = planner.best_serving_strategy(arch, H100, 16, context=2048, prefill_len=1024, slo_ms=20.0)
+    log(f"[model] production serving plan, 16 x H100, 20 ms/token: "
+        f"{srv.describe() if srv else 'none feasible'}")
+    ssm = planner.best_serving_strategy(get_arch(SSM_ARCH), H100, 16, context=2048,
+                                        prefill_len=1024, slo_ms=20.0)
+    log(f"[model] {SSM_ARCH} serving plan, 16 x H100 (the model reads no SSM field): "
+        f"{ssm.describe() if ssm else 'none feasible'}")
 
 
 def main() -> None:
@@ -1228,6 +1357,8 @@ def main() -> None:
     t0 = time.perf_counter()
     entries = kernel_phase(dev)
     log(f"[phase] kernels done at {time.perf_counter() - t0:.1f}s")
+    model_phase(dev)
+    log(f"[phase] model done at {time.perf_counter() - t0:.1f}s")
     small_parity_phase(dev)
     log(f"[phase] small parity done at {time.perf_counter() - t0:.1f}s")
     counts, case = serving_phase()

@@ -1,8 +1,13 @@
 """Architecture registry: ``get_arch(name)`` / ``--arch <id>``."""
 
 from repro_torch.configs.base import (
+    A2A_ALGOS,
+    A2A_CHUNK_CANDIDATES,
+    DEFAULT_A2A,
     DEFAULT_DISPATCH,
+    DEFAULT_SCHEDULE,
     DISPATCH_MODES,
+    SCHEDULES,
     ArchConfig,
     Block,
     MoECfg,
@@ -22,5 +27,6 @@ def get_arch(name: str) -> ArchConfig:
 
 __all__ = [
     "ArchConfig", "Block", "MoECfg", "SSMCfg", "DISPATCH_MODES", "DEFAULT_DISPATCH",
+    "SCHEDULES", "DEFAULT_SCHEDULE", "A2A_ALGOS", "DEFAULT_A2A", "A2A_CHUNK_CANDIDATES",
     "ARCHS", "get_arch",
 ]

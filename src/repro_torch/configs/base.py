@@ -2,7 +2,9 @@
 
 Mirrors ``ArchConfig``, ``MoECfg`` and ``SSMCfg`` of the JAX package (same
 names, same defaults, same parameter accounting and ``reduced()`` shrink
-rule) for the attention + MoE and the Mamba2 (SSM) families the port runs.
+rule) for the attention + MoE and the Mamba2 (SSM) families the port runs,
+and the properties ``core.resource_model.ModelShape.from_arch`` and the
+planner read.
 Modality frontends and M-RoPE are not carried: no config in this
 package's registry uses them.
 """
@@ -13,11 +15,26 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+# Pipeline schedules the planner and the resource model price (the
+# schedule IR in ``repro_torch.core.schedules`` builds their tick tables).
+# The port has no pipeline executor yet, so a run binds none of them.
+SCHEDULES: Tuple[str, ...] = (
+    "gpipe", "1f1b", "1f1b_overlap", "interleaved_1f1b", "zb_h1"
+)
+DEFAULT_SCHEDULE = "1f1b"
+
 # Expert dispatch modes: "capacity" = GShard/Tutel (E, C, d) zero-padded
 # buffers, overflow dropped; "ragged" = sort-based dropless dispatch
 # (expert-sorted rows + per-expert offsets, ragged grouped GEMM).
 DISPATCH_MODES: Tuple[str, ...] = ("capacity", "ragged")
 DEFAULT_DISPATCH = "capacity"
+
+# EP all-to-all algorithms (flat collective vs HALO hierarchical) and the
+# chunk depths of the double-buffered dispatch/combine that the planner
+# ranks; the port has no expert parallelism yet, so a run binds none.
+A2A_ALGOS: Tuple[str, ...] = ("flat", "halo")
+DEFAULT_A2A = "flat"
+A2A_CHUNK_CANDIDATES: Tuple[int, ...] = (1, 2, 4, 8)
 
 
 @dataclass(frozen=True)
@@ -27,6 +44,7 @@ class MoECfg:
     num_experts: int
     top_k: int
     d_ff: int  # intermediate dim of EACH expert
+    num_shared_experts: int = 0
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01  # Switch-style load balancing loss
     z_loss_coef: float = 1e-3  # router z-loss
@@ -98,6 +116,18 @@ class ArchConfig:
         return self.block_pattern * (self.num_layers // len(self.block_pattern))
 
     @property
+    def pattern_period(self) -> int:
+        return len(self.block_pattern)
+
+    @property
+    def num_moe_layers(self) -> int:
+        return sum(1 for _, f in self.layers if f == "moe")
+
+    @property
+    def num_attn_layers(self) -> int:
+        return sum(1 for m, _ in self.layers if m.startswith("attn"))
+
+    @property
     def num_mamba_layers(self) -> int:
         return sum(1 for m, _ in self.layers if m == "mamba")
 
@@ -124,9 +154,8 @@ class ArchConfig:
 
     def moe_ffn_params(self) -> int:
         m = self.moe
-        return m.num_experts * self.n_mat * self.d_model * m.d_ff + (
-            self.d_model * m.num_experts
-        )
+        expert = self.n_mat * self.d_model * m.d_ff
+        return (m.num_experts + m.num_shared_experts) * expert + self.d_model * m.num_experts
 
     def mamba_params(self) -> int:
         s = self.ssm
@@ -158,6 +187,15 @@ class ArchConfig:
         embed = self.vocab_size * self.d_model
         head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
         return body + embed + head + self.d_model
+
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE: top-k + shared experts only)."""
+        total = self.total_params()
+        if self.moe is None:
+            return total
+        m = self.moe
+        expert = self.n_mat * self.d_model * m.d_ff
+        return total - (m.num_experts - m.top_k) * expert * self.num_moe_layers
 
     def padded_vocab(self, multiple: int = 256) -> int:
         return -(-self.vocab_size // multiple) * multiple

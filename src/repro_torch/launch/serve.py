@@ -18,8 +18,16 @@ must stay within ``PARITY_BOUND`` = 1e-5, the twin's bound (dropless
 dispatch recomputes and drops nothing, so the paged path differs from the
 forward only by summation order).  ``serve`` and ``decode_parity`` are the
 two halves of ``main``, for callers that run them apart.
-Unlike its JAX twin it prints no planner report: the planner and resource
-model have not been ported yet.
+
+Before it serves, it prints the serving planner's strategy for the arch at
+production scale (``--chips`` H100s under a ``--slo-ms`` per-token decode
+SLO at a ``--context`` / ``--prefill-len`` mean: the reference launcher's
+call on ``core.platform.H100``) and binds the strategy's dispatch (unless
+``--dispatch`` is given) and its batch width, capped by ``--max-seqs``,
+into the engine.  With ``--metrics-out PATH`` it writes the engine's
+telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
+prints the drift of the measured ``engine.decode`` and ``engine.prefill``
+spans against the serving model's pricing of that setup on the H100.
 """
 
 from __future__ import annotations
@@ -32,13 +40,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import DISPATCH_MODES, ArchConfig, get_arch
+from repro_torch.core import planner
+from repro_torch.core import resource_model as rm
+from repro_torch.core.platform import H100
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LanguageModel, init_params
 from repro_torch.serving import Engine, Request, ServeConfig
 from repro_torch.serving.kv_cache import BlockPool, PagedLayout
 
 PARITY_BOUND = 1e-5  # max |dlogits| of the fp32 ragged paged decode
+# The platform the planner and the drift report price (a test swaps it).
+PLATFORM = H100
 
 
 def parity_probe(lm: LanguageModel, params, layout, seq: np.ndarray, plen: int):
@@ -102,13 +116,41 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--prompt-min", type=int, default=3)
     ap.add_argument("--prompt-max", type=int, default=32)
+    ap.add_argument("--chips", type=int, default=16,
+                    help="fleet size for the production planner report")
+    ap.add_argument("--slo-ms", type=float, default=20.0,
+                    help="per-token decode latency SLO for the planner")
+    ap.add_argument("--context", type=int, default=2048, help="planner mean live context")
+    ap.add_argument("--prefill-len", type=int, default=1024,
+                    help="planner mean prompt length")
     ap.add_argument("--dispatch", default=None, choices=DISPATCH_MODES,
-                    help="MoE expert dispatch; default: the arch's own")
-    ap.add_argument("--max-seqs", type=int, default=4)
+                    help="MoE expert dispatch; default: the serving planner's choice")
+    ap.add_argument("--max-seqs", type=int, default=4,
+                    help="the engine's decode width cap")
     ap.add_argument("--block-size", type=int, default=8)
     ap.add_argument("--num-blocks", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the engine's telemetry as JSONL here, a Chrome "
+                         "trace to <path>.trace.json, and print a decode and "
+                         "prefill drift report at the end of the run")
     return ap.parse_args(argv)
+
+
+def plan(args: argparse.Namespace) -> Tuple[Optional[planner.ServingStrategy], int]:
+    """Print the serving planner's strategy for ``args.arch`` on
+    ``PLATFORM``; returns (the strategy or None, the engine's max_seqs:
+    the strategy's batch capped by ``--max-seqs``)."""
+    best = planner.best_serving_strategy(
+        get_arch(args.arch), PLATFORM, args.chips, context=args.context,
+        prefill_len=args.prefill_len, slo_ms=args.slo_ms)
+    where = f"@{args.chips}x{PLATFORM.name} under {args.slo_ms:.0f}ms/token SLO"
+    if best is None:
+        print(f"[planner] no feasible serving strategy for {args.arch} {where}")
+        return None, args.max_seqs
+    print(f"[planner] serving strategy for {args.arch} {where}:")
+    print("          " + best.describe())
+    return best, max(1, min(best.batch, args.max_seqs))
 
 
 def _weights(arch, device, seed: int, dtype: str):
@@ -120,17 +162,19 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     """Serve the seeded requests; returns the run's summary and request 0's
     sequence for the parity probe."""
     device = resolve_device(args.device)
+    best, max_seqs = plan(args)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
-    arch = _with_dispatch(arch, args.dispatch or arch.moe.dispatch)
-    print(f"[serve] {arch.name} on {device}: moe dispatch {arch.moe.dispatch}, "
+    arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else arch.moe.dispatch))
+    source = "--dispatch" if args.dispatch else "the planner's choice" if best else "the arch's"
+    print(f"[serve] {arch.name} on {device}: moe dispatch {arch.moe.dispatch} ({source}), "
           f"{args.dtype} weights and cache")
 
     lm = LanguageModel(arch)
     max_total = args.prompt_max + args.max_new
     cfg = ServeConfig(
-        max_seqs=args.max_seqs, block_size=args.block_size,
+        max_seqs=max_seqs, block_size=args.block_size,
         num_blocks=args.num_blocks,
         max_blocks_per_seq=max(-(-max_total // args.block_size), 4),
         prefill_tokens_per_step=max(512, args.prompt_max),
@@ -145,6 +189,8 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
                     max_new_tokens=args.max_new)
             for i, n in enumerate(lengths)]
     engine = Engine(lm, _weights(arch, device, args.seed, args.dtype), cfg)
+    if args.metrics_out:
+        engine.telemetry.sinks.append(obs.JsonlSink(args.metrics_out))
     t0 = time.perf_counter()
     out = engine.run(reqs)
     wall = time.perf_counter() - t0
@@ -152,7 +198,8 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     prefill_s = _span_seconds(engine, "engine.prefill")
     n_preempt = sum(1 for e in engine.trace if e[0] == "preempt")
     summary = {
-        "arch": arch.name, "dispatch": arch.moe.dispatch, "device": str(device),
+        "arch": arch.name, "dispatch": arch.moe.dispatch, "max_seqs": cfg.max_seqs,
+        "device": str(device),
         "finished": len(out), "requests": len(reqs), "steps": engine.step_no,
         "wall_s": wall, "decode_steps": engine.decode_steps,
         "decode_tokens": engine.decoded_tokens,
@@ -166,10 +213,33 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
           f"{engine.decode_steps} decode steps, {n_preempt} preemptions")
     for rid in sorted(out)[:4]:
         print(f"  req {rid} (prompt {lengths[rid]}): {out[rid][:12]}")
+    if args.metrics_out:
+        summary.update(_telemetry_reports(args, arch, engine, device))
     req = reqs[0]
     seq = np.concatenate([req.tokens, out[req.rid][:-1]]).astype(np.int32)
     return summary, ParityCase(arch, cfg.layout(), seq, int(req.tokens.size),
                                device, args.seed)
+
+
+def _telemetry_reports(args, arch, engine, device) -> Dict:
+    """Decode and prefill drift against the serving model of the engine's
+    batch width at the planner's context and prompt length, priced on
+    ``PLATFORM``, and the Chrome trace of the engine's events."""
+    events = engine.trace_ring.events()
+    setup = rm.ServeSetup(batch=engine.cfg.max_seqs, context=args.context,
+                          prefill_len=args.prefill_len, dispatch=arch.moe.dispatch)
+    se = rm.serve_estimate(rm.ModelShape.from_arch(arch), setup, PLATFORM)
+    tracker = obs.DriftTracker(rm.modeled_serve_phases(se))
+    n = tracker.observe_events(events)
+    print(tracker.format_report(
+        f"drift {arch.name} serving: measured on {device} vs the "
+        f"{PLATFORM.name} model"))
+    trace_path = args.metrics_out + ".trace.json"
+    obs.write_chrome_trace(trace_path, events, process_name=f"serve {arch.name}")
+    print(f"[obs] {len(events)} events ({n} drift spans) -> {args.metrics_out}; "
+          f"chrome trace: {trace_path}")
+    engine.telemetry.close()
+    return {"drift": tracker.report(), "trace": trace_path}
 
 
 def decode_parity(case: ParityCase, modes: Sequence[str]) -> Dict[str, float]:

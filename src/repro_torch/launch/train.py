@@ -13,31 +13,43 @@ third resumes the second's checkpoint at step 4 and trains to 6):
         --arch granite-moe-3b-a800m --reduced --device cpu --steps 6 \\
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt
 
+It first prints the planner's production strategy for the arch (256
+H100s, batch 256 x 4096, ZeRO over the world: the reference launcher's
+call on ``core.platform.H100``) and binds what one device executes:
+``--dispatch`` defaults to the strategy's dispatch, and ``--ckpt-every``
+to its Young-Daly interval clamped to [1, steps/2].  The strategy's
+schedule, virtual stages and all-to-all are printed and not bound: the
+port has no pipeline executor or expert parallelism yet.
+
 It draws seeded random fp32 master weights on the device, trains with
 bf16 compute and fp32 Adam moments (the reference plan's
 ``compute_dtype``/``master_dtype``/``optimizer_dtype``) on
 ``SyntheticTokens`` (or a ``--corpus``), and prints the step time,
-tokens/s and, on the card, the peak device memory.  ``--dispatch``
-defaults to ``ragged``, the reference planner's ranked choice for every
-MoE arch it is assigned; ``capacity`` is accepted.  With ``--ckpt-dir``
+tokens/s and, on the card, the peak device memory.  With ``--ckpt-dir``
 the run resumes from the newest intact checkpoint there, checkpoints every
 ``--ckpt-every`` steps and at its end, and prints the checkpoint spans'
-bytes and seconds.
+bytes and seconds.  With ``--metrics-out PATH`` it writes the trainer's
+telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
+prints the drift of the measured ``train.step``, ``ckpt.save`` and
+``ckpt.restore`` spans against the resource model's pricing of this run
+(its own shape, PP = EP = DP = 1) on the H100, with the modeled stage-0
+memory beside the measured peak.
 
 The trainer gets the dataset itself, which has ``batch_at(step)``: the
 JAX twin wraps it in ``Prefetcher(iter(data))``, whose stream starts at
 batch 0 whatever step a resume or a rollback re-enters at.
 
-Unlike its JAX twin it has no ``--mesh``, ``--pipeline``, ``--impl`` or
-``--migrate-every`` and prints no planner report: one device, the kernels
-always, and the planner, expert migration and pipeline executor are not
-ported yet.
+Unlike its JAX twin it has no ``--mesh``, ``--pipeline``, ``--schedule``,
+``--vstages``, ``--a2a``, ``--a2a-chunks``, ``--impl`` or
+``--migrate-every``: one device, the kernels always; expert migration,
+expert parallelism and the pipeline executor are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -45,6 +57,9 @@ import torch
 
 from repro_torch.configs import DISPATCH_MODES, get_arch
 from repro_torch import obs
+from repro_torch.core import planner
+from repro_torch.core import resource_model as rm
+from repro_torch.core.platform import H100, Platform
 from repro_torch.data import MemmapCorpus, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LanguageModel, tree_paths
@@ -52,7 +67,10 @@ from repro_torch.optim import OptimizerConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.training import init_state
 
-PLANNER_DISPATCH = "ragged"  # the reference planner's choice for the MoE archs
+# The platform the planner and the drift report price (a test swaps it).
+PLATFORM = H100
+# The reference launcher's production call: 256 chips, batch 256 x 4096.
+PRODUCTION = dict(total_chips=256, batch=256, seq=4096, zero="world")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -63,19 +81,21 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--dispatch", default=PLANNER_DISPATCH, choices=DISPATCH_MODES,
-                    help="MoE expert dispatch (default: ragged, the reference "
-                         "planner's choice)")
+    ap.add_argument("--dispatch", default=None, choices=DISPATCH_MODES,
+                    help="MoE expert dispatch; default: the planner's choice")
     ap.add_argument("--corpus", default=None, help="memmap token corpus path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory: resume from its newest intact "
                          "checkpoint, save every --ckpt-every steps and at the end")
-    ap.add_argument("--ckpt-every", type=int, default=50,
-                    help="steps between checkpoints (default 50, the reference's "
-                         "value without a planner; its Young-Daly default waits "
-                         "for the planner's port, ROADMAP Queue 1 item 4)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="steps between checkpoints; default: the planner's "
+                         "Young-Daly interval clamped to [1, steps/2], else 50")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the trainer's telemetry as JSONL here, a Chrome "
+                         "trace to <path>.trace.json, and print a model-vs-"
+                         "measured drift report at the end of the run")
     return ap.parse_args(argv)
 
 
@@ -91,19 +111,62 @@ def _ckpt_report(events) -> Dict[str, List[Dict[str, Any]]]:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def production_strategy(arch: str, platform: Platform) -> Optional[planner.Strategy]:
+    """The planner's best strategy for ``arch`` at ``PRODUCTION`` scale on
+    ``platform`` (a 256-chip search takes seconds: one a process)."""
+    return planner.best_strategy(get_arch(arch), platform, **PRODUCTION)
+
+
+def plan(args: argparse.Namespace) -> Tuple[Optional[str], int]:
+    """Print the planner's production strategy for ``args.arch`` on
+    ``PLATFORM`` and bind this run's expert dispatch and checkpoint
+    interval: a flag wins, else the strategy's choice.  Returns
+    (dispatch, ckpt_every)."""
+    best = production_strategy(args.arch, PLATFORM)
+    n = PRODUCTION["total_chips"]
+    if best is None:
+        print(f"[planner] no feasible strategy for {args.arch} @{n}x{PLATFORM.name}")
+    else:
+        print(f"[planner] production-strategy for {args.arch} @{n}x{PLATFORM.name}:")
+        print("          " + best.describe())
+        print(f"[planner] schedule {best.schedule} vstages {best.vstages}, ep a2a "
+              f"{best.a2a_algo} x{best.a2a_chunks} chunks: printed, not bound (the port "
+              f"has no pipeline executor or expert parallelism yet; this run is "
+              f"PP = EP = DP = 1)")
+    # Checkpoint cadence: the flag wins, else the resource model's
+    # Young-Daly interval, clamped to the run so a short run still
+    # checkpoints at least once.
+    ckpt_every = args.ckpt_every
+    if ckpt_every is None:
+        if best is None:
+            ckpt_every = 50
+        else:
+            e = best.estimate
+            ckpt_every = min(max(e.ckpt_every_steps, 1), max(args.steps // 2, 1))
+            print(f"[planner] ckpt-every defaulted to {ckpt_every} steps (Young-Daly: "
+                  f"t_ckpt={e.t_ckpt:.1f}s tau={e.ckpt_interval_s:.0f}s "
+                  f"goodput={e.goodput_factor * 100:.2f}%)")
+    moe = get_arch(args.arch).moe
+    dispatch = args.dispatch
+    if dispatch is None and moe is not None:
+        dispatch = best.dispatch if best is not None else moe.dispatch
+    return dispatch, ckpt_every
+
+
 def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, Any]]:
     """Train ``args.steps`` steps; returns (summary, the trainer, its
     ``fit`` output with the final state)."""
     device = resolve_device(args.device)
+    dispatch, ckpt_every = plan(args)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
     if arch.moe is not None:
-        if args.dispatch != arch.moe.dispatch:
-            arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch=args.dispatch))
-        note = (" (the reference planner's choice for the MoE archs)"
-                if args.dispatch == PLANNER_DISPATCH else "")
-        print(f"[trainer] moe dispatch: {arch.moe.dispatch}{note}")
+        if dispatch != arch.moe.dispatch:
+            arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch=dispatch))
+        note = "--dispatch" if args.dispatch else "the planner's choice"
+        print(f"[trainer] moe dispatch: {arch.moe.dispatch} ({note})")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     lm = LanguageModel(arch)
@@ -116,19 +179,23 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         source = MemmapCorpus(args.corpus, args.batch, args.seq, seed=args.seed)
     else:
         source = SyntheticTokens(arch.vocab_size, args.batch, args.seq)
-    # Spans are recorded only for a checkpointed run: without one the loop
-    # does no more host work than before.
-    ring = obs.RingBufferSink() if args.ckpt_dir else None
+    # Spans are recorded only for a checkpointed or --metrics-out run:
+    # without one the loop does no more host work than before.
+    ring = obs.RingBufferSink() if args.ckpt_dir or args.metrics_out else None
+    sinks = [ring] if ring else []
+    if args.metrics_out:
+        sinks.append(obs.JsonlSink(args.metrics_out))
+    telemetry = obs.Telemetry(enabled=ring is not None, sinks=sinks)
     trainer = Trainer(lm, opt, TrainerConfig(total_steps=args.steps,
                                              checkpoint_dir=args.ckpt_dir,
-                                             checkpoint_every=args.ckpt_every),
-                      telemetry=obs.Telemetry(enabled=ring is not None,
-                                              sinks=[ring] if ring else None))
+                                             checkpoint_every=ckpt_every),
+                      telemetry=telemetry)
     out = trainer.fit(state, source)
     times = trainer.step_times[1:] or trainer.step_times  # the first step warms up
     p50 = float(np.median(times)) if times else float("nan")
     summary = {
         "arch": arch.name, "dispatch": arch.moe.dispatch if arch.moe else None,
+        "ckpt_every": ckpt_every,
         "device": str(device), "params": n_params, "steps": len(trainer.step_times),
         "skipped": len(out["anomalies"]),
         "loss": float(out["metrics"].get("loss", float("nan"))),
@@ -145,7 +212,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
           f"{summary['tokens_per_s']:.0f} tokens/s"
           + (f", peak device memory {summary['peak_mem_gb']:.2f} GB"
              if summary["peak_mem_gb"] is not None else ""))
-    if ring is not None:
+    if args.ckpt_dir:
         summary["ckpt"] = _ckpt_report(ring.events())
         for name, spans in summary["ckpt"].items():
             for sp in spans:
@@ -154,7 +221,34 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
                 print(f"[ckpt] {name} step {sp['step']}: {sp['s']:.3f} s{rate} "
                       + " ".join(f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
                                  for k, v in sp.items() if k not in ("s", "step")))
+    if args.metrics_out:
+        summary.update(_telemetry_reports(args, arch, ring.events(), summary))
+        telemetry.close()
     return summary, trainer, out
+
+
+def _telemetry_reports(args, arch, events, summary) -> Dict[str, Any]:
+    """The end-of-run drift report (this run's shape, PP = EP = DP = 1,
+    priced on ``PLATFORM``), the modeled stage-0 memory beside the
+    measured peak, and the Chrome trace (no schedule lanes: PP = 1)."""
+    setup = rm.TrainSetup(b=args.batch, s=args.seq, PP=1, EP=1, DP=1, zero="world",
+                          **({"dispatch": arch.moe.dispatch} if arch.moe else {}))
+    est = rm.estimate(rm.ModelShape.from_arch(arch), setup, PLATFORM)
+    tracker = obs.DriftTracker(rm.modeled_phases(est))
+    n = tracker.observe_events(events)
+    print(tracker.format_report(
+        f"drift {arch.name}: measured on {summary['device']} vs the {PLATFORM.name} model"))
+    peak = summary["peak_mem_gb"]
+    print(f"[model] {PLATFORM.name} t_step {est.t_step * 1e3:.4g} ms vs measured step p50 "
+          f"{summary['step_p50_ms']:.1f} ms; mem_stage0 {est.mem_stage0 / 1e9:.2f} GB vs "
+          + (f"peak torch.cuda.max_memory_allocated {peak:.2f} GB" if peak is not None
+             else "no device peak on the CPU"))
+    trace_path = args.metrics_out + ".trace.json"
+    obs.write_chrome_trace(trace_path, events, process_name=f"train {arch.name}")
+    print(f"[obs] {len(events)} events ({n} drift spans) -> {args.metrics_out}; "
+          f"chrome trace: {trace_path}")
+    return {"drift": tracker.report(), "trace": trace_path,
+            "model": {"t_step_s": est.t_step, "mem_stage0_gb": est.mem_stage0 / 1e9}}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:

@@ -459,7 +459,10 @@ def test_launcher_resume_equals_one_run(tmp_path, capsys):
     assert "ckpt" not in whole
     _assert_state_equal(out["state"], want["state"])
     assert second["loss"] == whole["loss"]
-    assert checkpoint_steps(tmp_path) == [4, 6]
+    # --ckpt-every defaults to the planner's Young-Daly interval clamped to
+    # [1, steps/2]: every 2 steps in the 4-step run, every 3 in the 6-step one
+    assert first["ckpt_every"] == 2 and second["ckpt_every"] == 3
+    assert checkpoint_steps(tmp_path) == [2, 4, 6]
     assert "[ckpt] ckpt.restore step 4" in capsys.readouterr().out
 
 

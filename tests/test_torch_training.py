@@ -531,7 +531,8 @@ def test_train_entry_point_on_cpu(dispatch, capsys):
     out = capsys.readouterr().out
     assert summary["dispatch"] == dispatch and summary["steps"] == 3
     assert summary["skipped"] == 0 and np.isfinite(summary["loss"])
-    assert ("reference planner's choice" in out) == (dispatch == "ragged")
+    assert f"moe dispatch: {dispatch} (--dispatch)" in out  # the flag wins
+    assert "[planner] production-strategy for granite-moe-3b-a800m @256xh100-sxm" in out
 
 
 def test_train_entry_point_needs_cuda_unless_cpu_is_asked():
