@@ -90,7 +90,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    the snapshot, save (CRC and write), verify and restore seconds and
    GB/s, their drift against the H100 model's t_ckpt (and the full-depth
    t_ckpt; printed only), the step p50 with and without an async write in
-   flight, and the peak device memory.
+   flight, and the peak device memory;
+12. ep: expert parallelism.  (a) ``torchrun --nproc-per-node 1 -m
+   repro_torch.launch.train --mesh 1,1 --backend nccl`` with the training
+   phase's arguments: the NCCL process group at EP = 1, its final loss
+   against phase 10's, bitwise (else 1e-6).  (b) every kernel of the EP
+   path against its plain version at the shapes the two-rank run gives it
+   (E_l = 20 local experts, receiver buffers of up to 65,560 rows with a
+   NaN sentinel tail that must come back 0; the grouped GEMM over (20,
+   2 x C, d)).  (c) two gloo ranks sharing the card (EP = 2; NCCL will not
+   put two ranks of one communicator on one GPU), granite at full width
+   and depth 2 with capacity factor 16: train steps under both dispatches
+   at a2a chunks 1 and 2, their loss and gathered gradients against world
+   1 on the same global batch at the reference's EP gates (loss 2e-3,
+   gradients 2e-3, the embedding at relative 0.05) and at 0.02 of each
+   leaf's largest magnitude (printed per leaf; expert gradients halved on
+   purpose must fail it); one AdamW step each, its grad norm and gathered
+   first moment within 0.02 of world 1's and its params within 2 lr; and
+   4 served requests under both dispatches whose
+   tokens must equal the world-1 engine's.  The launch counts are zeroed
+   just before the two-rank runs and read just after on each rank; every
+   kernel of the path must be there, none through ``/fma``.  gloo stages
+   CUDA tensors through the host, so no all-to-all time is printed; the
+   a2a micro-benchmarks run at world 1 and print no time either.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1009,7 +1031,8 @@ PATH_KERNELS["train"] = tuple(n for n, c in TRAIN_LAUNCHES.items() if c)
 
 
 def training_phase():
-    """Train through `repro_torch.launch.train`; returns the run's launch counts."""
+    """Train through `repro_torch.launch.train`; returns the run's launch
+    counts and its summary."""
     from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticTokens
@@ -1049,7 +1072,7 @@ def training_phase():
     state = out["state"]
     _profiled(lambda: trainer.train_step(state, batch),
               f"train step (full width, batch {args.batch} x {args.seq}, ragged)")
-    return counts
+    return counts, summary
 
 
 # ---------------------------------------------------------------------------
@@ -1339,6 +1362,424 @@ def model_phase(dev) -> None:
         f"{ssm.describe() if ssm else 'none feasible'}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: expert parallelism (world 1 over NCCL; two gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+EP_DEPTH, EP_CF, EP_RANKS = 2, 16.0, 2
+# (dispatch, a2a_chunks) of the two-rank train steps.
+EP_CASES = (("ragged", 1), ("ragged", 2), ("capacity", 1), ("capacity", 2))
+EP_SERVE = dict(requests=4, prompt=(64, 512), max_new=8, max_seqs=4)
+EP_BATCH = (2, 512)  # the global train batch, split over the ranks by whole sequences
+# The EP gradient gates: the reference's check_moe_ep (loss and gradients
+# 2e-3, the embedding at relative 0.05 in norm) and, on every leaf, its
+# largest gap at most EP_GRAD_REL of its largest magnitude, so that a
+# gradient too small for 2e-3 to see (a halved expert gradient) fails.
+EP_GRAD_REL = 0.02
+PATH_KERNELS["ep"] = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
+                      "ragged_matmul_f32", "ragged_dw_f32")
+
+
+def ep_prompts(vocab: int) -> list:
+    """The two-rank serving run's prompts (``EP_SERVE``), from seed 0."""
+    rng = np.random.default_rng(0)
+    lo, hi = EP_SERVE["prompt"]
+    return [rng.integers(0, vocab, size=int(n))
+            for n in rng.integers(lo, hi + 1, size=EP_SERVE["requests"])]
+
+
+def ep_kernel_checks(dev) -> None:
+    """Every kernel of the "ep" path against its plain version at the
+    shapes the two-rank run gives it on rank 0: granite at full width, E_l
+    = E / EP_RANKS local experts, capacity factor EP_CF.  The ragged
+    kernels take the receiver's buffer, EP_RANKS x (a chunk of the rank
+    budget S = E_l x C) rows, of which only the rows routed to rank 0's
+    experts are occupied: the rest is the sentinel tail, NaN here, which
+    must come back 0 (and, for ``ragged_dw_f32``, never be read).
+    * train (ragged; capacity training runs no kernel): T = 2 x 512 /
+      EP_RANKS tokens a rank, a2a chunks 1 and 2: the gate-up (bf16 x), the
+      down projection (fp32 h), the backward's dh and dx (fp32 against the
+      transposed weights) and both weight gradients;
+    * serving prefill, each rank's sequence shard of every bucket of the
+      ``EP_SERVE`` prompts: ragged gate-up and down; capacity, the grouped
+      GEMMs over (E_l, EP_RANKS x C, d) and (E_l, EP_RANKS x C, f);
+    * decode, ``max_seqs`` tokens replicated: ragged over their T x k rows
+      (the other rank's rows as the tail), capacity over (E_l, C, d)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import halo
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serving.engine import _bucket
+
+    arch = get_arch(ARCH)
+    moe = dataclasses.replace(arch.moe, capacity_factor=EP_CF)
+    d, f, E, k = arch.d_model, moe.d_ff, moe.num_experts, moe.top_k
+    E_l, bf16 = E // EP_RANKS, torch.bfloat16
+    g, randn, _ = seeded_inputs(dev, E, k, seed=3)
+    wg, wu = (randn(E_l, d, f, scale=d ** -0.5, dtype=bf16) for _ in range(2))
+    wd = randn(E_l, f, d, scale=f ** -0.5, dtype=bf16)
+    wgt, wdt = mm_ops._transposed(wg), mm_ops._transposed(wd)
+    n_checks, t0 = 0, time.perf_counter()
+
+    def rank0_ids(tokens: int) -> torch.Tensor:
+        """The rank-0 local expert ids of ``tokens`` tokens each routed to
+        k of E experts at random, E_l (the sentinel) for the other ranks'."""
+        ids = torch.rand((tokens, E), generator=g, device=dev).argsort(dim=1)[:, :k]
+        return torch.where(ids < E_l, ids, E_l).reshape(-1)
+
+    def offsets_of(ids: torch.Tensor) -> torch.Tensor:
+        counts = torch.bincount(ids, minlength=E_l + 1)[:E_l]
+        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+    def receiver_chunks(T: int, chunks: int):
+        """(rows, offsets) of each chunk rank 0 receives: every source packs
+        its rows for rank 0 sorted by expert into S slots, sentinel after."""
+        S = E_l * _capacity(T, moe)
+        recv = torch.full((EP_RANKS, S), E_l, dtype=torch.long, device=dev)
+        for src in range(EP_RANKS):
+            lid = rank0_ids(T).sort().values
+            lid = lid[lid < E_l][:S]
+            recv[src, :lid.numel()] = lid
+        return [(EP_RANKS * size, offsets_of(recv[:, start:start + size].reshape(-1)))
+                for start, size in halo.chunk_slices(S, chunks)]
+
+    def nan_tail(rows, cols, n, dtype=torch.float32, scale=1.0):
+        t = randn(rows, cols, scale=scale, dtype=dtype)
+        t[n:] = float("nan")
+        return t
+
+    def held(name, got, want, n=None):
+        nonlocal n_checks
+        n_checks += 1
+        check(f"ep path {name}", got, want, GEMM_TOL)
+        if n is not None and not bool((got[n:] == 0).all()):
+            fail(f"ep path {name}: rows past offsets[E_l] are not 0")
+
+    def ragged(tag, R, offs, backward):
+        n = int(offs[-1])
+        shape = f"{tag} R={R} occupied={n} E_l={E_l}"
+        x = nan_tail(R, d, n, bf16)
+        for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
+                            mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs)):
+            held(f"ragged_gate_up_silu_f32 {shape} {nm}", a, b, n)
+        h = nan_tail(R, f, n)
+        held(f"ragged_matmul_f32 {shape} down fp32 h", mm_ops.ragged_matmul_f32(h, wd, offs),
+             mm_ref.ragged_matmul_f32(h, wd, offs), n)
+        if not backward:
+            return
+        dy, da = nan_tail(R, d, n, scale=1e-2), nan_tail(R, f, n, scale=1e-2)
+        held(f"ragged_matmul_f32 {shape} dh", mm_ops.ragged_matmul_f32(dy, wdt, offs),
+             mm_ref.ragged_matmul_f32(dy, wdt, offs), n)
+        held(f"ragged_matmul_f32 {shape} dx", mm_ops.ragged_matmul_f32(da, wgt, offs),
+             mm_ref.ragged_matmul_f32(da, wgt, offs), n)
+        held(f"ragged_dw_f32 {shape} dW_gate/up bf16 x", mm_ops.ragged_dw_f32(x, da, offs),
+             mm_ref.ragged_dw_f32(x, da, offs))
+        held(f"ragged_dw_f32 {shape} dW_down fp32 h", mm_ops.ragged_dw_f32(h, dy, offs),
+             mm_ref.ragged_dw_f32(h, dy, offs))
+
+    def grouped(tag, M):
+        x, h = randn(E_l, M, d, dtype=bf16), randn(E_l, M, f)
+        held(f"grouped_matmul_f32 {tag} ({E_l},{M},{d})x({d},{f}) gate/up",
+             mm_ops.grouped_matmul_f32(x, wg), mm_ref.grouped_matmul_f32(x, wg))
+        held(f"grouped_matmul_f32 {tag} ({E_l},{M},{f})x({f},{d}) down fp32 h",
+             mm_ops.grouped_matmul_f32(h, wd), mm_ref.grouped_matmul_f32(h, wd))
+
+    T_train = EP_BATCH[0] * EP_BATCH[1] // EP_RANKS
+    for chunks in (1, 2):
+        for i, (R, offs) in enumerate(receiver_chunks(T_train, chunks)):
+            ragged(f"train x{chunks} chunk {i}", R, offs, backward=True)
+    for bucket in sorted({_bucket(len(p)) for p in ep_prompts(arch.vocab_size)}):
+        T = bucket // EP_RANKS
+        for R, offs in receiver_chunks(T, 1):
+            ragged(f"prefill bucket {bucket}", R, offs, backward=False)
+        grouped(f"prefill bucket {bucket}", EP_RANKS * _capacity(T, moe))
+    ids = rank0_ids(EP_SERVE["max_seqs"])
+    ragged("decode", ids.numel(), offsets_of(ids.sort().values), backward=False)
+    grouped("decode", _capacity(EP_SERVE["max_seqs"], moe))
+    log(f"[check] ep path kernels at the two-rank run's shapes (E_l={E_l}, cf {EP_CF:g}, "
+        f"NaN sentinel tails): {n_checks} checks ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def ep_world1_phase(train_summary) -> None:
+    """``torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh 1,1``
+    with the training phase's arguments: the process group over NCCL,
+    EP = 1 (``moe_ffn_local``), its final loss against the training
+    phase's, bitwise (else within 1e-6)."""
+    import os
+    import re
+
+    torch.cuda.empty_cache()
+    src = Path(__file__).resolve().parent / "src"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", "--mesh", "1,1",
+           "--backend", "nccl"] + TRAIN_ARGS
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(src)})
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith(("[mesh]", "[trainer] ep a2a", "[done]"))]
+    for line in lines:
+        log(f"[ep] world 1 (torchrun, nccl): {line}")
+    if proc.returncode != 0:
+        fail(f"ep world 1: torchrun exited {proc.returncode}: {proc.stderr[-3000:]}")
+    m = re.search(r"\[done\] step=\d+ loss=(\S+)", proc.stdout)
+    if m is None or not any(l.startswith("[mesh] devices=1 ep=1") for l in lines):
+        fail("ep world 1: no [done] loss or [mesh] line")
+    loss, want = float(m.group(1)), float(train_summary["loss"])
+    ok = loss == want or abs(loss - want) <= 1e-6
+    log(f"[check] ep world 1 over NCCL vs the training phase: loss {loss!r} vs {want!r} "
+        f"({'bitwise' if loss == want else f'|d| {abs(loss - want):.3e}'}) "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("ep world 1: the loss differs from the training phase's")
+
+
+def _ep_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of the two-rank phase (``torch.multiprocessing``
+    target); writes ``tmp/rank<r>.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        out = _ep_rank_body(rank, world, tmp)
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-3000:]}
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def ep_grad_gate(got: dict, want: dict):
+    """The EP gradient gates (``EP_GRAD_REL``) on two {leaf: tensor} trees:
+    (ok, {leaf: (max |gap|, max |want|, ok)}); the embedding's element-wise
+    gate is its relative norm gap."""
+    rows = {}
+    for k, w in want.items():
+        diff = got[k].float() - w.float()
+        gap, scale = float(diff.abs().max()), float(w.abs().max())
+        first = (float(diff.norm() / (w.float().norm() + 1e-9)) < 0.05 if k == "embed"
+                 else gap < 2e-3)
+        rows[k] = (gap, scale, first and gap <= EP_GRAD_REL * scale)
+    return all(r[2] for r in rows.values()), rows
+
+
+def _ep_rank_body(rank: int, world: int, tmp: str) -> dict:
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels, sharding, training
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import adamw_init
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=rank,
+                            world_size=world)
+    out = {"rank": rank}
+    base = get_arch(ARCH).replace(num_layers=EP_DEPTH)
+    opt = OptimizerConfig(lr=1e-3)  # step 1 of its 100-step warmup: lr 1e-5
+
+    def arch_of(mode):
+        return base.replace(moe=dataclasses.replace(base.moe, dispatch=mode,
+                                                    capacity_factor=EP_CF))
+
+    batch = SyntheticTokens(base.vocab_size, *EP_BATCH).batch_at(0)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = ep_prompts(base.vocab_size)
+    cfg = ServeConfig(max_seqs=EP_SERVE["max_seqs"], block_size=16, num_blocks=256,
+                      max_blocks_per_seq=36, cache_dtype="bfloat16")
+
+    def grads(arch, plan):
+        loss, _, gr = training.loss_and_grads(LanguageModel(arch, plan),
+                                              shard_params(params, plan), batch)
+        return float(loss), {k: g for k, g in tree_paths(gather_params(gr, plan)).items()
+                             if g is not None}
+
+    def step(arch, plan):
+        """One AdamW step from a copy of the params: (grad norm, skipped,
+        the gathered params and first moment after it)."""
+        p = map_tree(torch.clone, shard_params(params, plan))
+        state = {"params": p, **adamw_init(p)}
+        _, met = training.make_train_step(LanguageModel(arch, plan), opt)(state, batch)
+        after = {k: tree_paths(gather_params(state[k], plan)) for k in ("params", "m")}
+        return float(met["grad_norm"]), int(met["skipped"]), {
+            k: {n: t for n, t in v.items() if t.is_floating_point()} for k, v in after.items()}
+
+    def serve(arch, plan, p):
+        """The served tokens, and the prefill logits of the longest prompt
+        (the engine's first step, as a host array)."""
+        eng = Engine(LanguageModel(arch, plan), shard_params(p, plan), cfg)
+        res = eng.run([Request(rid=i, tokens=t, max_new_tokens=EP_SERVE["max_new"])
+                       for i, t in enumerate(prompts)])
+        lm, n = LanguageModel(arch, plan), max(len(t) for t in prompts)
+        cache = lm.init_paged_cache(cfg.layout(), dtype=torch.bfloat16, device=dev)
+        table = torch.arange(cfg.max_blocks_per_seq, dtype=torch.int32, device=dev)[None]
+        long = torch.zeros((1, 1 << (n - 1).bit_length()), dtype=torch.long, device=dev)
+        long[0, :n] = torch.from_numpy(max(prompts, key=len).astype(np.int64))  # right-padded
+        with torch.no_grad():
+            logits, _ = lm.prefill_paged(shard_params(p, plan), {"tokens": long}, cache,
+                                         table, torch.tensor([n], device=dev))
+        return [res[i] for i in sorted(res)], logits.float().cpu()
+
+    def gate_line(rows) -> str:
+        return ", ".join(f"{k.replace('blocks/0/', '')} {g:.2e}/{m:.2e}"
+                         for k, (g, m, _) in rows.items())
+
+    # World 1 on rank 0 first (the reference), while rank 1 waits.
+    ref = {}
+    if rank == 0:
+        for mode in ("ragged", "capacity"):
+            ref[mode] = grads(arch_of(mode), None)
+            ref[f"step/{mode}"] = step(arch_of(mode), None)
+            ref[f"serve/{mode}"] = serve(arch_of(mode), None, _bf16(params))
+    dist.barrier()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    checks = []
+    for mode, chunks in EP_CASES:
+        arch = arch_of(mode)
+        plan = sharding.make_plan(arch, (1, world), a2a_chunks=chunks)
+        loss, full = grads(arch, plan)
+        gn, skipped, after = step(arch, plan)
+        if rank == 0:
+            want_loss, want = ref[mode]
+            ok_g, rows = ep_grad_gate(full, want)
+            worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], 1e-30))
+            emb = float((full["embed"] - want["embed"]).norm() / (want["embed"].norm() + 1e-9))
+            ok = abs(loss - want_loss) < 2e-3 and ok_g
+            checks.append(ok)
+            tag = f"train/{mode}/x{chunks}"
+            out[tag] = (
+                f"loss {loss!r} vs world 1 {want_loss!r} (|d| {abs(loss - want_loss):.3e} "
+                f"< 2e-3); gradients: worst leaf {worst} max |d| {rows[worst][0]:.3e} of "
+                f"max |want| {rows[worst][1]:.3e} (relative {rows[worst][0] / rows[worst][1]:.2e}"
+                f" <= {EP_GRAD_REL:g}; < 2e-3), embed relative norm {emb:.3e} (< 0.05) "
+                f"{'ok' if ok else 'FAIL'}")
+            out[f"{tag} leaves"] = f"max |d| / max |want|: {gate_line(rows)}"
+            if mode == "ragged" and chunks == 1:
+                # The gate must see a halved expert gradient (every expert leaf).
+                experts = sharding.expert_paths(full)
+                bad = {k: v * 0.5 if k in experts else v for k, v in full.items()}
+                caught = sorted(k for k, r in ep_grad_gate(bad, want)[1].items() if not r[2])
+                ok_p = caught == sorted(experts)
+                checks.append(ok_p)
+                out["train/planted"] = (
+                    f"expert gradients x 0.5 fail the gate at {len(caught)} of "
+                    f"{len(experts)} expert leaves, nothing else "
+                    f"{'ok' if ok_p else 'FAIL'}")
+            gn1, skipped1, want_after = ref[f"step/{mode}"]
+            ok_n = skipped == skipped1 == 0 and abs(gn - gn1) <= EP_GRAD_REL * gn1
+            m_rows = ep_grad_gate(after["m"], want_after["m"])[1]
+            m_rel = max(r[0] / max(r[1], 1e-30) for r in m_rows.values())
+            ok_m = all(r[0] <= EP_GRAD_REL * r[1] for r in m_rows.values())
+            lr = 1e-3 / 100
+            p_gap = {k: (after["params"][k] - w).abs() for k, w in want_after["params"].items()}
+            p_max = max(float(v.max()) for v in p_gap.values())
+            p_frac = max(float((v > lr / 100).float().mean()) for v in p_gap.values())
+            ok_p = p_max <= 2 * lr and p_frac <= 0.05
+            checks.append(ok_n and ok_m and ok_p)
+            out[f"step/{mode}/x{chunks}"] = (
+                f"one AdamW step: grad norm {gn!r} vs world 1 {gn1!r} (relative "
+                f"{abs(gn - gn1) / gn1:.2e} <= {EP_GRAD_REL:g}), skipped {skipped}; first "
+                f"moment worst relative gap {m_rel:.2e} (<= {EP_GRAD_REL:g}); params max "
+                f"|d| {p_max:.3e} (<= 2 lr = {2 * lr:g}), worst leaf's share moved "
+                f"differently by > lr/100 {p_frac:.4f} (<= 0.05) "
+                f"{'ok' if ok_n and ok_m and ok_p else 'FAIL'}")
+        del full, after
+    for mode in ("ragged", "capacity"):
+        plan = sharding.make_plan(arch_of(mode), (1, world))
+        tokens, logits = serve(arch_of(mode), plan, _bf16(params))
+        if rank == 0:
+            want, want_logits = ref[f"serve/{mode}"]
+            ok = tokens == want
+            checks.append(ok)
+            gap = float((logits - want_logits).abs().max())
+            out[f"serve/{mode}"] = (
+                f"{len(tokens)} requests, tokens equal world 1's: {ok} "
+                f"{'ok' if ok else 'FAIL'} (first: {tokens[0][:8]}); bf16 prefill logits "
+                f"of the {len(max(prompts, key=len))}-token prompt, max |d| {gap:.3e}")
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = kernels.launch_counts()
+    out["ok"] = all(checks)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _bf16(params):
+    from repro_torch.models.model import map_tree
+
+    return map_tree(lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, params)
+
+
+def ep_phase(dev):
+    """Two gloo ranks on the one card (EP = 2; granite full width, depth
+    2, capacity factor 16): the train steps of ``EP_CASES`` and serving
+    under both dispatches against world 1 on rank 0.  Returns the two
+    ranks' summed launch counts of those runs (not of the world-1
+    references)."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    ep_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ep_")
+    log(f"[ep] {EP_RANKS} gloo ranks on one {torch.cuda.get_device_name(0)}: gloo stages "
+        f"every CUDA tensor of a collective through the host, so no all-to-all time of "
+        f"this phase is a measurement of the card or its links (none is printed)")
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_ep_rank, args=(EP_RANKS, tmp), nprocs=EP_RANKS,
+                           start_method="spawn")
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in res:
+        if "error" in r:
+            fail(f"ep rank {res.index(r)}: {r['error']}\n{r['trace']}")
+    for k, v in res[0].items():
+        if k.startswith(("train/", "step/", "serve/")):
+            log(f"[check] ep x{EP_RANKS} (gloo, depth {EP_DEPTH}, cf {EP_CF:g}) {k}: {v}")
+    counts = {}
+    for r in res:
+        log(f"[ep] rank {r['rank']} launches: {r['counts']}")
+        label = f"ep rank {r['rank']}"
+        log(f"[ep] rank {r['rank']} designs {check_designs(r['counts'], label)}")
+        for name, n in r["counts"].items():
+            counts[name] = counts.get(name, 0) + n
+    for name in PATH_KERNELS["ep"]:
+        if any(r["counts"][name] == 0 for r in res):
+            fail(f"ep: a rank never launched {name}")
+    from repro_torch import sharding
+    from repro_torch.configs import get_arch
+    from repro_torch.core import microbench
+
+    # The a2a micro-benchmarks at world 1 (a local copy; one rank's layer):
+    # they run, but one card has no all-to-all to measure, so no time is shown.
+    rows = microbench.a2a_bandwidth_curve((2**20,), device=dev)
+    t = microbench.measure_a2a_overlap(sharding.single_device_plan(get_arch(ARCH)), rows=64,
+                                       d=1536, d_ff=512, chunks=2, device=dev)
+    if not (rows[0]["seconds"] > 0 and t > 0):
+        fail("ep: an a2a micro-benchmark did not run")
+    log("[ep] a2a micro-benchmarks (core/microbench.py) ran at world 1: nothing measured "
+        "(one card has no all-to-all; their times are not printed)")
+    log(f"[ep] phase {time.perf_counter() - t0:.1f} s (EP runs {res[0]['seconds']:.1f} s on "
+        f"rank 0)")
+    if not res[0]["ok"]:
+        fail("ep: a two-rank run disagrees with world 1")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1374,10 +1815,13 @@ def main() -> None:
     ssm_profile_phase(model)
     del model
     log(f"[phase] ssm profile done at {time.perf_counter() - t0:.1f}s")
-    counts["train"] = training_phase()
+    counts["train"], train_summary = training_phase()
     log(f"[phase] training done at {time.perf_counter() - t0:.1f}s")
     counts["checkpoint"] = checkpoint_phase(dev)
     log(f"[phase] checkpoint done at {time.perf_counter() - t0:.1f}s")
+    ep_world1_phase(train_summary)
+    counts["ep"] = ep_phase(dev)
+    log(f"[phase] ep done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

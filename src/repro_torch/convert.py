@@ -1,5 +1,6 @@
 """Parameter trees, train states and dense serving caches between the JAX
-package and the port, as numpy.
+package and the port, as numpy; and a whole parameter tree to and from one
+expert-parallel rank's shard (:func:`shard_params`, :func:`gather_params`).
 
 The two packages' trees have the same paths (``models.model.param_tree``):
 dicts keyed alike and a tuple of per-pattern-position block dicts with
@@ -12,8 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.device import resolve_device
-from repro_torch.models.model import map_tree
+from repro_torch.models.model import map_tree, tree_paths
 
 
 def params_from_numpy(tree, device=None, dtype=torch.float32):
@@ -70,3 +72,42 @@ def cache_from_numpy(cache, device=None):
 def cache_to_numpy(cache):
     """The port's dense cache -> numpy (float32 leaves)."""
     return map_tree(lambda t: t.detach().cpu().float().numpy(), cache)
+
+
+def shard_params(params, plan):
+    """A whole parameter tree -> this rank's: each MoE expert leaf
+    (``w_up``, ``w_gate``, ``w_down``, stacked (reps, E, ...)) keeps the
+    rank's physical slots ``[g * E_l, (g + 1) * E_l)`` (g its EP rank) as a
+    copy; every other leaf, the router and the routing table included, is
+    the same tensor."""
+    if plan is None or plan.ep == 1:
+        return params
+    experts = sharding.expert_paths(tree_paths(params))
+
+    def leaf(path, t):
+        if path not in experts:
+            return t
+        E_l = t.shape[1] // plan.ep
+        return t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l].clone()
+
+    return map_tree(leaf, params, with_path=True)
+
+
+def gather_params(tree, plan):
+    """The inverse of :func:`shard_params` on any tree of the params' shape
+    (params or gradients; None leaves pass): each expert leaf gathered over
+    the EP group, in EP-rank order, along its expert dim.  Collective: every
+    rank of the EP group calls it."""
+    if plan is None or plan.ep == 1:
+        return tree
+    experts = sharding.expert_paths(
+        {k: v for k, v in tree_paths(tree).items() if v is not None})
+
+    def leaf(path, t):
+        if path not in experts:
+            return t
+        parts = [torch.empty_like(t) for _ in range(plan.ep)]
+        torch.distributed.all_gather(parts, t.contiguous(), group=plan.ep_group)
+        return torch.cat(parts, dim=1)
+
+    return map_tree(leaf, tree, with_path=True)

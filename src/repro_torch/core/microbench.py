@@ -11,16 +11,20 @@ at granite-moe-3b-a800m's widths; ``core.platform.H100``'s ``gemm_eff``
 and ``attn_eff`` are those measurements.
 
 The all-to-all benchmarks (``a2a_bandwidth_curve``, ``a2a_overlap_layer``,
-``measure_a2a_overlap``) need several ranks and wait for expert
-parallelism (ROADMAP Queue 1 item 2).
+``measure_a2a_overlap``) run over a ``torch.distributed`` process group
+(the EP group of a ``sharding.MeshPlan``), through the same transport and
+software pipeline as ``models.moe`` (``core.halo``).  Every rank of the
+group calls them together.  Over gloo a transfer of CUDA tensors stages
+through the host, so its time is not the card's interconnect.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -103,3 +107,86 @@ def attention_curve(
         flops = 4.0 * s * s * d_model  # QK^T + AV
         rows.append({"seq": s, "seconds": sec, "gflops": flops / sec / 1e9})
     return rows
+
+
+def a2a_bandwidth_curve(msg_sizes: Tuple[int, ...] = (2**14, 2**17, 2**20), *,
+                        group=None, device="cuda") -> List[Dict]:
+    """Fig 5 analog: all-to-all time vs message size over ``group``'s
+    ranks (None: one rank, a local-copy baseline).  ``gbps`` counts the
+    reference's bytes: the global (n*n, rows) fp32 buffer's off-rank
+    share."""
+    dev = resolve_device(device)
+    n = 1 if group is None else dist.get_world_size(group)
+    rows = []
+    for m in msg_sizes:
+        if n == 1:
+            x = torch.zeros((1, m // 4), dtype=torch.float32, device=dev)
+            sec = _time_fn(lambda t: t + 1, x, device=dev)
+            rows.append({"ranks": 1, "msg_bytes": m, "seconds": sec,
+                         "gbps": m / sec / 1e9})
+            continue
+        rows_per = max(m // 4 // n, 1)
+        x = torch.zeros((n, rows_per), dtype=torch.float32, device=dev)
+        out = torch.empty_like(x)
+        sec = _time_fn(lambda t: dist.all_to_all_single(out, t, group=group), x,
+                       device=dev)
+        bytes_moved = n * n * rows_per * 4 * (n - 1) / n
+        rows.append({"ranks": n, "msg_bytes": m, "seconds": sec,
+                     "gbps": bytes_moved / sec / 1e9})
+    return rows
+
+
+def a2a_overlap_layer(plan, rows: int, d: int, d_ff: int, chunks: int = 1,
+                      part: str = "layer", device="cuda"):
+    """One capacity-layout MoE layer pass over ``plan``'s EP group:
+    dispatch all-to-all -> expert FFN -> combine, software-pipelined
+    through ``halo.overlapped_a2a`` exactly as ``models.moe``'s chunked
+    path (same transport: ``plan``'s flat or HALO; same loop) with a
+    synthetic one-expert FFN, so the probe isolates the transport/compute
+    pipeline.  ``part``: "layer" (the whole pipeline), "a2a" (one
+    monolithic dispatch transfer) or "ffn" (the expert GEMMs only).
+    Returns ``(fn, args)``; time with ``_time_fn(fn, *args)``."""
+    from repro_torch.core import halo
+
+    assert part in ("layer", "a2a", "ffn"), part
+    dev = resolve_device(device)
+    ep = plan.ep
+    xfer = halo.Transfer(plan)
+    slices = halo.chunk_slices(rows, chunks)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((ep, rows, d), generator=g, device=dev)
+    wu = torch.randn((d, d_ff), generator=g, device=dev) * 0.01
+    wd = torch.randn((d_ff, d), generator=g, device=dev) * 0.01
+
+    def ffn(rx):
+        h = rx.reshape(-1, d)
+        return (torch.relu(h @ wu) @ wd).reshape(rx.shape)
+
+    @torch.no_grad()
+    def layer(x, wu, wd):
+        if part == "a2a":
+            return xfer(x)
+        if part == "ffn":
+            return ffn(x)
+        outs = halo.overlapped_a2a(xfer, lambda start, size: x[:, start:start + size],
+                                   lambda rx, start, size: ffn(rx), slices)
+        return torch.cat(outs, dim=1)
+
+    return layer, (x, wu, wd)
+
+
+def measure_a2a_overlap(plan, rows: int, d: int, d_ff: int, chunks: int = 1,
+                        part: str = "layer", iters: int = 3, warmup: int = 1,
+                        device="cuda", telemetry: Optional[object] = None) -> float:
+    """Seconds per call of one :func:`a2a_overlap_layer` configuration;
+    with ``telemetry`` (an ``obs.Telemetry``) one ``a2a.layer`` span per
+    measurement, recorded after the timed loop with the steady-state
+    seconds a call (the number the drift tracker compares with the comm
+    model)."""
+    fn, args = a2a_overlap_layer(plan, rows, d, d_ff, chunks=chunks, part=part,
+                                 device=device)
+    t = _time_fn(fn, *args, device=resolve_device(device), iters=iters, warmup=warmup)
+    if telemetry is not None:
+        telemetry.record_span("a2a.layer", t, ep=plan.ep, rows=rows, d=d, d_ff=d_ff,
+                              algo=plan.a2a_algo, chunks=chunks, part=part)
+    return t

@@ -28,6 +28,15 @@ into the engine.  With ``--metrics-out PATH`` it writes the engine's
 telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
 prints the drift of the measured ``engine.decode`` and ``engine.prefill``
 spans against the serving model's pricing of that setup on the H100.
+
+Under ``torchrun --nproc-per-node M ... --mesh 1,M`` (``launch.ranks``) it
+serves over one EP group of M ranks in lockstep: every rank runs the same
+engine on the same requests, holds its expert slots
+(``convert.shard_params``), takes its sequence shard of each MoE layer's
+input in prefill and computes its own experts in decode; the sampled
+tokens are equal on every rank because the logits are.  Rank 0 prints.
+Data parallelism (D > 1) waits for the pipeline executor (ROADMAP.md
+Queue 1 item 3), and the parity probe runs at world 1 only.
 """
 
 from __future__ import annotations
@@ -40,14 +49,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, sharding
+from repro_torch.convert import shard_params
 from repro_torch.configs import DISPATCH_MODES, ArchConfig, get_arch
 from repro_torch.core import planner
 from repro_torch.core import resource_model as rm
 from repro_torch.core.platform import H100
-from repro_torch.device import resolve_device
+from repro_torch.launch import ranks
 from repro_torch.models.model import LanguageModel, init_params
 from repro_torch.serving import Engine, Request, ServeConfig
+from repro_torch.serving.engine import check_ep
 from repro_torch.serving.kv_cache import BlockPool, PagedLayout
 
 PARITY_BOUND = 1e-5  # max |dlogits| of the fp32 ragged paged decode
@@ -134,10 +145,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="write the engine's telemetry as JSONL here, a Chrome "
                          "trace to <path>.trace.json, and print a decode and "
                          "prefill drift report at the end of the run")
+    ranks.add_args(ap)
     return ap.parse_args(argv)
 
 
-def plan(args: argparse.Namespace) -> Tuple[Optional[planner.ServingStrategy], int]:
+def plan(args: argparse.Namespace, say=print
+         ) -> Tuple[Optional[planner.ServingStrategy], int]:
     """Print the serving planner's strategy for ``args.arch`` on
     ``PLATFORM``; returns (the strategy or None, the engine's max_seqs:
     the strategy's batch capped by ``--max-seqs``)."""
@@ -146,10 +159,10 @@ def plan(args: argparse.Namespace) -> Tuple[Optional[planner.ServingStrategy], i
         prefill_len=args.prefill_len, slo_ms=args.slo_ms)
     where = f"@{args.chips}x{PLATFORM.name} under {args.slo_ms:.0f}ms/token SLO"
     if best is None:
-        print(f"[planner] no feasible serving strategy for {args.arch} {where}")
+        say(f"[planner] no feasible serving strategy for {args.arch} {where}")
         return None, args.max_seqs
-    print(f"[planner] serving strategy for {args.arch} {where}:")
-    print("          " + best.describe())
+    say(f"[planner] serving strategy for {args.arch} {where}:")
+    say("          " + best.describe())
     return best, max(1, min(best.batch, args.max_seqs))
 
 
@@ -161,17 +174,28 @@ def _weights(arch, device, seed: int, dtype: str):
 def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     """Serve the seeded requests; returns the run's summary and request 0's
     sequence for the parity probe."""
-    device = resolve_device(args.device)
-    best, max_seqs = plan(args)
+    say = print if ranks.rank() == 0 else (lambda *a, **k: None)
+    best, max_seqs = plan(args, say)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
     arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else arch.moe.dispatch))
     source = "--dispatch" if args.dispatch else "the planner's choice" if best else "the arch's"
-    print(f"[serve] {arch.name} on {device}: moe dispatch {arch.moe.dispatch} ({source}), "
-          f"{args.dtype} weights and cache")
+    data, model = ranks.mesh_of(args, ranks.world_size())
+    if data != 1:
+        raise SystemExit(f"--mesh {args.mesh}: serving takes --mesh 1,M (one EP group); "
+                         f"data parallelism waits for the pipeline executor "
+                         f"(ROADMAP.md Queue 1 item 3)")
+    try:
+        check_ep(sharding.choose_ep(arch.moe.num_experts if arch.moe else model, model))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+    device, mesh = ranks.init(args, arch)
+    say(mesh.describe())
+    say(f"[serve] {arch.name} on {device}: moe dispatch {arch.moe.dispatch} ({source}), "
+        f"{args.dtype} weights and cache")
 
-    lm = LanguageModel(arch)
+    lm = LanguageModel(arch, mesh)
     max_total = args.prompt_max + args.max_new
     cfg = ServeConfig(
         max_seqs=max_seqs, block_size=args.block_size,
@@ -180,16 +204,17 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
         prefill_tokens_per_step=max(512, args.prompt_max),
         cache_dtype=args.dtype,
     )
-    print(f"[engine] max_seqs={cfg.max_seqs} block_size={cfg.block_size} "
-          f"num_blocks={cfg.num_blocks}")
+    say(f"[engine] max_seqs={cfg.max_seqs} block_size={cfg.block_size} "
+        f"num_blocks={cfg.num_blocks}")
 
     rng = np.random.default_rng(args.seed)
     lengths = rng.integers(args.prompt_min, args.prompt_max + 1, size=args.requests)
     reqs = [Request(rid=i, tokens=rng.integers(0, arch.vocab_size, size=int(n)),
                     max_new_tokens=args.max_new)
             for i, n in enumerate(lengths)]
-    engine = Engine(lm, _weights(arch, device, args.seed, args.dtype), cfg)
-    if args.metrics_out:
+    engine = Engine(lm, shard_params(_weights(arch, device, args.seed, args.dtype), mesh),
+                    cfg)
+    if args.metrics_out and mesh.rank == 0:
         engine.telemetry.sinks.append(obs.JsonlSink(args.metrics_out))
     t0 = time.perf_counter()
     out = engine.run(reqs)
@@ -199,7 +224,7 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     n_preempt = sum(1 for e in engine.trace if e[0] == "preempt")
     summary = {
         "arch": arch.name, "dispatch": arch.moe.dispatch, "max_seqs": cfg.max_seqs,
-        "device": str(device),
+        "device": str(device), "world": mesh.world, "ep": mesh.ep, "outputs": out,
         "finished": len(out), "requests": len(reqs), "steps": engine.step_no,
         "wall_s": wall, "decode_steps": engine.decode_steps,
         "decode_tokens": engine.decoded_tokens,
@@ -208,12 +233,12 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
         "prefill_ms_mean": 1e3 * float(np.mean(prefill_s)) if prefill_s else None,
         "prefill_tokens": int(lengths.sum()), "preemptions": n_preempt,
     }
-    print(f"[serve] {len(out)}/{len(reqs)} requests finished in {engine.step_no} "
-          f"steps ({wall:.2f}s wall); {engine.decoded_tokens} decode tokens over "
-          f"{engine.decode_steps} decode steps, {n_preempt} preemptions")
+    say(f"[serve] {len(out)}/{len(reqs)} requests finished in {engine.step_no} "
+        f"steps ({wall:.2f}s wall); {engine.decoded_tokens} decode tokens over "
+        f"{engine.decode_steps} decode steps, {n_preempt} preemptions")
     for rid in sorted(out)[:4]:
-        print(f"  req {rid} (prompt {lengths[rid]}): {out[rid][:12]}")
-    if args.metrics_out:
+        say(f"  req {rid} (prompt {lengths[rid]}): {out[rid][:12]}")
+    if args.metrics_out and mesh.rank == 0:
         summary.update(_telemetry_reports(args, arch, engine, device))
     req = reqs[0]
     seq = np.concatenate([req.tokens, out[req.rid][:-1]]).astype(np.int32)
@@ -259,6 +284,8 @@ def decode_parity(case: ParityCase, modes: Sequence[str]) -> Dict[str, float]:
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     summary, case = serve(parse_args(argv))
+    if summary["world"] > 1:
+        return summary
     dispatch = case.arch.moe.dispatch
     modes = [dispatch] + (["ragged"] if dispatch != "ragged" else [])
     for mode, err in decode_parity(case, modes).items():
@@ -271,4 +298,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        ranks.shutdown()

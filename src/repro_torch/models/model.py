@@ -120,13 +120,17 @@ def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
     return t
 
 
-def map_tree(fn, tree):
-    """``fn`` applied to every leaf of a nested dict/tuple tree."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(map_tree(fn, v) for v in tree)
-    return fn(tree)
+def map_tree(fn, tree, *, with_path: bool = False, _prefix: str = ""):
+    """``fn`` applied to every leaf of a nested dict/tuple tree; with
+    ``with_path`` it is called as ``fn(path, leaf)``, the path spelled as
+    :func:`tree_paths` spells it."""
+    if isinstance(tree, (dict, tuple, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {k: map_tree(fn, v, with_path=with_path,
+                           _prefix=f"{_prefix}/{k}" if _prefix else str(k))
+               for k, v in items}
+        return out if isinstance(tree, dict) else tuple(out.values())
+    return fn(_prefix, tree) if with_path else fn(tree)
 
 
 def param_tree(a: ArchConfig) -> Dict[str, Any]:
@@ -182,12 +186,24 @@ def init_params(a: ArchConfig, generator: torch.Generator, device=None,
 
 
 class LanguageModel:
-    """An ArchConfig's forward, training loss and serving steps on
-    single-rank params (whatever device they live on): paged for attention
-    mixers, a dense per-layer cache for mamba mixers."""
+    """An ArchConfig's forward, training loss and serving steps (whatever
+    device the params live on): paged for attention mixers, a dense
+    per-layer cache for mamba mixers.
 
-    def __init__(self, arch: ArchConfig):
+    With a ``sharding.MeshPlan`` the MoE layers run expert-parallel over its
+    ranks, on params that hold this rank's expert slots
+    (``convert.shard_params``): ``forward`` and ``loss`` take this rank's
+    own sequences (token-sharded), the paged serving steps take the same
+    requests on every rank (prefill: each rank's sequence shard of every MoE
+    layer's input; decode: weight-parallel).  ``plan=None`` is one rank.
+    ``telemetry`` (an ``obs.Telemetry``) gets the MoE layers' ``a2a.layer``
+    spans in ``forward`` and ``loss``."""
+
+    def __init__(self, arch: ArchConfig, plan=None, telemetry=None):
         self.arch = arch
+        self.plan = plan
+        self.telemetry = telemetry
+        self.world = 1 if plan is None else plan.world
         self.vp = arch.padded_vocab(VOCAB_PAD_MULTIPLE)
         self.reps = arch.num_layers // len(arch.block_pattern)
 
@@ -218,7 +234,8 @@ class LanguageModel:
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
-            params["blocks"], x, self.arch, positions=self._positions(b, s, x.device))
+            params["blocks"], x, self.arch, positions=self._positions(b, s, x.device),
+            plan=self.plan, telemetry=self.telemetry)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x), aux, loads
 
@@ -249,12 +266,20 @@ class LanguageModel:
         every layer.  Returns (loss, {"loss", "ce", "moe_aux_loss",
         "moe_z_loss", "expert_load"}).  Each CE chunk runs under
         ``torch.utils.checkpoint``, so its (tokens, vocab) fp32 logits are
-        recomputed in the backward instead of kept."""
+        recomputed in the backward instead of kept.
+
+        Over W ranks, each holding b whole sequences, it is this rank's term
+        of the global loss ``ce_sum / (W b s) + aux + z``: its own ``ce_sum``
+        over the global token count plus ``(aux + z) / W`` (aux and z are
+        global on every rank); the terms sum to the global loss, and so do
+        the ranks' gradients.  "loss" and "ce" in the metrics are the
+        rank's terms too (``training`` sums them)."""
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
             params["blocks"], x, self.arch,
-            positions=self._positions(b, s, x.device), train=True)
+            positions=self._positions(b, s, x.device), train=True, plan=self.plan,
+            telemetry=self.telemetry)
         labels = batch["labels"].long()
         nc = self._loss_chunks(b, s)
         if nc <= 1:
@@ -267,8 +292,9 @@ class LanguageModel:
                 total_ce = total_ce + checkpoint(
                     self._ce_sum, params, x[:, part], labels[:, part],
                     use_reentrant=False)
-        ce = total_ce / (b * s)
-        total = ce + aux["moe_aux_loss"] + aux["moe_z_loss"]
+        w = self.world
+        ce = total_ce / (b * s * w)
+        total = ce + aux["moe_aux_loss"] / w + aux["moe_z_loss"] / w
         metrics = {"loss": total, "ce": ce, "moe_aux_loss": aux["moe_aux_loss"],
                    "moe_z_loss": aux["moe_z_loss"], "expert_load": loads}
         return total, metrics
@@ -313,7 +339,8 @@ class LanguageModel:
         for r, pos, blk, p in self._layers(params):
             x, _, nc = transformer.apply_block(blk, p, x, self.arch,
                                                positions=positions,
-                                               return_cache=True)
+                                               return_cache=True, plan=self.plan,
+                                               seq_shard=True)
             kv_lib.scatter_rows(cache[pos]["k"][r], write, nc["k"])
             kv_lib.scatter_rows(cache[pos]["v"][r], write, nc["v"])
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
@@ -338,7 +365,8 @@ class LanguageModel:
                   "block_table": block_table, "lengths": lengths.long()}
             x, _, _ = transformer.apply_block(blk, p, x, self.arch,
                                               positions=positions, cache=pc,
-                                              write=write)
+                                              write=write, plan=self.plan,
+                                              token_sharded=False)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x)[:, 0], cache
 

@@ -52,12 +52,18 @@ def apply_block(
     write=None,
     return_cache: bool = False,
     train: bool = False,
+    plan=None,
+    token_sharded: bool = True,
+    seq_shard: bool = False,
+    telemetry=None,
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
     (x, moe metrics or {}, new cache or None): K/V for an attention mixer,
     the dense SSM/conv cache for a mamba mixer (``models.ssm``).  ``train``
     selects the differentiable attention and capacity-FFN paths; a mamba
-    mixer has none yet and raises."""
+    mixer has none yet and raises.  ``plan``, ``token_sharded``,
+    ``seq_shard`` and ``telemetry`` go to :func:`moe.moe_ffn` (the mixer
+    needs no ranks: every rank holds whole sequences)."""
     mixer, ffn = block
     metrics: Dict[str, torch.Tensor] = {}
     h = L.rms_norm(x, params["norm_mixer"], arch.norm_eps)
@@ -80,8 +86,9 @@ def apply_block(
         if ffn == "dense":
             out = L.dense_ffn(params["ffn"], h, arch.ffn_activation)
         elif ffn == "moe":
-            out, metrics = moe_lib.moe_ffn_local(params["ffn"], h, arch,
-                                                 train=train)
+            out, metrics = moe_lib.moe_ffn(params["ffn"], h, arch, plan,
+                                           token_sharded=token_sharded, train=train,
+                                           seq_shard=seq_shard, telemetry=telemetry)
         else:
             raise ValueError(ffn)
         x = x + out
@@ -89,8 +96,10 @@ def apply_block(
 
 
 def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
-                  positions: torch.Tensor, train: bool = False):
-    """Run the full layer stack (``train``: see :func:`apply_block`).
+                  positions: torch.Tensor, train: bool = False, plan=None,
+                  telemetry=None):
+    """Run the full layer stack, token-sharded over ``plan``'s ranks
+    (``train``, ``telemetry``: see :func:`apply_block`).
     Returns (x, {"moe_aux_loss", "moe_z_loss"} scalars, expert_load (reps,
     n_moe_positions, E) or None)."""
     reps = arch.num_layers // len(arch.block_pattern)
@@ -101,7 +110,8 @@ def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
         rep_loads = []
         for pos, blk in enumerate(arch.block_pattern):
             x, metrics, _ = apply_block(blk, per_rep[pos][r], x, arch,
-                                        positions=positions, train=train)
+                                        positions=positions, train=train, plan=plan,
+                                        telemetry=telemetry)
             if metrics:
                 aux = aux + metrics["moe_aux_loss"]
                 z = z + metrics["moe_z_loss"]

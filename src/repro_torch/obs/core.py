@@ -125,6 +125,13 @@ class Telemetry:
             "attrs": attrs,
         })
 
+    def record_span(self, name: str, dur_s: float, **attrs) -> None:
+        """A span of an externally measured duration (a micro-benchmark's
+        seconds a call): the timed region itself stays unobserved; the
+        event's ts marks when it was recorded."""
+        if self.enabled:
+            self._point(name, "span", attrs, dur=float(dur_s))
+
     def instant(self, name: str, **attrs) -> None:
         if self.enabled:
             self._point(name, "instant", attrs)

@@ -1,4 +1,5 @@
-"""Training loop on one device (the port of ``repro.runtime.trainer``).
+"""Training loop (the port of ``repro.runtime.trainer``), on one device or
+on every rank of an expert-parallel run in lockstep.
 
 * **checkpoint/restart**: with ``checkpoint_dir``, an async checkpoint
   after every ``checkpoint_every``-th step and a blocking one when the
@@ -19,8 +20,16 @@
   the ``train.step_s`` histogram and the ``train.loss`` gauge.
 * every recovery path is driven through ``runtime.faults``.
 
-Not ported (ROADMAP Queue 1, item 2): expert migration, which returns at
-once at EP = 1 in the reference.
+Over several ranks (``models.model.LanguageModel`` with a mesh plan) every
+rank runs this loop on the same global batch stream; the train step takes
+the rank's rows and reduces the gradients, so every rank sees the same
+loss and grad norm and skips, rolls back or steps together.  The fault
+sites fire on every rank; the launcher passes rank 0 alone a printing
+``log_fn`` and metric sinks.
+
+Not ported (ROADMAP Queue 1, item 2b): expert migration, which returns at
+once at EP = 1 in the reference, and the router-load statistics that feed
+it in the checkpoint's extras.
 """
 
 from __future__ import annotations

@@ -21,8 +21,12 @@ workload:
 
 The engine is host-driven: device work happens in
 ``LanguageModel.prefill_paged`` / ``decode_step_paged``, and the scheduler
-mutates only small numpy tables between the calls.  Expert rebalancing is
-an expert-parallel feature and is not part of this single-rank engine.
+mutates only small numpy tables between the calls.  Over the ranks of an
+expert-parallel ``LanguageModel`` every rank runs its own engine on the
+same requests in lockstep: the model's collectives line up because the
+schedules do, and the sampled tokens agree because the logits do.  Expert
+rebalancing (the reference's ``_maybe_rebalance``) is not ported
+(ROADMAP Queue 1 item 2b).
 """
 
 from __future__ import annotations
@@ -100,11 +104,24 @@ class _SeqState:
         return eos is not None and bool(self.generated) and self.generated[-1] == eos
 
 
-def _bucket(n: int, lo: int = 8) -> int:
+MIN_BUCKET = 8  # the smallest prefill bucket; the buckets are its powers of two
+
+
+def _bucket(n: int, lo: int = MIN_BUCKET) -> int:
     b = lo
     while b < n:
         b *= 2
     return b
+
+
+def check_ep(ep: int) -> None:
+    """Refuse an EP degree that does not divide every prefill bucket: the
+    EP layer takes each rank's sequence shard of a bucket, so ep must
+    divide ``MIN_BUCKET`` (1, 2, 4 or 8)."""
+    if MIN_BUCKET % ep:
+        raise ValueError(f"ep={ep} does not divide the prefill buckets (powers of two "
+                         f"from {MIN_BUCKET}): serving takes ep 1, 2, 4 or 8 (a prefill "
+                         f"padded to a multiple of ep is ROADMAP.md Queue 1 item 3)")
 
 
 class Engine:
@@ -113,6 +130,8 @@ class Engine:
 
     def __init__(self, lm, params, cfg: ServeConfig = ServeConfig(),
                  injector: Optional[FaultInjector] = None):
+        if lm.plan is not None:
+            check_ep(lm.plan.ep)
         self.lm = lm
         self.params = params
         self.cfg = cfg

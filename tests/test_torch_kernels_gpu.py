@@ -817,3 +817,61 @@ def test_checkpoint_fallback_restores_bit_exact_on_the_card(dev, no_plain, tmp_p
     manifest = json.loads((tmp_path / "step_00000001" / "manifest.json").read_text())
     assert leaf_crc32s(state) == manifest["crc32"]
     assert int(state["step"]) == 1 and set(manifest["keys"]) == set(tree_paths(state))
+
+
+def _ep_receiver(rng, dev, E=20, occupied=4096, tail=8192, K=1536):
+    """An expert-parallel receiver buffer at granite's widths and EP = 2:
+    E_l = 20 local experts (some empty) over ``occupied`` expert-sorted
+    rows, then a sentinel tail longer than them (NaN: never read)."""
+    counts = rng.multinomial(occupied, rng.dirichlet(np.ones(E)))
+    counts[[3, 11]] = 0
+    counts[0] += occupied - counts.sum()
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                        device=dev)
+    x = _t(rng.standard_normal((occupied + tail, K)), torch.float32, dev)
+    x[occupied:] = float("nan")
+    return x, offs, occupied
+
+
+def test_ragged_ffn_ep_receiver_with_sentinel_tail(dev, no_plain):
+    """``ragged_ffn`` as the EP layer calls it: 20 local experts, bf16
+    weights, fp32 rows with a NaN sentinel tail twice the occupied rows;
+    the output and dx against plain products (GEMM_TOL), the tail's output
+    and dx exactly 0.  (The weight gradients are ``ragged_dw_f32``'s, cast
+    to bf16: held below.)"""
+    rng = np.random.default_rng(5)
+    x, offs, T = _ep_receiver(rng, dev)
+    wu, wg = (_t(rng.standard_normal((20, 1536, 512)) * 0.03, torch.bfloat16, dev)
+              for _ in range(2))
+    wd = _t(rng.standard_normal((20, 512, 1536)) * 0.05, torch.bfloat16, dev)
+    cot = _t(rng.standard_normal((x.shape[0], 1536)), torch.float32, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x, wu, wg, wd)]
+    y = mm_ops.ragged_ffn(leaves[0], leaves[1], leaves[2], leaves[3], offs)
+    (y * cot).sum().backward()
+    assert (y[T:] == 0).all() and (leaves[0].grad[T:] == 0).all()
+    xs, c = x[:T].cpu(), cot[:T].cpu()
+    plain = [t.detach().cpu().float().requires_grad_(True) for t in (xs, wu, wg, wd)]
+    o = offs.cpu()
+    a_g, a_u = (torch.cat([plain[0][o[e]:o[e + 1]] @ w[e] for e in range(20)])
+                for w in (plain[2], plain[1]))
+    want = torch.cat([(torch.nn.functional.silu(a_g) * a_u)[o[e]:o[e + 1]] @ plain[3][e]
+                      for e in range(20)])
+    (want * c).sum().backward()
+    _close(y[:T].detach(), want.detach(), **GEMM_TOL)
+    _close(leaves[0].grad[:T], plain[0].grad, **GEMM_TOL)
+
+
+def test_ragged_dw_ep_receiver(dev):
+    """``ragged_dw_f32`` over 20 local experts (two empty) with a NaN
+    sentinel tail: against the plain version, zeros for empty experts."""
+    rng = np.random.default_rng(6)
+    x, offs, T = _ep_receiver(rng, dev)
+    x = x.to(torch.bfloat16)
+    g = _t(rng.standard_normal((x.shape[0], 512)) * 0.01, torch.float32, dev)
+    g[T:] = float("nan")
+    before = launch_counts()["ragged_dw_f32/tc"]
+    got = mm_ops.ragged_dw_f32(x, g, offs)
+    torch.cuda.synchronize()
+    assert launch_counts()["ragged_dw_f32/tc"] == before + 1
+    assert (got[3] == 0).all() and (got[11] == 0).all()
+    _close(got, _RAGGED_DW(x[:T].cpu(), g[:T].cpu(), offs.cpu()), **GEMM_TOL)
