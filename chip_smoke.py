@@ -112,7 +112,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    just before the two-rank runs and read just after on each rank; every
    kernel of the path must be there, none through ``/fma``.  gloo stages
    CUDA tensors through the host, so no all-to-all time is printed; the
-   a2a micro-benchmarks run at world 1 and print no time either.
+   a2a micro-benchmarks run at world 1 and print no time either;
+13. migrate: expert migration, hot-expert replicas, serving rebalance and
+   the EP-agnostic checkpoint, on the same two gloo ranks, granite at full
+   width and depth 2, EP = 2, cf 16, bf16, tokens in [0, 4) (the
+   reference's check_migration_exactness stream).  (a) every kernel of the
+   replica path against its plain version at its shapes (R = 2 channels
+   over a rank's T x k rows, the hot experts' rows occupied, a NaN
+   sentinel tail that must come back 0); (b) the two hottest experts as a
+   live replica table against the sentinel table: the train step's loss
+   and gathered gradients under both dispatches at phase 12's gates, and
+   the served tokens; (c) ``Trainer`` migrations every 2 of 4 steps:
+   params, m and v after each bitwise the manual permutation of the
+   gathered state, and the loss trajectory against a run whose init
+   carried the final tables (swap-only: bitwise, else 1e-6; from a live
+   table, which the planner releases: 2e-3); (d) the engine with
+   ``rebalance_every = 2`` on skewed prompts under both dispatches: at
+   least one rebalance, tokens equal to the static engine's; (e) a
+   checkpoint saved at EP = 2 after a migration restored at world 1 (rank
+   0 alone) and at EP = 2 (CRC32s equal the manifest's, the state bitwise,
+   the load EMA bit-exact), and its resume bitwise the uninterrupted run.
+   The launch counts are zeroed before the two-rank runs and read after on
+   each rank; every kernel of the path must be there, none through
+   ``/fma``.  Prints each plan (imbalance before and after, swaps,
+   replicas), its seconds and all-gathered bytes (gloo through the host,
+   not NVLink), and the Table IV ``migration_cost`` of granite on
+   ``core.platform.H100`` (modeled).
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1780,6 +1805,499 @@ def ep_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: expert migration, replicas, serving rebalance, EP-agnostic
+# checkpoint (two gloo ranks on the card, as phase 12)
+# ---------------------------------------------------------------------------
+
+MIG_DEVICE = "cuda"
+MIG_STEPS, MIG_EVERY, MIG_THRESHOLD = 4, 2, 1.05
+MIG_SERVE = dict(requests=4, prompt=(32, 128), max_new=8, max_seqs=4)
+MIG_REPLICAS = 2
+PATH_KERNELS["migrate"] = PATH_KERNELS["ep"]
+
+
+def mig_batch(step: int) -> dict:
+    """The skewed training stream (the reference's check_migration_exactness
+    stream: tokens in [0, 4)) at ``EP_BATCH``, a pure function of the step."""
+    rng = np.random.default_rng(step)
+    toks = rng.integers(0, 4, size=EP_BATCH, dtype=np.int32)
+    return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+
+class _MigTokens:
+    def batch_at(self, step: int) -> dict:
+        return mig_batch(step)
+
+
+def mig_prompts() -> list:
+    """Skewed prompts (ids in [0, 4)) of ``MIG_SERVE``, from seed 0."""
+    rng = np.random.default_rng(0)
+    lo, hi = MIG_SERVE["prompt"]
+    return [rng.integers(0, 4, size=int(n))
+            for n in rng.integers(lo, hi + 1, size=MIG_SERVE["requests"])]
+
+
+def _mig_base():
+    from repro_torch.configs import get_arch
+
+    return get_arch(ARCH).replace(num_layers=EP_DEPTH)
+
+
+def migrate_kernel_checks(dev) -> None:
+    """Every kernel of the replica path against its plain version at the
+    shapes the two-rank run gives it: R = ``MIG_REPLICAS`` channels (R
+    "experts" of (d, f) weights) over a rank's T x k rows, only the rows
+    routed to the two hot experts occupied, the rest the sentinel tail
+    (NaN here), which must come back 0: the train step's T x k = 4096
+    rows (gate-up, down, dh, dx and both weight gradients) and decode's
+    ``max_seqs`` x k."""
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+
+    arch = _mig_base()
+    d, f, k, R = arch.d_model, arch.moe.d_ff, arch.moe.top_k, MIG_REPLICAS
+    bf16 = torch.bfloat16
+    g, randn, _ = seeded_inputs(dev, R, k, seed=4)
+    wg, wu = (randn(R, d, f, scale=d ** -0.5, dtype=bf16) for _ in range(2))
+    wd = randn(R, f, d, scale=f ** -0.5, dtype=bf16)
+    wgt, wdt = mm_ops._transposed(wg), mm_ops._transposed(wd)
+    n_checks, t0 = 0, time.perf_counter()
+
+    def nan_tail(rows, cols, n, dtype=torch.float32, scale=1.0):
+        t = randn(rows, cols, scale=scale, dtype=dtype)
+        t[n:] = float("nan")
+        return t
+
+    def held(name, got, want, n=None):
+        nonlocal n_checks
+        n_checks += 1
+        check(f"migrate replica path {name}", got, want, GEMM_TOL)
+        if n is not None and not bool((got[n:] == 0).all()):
+            fail(f"migrate replica path {name}: rows past offsets[R] are not 0")
+
+    for tag, tokens, backward in (("train", EP_BATCH[0] * EP_BATCH[1] // EP_RANKS, True),
+                                  ("decode", MIG_SERVE["max_seqs"], False)):
+        rows = tokens * k
+        # Each hot expert takes about a fifth of the rows (top-k of skewed
+        # routing); the rest go through the dispatch.
+        hot = torch.randint(rows // 8, rows // 4 + 1, (R,), generator=g, device=dev)
+        offs = torch.cat([hot.new_zeros(1), hot.cumsum(0)]).to(torch.int32)
+        n = int(offs[-1])
+        shape = f"{tag} R={R} rows={rows} occupied={n}"
+        x = nan_tail(rows, d, n, bf16)
+        for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
+                            mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs)):
+            held(f"ragged_gate_up_silu_f32 {shape} {nm}", a, b, n)
+        h = nan_tail(rows, f, n)
+        held(f"ragged_matmul_f32 {shape} down fp32 h", mm_ops.ragged_matmul_f32(h, wd, offs),
+             mm_ref.ragged_matmul_f32(h, wd, offs), n)
+        if not backward:
+            continue
+        dy, da = nan_tail(rows, d, n, scale=1e-2), nan_tail(rows, f, n, scale=1e-2)
+        held(f"ragged_matmul_f32 {shape} dh", mm_ops.ragged_matmul_f32(dy, wdt, offs),
+             mm_ref.ragged_matmul_f32(dy, wdt, offs), n)
+        held(f"ragged_matmul_f32 {shape} dx", mm_ops.ragged_matmul_f32(da, wgt, offs),
+             mm_ref.ragged_matmul_f32(da, wgt, offs), n)
+        held(f"ragged_dw_f32 {shape} dW_gate/up bf16 x", mm_ops.ragged_dw_f32(x, da, offs),
+             mm_ref.ragged_dw_f32(x, da, offs))
+        held(f"ragged_dw_f32 {shape} dW_down fp32 h", mm_ops.ragged_dw_f32(h, dy, offs),
+             mm_ref.ragged_dw_f32(h, dy, offs))
+    log(f"[check] migrate replica path kernels (R={R} channels, NaN sentinel tails): "
+        f"{n_checks} checks ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def _migrate_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of phase 13 (``torch.multiprocessing`` target); writes
+    ``tmp/rank<r>.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        out = _migrate_rank_body(rank, world, tmp)
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-3000:]}
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels, sharding
+    from repro_torch.checkpoint import leaf_crc32s, read_extras, restore_checkpoint
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.core import migration as mig
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.serving import Engine, Request, ServeConfig
+    from repro_torch.training import init_state, loss_and_grads
+
+    dev = resolve_device(MIG_DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv", rank=rank,
+                            world_size=world)
+    out, checks = {"rank": rank}, []
+    base = _mig_base()
+    opt = OptimizerConfig(lr=1e-3)
+    quiet = lambda s: None  # noqa: E731
+    lead = rank == 0
+
+    def arch_of(mode, replicas=MIG_REPLICAS, aux=None):
+        kw = dict(dispatch=mode, capacity_factor=EP_CF, max_replicas=replicas)
+        if aux is not None:
+            kw["aux_loss_coef"] = aux
+        return base.replace(moe=dataclasses.replace(base.moe, **kw))
+
+    def record(tag, ok, line):
+        checks.append(bool(ok))
+        if lead:
+            out[tag] = f"{line} {'ok' if ok else 'FAIL'}"
+
+    def sharded(state, plan):
+        return {k: shard_params(v, plan) if k in ("params", "m", "v") else v
+                for k, v in state.items()}
+
+    def host_state(tr, state, keys=None):
+        """The gathered state on the host, rank 0 (a collective)."""
+        full = tree_paths(tr.global_state(state))
+        if not lead:
+            return None
+        return {k: np.array(v.detach().cpu()) for k, v in full.items()  # copies
+                if keys is None or k.rpartition("/")[2] in keys}
+
+    def with_table(params, table):
+        blocks = tuple({**b, "ffn": {**b["ffn"], "replicas": torch.tensor(
+            table, dtype=torch.int32, device=dev).expand_as(b["ffn"]["replicas"]).contiguous()}}
+            if "ffn" in b else b for b in params["blocks"])
+        return {**params, "blocks": blocks}
+
+    def serve(arch, plan, params, extra=None):
+        """(tokens, the engine's rebalances, the bf16 logits of the longest
+        prompt's prefill and of one decode step after it, token 0, in slot
+        0 of a ``max_seqs``-wide decode as the engine runs it)."""
+        cfg = ServeConfig(max_seqs=MIG_SERVE["max_seqs"], block_size=16, num_blocks=256,
+                          max_blocks_per_seq=16, cache_dtype="bfloat16", **(extra or {}))
+        p = map_tree(torch.clone, shard_params(_bf16(params), plan))  # the engine's own
+        lm = LanguageModel(arch, plan)
+        long = max(mig_prompts(), key=len)
+        toks = torch.zeros((1, 1 << (len(long) - 1).bit_length()), dtype=torch.long,
+                           device=dev)
+        toks[0, :len(long)] = torch.from_numpy(long.astype(np.int64))
+        layout = cfg.layout()
+        cache = lm.init_paged_cache(layout, dtype=torch.bfloat16, device=dev)
+        table = torch.full((cfg.max_seqs, cfg.max_blocks_per_seq), layout.sentinel,
+                           dtype=torch.int32, device=dev)
+        table[0] = torch.arange(cfg.max_blocks_per_seq, dtype=torch.int32, device=dev)
+        n = torch.zeros(cfg.max_seqs, dtype=torch.int32, device=dev)
+        n[0] = len(long)
+        with torch.no_grad():
+            logits, _ = lm.prefill_paged(p, {"tokens": toks}, cache, table[:1], n[:1])
+            step, _ = lm.decode_step_paged(p, cache, table, n, {"tokens": torch.zeros(
+                (cfg.max_seqs, 1), dtype=torch.long, device=dev)})
+            step = step[:1]
+        eng = Engine(lm, p, cfg)
+        res = eng.run([Request(rid=i, tokens=t, max_new_tokens=MIG_SERVE["max_new"])
+                       for i, t in enumerate(mig_prompts())])
+        return ([res[i] for i in sorted(res)], eng.rebalances,
+                (logits.float().cpu(), step.float().cpu()))
+
+    def migration_lines(tag, migrations):
+        for i, m in enumerate(migrations):
+            if lead:
+                out[f"{tag} #{i}"] = (
+                    f"step {m['step']}: imbalance {m['imbalance']:.4f} -> "
+                    f"{m['imbalance_post']:.4f}, swaps {m['swaps']}, replicas "
+                    f"{m['replicas']}, applied {m['applied']}, {m.get('seconds', 0):.3f} s "
+                    f"(gloo through the host, not NVLink), all-gathered "
+                    f"{m.get('gathered_bytes', 0)} bytes a rank")
+
+    _sync(dev)
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    # (b) Replication: the same params, live table (the two hottest
+    # experts) against the sentinel table.
+    params = init_params(arch_of("ragged"), torch.Generator(device=dev).manual_seed(0), dev)
+    batch = mig_batch(0)
+    table = None
+    for mode in ("ragged", "capacity"):
+        arch = arch_of(mode)
+        plan = sharding.make_plan(arch, (1, world))
+        res = {}
+        for tag in ("sentinel", "live"):
+            p = params if tag == "sentinel" else with_table(params, table)
+            loss, met, gr = loss_and_grads(LanguageModel(arch, plan), shard_params(p, plan),
+                                           batch)
+            if table is None:
+                table = met["expert_load"].sum(dim=(0, 1)).argsort(
+                    descending=True, stable=True)[:MIG_REPLICAS].tolist()
+                if lead:
+                    out["replicas/table"] = f"live table: experts {table} (the hottest)"
+            res[tag] = (float(loss), {k: g for k, g in tree_paths(
+                gather_params(gr, plan)).items() if g is not None})
+            del gr
+        if lead:
+            (l0, g0), (l1, g1) = res["sentinel"], res["live"]
+            ok_g, rows = ep_grad_gate(g1, g0)
+            worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], 1e-30))
+            emb = float((g1["embed"] - g0["embed"]).norm() / (g0["embed"].norm() + 1e-9))
+            record(f"replicas/train/{mode}", abs(l1 - l0) < 2e-3 and ok_g,
+                   f"loss live {l1!r} vs sentinel {l0!r} (|d| {abs(l1 - l0):.3e} < 2e-3); "
+                   f"gradients: worst leaf {worst} max |d| {rows[worst][0]:.3e} of max |want| "
+                   f"{rows[worst][1]:.3e} (<= {EP_GRAD_REL:g} relative, < 2e-3), embed "
+                   f"relative norm {emb:.3e} (< 0.05)")
+        else:
+            checks.append(True)
+        del res
+    for mode in ("ragged", "capacity"):
+        arch = arch_of(mode)
+        plan = sharding.make_plan(arch, (1, world))
+        want, _, want_logits = serve(arch, plan, params)
+        got, _, logits = serve(arch, plan, with_table(params, table))
+        rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(logits, want_logits)]
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        # Ragged: the replica rows run the dispatch's kernels, so the tokens
+        # are the sentinel's.  Capacity: they run the ragged kernels where
+        # the sentinel's run the grouped GEMMs (the reference's split too),
+        # which round h otherwise in bf16; the logits are held instead.
+        ok = max(rel) <= EP_GRAD_REL and (got == want or mode == "capacity")
+        record(f"replicas/serve/{mode}", ok,
+               f"{len(got)} requests, {same} of {sum(map(len, want))} tokens equal the "
+               f"sentinel table's (first: {got[0][:8]}); bf16 logits of the "
+               f"{len(max(mig_prompts(), key=len))}-token prompt's prefill and next decode "
+               f"step, max |d| / max |want| {rel[0]:.3e}, {rel[1]:.3e} (<= {EP_GRAD_REL:g})"
+               + ("" if mode == "capacity" else "; tokens must be equal"))
+
+    # (c) Migration: one permutation pass, and the trajectory of a run whose
+    # init carried the final permutation (swap-only: bitwise).  With
+    # replica channels, run A starts on (b)'s live table, which the planner
+    # releases (at EP 2 no granite expert can pass the fair share: top-8
+    # routing gives one expert at most 1/8 of the rows), so the route
+    # differs from run B's for the steps before it: the gates of (b).
+    for replicas in (0, MIG_REPLICAS):
+        arch = arch_of("ragged", replicas=replicas, aux=0.0)
+        plan = sharding.make_plan(arch, (1, world))
+        lm = LanguageModel(arch, plan)
+        tr = Trainer(lm, opt, TrainerConfig(migrate_every=MIG_EVERY,
+                                            migrate_threshold=MIG_THRESHOLD), log_fn=quiet)
+        init = init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+        if replicas:
+            init["params"] = with_table(init["params"], table)
+        state = sharded(init, plan)
+        del init
+        losses, exact = [], True
+        keys = mig.EXPERT_PARAM_KEYS + ("assignment",)
+        for s in range(MIG_STEPS):
+            state, met = tr.train_step(state, mig_batch(s))
+            losses.append(float(met["loss"]))
+            loads = met["expert_load_host"]
+            tr.load_stats.update(np.concatenate([loads[:, i] for i in range(loads.shape[1])]))
+            if (s + 1) % MIG_EVERY:
+                continue
+            pre, n = host_state(tr, state, keys), len(tr.migrations)
+            tr._maybe_migrate(state, s + 1)
+            if len(tr.migrations) == n or not tr.migrations[-1]["applied"]:
+                continue
+            post = host_state(tr, state, keys)
+            if lead:
+                for k, w in pre.items():
+                    if not k.startswith(("params/", "m/", "v/")) or k.endswith("assignment"):
+                        continue
+                    head = k.split("/", 1)[1].rpartition("/")[0]
+                    a0, a1 = (x[f"params/{head}/assignment"] for x in (pre, post))
+                    perm = np.stack([mig.permutation_for(a0[r], a1[r]) for r in range(len(a0))])
+                    want = np.take_along_axis(w, perm.reshape(perm.shape + (1,) * (w.ndim - 2)),
+                                              axis=1)
+                    exact &= np.array_equal(post[k], want)
+        applied = [m for m in tr.migrations if m["applied"]]
+        migration_lines(f"migrate/replicas={replicas}", tr.migrations)
+        final = {k: v.clone() for k, v in tree_paths(state["params"]).items()
+                 if k.endswith(("assignment", "replicas"))}
+        # Run B: the final tables baked into the init, no migration.
+        full = init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+        for pos, blk in enumerate(full["params"]["blocks"]):
+            if "ffn" not in blk:
+                continue
+            a1 = final[f"blocks/{pos}/ffn/assignment"].cpu().numpy()
+            perm = np.stack([mig.permutation_for(np.arange(a1.shape[1]), a1[r])
+                             for r in range(len(a1))])
+            for t in ("params", "m", "v"):
+                mig.apply_migration_(full[t]["blocks"][pos]["ffn"], perm)
+            for key in ("assignment", "replicas"):
+                if key in blk["ffn"]:
+                    blk["ffn"][key].copy_(final[f"blocks/{pos}/ffn/{key}"])
+        tr_b = Trainer(lm, opt, TrainerConfig(migrate_every=10 ** 9), log_fn=quiet)
+        state_b = sharded(full, plan)
+        losses_b = [float(tr_b.train_step(state_b, mig_batch(s))[1]["loss"])
+                    for s in range(MIG_STEPS)]
+        gap = max(abs(a - b) for a, b in zip(losses, losses_b))
+        bitwise = losses == losses_b
+        ok = len(applied) >= 1 and exact and (
+            (bitwise or gap <= 1e-6) if replicas == 0 else gap < 2e-3)
+        record(f"migrate/replicas={replicas}", ok,
+               (f"run A from the live table {table}: " if replicas else "")
+               + f"{len(applied)} migrations applied; params, m and v after each bitwise the "
+               f"manual permutation of the gathered state: {exact}; losses {losses} vs "
+               f"permuted init {losses_b}: "
+               + ("bitwise" if bitwise else f"max |d| {gap:.3e} (bound "
+                  f"{'1e-6' if replicas == 0 else '2e-3'})"))
+        del state, state_b, full
+
+    # (d) Serving rebalance on skewed prompts.
+    for mode in ("ragged", "capacity"):
+        arch = arch_of(mode)
+        plan = sharding.make_plan(arch, (1, world))
+        want, _, _ = serve(arch, plan, params)
+        got, rebal, _ = serve(arch, plan, params, dict(rebalance_every=2,
+                                                       rebalance_threshold=MIG_THRESHOLD))
+        record(f"rebalance/{mode}", len(rebal) >= 1 and got == want,
+               f"{len(rebal)} rebalances (swaps {[r['swaps'] for r in rebal]}, replicas "
+               f"{[r['replicas'] for r in rebal]}); tokens equal the static engine's: "
+               f"{got == want}")
+
+    # (e) The EP-agnostic checkpoint: B saves at step MIG_STEPS // 2, after
+    # a migration; it restores at world 1 (rank 0 alone) and at EP 2, and
+    # its resume to MIG_STEPS is the uninterrupted run A.
+    arch = arch_of("ragged", replicas=0, aux=0.0)
+    plan = sharding.make_plan(arch, (1, world))
+    lm = LanguageModel(arch, plan)
+
+    def ck_fit(d, steps, seed):
+        tr_ = Trainer(lm, opt, TrainerConfig(
+            total_steps=steps, checkpoint_dir=d, checkpoint_every=2, migrate_every=MIG_EVERY,
+            migrate_threshold=MIG_THRESHOLD, log_every=10 ** 9), log_fn=quiet)
+        o = tr_.fit(sharded(init_state(lm, torch.Generator(device=dev).manual_seed(seed),
+                                       dev), plan), _MigTokens())
+        return tr_, o
+
+    half = MIG_STEPS // 2
+    tr_a, out_a = ck_fit(f"{tmp}/ckA", MIG_STEPS, 0)
+    state_a = host_state(tr_a, out_a["state"])
+    tr_b, out_b = ck_fit(f"{tmp}/ckB", half, 0)
+    state_b = host_state(tr_b, out_b["state"])
+    migration_lines("checkpoint/run A migration", out_a["migrations"])
+    loss_a = float(out_a["metrics"]["loss"])
+    del out_a, out_b
+    manifest = json.loads(Path(tmp, "ckB", f"step_{half:08d}", "manifest.json").read_text())
+    ema_b = tr_b.load_stats.ema.tobytes()
+    if lead:
+        assign = state_b["params/blocks/0/ffn/assignment"]
+        moved = not np.array_equal(assign, np.tile(np.arange(assign.shape[1]), (len(assign), 1)))
+        ext = read_extras(Path(tmp, "ckB"), half)["load_stats"]
+        ema_ok = __import__("base64").b64decode(ext["ema"]) == ema_b and any(ema_b)
+        # World 1, on rank 0 alone.
+        one = init_state(LanguageModel(arch), torch.Generator(device=dev).manual_seed(5), dev)
+        restore_checkpoint(Path(tmp, "ckB"), one, log_fn=quiet)
+        crc_ok = leaf_crc32s(one) == manifest["crc32"]
+        got = {k: v.cpu().numpy() for k, v in tree_paths(one).items()}
+        same = all(np.array_equal(got[k], state_b[k]) for k in state_b)
+        del one, got
+        record("checkpoint/world 1", moved and ema_ok and crc_ok and same,
+               f"saved at EP {plan.ep} step {half} (assignment moved: {moved}; EMA non-zero "
+               f"and bit-exact in the extras: {ema_ok}); restored at world 1: live CRC32s "
+               f"equal the manifest's: {crc_ok}; state bitwise the gathered state: {same}")
+    dist.barrier()
+    # EP 2: a restore into another seed's state, then the resume to MIG_STEPS.
+    tr_r = Trainer(lm, opt, TrainerConfig(checkpoint_dir=f"{tmp}/ckB"), log_fn=quiet)
+    st = sharded(init_state(lm, torch.Generator(device=dev).manual_seed(6), dev), plan)
+    st, step = tr_r._restore_latest(st)
+    tr_r._restore_load_stats(step)
+    crc = leaf_crc32s(tr_r.global_state(st))
+    got = host_state(tr_r, st)
+    if lead:
+        same = all(np.array_equal(got[k], state_b[k]) for k in state_b)
+        record("checkpoint/EP 2", step == half and crc == manifest["crc32"] and same
+               and tr_r.load_stats.ema.tobytes() == ema_b,
+               f"restored step {step} at EP {plan.ep}: gathered CRC32s equal the manifest's: "
+               f"{crc == manifest['crc32']}; state bitwise: {same}; EMA bit-exact: "
+               f"{tr_r.load_stats.ema.tobytes() == ema_b}")
+    del st, got, tr_r
+    tr_c, out_c = ck_fit(f"{tmp}/ckB", MIG_STEPS, 7)
+    state_c = host_state(tr_c, out_c["state"])
+    loss_c = float(out_c["metrics"]["loss"])
+    if lead:
+        same = sorted(state_c) == sorted(state_a) and all(
+            np.array_equal(state_c[k], state_a[k]) for k in state_a)
+        ema_same = tr_c.load_stats.ema.tobytes() == tr_a.load_stats.ema.tobytes()
+        record("checkpoint/resume", tr_c.resumed_from == half and same and ema_same
+               and loss_c == loss_a,
+               f"resumed at {tr_c.resumed_from} and ran to {MIG_STEPS}: loss {loss_c!r} vs "
+               f"the uninterrupted run's {loss_a!r}; state bitwise: {same}; EMA bit-exact: "
+               f"{ema_same}")
+    _sync(dev)
+    out["seconds"] = time.perf_counter() - t0
+    out["counts"] = kernels.launch_counts()
+    out["ok"] = all(checks)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def migrate_phase(dev):
+    """Phase 13: the replica path's kernels on the card, then two gloo
+    ranks on the one card (EP = 2; granite full width, depth 2, cf 16):
+    replication, migration, serving rebalance and the EP-agnostic
+    checkpoint.  Returns the two ranks' summed launch counts of those runs."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import migration as mig
+    from repro_torch.core.platform import H100
+
+    torch.cuda.empty_cache()
+    migrate_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_migrate_")
+    log(f"[migrate] {EP_RANKS} gloo ranks on one {torch.cuda.get_device_name(0)}: every "
+        f"all-gather and all-to-all of this phase stages through the host, so its seconds "
+        f"are gloo's, not a measurement of NVLink")
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_migrate_rank, args=(EP_RANKS, tmp), nprocs=EP_RANKS,
+                           start_method="spawn")
+        res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in res:
+        if "error" in r:
+            fail(f"migrate rank {res.index(r)}: {r['error']}\n{r['trace']}")
+    for k, v in res[0].items():
+        if "/" in k:
+            tag = "[check]" if v.endswith(("ok", "FAIL")) else "[migrate]"
+            log(f"{tag} migrate x{EP_RANKS} (gloo, depth {EP_DEPTH}, cf {EP_CF:g}) {k}: {v}")
+    counts = {}
+    for r in res:
+        log(f"[migrate] rank {r['rank']} launches: {r['counts']}")
+        label = f"migrate rank {r['rank']}"
+        log(f"[migrate] rank {r['rank']} designs {check_designs(r['counts'], label)}")
+        for name, n in r["counts"].items():
+            counts[name] = counts.get(name, 0) + n
+    for name in PATH_KERNELS["migrate"]:
+        if any(r["counts"][name] == 0 for r in res):
+            fail(f"migrate: a rank never launched {name}")
+    arch = _mig_base()
+    size, secs = mig.migration_cost(arch.moe.num_experts, arch.d_model, arch.moe.d_ff,
+                                    G=H100.chips_per_node, bandwidth=H100.migration_bw)
+    log(f"[model] Table IV migration_cost for {ARCH} on core.platform.H100 (modeled, "
+        f"not measured): {size:.0f} bytes a GPU, {secs * 1e3:.4f} ms at "
+        f"{H100.migration_bw / 1e9:.0f} GB/s over {H100.chips_per_node} GPUs")
+    log(f"[migrate] phase {time.perf_counter() - t0:.1f} s (two-rank runs "
+        f"{res[0]['seconds']:.1f} s on rank 0)")
+    if not res[0]["ok"]:
+        fail("migrate: a check of the two-rank runs failed")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -1822,6 +2340,8 @@ def main() -> None:
     ep_world1_phase(train_summary)
     counts["ep"] = ep_phase(dev)
     log(f"[phase] ep done at {time.perf_counter() - t0:.1f}s")
+    counts["migrate"] = migrate_phase(dev)
+    log(f"[phase] migrate done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -6,6 +6,7 @@ from repro_torch.checkpoint.checkpointing import (
     CheckpointManager,
     checkpoint_steps,
     cleanup_stale_tmp,
+    intact_step,
     latest_step,
     leaf_crc32s,
     quarantine_checkpoint,
@@ -16,5 +17,5 @@ from repro_torch.checkpoint.checkpointing import (
 )
 
 __all__ = ["CheckpointCorruptError", "CheckpointManager", "checkpoint_steps",
-           "cleanup_stale_tmp", "latest_step", "leaf_crc32s", "quarantine_checkpoint",
+           "cleanup_stale_tmp", "intact_step", "latest_step", "leaf_crc32s", "quarantine_checkpoint",
            "read_extras", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]

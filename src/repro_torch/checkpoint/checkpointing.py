@@ -32,8 +32,10 @@ Where the port differs from the reference, by design:
 * a restore copies into the live state's tensors in place (``copy_``),
   after checking every key, shape and dtype against them, and never holds
   a second copy of the state on the device (at full depth the fp32 params
-  and Adam moments take 39.6 GB of the card's 80).  One device: there is
-  no resharding.
+  and Adam moments take 39.6 GB of the card's 80).  A checkpoint holds the
+  global state whatever the EP degree that wrote it (the trainer gathers
+  the expert leaves first); a restore's ``shard`` takes each leaf's part
+  for this rank, read from a memory map of the file.
 """
 
 from __future__ import annotations
@@ -242,19 +244,14 @@ def cleanup_stale_tmp(directory) -> List[str]:
     return removed
 
 
-def restore_checkpoint(directory, state, step: Optional[int] = None, verify: bool = True,
-                       log_fn: Callable[[str], None] = print,
-                       telemetry: Optional[Telemetry] = None):
-    """Copy a checkpoint into ``state``'s tensors in place; returns
-    (state, the checkpoint's step).
-
-    With ``verify`` (the default) every candidate is integrity-checked
-    first; a corrupt one is quarantined and the restore falls back to the
-    next newest.  An explicitly requested ``step`` that fails verification
-    raises :class:`CheckpointCorruptError` (after the quarantine) instead
-    of restoring something else.  A checkpoint whose keys, shapes or
-    dtypes differ from ``state``'s raises ValueError before any leaf is
-    written."""
+def intact_step(directory, step: Optional[int] = None,
+                log_fn: Callable[[str], None] = print,
+                telemetry: Optional[Telemetry] = None) -> int:
+    """The newest checkpoint step (or ``step``) that passes verification.
+    A corrupt candidate is quarantined and the next newest tried; an
+    explicitly requested ``step`` that fails raises
+    :class:`CheckpointCorruptError` (after the quarantine) instead.
+    FileNotFoundError when no candidate is left."""
     tel = telemetry if telemetry is not None else Telemetry(enabled=False)
     explicit = step is not None
     candidates = [step] if explicit else checkpoint_steps(directory)[::-1]
@@ -262,42 +259,68 @@ def restore_checkpoint(directory, state, step: Optional[int] = None, verify: boo
         raise FileNotFoundError(f"no checkpoint under {directory}")
     for s in candidates:
         path = Path(directory) / f"step_{s:08d}"
-        t0 = time.perf_counter()
-        if verify:
-            with tel.span("ckpt.verify", step=s):
-                ok, reason = verify_checkpoint(path)
-            if not ok:
-                dest = quarantine_checkpoint(path, reason)
-                log_fn(f"[ckpt] step {s} failed verification ({reason}): "
-                       f"quarantined to {dest.name}")
-                if explicit:
-                    raise CheckpointCorruptError(
-                        f"checkpoint step {s} corrupt: {reason} (quarantined to {dest})")
-                continue
-        t1 = time.perf_counter()
-        with tel.span("ckpt.restore", step=s):
-            _load_into(path, state)
-        log_fn(f"[ckpt] restored step {s}: verified in {t1 - t0:.3f} s, "
-               f"loaded in {time.perf_counter() - t1:.3f} s")
-        return state, s
+        with tel.span("ckpt.verify", step=s):
+            ok, reason = verify_checkpoint(path)
+        if ok:
+            return s
+        dest = quarantine_checkpoint(path, reason)
+        log_fn(f"[ckpt] step {s} failed verification ({reason}): quarantined to {dest.name}")
+        if explicit:
+            raise CheckpointCorruptError(
+                f"checkpoint step {s} corrupt: {reason} (quarantined to {dest})")
     raise FileNotFoundError(
         f"no intact checkpoint under {directory} (all candidates failed verification)")
 
 
-def _load_into(path: Path, state) -> None:
+def restore_checkpoint(directory, state, step: Optional[int] = None, verify: bool = True,
+                       log_fn: Callable[[str], None] = print,
+                       telemetry: Optional[Telemetry] = None,
+                       shard: Optional[Callable[[str, np.ndarray], np.ndarray]] = None):
+    """Copy a checkpoint into ``state``'s tensors in place; returns
+    (state, the checkpoint's step).
+
+    With ``verify`` (the default) the checkpoint is :func:`intact_step`'s:
+    a corrupt candidate is quarantined and the restore falls back to the
+    next newest, or, for an explicit ``step``, raises.  Without it, the
+    newest (or ``step``) is loaded as it is.  ``shard(key, global array)``
+    gives this rank's part of a leaf (an expert-parallel rank's expert
+    slots); None loads every leaf whole.  A checkpoint whose keys, shapes
+    or dtypes differ from ``state``'s raises ValueError before any leaf is
+    written."""
+    tel = telemetry if telemetry is not None else Telemetry(enabled=False)
+    t0 = time.perf_counter()
+    if verify:
+        step = intact_step(directory, step, log_fn, tel)
+    elif step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    t1 = time.perf_counter()
+    with tel.span("ckpt.restore", step=step):
+        _load_into(Path(directory) / f"step_{step:08d}", state, shard)
+    log_fn(f"[ckpt] restored step {step}: verified in {t1 - t0:.3f} s, "
+           f"loaded in {time.perf_counter() - t1:.3f} s")
+    return state, step
+
+
+def _load_into(path: Path, state, shard=None) -> None:
     manifest = json.loads((path / MANIFEST).read_bytes())
     live = tree_paths(state)
     if set(live) != set(manifest["keys"]):
         raise ValueError(f"{path.name}: keys {sorted(set(manifest['keys']) ^ set(live))} "
                          f"are not in both the checkpoint and the live state")
+    arrays = {}
     for key, t in live.items():
+        # A memory map: only the part a shard takes is read.
+        a = np.load(path / _leaf_file(key), mmap_mode="r", allow_pickle=False)
+        arrays[key] = a if shard is None else shard(key, a)
         want = (list(t.shape), _dtype_name(t))
-        got = (manifest["shapes"][key], manifest["dtypes"][key])
+        got = (list(arrays[key].shape), manifest["dtypes"][key])
         if got != want:
             raise ValueError(f"{path.name}: {key} is {got} in the checkpoint, {want} live")
     with torch.no_grad():
         for key, t in live.items():
-            t.copy_(torch.from_numpy(np.load(path / _leaf_file(key), allow_pickle=False)))
+            t.copy_(torch.from_numpy(np.array(arrays[key])))
 
 
 class CheckpointManager:
@@ -364,15 +387,24 @@ class CheckpointManager:
         for s in checkpoint_steps(self.directory)[: -self.keep]:
             shutil.rmtree(self.directory / f"step_{s:08d}", ignore_errors=True)
 
-    def restore_latest(self, state):
-        """Restore the newest intact checkpoint into ``state`` in place;
-        returns (state, step).  Raises FileNotFoundError if there is none."""
+    def _settle(self) -> None:
         self.wait()  # a restore must see the last save (and its errors)
         stale = cleanup_stale_tmp(self.directory)
         if stale:
             self.log_fn(f"[ckpt] removed stale tmp dirs: {stale}")
+
+    def restore_latest(self, state):
+        """Restore the newest intact checkpoint into ``state`` in place;
+        returns (state, step).  Raises FileNotFoundError if there is none."""
+        self._settle()
         return restore_checkpoint(self.directory, state, log_fn=self.log_fn,
                                   telemetry=self.telemetry)
+
+    def latest_intact(self) -> int:
+        """The newest intact step (:func:`intact_step`, quarantining on the
+        way), after the write in flight; FileNotFoundError if none."""
+        self._settle()
+        return intact_step(self.directory, log_fn=self.log_fn, telemetry=self.telemetry)
 
     def extras_for(self, step: int) -> dict:
         """Manifest extras of an already restored (so verified) step."""

@@ -49,10 +49,18 @@ class MoECfg:
     aux_loss_coef: float = 0.01  # Switch-style load balancing loss
     z_loss_coef: float = 1e-3  # router z-loss
     dispatch: str = DEFAULT_DISPATCH
+    # Hot-expert replica channels: > 0 adds a (max_replicas,) int32
+    # "replicas" routing leaf (sentinel num_experts = free channel).  A
+    # replicated expert's rows compute source-locally on every EP rank,
+    # off the all-to-all, splitting its load over the groups by token
+    # origin (``models.moe``, ``core.migration.plan_replication``).
+    max_replicas: int = 0
 
     def __post_init__(self):
         if self.dispatch not in DISPATCH_MODES:
             raise ValueError(f"unknown dispatch {self.dispatch!r}")
+        if self.max_replicas < 0:
+            raise ValueError(f"max_replicas must be >= 0, got {self.max_replicas}")
 
 
 @dataclass(frozen=True)

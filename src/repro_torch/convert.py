@@ -20,7 +20,8 @@ from repro_torch.models.model import map_tree, tree_paths
 
 def params_from_numpy(tree, device=None, dtype=torch.float32):
     """numpy tree -> torch tree on ``device`` (default ``cuda``): float
-    leaves become ``dtype``, integer tables int32."""
+    leaves become ``dtype``, integer tables (the routing tables
+    ``assignment`` and ``replicas``) int32."""
     device = resolve_device(device)
 
     def leaf(a):
@@ -78,8 +79,8 @@ def shard_params(params, plan):
     """A whole parameter tree -> this rank's: each MoE expert leaf
     (``w_up``, ``w_gate``, ``w_down``, stacked (reps, E, ...)) keeps the
     rank's physical slots ``[g * E_l, (g + 1) * E_l)`` (g its EP rank) as a
-    copy; every other leaf, the router and the routing table included, is
-    the same tensor."""
+    copy; every other leaf, the router and the routing tables
+    (``assignment``, ``replicas``) included, is the same tensor."""
     if plan is None or plan.ep == 1:
         return params
     experts = sharding.expert_paths(tree_paths(params))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -132,3 +132,11 @@ H100 = Platform(
     # mtbf_chip_s, ckpt_latency_s and restart_s: the Platform defaults,
     # not measured for this card.
 )
+
+
+PLATFORMS: Dict[str, Platform] = {p.name: p for p in (FRONTIER, H100)}
+
+
+def get_platform(name: str) -> Platform:
+    """A platform by its ``name`` (``TrainerConfig.platform``)."""
+    return PLATFORMS[name]

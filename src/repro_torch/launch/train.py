@@ -27,9 +27,12 @@ The process group comes from the ``torchrun`` environment (``--backend``:
 nccl on the card, gloo on the CPU; gloo can share one card between
 ranks, nccl cannot and is refused there); a rank's device is
 ``cuda:{LOCAL_RANK % device_count}``.  Rank 0 alone prints and writes
-metrics.  ``--ckpt-dir`` needs world 1 (an EP-agnostic checkpoint is
-ROADMAP Queue 1 item 2b), and the pod axis and ``--pipeline`` wait for the
-pipeline executor (item 3).
+metrics.  ``--ckpt-dir`` works at any world: the checkpoint holds the
+global state (rank 0 writes it after the expert leaves are gathered), so
+a run at one EP degree resumes at another.  ``--migrate-every`` sets the
+expert-migration controller's interval (EP > 1; its ``[migrate]`` lines
+and the ``migrations=`` count of ``[done]``).  The pod axis and
+``--pipeline`` wait for the pipeline executor (ROADMAP Queue 1 item 3).
 
 It first prints the planner's production strategy for the arch (256
 H100s, batch 256 x 4096, ZeRO over the world: the reference launcher's
@@ -60,8 +63,8 @@ JAX twin wraps it in ``Prefetcher(iter(data))``, whose stream starts at
 batch 0 whatever step a resume or a rollback re-enters at.
 
 Unlike its JAX twin it has no ``--pipeline``, ``--schedule``,
-``--vstages``, ``--impl`` or ``--migrate-every``: the kernels always;
-expert migration and the pipeline executor are not ported yet.
+``--vstages`` or ``--impl``: the kernels always; the pipeline executor is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -114,6 +117,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory: resume from its newest intact "
                          "checkpoint, save every --ckpt-every steps and at the end")
+    ap.add_argument("--migrate-every", type=int, default=50,
+                    help="steps between expert-migration checks (EP > 1)")
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="steps between checkpoints; default: the planner's "
                          "Young-Daly interval clamped to [1, steps/2], else 50")
@@ -198,10 +203,6 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
             arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch=dispatch))
         note = "--dispatch" if args.dispatch else "the planner's choice"
         say(f"[trainer] moe dispatch: {arch.moe.dispatch} ({note})")
-    if args.ckpt_dir and ranks.world_size() > 1:
-        raise SystemExit("--ckpt-dir needs world 1: a checkpoint would hold one rank's "
-                         "expert shard (an EP-agnostic checkpoint is ROADMAP.md Queue 1 "
-                         "item 2b)")
     device, mesh = ranks.init(args, arch, a2a_algo, a2a_chunks)
     say(mesh.describe())
     if device.type == "cuda":
@@ -229,7 +230,8 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         source = SyntheticTokens(arch.vocab_size, args.batch, args.seq)
     trainer = Trainer(lm, opt, TrainerConfig(total_steps=args.steps,
                                              checkpoint_dir=args.ckpt_dir,
-                                             checkpoint_every=ckpt_every),
+                                             checkpoint_every=ckpt_every,
+                                             migrate_every=args.migrate_every),
                       log_fn=say, telemetry=telemetry)
     out = trainer.fit(state, source)
     times = trainer.step_times[1:] or trainer.step_times  # the first step warms up
@@ -246,9 +248,11 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
         "resumed_from": trainer.resumed_from, "rollbacks": out["rollbacks"],
+        "migrations": out["migrations"],
     }
     say(f"[done] step={out['last_step']} loss={summary['loss']!r} "
         f"skipped={summary['skipped']} stragglers={len(out['stragglers'])} "
+        f"migrations={len(out['migrations'])} "
         f"resumed_from={summary['resumed_from']} rollbacks={len(out['rollbacks'])} "
         f"step p50 {summary['step_p50_ms']:.1f} ms, "
         f"{summary['tokens_per_s']:.0f} tokens/s"

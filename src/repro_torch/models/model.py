@@ -38,7 +38,7 @@ DENSE_ATTN_CACHE_TODO = ("the dense cache holds mamba mixers only; attention in 
 @dataclass(frozen=True)
 class ParamMeta:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | embed | zeros | ones | arange | a_log | dt_bias
+    init: str = "normal"  # normal | embed | zeros | ones | arange | fill | a_log | dt_bias
     fan_in: int = 0
 
     def stacked(self, reps: int) -> "ParamMeta":
@@ -73,6 +73,10 @@ def _moe_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
         # logical expert -> physical slot routing table (int32)
         "assignment": ParamMeta((E,), init="arange"),
     }
+    if m.max_replicas > 0:
+        # Hot-expert replica channels: a logical expert id a channel,
+        # sentinel E = free (fan_in holds the fill value).
+        t["replicas"] = ParamMeta((m.max_replicas,), init="fill", fan_in=E)
     if a.ffn_activation == "swiglu":
         t["w_gate"] = ParamMeta((E, d, f), fan_in=d)
     return t
@@ -151,6 +155,8 @@ def _init_leaf(meta: ParamMeta, gen: torch.Generator, device, dtype):
     if meta.init == "arange":
         return torch.arange(meta.shape[-1], dtype=torch.int32,
                             device=device).expand(meta.shape).contiguous()
+    if meta.init == "fill":  # an int32 table of the constant fan_in
+        return torch.full(meta.shape, meta.fan_in, dtype=torch.int32, device=device)
     if meta.init == "zeros":
         return torch.zeros(meta.shape, dtype=dtype, device=device)
     if meta.init == "ones":
@@ -348,27 +354,36 @@ class LanguageModel:
         xt = x[torch.arange(b, device=x.device), idx][:, None]  # (b, 1, d)
         return self._head(params, xt)[:, 0], cache
 
-    def decode_step_paged(self, params, cache, block_table, lengths, batch):
+    def decode_step_paged(self, params, cache, block_table, lengths, batch, *,
+                          return_loads: bool = False):
         """One continuous-batching decode step over all sequence slots.
 
         batch: {"tokens": (b, 1)}; lengths: (b,) cache fills (positions of
         the new tokens); block_table: (b, nb).  Inactive slots (sentinel
         rows) write nothing and give logits the engine ignores.  Returns
-        (logits (b, vp), cache), the cache updated in place.
+        (logits (b, vp), cache), the cache updated in place, and with
+        ``return_loads`` the MoE layers' logical expert counts (reps,
+        n_moe_positions, E) too (the serving rebalancer's load feed).
         """
         x = self._embed(params, batch)
         positions = lengths.long()[:, None]
         N, bs = cache[0]["k"].shape[1:3]
         write = kv_lib.write_plan(block_table, lengths, 1, N, bs)
+        loads = [[] for _ in range(self.reps)]
         for r, pos, blk, p in self._layers(params):
             pc = {"k_pages": cache[pos]["k"][r], "v_pages": cache[pos]["v"][r],
                   "block_table": block_table, "lengths": lengths.long()}
-            x, _, _ = transformer.apply_block(blk, p, x, self.arch,
-                                              positions=positions, cache=pc,
-                                              write=write, plan=self.plan,
-                                              token_sharded=False)
+            x, mets, _ = transformer.apply_block(blk, p, x, self.arch,
+                                                 positions=positions, cache=pc,
+                                                 write=write, plan=self.plan,
+                                                 token_sharded=False)
+            if mets:
+                loads[r].append(mets["expert_load"])
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
-        return self._head(params, x)[:, 0], cache
+        logits = self._head(params, x)[:, 0]
+        if return_loads:
+            return logits, cache, torch.stack([torch.stack(l) for l in loads])
+        return logits, cache
 
     # -- dense-cache serving (mamba mixers) ----------------------------------
 

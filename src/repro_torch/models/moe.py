@@ -28,10 +28,24 @@ the physical expert slots ``[g*E_l, (g+1)*E_l)``):
 * weight-parallel decode (replicated tokens): each rank computes its own
   experts' rows and the partial outputs are summed over the EP group.
 
-At EP = 1 it is :func:`moe_ffn_local`, the collective-free math.  The
-router's gradient flows through the stable-sort top-k and the combine
-weights; the scatters, gathers and all-to-alls are differentiable.  The
-reference's hot-expert replicas are not ported (ROADMAP Queue 1 item 2b).
+With a live ``replicas`` table (``MoECfg.max_replicas`` channels, the
+migration planner's hot experts) the rows routed to a replicated expert
+leave the all-to-all and compute on their source rank
+(:func:`_replica_ffn`): the channel's weights are an owner-masked select
+from the owner's shard summed over the EP group (:func:`_replica_weights`;
+its backward sums every rank's replica gradient back into the owner's
+slot), and in decode each replica row is computed by one rank in
+round-robin order and the results summed.  The replica rows drop out of
+the dispatch (ragged: off the wire, positions ranked among the other rows;
+capacity: out of the buffers, their slots still consumed) and rejoin its
+rows before the one weighted combine, so the layer's function is
+unchanged and the combine rounds as the sentinel-table layer's does (the
+reference sums two combines).
+
+At EP = 1 it is :func:`moe_ffn_local`, the collective-free math, which
+ignores the replica table as the reference does.  The router's gradient
+flows through the stable-sort top-k and the combine weights; the
+scatters, gathers and all-to-alls are differentiable.
 """
 
 from __future__ import annotations
@@ -122,6 +136,26 @@ def _combine_expert_outputs(vals, flat_w, keep, T: int, k: int, d: int):
     """Weighted top-k combine of gathered expert outputs back to tokens."""
     vals = vals * (flat_w * keep.float())[:, None].to(vals.dtype)
     return vals.reshape(T, k, d).sum(dim=1)
+
+
+def _merge_replica_rows(vals, keep, rep):
+    """The replica path's rows put into the dispatch's (their supports are
+    disjoint: (rep_row, vals_rep) = ``rep``, None for none), so one combine
+    sums each token's k rows in (token, k) order as the sentinel-table
+    layer does: the replica path adds no rounding of its own."""
+    if rep is None:
+        return vals, keep
+    rep_row, vals_rep = rep
+    return torch.where(rep_row[:, None], vals_rep.to(vals.dtype), vals), keep | rep_row
+
+
+def _token_rows(xt: torch.Tensor, order: torch.Tensor, k: int) -> torch.Tensor:
+    """The (token, k) rows of ``xt`` in ``order`` (a permutation of T*k):
+    xt repeated k times in flat (token, k) order, then permuted.  Its
+    backward sums a token's k row gradients in (token, k) order whatever
+    ``order`` is, so relabelling the expert slots (a migration) leaves the
+    bits of dx alone; a gather by ``order // k`` sums them in ``order``."""
+    return xt.repeat_interleave(k, dim=0)[order]
 
 
 def _expert_ffn(tokens, w_up, w_gate, w_down, activation: str):
@@ -244,7 +278,7 @@ def _unsort(ys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 
 def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
                         activation: str, moe: MoECfg, plan, capacity: int,
-                        telemetry=None):
+                        telemetry=None, rep=None):
     """Dropless-style EP dispatch: sorted rows as the all-to-all payload,
     their segment structure carried by a counts exchange up front.
 
@@ -255,7 +289,9 @@ def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
     int32 all-to-all ships the kept rows per (destination, local expert),
     from which each receiver rebuilds its rows' expert ids (sentinel E_l on
     the empty tail), re-sorts each chunk by them and runs the ragged FFN
-    over the occupied rows only."""
+    over the occupied rows only.  ``rep`` (:func:`_merge_replica_rows`):
+    the replica rows leave the wire, and positions are ranked among the
+    other rows only, so each destination's rows stay contiguous."""
     T, d = xt.shape
     k, E, ep = moe.top_k, moe.num_experts, plan.ep
     E_l = E // ep
@@ -264,12 +300,19 @@ def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
     Tk = flat_e.shape[0]
     order, inv, _ = _sort_dispatch(flat_e, E)
     sorted_e = flat_e[order]
-    xs = xt[torch.div(order, k, rounding_mode="floor")]  # (Tk, d) expert-sorted
+    xs = _token_rows(xt, order, k)  # (Tk, d) expert-sorted
     S = E_l * capacity
     dest = torch.div(sorted_e, E_l, rounding_mode="floor")  # nondecreasing
-    dcounts = _counts(dest, ep)
-    pos = torch.arange(Tk, device=xt.device) - (dcounts.cumsum(0) - dcounts)[dest]
-    keep_s = pos < S  # rank-budget overflow (sorted order)
+    if rep is None:
+        dcounts = _counts(dest, ep)
+        pos = torch.arange(Tk, device=xt.device) - (dcounts.cumsum(0) - dcounts)[dest]
+        keep_s = pos < S  # rank-budget overflow (sorted order)
+    else:
+        valid = ~rep[0][order]
+        vi = valid.long()
+        dcounts = torch.zeros(ep, dtype=torch.long, device=xt.device).index_add_(0, dest, vi)
+        pos = vi.cumsum(0) - 1 - (dcounts.cumsum(0) - dcounts)[dest]
+        keep_s = valid & (pos < S)
     posd = torch.where(keep_s, pos, S)  # the extra slot S is cut off below
     send_x = xs.new_zeros((ep * (S + 1), d)).index_copy(0, dest * (S + 1) + posd, xs)
     send_x = send_x.reshape(ep, S + 1, d)[:, :S]
@@ -302,7 +345,8 @@ def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
             halo.chunk_slices(S, plan.a2a_chunks), wire=WIRE_DTYPE)
     y_buf = torch.cat(outs, dim=1)  # (ep, S, d)
     vals = torch.where(keep_s[:, None], y_buf[dest, posd.clamp(max=S - 1)], 0.0)
-    return _combine_expert_outputs(vals[inv], flat_w, keep_s[inv], T, k, d)
+    vals, keep = _merge_replica_rows(vals[inv], keep_s[inv], rep)
+    return _combine_expert_outputs(vals, flat_w, keep, T, k, d)
 
 
 def _moe_capacity_sharded(buf, w_up, w_gate, w_down, activation: str, ffn,
@@ -334,24 +378,87 @@ def _moe_capacity_sharded(buf, w_up, w_gate, w_down, activation: str, ffn,
 
 
 def _moe_ragged_decode(xt, top_phys, top_w, w_up, w_gate, w_down,
-                       activation: str, moe: MoECfg, plan):
+                       activation: str, moe: MoECfg, plan, rep=None):
     """Ragged weight-parallel decode: tokens are replicated over the EP
     group; each rank sorts them by LOCAL expert id (other ranks' rows get
     the sentinel E_l and sort to the never-computed tail), runs the ragged
     FFN over its own experts' rows, and the partial outputs are summed over
-    the EP group (each row has exactly one owner)."""
+    the EP group (each row has exactly one owner).  ``rep``
+    (:func:`_merge_replica_rows`): rows the replica path computes instead."""
     T, d = xt.shape
     k, E = moe.top_k, moe.num_experts
     E_l = E // plan.ep
     flat_e = top_phys.reshape(-1)
     lid = flat_e - plan.ep_rank * E_l
-    lid = torch.where((lid >= 0) & (lid < E_l), lid, E_l)
+    local = (lid >= 0) & (lid < E_l)
+    if rep is not None:
+        local = local & ~rep[0]
+    lid = torch.where(local, lid, E_l)
     order, offsets = _ragged_rows(lid, E_l)
     xs = xt[torch.div(order, k, rounding_mode="floor")]
     ys = moe_ops.ragged_ffn(xs, w_up, w_gate, w_down, offsets, activation)
     vals = sharding.all_reduce(_unsort(ys, order), plan.ep_group)
     keep = torch.ones_like(flat_e, dtype=torch.bool)  # dropless
+    vals, keep = _merge_replica_rows(vals, keep, rep)
     return _combine_expert_outputs(vals, top_w.reshape(-1), keep, T, k, d)
+
+
+def _replica_rows(top_i: torch.Tensor, replicas: torch.Tensor, E: int):
+    """Per flat (token, k) row: routed-to-a-replica mask and its replica
+    channel (sentinel R for the other rows).  replicas: (R,) logical
+    expert ids, sentinel E = free channel."""
+    R = replicas.shape[0]
+    rep = replicas.long()
+    # Size-(E + 1) tables, so the sentinel E lands on a discarded entry.
+    is_rep = torch.zeros(E + 1, dtype=torch.bool, device=rep.device)
+    is_rep[rep] = True
+    chan = torch.full((E + 1,), R, dtype=torch.long, device=rep.device)
+    chan[rep] = torch.arange(R, device=rep.device)
+    flat_i = top_i.reshape(-1)
+    rep_row = is_rep[:E][flat_i]
+    return rep_row, torch.where(rep_row, chan[:E][flat_i], R)
+
+
+def _replica_weights(replicas, assignment, w_up, w_gate, w_down, E: int, plan):
+    """The R replica channels' weights on every rank of the EP group: each
+    active channel's expert lives in one rank's shard (its home slot under
+    ``assignment``); an owner-masked select summed over the EP group
+    broadcasts it.  The sum's backward sums every rank's replica-weight
+    gradient, and the select puts it on the owner's slot, so replica
+    gradients land in the one logical leaf."""
+    E_l = w_up.shape[0]
+    active = replicas < E
+    slot = assignment.long()[replicas.long().clamp(0, E - 1)]
+    owner = torch.div(slot, E_l, rounding_mode="floor")
+    lrow = slot - owner * E_l
+    mine = (active & (owner == plan.ep_rank))[:, None, None]
+
+    def bcast(w):
+        if w is None:
+            return None
+        sel = w[lrow]
+        return sharding.all_reduce(torch.where(mine, sel, torch.zeros_like(sel)),
+                                   plan.ep_group)
+
+    return bcast(w_up), bcast(w_gate), bcast(w_down)
+
+
+def _replica_ffn(xt, rchan, k: int, w_up, w_gate, w_down, R: int, activation: str,
+                 wire: bool):
+    """Ragged FFN over the (token, k) rows routed to replica channels (R
+    "experts"); the other rows carry the sentinel R, sort to the
+    never-computed tail and come back 0.  ``wire`` repeats the all-to-all's
+    bf16 round trip of the payload both ways (token-sharded paths), so a
+    replica row gets the value the wire would have given it.  Returns (T*k,
+    d), zero in the other rows."""
+    order, offsets = _ragged_rows(rchan, R)
+    xs = _token_rows(xt, order, k)
+    if wire:
+        xs = xs.to(WIRE_DTYPE).to(xt.dtype)
+    ys = moe_ops.ragged_ffn(xs, w_up, w_gate, w_down, offsets, activation)
+    if wire:
+        ys = ys.to(WIRE_DTYPE).to(xt.dtype)
+    return _unsort(ys, order)
 
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
@@ -401,16 +508,35 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
                          f"shard is {E_l} (convert.shard_params)")
     act = arch.ffn_activation
     capacity = _capacity(T, moe)
+    E, k = moe.num_experts, moe.top_k
+    # Hot-expert replicas: their rows leave the dispatch and compute on
+    # this rank, and rejoin the dispatch's rows before the combine.
+    replicas = params.get("replicas")
+    rep = None
+    if replicas is not None and replicas.shape[0] > 0:
+        R = replicas.shape[0]
+        rep_row, rchan = _replica_rows(top_i, replicas, E)
+        wr = _replica_weights(replicas, params["assignment"], w_up, w_gate, w_down, E, plan)
+        if not token_sharded:
+            # Decode: the tokens are on every rank, so each replica row is
+            # computed by one of them (round robin) and the results summed.
+            own = torch.arange(rchan.shape[0], device=rchan.device) % plan.ep == plan.ep_rank
+            rchan = torch.where(own, rchan, R)
+        vals_rep = _replica_ffn(xt, rchan, k, *wr, R, act, wire=token_sharded)
+        if not token_sharded:
+            vals_rep = sharding.all_reduce(vals_rep, plan.ep_group)
+        rep = (rep_row, vals_rep)
     if moe.dispatch == "ragged":
         if token_sharded:
             y = _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down, act,
-                                    moe, plan, capacity, telemetry)
+                                    moe, plan, capacity, telemetry, rep=rep)
         else:
             y = _moe_ragged_decode(xt, top_phys, top_w, w_up, w_gate, w_down, act,
-                                   moe, plan)
+                                   moe, plan, rep=rep)
     else:
-        E = moe.num_experts
         flat_e, pos, keep, flat_w = _dispatch_indices(top_phys, top_w, E, capacity)
+        if rep is not None:
+            keep = keep & ~rep[0]  # out of the buffers; the slots stay consumed
         buf = _scatter_to_buffers(xt, flat_e, pos, keep, E, capacity)
         ffn = _expert_ffn if train else moe_ops.grouped_ffn
         if token_sharded:
@@ -424,6 +550,7 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
             y_local = torch.cat([out.new_zeros((g * E_l,) + out.shape[1:]), out,
                                  out.new_zeros((E - (g + 1) * E_l,) + out.shape[1:])])
             vals = sharding.all_reduce(y_local[flat_e, pos], plan.ep_group)
-        y = _combine_expert_outputs(vals, flat_w, keep, T, moe.top_k, d)
+        vals, keep = _merge_replica_rows(vals, keep, rep)
+        y = _combine_expert_outputs(vals, flat_w, keep, T, k, d)
     metrics = {"moe_aux_loss": aux, "moe_z_loss": z, "expert_load": counts}
     return y.reshape(b, s, d), metrics

@@ -18,15 +18,23 @@ workload:
 * **Graceful degradation**: a request whose ``deadline_step`` is provably
   out of reach is shed with an :class:`AbortInfo`; ``admit_reserve_blocks``
   holds new work back while the pool is close to exhaustion.
+* **Expert rebalance** (``ServeConfig.rebalance_every`` > 0, MoE under
+  EP): the decode step's expert counts feed a ``core.migration.LoadStats``
+  EMA; every ``rebalance_every`` decode steps, when the EP groups'
+  imbalance reaches the threshold, the trainer's planner (hot-expert
+  replicas, then Algorithm 2 swaps) re-places the experts of the serving
+  params in place, on every rank alike (:meth:`Engine._maybe_rebalance`).
+  Migration only relabels slots and replication preserves the function,
+  so the tokens are the static engine's.  ``params`` is the engine's to
+  change: a tree that shares its routing tables (``convert.shard_params``
+  shares them with the whole tree) sees them change too.
 
 The engine is host-driven: device work happens in
 ``LanguageModel.prefill_paged`` / ``decode_step_paged``, and the scheduler
 mutates only small numpy tables between the calls.  Over the ranks of an
 expert-parallel ``LanguageModel`` every rank runs its own engine on the
 same requests in lockstep: the model's collectives line up because the
-schedules do, and the sampled tokens agree because the logits do.  Expert
-rebalancing (the reference's ``_maybe_rebalance``) is not ported
-(ROADMAP Queue 1 item 2b).
+schedules do, and the sampled tokens agree because the logits do.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import migration as mig
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.serving.kv_cache import BlockPool, PagedLayout
 
@@ -82,6 +91,14 @@ class ServeConfig:
     # Admission backpressure: keep this many free pages per sequence that
     # would be running after admission; 0 disables.
     admit_reserve_blocks: int = 0
+    # Expert rebalance between engine steps (MoE under EP): decode counts
+    # feed a LoadStats EMA, and every rebalance_every decode steps the
+    # planner re-places the experts when the imbalance reaches the
+    # threshold.  0 disables the monitor (no load output is fetched).
+    rebalance_every: int = 0
+    rebalance_threshold: float = 1.3
+    rebalance_max_swaps: int = 100
+    rebalance_decay: float = 0.8  # the serving EMA follows traffic faster
 
     def layout(self) -> PagedLayout:
         return PagedLayout(num_blocks=self.num_blocks, block_size=self.block_size,
@@ -157,6 +174,12 @@ class Engine:
         self.step_no = 0
         self.decode_steps = 0
         self.decoded_tokens = 0
+        arch = getattr(lm, "arch", None)
+        self.load_stats = (mig.LoadStats(arch.num_moe_layers, arch.moe.num_experts,
+                                         decay=cfg.rebalance_decay)
+                           if cfg.rebalance_every > 0 and arch is not None and arch.moe
+                           else None)
+        self.rebalances: List[Dict] = []
 
     # -- structured trace ----------------------------------------------------
 
@@ -168,6 +191,7 @@ class Engine:
         "admit": ("rid", "slot"),
         "prefill": ("rid", "plen", "bucket"),
         "decode": ("rids",),
+        "rebalance": ("swaps", "replicas"),
         "finish": ("rid", "ntokens"),
         "preempt": ("rid",),
     }
@@ -227,6 +251,7 @@ class Engine:
             self._shed_expired()
             self._admit_and_prefill()
             self._decode_once()
+            self._maybe_rebalance()
             self.pool.check_invariants()
             sp.set(running=len(self.running), queued=len(self.queue))
 
@@ -346,13 +371,19 @@ class Engine:
         dev = self.device
         with self.telemetry.span("engine.decode", step=self.step_no,
                                  batch=len(self.running)):
-            logits, self.cache = self.lm.decode_step_paged(
+            out = self.lm.decode_step_paged(
                 self.params, self.cache,
                 torch.from_numpy(self.pool.block_table.copy()).to(dev),
                 torch.from_numpy(lens).to(dev),
-                {"tokens": torch.from_numpy(toks).to(dev)})
+                {"tokens": torch.from_numpy(toks).to(dev)},
+                return_loads=self.load_stats is not None)
+            logits, self.cache = out[:2]
             # The argmax fetch is the per-step device sync.
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            if self.load_stats is not None:
+                # (reps, n_moe_pos, E) -> LoadStats row order (position-major, rep)
+                l = out[2].cpu().numpy()
+                self.load_stats.update(np.concatenate([l[:, i] for i in range(l.shape[1])]))
         active = sorted(self.running)
         self.decode_steps += 1
         self.decoded_tokens += len(active)
@@ -361,6 +392,34 @@ class Engine:
             st = self.running[slot]
             st.generated.append(int(nxt[slot]))
             self._retire_if_done(st)
+
+    # -- expert rebalance ------------------------------------------------------
+
+    def _maybe_rebalance(self) -> None:
+        """Re-place the serving experts between engine steps when decode
+        traffic skews: the trainer's planner over the decode-fed EMA,
+        applied to the serving params in place (no optimizer state here),
+        every rank alike (each plans from the same counts)."""
+        cfg = self.cfg
+        if (self.load_stats is None or self.decode_steps == 0
+                or self.decode_steps % cfg.rebalance_every):
+            return
+        plan = self.lm.plan
+        ep = plan.ep if plan is not None else 1
+        if ep <= 1:
+            return
+        moe = [i for i, (_, f) in enumerate(self.lm.arch.block_pattern) if f == "moe"]
+        ffns = [self.params["blocks"][i]["ffn"] for i in moe]
+        tables = mig.routing_tables(ffns)
+        imb = mig.model_imbalance(self.load_stats, tables, ep)
+        if imb < cfg.rebalance_threshold:
+            return
+        mplan = mig.plan_model(self.load_stats, tables, ep, cfg.rebalance_max_swaps)
+        mig.apply_model_plan_(mplan, ffns, plan=plan)
+        self.rebalances.append({"step": self.step_no, "decode_steps": self.decode_steps,
+                                "imbalance": imb, "swaps": mplan.swaps,
+                                "replicas": mplan.replicas})
+        self._trace("rebalance", swaps=mplan.swaps, replicas=mplan.replicas)
 
     # -- lifecycle helpers ---------------------------------------------------
 

@@ -128,21 +128,42 @@ def loss_and_grads(lm: LanguageModel, params, batch,
     return loss, metrics, grads
 
 
-def _global_norm(grads, plan):
+def _global_norm(grads, plan, params):
     """The global grad norm of reduced gradients: the replicated leaves'
-    squares once, the expert leaves' summed over the EP group."""
+    squares once; the expert leaves' as one sum of squares per expert
+    slot, all-gathered over the EP group and added up in LOGICAL expert
+    order (through the params' ``assignment``), so that an expert
+    migration, which only relabels slots, leaves the norm's bits (and so
+    the clip) unchanged."""
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
-    experts = sharding.expert_paths(flat)
-    sq = [torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                       for k, g in flat.items() if (k in experts) == e]).square().sum()
-          for e in (False, True)]
-    return (sq[0] + sharding.all_reduce_(sq[1], plan.ep_group)).sqrt()
+    experts = sorted(sharding.expert_paths(flat))
+    dense = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                         for k, g in flat.items() if k not in experts]).square().sum()
+    if not experts:
+        return dense.sqrt()
+    slots = torch.stack([flat[k].float().square().sum(dim=tuple(range(2, flat[k].dim())))
+                         for k in experts])  # (leaves, reps, E_l)
+    parts = [slots]
+    if plan.ep > 1:
+        parts = [torch.empty_like(slots) for _ in range(plan.ep)]
+        torch.distributed.all_gather(parts, slots, group=plan.ep_group)
+    tables = tree_paths(params)
+    assign = torch.stack([tables[k.rpartition("/")[0] + "/assignment"].long()
+                          for k in experts])  # (leaves, reps, E)
+    logical = torch.cat(parts, dim=2).gather(2, assign)
+    return (dense + logical.sum()).sqrt()
+
+
+def _host(t: torch.Tensor):
+    """A tensor on the host: a Python number for one element, else numpy."""
+    return t.item() if t.numel() == 1 else t.detach().cpu().numpy()
 
 
 def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
                     gnorm_skip_cap: Optional[float] = None, *,
                     compute_dtype: torch.dtype = torch.bfloat16,
-                    fetch: Callable[[torch.Tensor], Any] = torch.Tensor.item):
+                    fetch: Callable[[torch.Tensor], Any] = _host,
+                    fetch_loads: bool = False):
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     The step carries the reference's **anomaly sentinel**: a non-finite
@@ -153,6 +174,11 @@ def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
     update, and the update runs in place only when it passed: the same
     semantics, with no second copy of the state.  ``metrics["skipped"]`` is
     that verdict as an int.
+
+    With ``fetch_loads`` (the trainer's expert-load feed) the MoE layers'
+    expert counts ride in that one fetch beside the verdict, and come back
+    as ``metrics["expert_load_host"]``, a numpy (reps, n_moe_positions, E)
+    array.
 
     An optional scalar ``batch["fault_scale"]`` (runtime.faults
     ``train.nonfinite``) multiplies the loss AND the gradients after they
@@ -173,11 +199,20 @@ def make_train_step(lm: LanguageModel, opt_cfg: OptimizerConfig,
                     g.mul_(fault_scale)
             metrics["loss"] = loss
         gnorm = (global_norm(tree_paths(grads).values()) if plan is None
-                 else _global_norm(grads, plan))
+                 else _global_norm(grads, plan, params))
         ok = torch.isfinite(loss) & torch.isfinite(gnorm)
         if gnorm_skip_cap is not None:
             ok = ok & (gnorm < gnorm_skip_cap)
-        ok = bool(fetch(ok))
+        loads = metrics.get("expert_load") if fetch_loads else None
+        if loads is None:
+            ok = bool(fetch(ok))
+        else:
+            # One device->host transfer: the verdict, then the counts
+            # (integers, exact in fp32).
+            host = np.asarray(fetch(torch.cat([ok.to(loads.dtype).reshape(1),
+                                               loads.reshape(-1)])))
+            ok = bool(host[0])
+            metrics["expert_load_host"] = host[1:].reshape(tuple(loads.shape))
         if ok:
             opt_metrics = adamw_update(opt_cfg, params, grads, state, grad_norm=gnorm)
         else:

@@ -334,15 +334,16 @@ def _phase_layers(rank: int, ref, out_dir: str):
             if rank == 0 or k == "params":
                 _tree_np(f"{tag}/{k}", full, res)
 
-    # The launcher over these ranks: --mesh 2,4, HALO x2, --metrics-out.
-    s = train_launch.main(["--reduced", "--device", "cpu", "--mesh", "2,4", "--steps", "3",
-                           "--batch", "8", "--seq", "16", "--a2a", "flat",
-                           "--a2a-chunks", "2", "--dispatch", "ragged",
-                           "--metrics-out", f"{out_dir}/train.jsonl"])
+    # The launcher over these ranks: --mesh 2,4, HALO x2, --metrics-out, and
+    # --ckpt-dir: one global checkpoint (the test resumes it at world 1).
+    s = train_launch.main(LAUNCH_ARGS + ["--mesh", "2,4", "--steps", "3",
+                                         "--metrics-out", f"{out_dir}/train.jsonl",
+                                         "--ckpt-dir", f"{out_dir}/ck"])
     res["launch/loss"] = np.asarray(s["loss"])
     res["launch/ep"] = np.asarray(s["ep"])
     if rank == 0:
         res["launch/a2a_n"] = np.asarray(s["drift"].get("a2a", {}).get("n", 0))
+        res["launch/ckpt"] = np.asarray(f"{out_dir}/ck")
 
     # 8. The a2a micro-benchmarks over the EP group.
     plan = sharding.make_plan(arch_of("ragged"), MESH, hierarchical_a2a=False)
@@ -357,6 +358,10 @@ def _phase_layers(rank: int, ref, out_dir: str):
     res["bench/seconds"] = np.asarray(t)
     res["bench/spans"] = np.asarray(sum(e["name"] == "a2a.layer" for e in ring.events()))
     return res
+
+
+LAUNCH_ARGS = ["--reduced", "--device", "cpu", "--batch", "8", "--seq", "16", "--a2a", "flat",
+               "--a2a-chunks", "2", "--dispatch", "ragged", "--ckpt-every", "2"]
 
 
 def _leaves(tree):

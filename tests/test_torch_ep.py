@@ -27,6 +27,7 @@ moment at ``GRAD_REL``.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -50,6 +51,8 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models.model import init_params
 from repro_torch.serving import Engine, ServeConfig
 from repro_torch.serving.engine import check_ep
+
+from _torch_ep_child import LAUNCH_ARGS
 
 CHILD = Path(__file__).with_name("_torch_ep_child.py")
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -359,11 +362,19 @@ def test_launch_refusals(argv, world, match):
         ranks.check(_args(argv), arch, world, cards=0)
 
 
-def test_launchers_refuse_ckpt_dir_and_serving_data_parallelism(monkeypatch, tmp_path):
+def test_launchers_refuse_ckpt_dir_and_serving_data_parallelism(runs, monkeypatch, tmp_path):
+    """``--ckpt-dir`` at world > 1 is accepted: the launcher at ``--mesh 2,4``
+    (the module's run) saved one global checkpoint, at steps 2 and 3, which
+    a world-1 run resumes at step 3 and trains on.  Serving data
+    parallelism is still refused."""
+    ck = Path(runs[1][0]["launch/ckpt"].item())
+    assert sorted(p.name for p in ck.iterdir()) == ["step_00000002", "step_00000003"]
+    manifest = json.loads((ck / "step_00000003" / "manifest.json").read_text())
+    assert manifest["shapes"]["params/blocks/0/ffn/w_up"][1] == 8  # every expert
+    assert "load_stats" in manifest["extras"]
+    s = train_launch.main(LAUNCH_ARGS + ["--steps", "4", "--ckpt-dir", str(ck)])
+    assert s["resumed_from"] == 3 and s["world"] == 1 and np.isfinite(s["loss"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="--ckpt-dir needs world 1"):
-        train_launch.main(["--reduced", "--device", "cpu", "--mesh", "1,2", "--steps", "1",
-                           "--ckpt-dir", str(tmp_path / "ck")])
     with pytest.raises(SystemExit, match="serving takes --mesh 1,M"):
         serve_launch.main(["--reduced", "--device", "cpu", "--mesh", "2,1"])
 
