@@ -137,7 +137,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``/fma``.  Prints each plan (imbalance before and after, swaps,
    replicas), its seconds and all-gathered bytes (gloo through the host,
    not NVLink), and the Table IV ``migration_cost`` of granite on
-   ``core.platform.H100`` (modeled).
+   ``core.platform.H100`` (modeled);
+14. pipeline: the schedule-executing pipeline executor
+   (``repro_torch.core.pipeline``) on two gloo ranks sharing the card,
+   granite at full width and depth 4 (PP 2 x 2 reps, or PP 2 x V 2 x 1
+   rep), ragged, bf16 compute, fp32 masters, cf 16, aux loss 0, batch 4 x
+   512, M = 4.  (a) The ragged kernels against their plain versions at the
+   microbatch's T x k = 4096 rows.  (b) gpipe, 1f1b, 1f1b_overlap, zb_h1
+   and interleaved_1f1b (V = 2): loss and gathered gradients against world
+   1 at phase 12's gates (printed per leaf), zb_h1 and 1f1b_overlap
+   against 1f1b bitwise (else 1e-6), the executed residual, W-stash and
+   comm traces equal to the IR's and the peaks to Eq 4 (GPipe: M; the
+   interleaved analogue).  (c) The launch counts, zeroed before each
+   schedule's step and read after it on each rank, equal to the IR's ops
+   times one op's launches (``PIPE_OP_LAUNCHES``), none through ``/fma``.
+   (d) Four ranks at mesh 2,1,2 (PP 2 x EP 2), 1f1b, batch 8 x 512,
+   against world 1 at (b)'s gates.  (e) 1f1b with int8 hand-offs, its loss
+   within 0.1 of the bf16 hand-offs', the bytes a hand-off beside
+   ``resource_model.p2p_bytes_per_boundary``.  (f) ``torchrun
+   --nproc-per-node 2 -m repro_torch.launch.train --mesh 2,1,1 --pipeline``
+   at full width and depth (16 layers a rank), 3 steps: finite losses, a
+   valid trace with two stage lanes, each rank's peak memory beside the
+   modeled mem_stage0.  (g) Each schedule's step seconds, bubble fraction
+   (``bubble_fraction`` and the IR's idle share), hand-offs and their
+   bytes, residual-slot bytes.  gloo stages every hand-off through the
+   host: no time here measures NVLink or NCCL p2p.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -2298,6 +2322,373 @@ def migrate_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the pipeline executor (two gloo ranks, then four, on the card)
+# ---------------------------------------------------------------------------
+
+PIPE_DEPTH, PIPE_PP, PIPE_M, PIPE_CF = 4, 2, 4, 16.0
+PIPE_BATCH, PIPE_EP_BATCH = (4, 512), (8, 512)
+# (schedule, vstages): the flat schedules at PP 2 x 2 reps, interleaved at
+# PP 2 x V 2 x 1 rep.
+PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("1f1b_overlap", 1), ("zb_h1", 1),
+                  ("interleaved_1f1b", 2))
+# Launches a MoE layer of an op's chunk: (gate-up, ragged matmul, dW).  F is
+# the forward; B its recompute, dh, dx_g, dx_u and the three dW; Bi the
+# recompute and the input gradient alone; Bw the recompute and the whole
+# backward (the layers' inputs depend on the chunk's weights).  A Bi of the
+# first chunk launches nothing: nothing upstream takes its input gradient.
+PIPE_OP_LAUNCHES = {"F": (1, 1, 0), "B": (1, 4, 3), "Bi": (1, 4, 0), "Bw": (1, 4, 3)}
+PIPE_KERNELS = ("ragged_gate_up_silu_f32", "ragged_matmul_f32", "ragged_dw_f32")
+PATH_KERNELS["pipeline"] = PIPE_KERNELS
+PIPE_LAUNCH_ARGS = ["--arch", ARCH, "--mesh", "2,1,1", "--pipeline", "--schedule", "1f1b",
+                    "--backend", "gloo", "--steps", "3", "--batch", "4", "--seq", "512",
+                    "--seed", "0", "--dispatch", "ragged"]
+
+
+def pipe_expected(sched, stage: int, layers: int) -> dict:
+    """The launches ``stage`` makes in one step of ``sched``: each op's
+    (``PIPE_OP_LAUNCHES``) times the MoE layers of a chunk."""
+    tot = np.zeros(3, np.int64)
+    for op in sched.ops[stage]:
+        if op is None or (op[0] == "Bi" and stage == 0 and op[2] == 0):
+            continue
+        tot += np.asarray(PIPE_OP_LAUNCHES[op[0]]) * layers
+    return dict(zip(PIPE_KERNELS, tot.tolist()))
+
+
+def pipe_kernel_checks(dev) -> None:
+    """(a) The ragged kernels at the microbatch's shape: one 512-token
+    sequence routed top-8 over granite's 40 experts, T x k = 4096 rows: the
+    gate-up (bf16 x), the down projection (fp32 h), dh and dx (fp32 against
+    the transposed weights) and both weight gradients."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+
+    arch = get_arch(ARCH)
+    d, f, E, k = arch.d_model, arch.moe.d_ff, arch.moe.num_experts, arch.moe.top_k
+    bf16 = torch.bfloat16
+    _, randn, routed_offsets = seeded_inputs(dev, E, k, seed=4)
+    offs = routed_offsets(PIPE_BATCH[1])
+    R = int(offs[-1])
+    wg, wu = (randn(E, d, f, scale=d ** -0.5, dtype=bf16) for _ in range(2))
+    wd = randn(E, f, d, scale=f ** -0.5, dtype=bf16)
+    x, h = randn(R, d, dtype=bf16), randn(R, f)
+    dy, da = randn(R, d, scale=1e-2), randn(R, f, scale=1e-2)
+    tag = f"pipeline microbatch T*k={R} E={E}"
+    for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
+                        mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs)):
+        check(f"ragged_gate_up_silu_f32 {tag} {nm}", a, b, GEMM_TOL)
+    wdt, wgt = mm_ops._transposed(wd), mm_ops._transposed(wg)
+    for nm, a_, w_ in (("down fp32 h", h, wd), ("dh", dy, wdt), ("dx", da, wgt)):
+        check(f"ragged_matmul_f32 {tag} {nm}", mm_ops.ragged_matmul_f32(a_, w_, offs),
+              mm_ref.ragged_matmul_f32(a_, w_, offs), GEMM_TOL)
+    check(f"ragged_dw_f32 {tag} dW_gate/up bf16 x", mm_ops.ragged_dw_f32(x, da, offs),
+          mm_ref.ragged_dw_f32(x, da, offs), GEMM_TOL)
+    check(f"ragged_dw_f32 {tag} dW_down fp32 h", mm_ops.ragged_dw_f32(h, dy, offs),
+          mm_ref.ragged_dw_f32(h, dy, offs), GEMM_TOL)
+
+
+def _pipe_rank(rank: int, world: int, tmp: str, part: str) -> None:
+    """One gloo rank of phase 14 (``torch.multiprocessing`` target); writes
+    ``tmp/<part><r>.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        out = (_pipe_schedules if part == "pp" else _pipe_pp_x_ep)(rank, world, tmp)
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-3000:]}
+    Path(tmp, f"{part}{rank}.json").write_text(json.dumps(out))
+
+
+def _pipe_setup(rank: int, world: int, tmp: str, part: str):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import init_params
+
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv_{part}", rank=rank,
+                            world_size=world)
+    base = get_arch(ARCH)
+    arch = base.replace(num_layers=PIPE_DEPTH, moe=dataclasses.replace(
+        base.moe, dispatch="ragged", capacity_factor=PIPE_CF, aux_loss_coef=0.0))
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+    return dev, arch, params
+
+
+def _pipe_world1(arch, params, batch):
+    """World 1 on this rank: (loss, {leaf: gradient})."""
+    from repro_torch import training
+    from repro_torch.models.model import LanguageModel, tree_paths
+
+    loss, _, g = training.loss_and_grads(LanguageModel(arch), params, batch)
+    return float(loss), {k: v for k, v in tree_paths(g).items() if v is not None}
+
+
+def _pipe_step(arch, plan, params, batch):
+    """``LanguageModel.loss_and_grads`` on this rank's rows (bf16 compute):
+    (loss, gathered {leaf: gradient}, metrics, seconds)."""
+    from repro_torch import training
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.models.model import LanguageModel, tree_paths
+
+    dev = params["embed"].device
+    local = {k: training._to_device(v, dev) for k, v in training.shard_batch(batch, plan).items()}
+    mine = training._cast(shard_params(params, plan), torch.bfloat16)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g, met = LanguageModel(arch, plan).loss_and_grads(mine, local)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    full = {k: v for k, v in tree_paths(gather_params(g, plan)).items() if v is not None}
+    return float(loss), full, met, secs
+
+
+def _pipe_gate(out, tag, loss, full, want_loss, want) -> bool:
+    ok_g, rows = ep_grad_gate(full, want)
+    worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], 1e-30))
+    emb = float((full["embed"] - want["embed"]).norm() / (want["embed"].norm() + 1e-9))
+    ok = abs(loss - want_loss) < 2e-3 and ok_g
+    out[tag] = (f"loss {loss!r} vs world 1 {want_loss!r} (|d| {abs(loss - want_loss):.3e} < "
+                f"2e-3); gradients: worst leaf {worst} max |d| {rows[worst][0]:.3e} of max "
+                f"|want| {rows[worst][1]:.3e} (relative {rows[worst][0] / rows[worst][1]:.2e} "
+                f"<= {EP_GRAD_REL:g}; < 2e-3), embed relative norm {emb:.3e} (< 0.05) "
+                f"{'ok' if ok else 'FAIL'}")
+    out[f"{tag} leaves"] = "max |d| / max |want|: " + ", ".join(
+        f"{k} {g:.2e}/{m:.2e}" for k, (g, m, _) in rows.items())
+    return ok
+
+
+def _pipe_schedules(rank: int, world: int, tmp: str) -> dict:
+    """(b), (c), (e), (g) on two ranks: every schedule's step against world 1
+    and the IR, its launches, the int8 hand-offs."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels, sharding
+    from repro_torch.core import pipeline
+    from repro_torch.core import resource_model as rm
+    from repro_torch.core import schedules as S
+    from repro_torch.data import SyntheticTokens
+
+    dev, arch, params = _pipe_setup(rank, world, tmp, "pp")
+    out, checks = {"rank": rank, "counts": {}}, []
+    batch = SyntheticTokens(arch.vocab_size, *PIPE_BATCH).batch_at(0)
+    ref = _pipe_world1(arch, params, batch) if rank == 0 else None
+    dist.barrier()
+    # A warm-up step (the first one pays the library's and the allocator's
+    # start-up), so that the timed steps compare.
+    _pipe_step(arch, sharding.make_plan(arch, (PIPE_PP, 1, 1), pipeline_on_pod=True,
+                                        microbatches=PIPE_M), params, batch)
+    runs, total = {}, {}
+    for name, V in PIPE_SCHEDULES:
+        plan = sharding.make_plan(arch, (PIPE_PP, 1, 1), pipeline_on_pod=True, schedule=name,
+                                  vstages=V, microbatches=PIPE_M)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        loss, full, met, secs = _pipe_step(arch, plan, params, batch)
+        counts = kernels.launch_counts()
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        sched = met["pipeline_stats"]["schedule"]
+        layers = PIPE_DEPTH // (PIPE_PP * V)
+        want_n = pipe_expected(sched, plan.pp_rank, layers)
+        got_n = {n: counts[n] for n in PIPE_KERNELS}
+        ok_n = got_n == want_n and all(counts[n] == 0 for n in (
+            "flash_attention", "grouped_matmul_f32", "ssd_intra_chunk"))
+        checks.append(ok_n)
+        out["counts"][name] = counts
+        out[f"launches/{name}"] = (f"stage {plan.pp_rank}: {got_n} vs the IR's ops x one op's "
+                                   f"launches {want_n} {'ok' if ok_n else 'FAIL'}")
+        ir = (sched.occupancy_trace(), sched.wstash_trace(), sched.comm_trace())
+        ok_t = all(np.array_equal(met[k], w) for k, w in zip(
+            ("pipeline_occupancy", "pipeline_wstash_occupancy", "pipeline_comm_inflight"), ir))
+        peaks = list(met["pipeline_occupancy"].max(axis=1))
+        want_peaks = (S.peak_activations_interleaved(PIPE_PP, PIPE_M, V) if V > 1 else
+                      [PIPE_M] * PIPE_PP if name == "gpipe" else
+                      S.peak_activations_1f1b(PIPE_PP))
+        ok_p = peaks == want_peaks
+        checks.append(ok_t and ok_p)
+        st = met["pipeline_stats"]
+        busy = sum(op is not None for row in sched.ops for op in row)
+        out[f"traces/{name}"] = (f"executed residual, W-stash and comm traces equal the IR's: "
+                                 f"{ok_t}; residual peaks {peaks} vs {want_peaks} "
+                                 f"{'ok' if ok_t and ok_p else 'FAIL'}")
+        out[f"step/{name}"] = (
+            f"V={V} T={sched.num_ticks} ticks: step {secs:.3f} s (gloo hand-offs through the "
+            f"host, not NVLink or NCCL); bubble_fraction(PP, M) "
+            f"{pipeline.bubble_fraction(PIPE_PP, PIPE_M):.4f}, the IR's idle share "
+            f"{1 - busy / (PIPE_PP * sched.num_ticks):.4f}; stage {plan.pp_rank} sent "
+            f"{st['sent']} hand-offs, {st['sent_bytes']} bytes; residual slots "
+            f"{sched.num_slots} x {st['slot_bytes'] // sched.num_slots} B = "
+            f"{st['slot_bytes']} bytes")
+        if name in ("1f1b", "zb_h1", "1f1b_overlap"):
+            runs[name] = (loss, full)
+        if rank == 0:
+            checks.append(_pipe_gate(out, f"train/{name}", loss, full, *ref))
+        del full
+    out["total"] = total
+    if rank == 0:
+        l0, g0 = runs["1f1b"]
+        for name in ("zb_h1", "1f1b_overlap"):
+            l1, g1 = runs[name]
+            gap = max(float((g1[k].float() - g0[k].float()).abs().max()) for k in g0)
+            same = l1 == l0 and all(torch.equal(g1[k], g0[k]) for k in g0)
+            ok = same or (abs(l1 - l0) < 1e-6 and gap < 1e-6)
+            checks.append(ok)
+            out[f"match/{name}"] = (f"against 1f1b: {'bitwise' if same else f'loss |d| {abs(l1 - l0):.3e}, grads max |d| {gap:.3e}'}"
+                                    f" {'ok' if ok else 'FAIL'}")
+    runs.clear()
+    # (e) int8 hand-offs: 1f1b with compress_p2p.
+    plan = sharding.make_plan(arch, (PIPE_PP, 1, 1), pipeline_on_pod=True, schedule="1f1b",
+                              microbatches=PIPE_M, compress_p2p=True)
+    loss_c, _, met, secs = _pipe_step(arch, plan, params, batch)
+    plain = sharding.make_plan(arch, (PIPE_PP, 1, 1), pipeline_on_pod=True, schedule="1f1b",
+                               microbatches=PIPE_M)
+    loss_p, _, met_p, _ = _pipe_step(arch, plain, params, batch)
+    st, st_p = met["pipeline_stats"], met_p["pipeline_stats"]
+    model = rm.p2p_bytes_per_boundary(rm.ModelShape.from_arch(arch), rm.TrainSetup(
+        b=PIPE_BATCH[0], s=PIPE_BATCH[1], PP=PIPE_PP, alpha=PIPE_M // PIPE_PP))
+    ok = abs(loss_c - loss_p) < 0.1 and st["sent"] == st_p["sent"] > 0
+    checks.append(ok)
+    out["int8"] = (f"loss {loss_c!r} vs bf16 hand-offs {loss_p!r} (|d| {abs(loss_c - loss_p):.3e}"
+                   f" < 0.1) {'ok' if ok else 'FAIL'}; a hand-off {st['sent_bytes'] // st['sent']}"
+                   f" bytes int8 + scales vs {st_p['sent_bytes'] // st_p['sent']} bf16, "
+                   f"resource_model.p2p_bytes_per_boundary {model:.0f} (modeled)")
+    out["ok"] = all(checks)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _pipe_pp_x_ep(rank: int, world: int, tmp: str) -> dict:
+    """(d) Four ranks at mesh (2, 1, 2), 1f1b, batch 8 x 512, against world 1."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.data import SyntheticTokens
+
+    dev, arch, params = _pipe_setup(rank, world, tmp, "ep")
+    out = {"rank": rank}
+    batch = SyntheticTokens(arch.vocab_size, *PIPE_EP_BATCH).batch_at(0)
+    ref = _pipe_world1(arch, params, batch) if rank == 0 else None
+    dist.barrier()
+    plan = sharding.make_plan(arch, (PIPE_PP, 1, 2), pipeline_on_pod=True, schedule="1f1b",
+                              microbatches=PIPE_M)
+    loss, full, _, secs = _pipe_step(arch, plan, params, batch)
+    out["ok"] = True
+    if rank == 0:
+        out["ok"] = _pipe_gate(out, "pp_x_ep/2,1,2", loss, full, *ref)
+        out["seconds"] = secs
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def pipe_launcher(dev) -> None:
+    """(f) ``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh
+    2,1,1 --pipeline`` at full width and depth: finite losses, a trace with
+    two stage lanes, every rank's peak memory beside the modeled stage-0
+    memory."""
+    import os
+    import re
+
+    from repro_torch.obs import validate_chrome_trace
+
+    src = Path(__file__).resolve().parent / "src"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_launch_"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", "repro_torch.launch.train"] + PIPE_LAUNCH_ARGS + [
+        "--metrics-out", str(tmp / "m.jsonl")]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": str(src)})
+        for line in proc.stdout.splitlines():
+            if line.startswith(("[mesh]", "[trainer] pipelined", "[train]", "[done]",
+                                "[model] h100", "[obs]", "[planner] schedule")):
+                log(f"[pipeline] launcher: {line}")
+        if proc.returncode != 0:
+            errors = [l for l in proc.stderr.splitlines() if "Error" in l][-12:]
+            fail(f"pipeline launcher exited {proc.returncode}: " + "\n".join(errors))
+        trace = json.loads((tmp / "m.jsonl.trace.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    validate_chrome_trace(trace)
+    lanes = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                   if e["ph"] == "M" and e["name"] == "thread_name" and e["pid"] == 2)
+    losses = [float(m) for m in re.findall(r"\[train\] step=\d+ loss=(\S+)", proc.stdout)]
+    done = re.search(r"\[done\] step=(\d+) loss=(\S+) skipped=(\d+)", proc.stdout)
+    ok = (done is not None and int(done.group(1)) == 2 and int(done.group(3)) == 0
+          and all(np.isfinite(losses + [float(done.group(2))]))
+          and lanes == ["stage 0", "stage 1"])
+    log(f"[check] pipeline launcher (granite full width and depth, 16 layers a rank, PP 2, "
+        f"1f1b, gloo): 3 steps, skipped 0 (the sentinel: every step's loss and grad norm "
+        f"finite), logged losses {losses + [float(done.group(2)) if done else None]}, trace "
+        f"valid with lanes {lanes} {'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        fail("pipeline launcher: a loss is not finite or the trace lacks its stage lanes")
+
+
+def pipeline_phase(dev):
+    """Phase 14: (a) the ragged kernels at the microbatch shape; (b), (c),
+    (e), (g) two gloo ranks sharing the card; (d) four; (f) the launcher at
+    full depth.  Returns the two ranks' summed launch counts of (b)'s steps."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pipe_kernel_checks(dev)
+    log(f"[pipeline] gloo ranks on one {torch.cuda.get_device_name(0)}: every hand-off stages "
+        f"through the host, so no time of this phase measures NVLink or NCCL p2p")
+    res = {}
+    for part, world in (("pp", PIPE_PP), ("ep", 4)):
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_pipe_{part}_")
+        try:
+            mp.start_processes(_pipe_rank, args=(world, tmp, part), nprocs=world,
+                               start_method="spawn")
+            res[part] = [json.loads(Path(tmp, f"{part}{r}.json").read_text())
+                         for r in range(world)]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for r in res[part]:
+            if "error" in r:
+                fail(f"pipeline {part} rank {res[part].index(r)}: {r['error']}\n{r['trace']}")
+    for r in res["pp"]:
+        for k, v in r.items():
+            if "/" in k or k == "int8":
+                tag = "[check]" if v.endswith(("ok", "FAIL")) else "[pipeline]"
+                log(f"{tag} pipeline rank {r['rank']} (gloo, depth {PIPE_DEPTH}, cf "
+                    f"{PIPE_CF:g}, batch {PIPE_BATCH[0]} x {PIPE_BATCH[1]}, M {PIPE_M}) {k}: {v}")
+        for name, c in r["counts"].items():
+            label = f"pipeline rank {r['rank']} {name}"
+            log(f"[pipeline] {label} designs {check_designs(c, label)}")
+    for k, v in res["ep"][0].items():
+        if "/" in k:
+            log(f"[check] pipeline x EP (4 gloo ranks, mesh 2,1,2, 1f1b, batch "
+                f"{PIPE_EP_BATCH[0]} x {PIPE_EP_BATCH[1]}) {k}: {v}")
+    if not all(r["ok"] for r in res["pp"] + res["ep"]):
+        fail("pipeline: a two- or four-rank check failed")
+    counts = {}
+    for r in res["pp"]:
+        for name, n in r["total"].items():
+            counts[name] = counts.get(name, 0) + n
+    for name in PIPE_KERNELS:
+        if any(r["total"][name] == 0 for r in res["pp"]):
+            fail(f"pipeline: a rank never launched {name}")
+    torch.cuda.empty_cache()
+    pipe_launcher(dev)
+    log(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2342,6 +2733,8 @@ def main() -> None:
     log(f"[phase] ep done at {time.perf_counter() - t0:.1f}s")
     counts["migrate"] = migrate_phase(dev)
     log(f"[phase] migrate done at {time.perf_counter() - t0:.1f}s")
+    counts["pipeline"] = pipeline_phase(dev)
+    log(f"[phase] pipeline done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -16,8 +16,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 # Pipeline schedules the planner and the resource model price (the
-# schedule IR in ``repro_torch.core.schedules`` builds their tick tables).
-# The port has no pipeline executor yet, so a run binds none of them.
+# schedule IR in ``repro_torch.core.schedules`` builds their tick tables)
+# and ``repro_torch.core.pipeline`` executes.
 SCHEDULES: Tuple[str, ...] = (
     "gpipe", "1f1b", "1f1b_overlap", "interleaved_1f1b", "zb_h1"
 )

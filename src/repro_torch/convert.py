@@ -1,6 +1,7 @@
 """Parameter trees, train states and dense serving caches between the JAX
 package and the port, as numpy; and a whole parameter tree to and from one
-expert-parallel rank's shard (:func:`shard_params`, :func:`gather_params`).
+rank's shard (:func:`shard_params`, :func:`gather_params`): its pipeline
+stage's layer chunks and its expert slots.
 
 The two packages' trees have the same paths (``models.model.param_tree``):
 dicts keyed alike and a tuple of per-pattern-position block dicts with
@@ -75,18 +76,58 @@ def cache_to_numpy(cache):
     return map_tree(lambda t: t.detach().cpu().float().numpy(), cache)
 
 
+def stage_vstages(plan) -> int:
+    """The virtual stages a stage of ``plan`` holds: its ``vstages`` under
+    ``interleaved_1f1b``, else 1 (the reference's rule)."""
+    return plan.vstages if plan.schedule == "interleaved_1f1b" else 1
+
+
+def _stage_chunks(t: torch.Tensor, plan) -> torch.Tensor:
+    """Stage ``plan.pp_rank``'s chunks of a block leaf (reps, ...), in the
+    reference's chunk-major layout (``repro.core.pipeline
+    ._stage_block_params``): reps = (V, PP, rpc) v-major, chunk ``c = v *
+    PP + s`` holds reps ``[c * rpc, (c + 1) * rpc)``, and stage s keeps
+    ``[:, s]``, (V, rpc, ...), flattened to (V * rpc, ...) so that the reps
+    stay dim 0 and an expert leaf's slots dim 1.  A copy."""
+    V, PP = stage_vstages(plan), plan.pp
+    reps = t.shape[0]
+    if reps % (PP * V):
+        raise ValueError(f"{reps} pattern reps do not split over PP*V = {PP}*{V} chunks")
+    rpc = reps // (PP * V)
+    return t.reshape((V, PP, rpc) + t.shape[1:])[:, plan.pp_rank].reshape(
+        (V * rpc,) + t.shape[1:]).clone()
+
+
+def _unstage_chunks(t: torch.Tensor, plan) -> torch.Tensor:
+    """The inverse of :func:`_stage_chunks`: every stage's (V * rpc, ...)
+    all-gathered over the pp group, back to (reps, ...)."""
+    V, PP = stage_vstages(plan), plan.pp
+    parts = [torch.empty_like(t) for _ in range(PP)]
+    torch.distributed.all_gather(parts, t.contiguous(), group=plan.pp_group)
+    rpc = t.shape[0] // V
+    staged = torch.stack([q.reshape((V, rpc) + t.shape[1:]) for q in parts], dim=1)
+    return staged.reshape((V * PP * rpc,) + t.shape[1:])
+
+
 def shard_params(params, plan):
-    """A whole parameter tree -> this rank's: each MoE expert leaf
-    (``w_up``, ``w_gate``, ``w_down``, stacked (reps, E, ...)) keeps the
-    rank's physical slots ``[g * E_l, (g + 1) * E_l)`` (g its EP rank) as a
-    copy; every other leaf, the router and the routing tables
-    (``assignment``, ``replicas``) included, is the same tensor."""
-    if plan is None or plan.ep == 1:
+    """A whole parameter tree -> this rank's: under a pipeline (``plan.pp``
+    > 1) every block leaf keeps the rank's stage's chunks
+    (:func:`_stage_chunks`), while ``embed``, ``final_norm`` and
+    ``lm_head`` stay whole on every stage, as the reference's ``P()``
+    in_specs put them; then each MoE expert leaf (``w_up``, ``w_gate``,
+    ``w_down``, stacked (reps, E, ...)) keeps the rank's physical slots
+    ``[g * E_l, (g + 1) * E_l)`` (g its EP rank) as a copy.  Every other
+    leaf, the router and the routing tables (``assignment``, ``replicas``)
+    included, is the same tensor without a pipeline."""
+    pp = getattr(plan, "pp", 1)
+    if plan is None or (plan.ep == 1 and pp == 1):
         return params
     experts = sharding.expert_paths(tree_paths(params))
 
     def leaf(path, t):
-        if path not in experts:
+        if pp > 1 and path.startswith("blocks/"):
+            t = _stage_chunks(t, plan)
+        if path not in experts or plan.ep == 1:
             return t
         E_l = t.shape[1] // plan.ep
         return t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l].clone()
@@ -97,18 +138,23 @@ def shard_params(params, plan):
 def gather_params(tree, plan):
     """The inverse of :func:`shard_params` on any tree of the params' shape
     (params or gradients; None leaves pass): each expert leaf gathered over
-    the EP group, in EP-rank order, along its expert dim.  Collective: every
-    rank of the EP group calls it."""
-    if plan is None or plan.ep == 1:
+    the EP group, in EP-rank order, along its expert dim, then each block
+    leaf over the pp group (:func:`_unstage_chunks`).  Collective: every
+    rank calls it."""
+    if plan is None or (plan.ep == 1 and plan.pp == 1):
         return tree
     experts = sharding.expert_paths(
         {k: v for k, v in tree_paths(tree).items() if v is not None})
 
     def leaf(path, t):
-        if path not in experts:
+        if t is None:
             return t
-        parts = [torch.empty_like(t) for _ in range(plan.ep)]
-        torch.distributed.all_gather(parts, t.contiguous(), group=plan.ep_group)
-        return torch.cat(parts, dim=1)
+        if path in experts and plan.ep > 1:
+            parts = [torch.empty_like(t) for _ in range(plan.ep)]
+            torch.distributed.all_gather(parts, t.contiguous(), group=plan.ep_group)
+            t = torch.cat(parts, dim=1)
+        if plan.pp > 1 and path.startswith("blocks/"):
+            t = _unstage_chunks(t, plan)
+        return t
 
     return map_tree(leaf, tree, with_path=True)

@@ -2,9 +2,10 @@
 
 The port's copy of ``repro.core.schedules`` (pure Python and numpy;
 ``tests/test_torch_planner.py`` holds its tick tables equal to the
-reference's).  The resource model and the planner read it; the pipeline
-executor that interprets it is not ported yet (ROADMAP Queue 1 item 3),
-so where the text below speaks of the executor it means the reference's.
+reference's).  The resource model and the planner read it, and
+``core.pipeline`` executes it over ``torch.distributed`` ranks; where the
+text below speaks of the SPMD executor it means the reference's, whose
+masked ops the port's executor does not run.
 
 A :class:`Schedule` is a per-stage, per-tick op table: at global clock tick
 ``t``, stage ``s`` executes exactly one of

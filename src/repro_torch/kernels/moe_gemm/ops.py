@@ -371,7 +371,9 @@ class RaggedFFN(torch.autograd.Function):
     dh, dx_g, dx_u as ragged GEMMs against the transposed expert weights;
     the three weight gradients as ``ragged_dw_f32``; each gradient cast
     back to its primal's dtype.  Rows at or past offsets[E] get dx = 0:
-    the ragged GEMM writes exactly 0 there.
+    the ragged GEMM writes exactly 0 there.  A gradient no input asks for
+    (``ctx.needs_input_grad``: the weights of a pipeline's input-only
+    backward, ``core.pipeline``'s Bi op) is not computed.
     """
 
     @staticmethod
@@ -388,6 +390,7 @@ class RaggedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w_up, w_gate, w_down, offsets, a_g, a_u = ctx.saved_tensors
+        want_x, want_wu, want_wg, want_wd = ctx.needs_input_grad[:4]
         dy = dy.float().contiguous()
         if ctx.activation == "swiglu":
             sig = torch.sigmoid(a_g)
@@ -395,21 +398,28 @@ class RaggedFFN(torch.autograd.Function):
             h = silu_g * a_u
         else:
             h = ref.gelu(a_u)
+        dx = dwu = dwg = dwd = None
+        if want_wd:
+            dwd = ragged_dw_f32(h, dy, offsets).to(w_down.dtype)
+        if not (want_x or want_wu or want_wg):
+            return (dx, dwu, dwg, dwd, None, None)
         dh = ragged_matmul_f32(dy, _transposed(w_down), offsets)
-        dwd = ragged_dw_f32(h, dy, offsets)
-        dwg = None
         if ctx.activation == "swiglu":
             d_silu = sig * (1.0 + a_g * (1.0 - sig))
             da_g = dh * a_u * d_silu
             da_u = dh * silu_g
-            dx = ragged_matmul_f32(da_g, _transposed(w_gate), offsets)
-            dx += ragged_matmul_f32(da_u, _transposed(w_up), offsets)
-            dwg = ragged_dw_f32(x, da_g, offsets).to(w_gate.dtype)
+            if want_x:
+                dx = ragged_matmul_f32(da_g, _transposed(w_gate), offsets)
+                dx += ragged_matmul_f32(da_u, _transposed(w_up), offsets)
+            if want_wg:
+                dwg = ragged_dw_f32(x, da_g, offsets).to(w_gate.dtype)
         else:
             da_u = torch.ops.aten.gelu_backward(dh, a_u, approximate="tanh")
-            dx = ragged_matmul_f32(da_u, _transposed(w_up), offsets)
-        dwu = ragged_dw_f32(x, da_u, offsets).to(w_up.dtype)
-        return (dx.to(x.dtype), dwu, dwg, dwd.to(w_down.dtype), None, None)
+            if want_x:
+                dx = ragged_matmul_f32(da_u, _transposed(w_up), offsets)
+        if want_wu:
+            dwu = ragged_dw_f32(x, da_u, offsets).to(w_up.dtype)
+        return (None if dx is None else dx.to(x.dtype), dwu, dwg, dwd, None, None)
 
 
 def ragged_ffn(tokens, w_up, w_gate: Optional[torch.Tensor], w_down, offsets,

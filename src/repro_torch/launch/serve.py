@@ -35,8 +35,9 @@ engine on the same requests, holds its expert slots
 (``convert.shard_params``), takes its sequence shard of each MoE layer's
 input in prefill and computes its own experts in decode; the sampled
 tokens are equal on every rank because the logits are.  Rank 0 prints.
-Data parallelism (D > 1) waits for the pipeline executor (ROADMAP.md
-Queue 1 item 3), and the parity probe runs at world 1 only.
+Serving data parallelism (D > 1) and the pod axis (``--mesh P,D,M``) are
+not ported yet (ROADMAP.md Queue 1 item 3b), and the parity probe runs at
+world 1 only.
 """
 
 from __future__ import annotations
@@ -181,11 +182,12 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
         arch = arch.reduced()
     arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else arch.moe.dispatch))
     source = "--dispatch" if args.dispatch else "the planner's choice" if best else "the arch's"
-    data, model = ranks.mesh_of(args, ranks.world_size())
-    if data != 1:
+    shape = ranks.mesh_of(args, ranks.world_size())
+    data, model = shape[-2:]
+    if len(shape) != 2 or data != 1:
         raise SystemExit(f"--mesh {args.mesh}: serving takes --mesh 1,M (one EP group); "
-                         f"data parallelism waits for the pipeline executor "
-                         f"(ROADMAP.md Queue 1 item 3)")
+                         f"serving data parallelism and its pod axis are not ported yet "
+                         f"(ROADMAP.md Queue 1 item 3b)")
     try:
         check_ep(sharding.choose_ep(arch.moe.num_experts if arch.moe else model, model))
     except ValueError as e:

@@ -15,13 +15,19 @@ third resumes the second's checkpoint at step 4 and trains to 6):
 
 Expert parallelism over ranks (``torchrun``; ``--mesh D,M`` gives world
 D*M, EP = gcd(E, M) and TP = M / EP, which must be 1; each rank takes
-``batch / world`` whole sequences):
+``batch / world`` whole sequences), and the pipeline (``--mesh P,D,M
+--pipeline``: P stages of D*M ranks, each stage running its EP layer, the
+schedule ``--schedule`` with ``--vstages``; each rank takes ``b_mu /
+(D*M)`` whole sequences of every microbatch, ``batch % (M*D*ep) == 0``):
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --mesh 1,2 --steps 5 --batch 2 --seq 512            # one card each
     PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,4 \
         --steps 3 --batch 8 --seq 32                        # gloo on the CPU
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,1,2 \
+        --pipeline --schedule zb_h1 --steps 2 --batch 8 --seq 32
 
 The process group comes from the ``torchrun`` environment (``--backend``:
 nccl on the card, gloo on the CPU; gloo can share one card between
@@ -31,8 +37,10 @@ metrics.  ``--ckpt-dir`` works at any world: the checkpoint holds the
 global state (rank 0 writes it after the expert leaves are gathered), so
 a run at one EP degree resumes at another.  ``--migrate-every`` sets the
 expert-migration controller's interval (EP > 1; its ``[migrate]`` lines
-and the ``migrations=`` count of ``[done]``).  The pod axis and
-``--pipeline`` wait for the pipeline executor (ROADMAP Queue 1 item 3).
+and the ``migrations=`` count of ``[done]``).  Under ``--pipeline``
+(``[trainer] pipelined: PP=... schedule=... (M=...)``) ``--ckpt-dir``, and
+migration with EP > 1, are refused (ROADMAP Queue 1 item 3b).  Without
+``--pipeline`` a pod axis joins data.
 
 It first prints the planner's production strategy for the arch (256
 H100s, batch 256 x 4096, ZeRO over the world: the reference launcher's
@@ -40,9 +48,12 @@ call on ``core.platform.H100``) and binds what the run executes:
 ``--dispatch`` defaults to the strategy's dispatch, ``--a2a`` and
 ``--a2a-chunks`` to its all-to-all algorithm and chunk depth (the
 reference's rule: a flag wins, else the planner's choice), and
-``--ckpt-every`` to its Young-Daly interval clamped to [1, steps/2].  The
-strategy's schedule and virtual stages are printed and not bound: the port
-has no pipeline executor yet.
+``--ckpt-every`` to its Young-Daly interval clamped to [1, steps/2], and
+``--schedule`` / ``--vstages`` to its schedule and virtual stages (the
+reference's binding: an explicit ``--schedule`` drops the planner's
+vstages; the planner's vstages are clamped to a divisor of this run's
+layer reps a stage, its interleaved schedule falling back to the default
+at one).
 
 It draws seeded random fp32 master weights on the device, trains with
 bf16 compute and fp32 Adam moments (the reference plan's
@@ -55,16 +66,16 @@ bytes and seconds.  With ``--metrics-out PATH`` it writes the trainer's
 telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
 prints the drift of the measured ``train.step``, ``a2a.layer`` (EP > 1),
 ``ckpt.save`` and ``ckpt.restore`` spans against the resource model's
-pricing of this run (its own shape, EP, DP and all-to-all, PP = 1) on the
-H100, with the modeled stage-0 memory beside the measured peak.
+pricing of this run (its own shape, PP, schedule and vstages, EP, DP and
+all-to-all) on the H100, with the modeled stage-0 memory beside the
+measured peak; a pipelined run's Chrome trace carries its schedule's
+lanes, one a stage.
 
 The trainer gets the dataset itself, which has ``batch_at(step)``: the
 JAX twin wraps it in ``Prefetcher(iter(data))``, whose stream starts at
 batch 0 whatever step a resume or a rollback re-enters at.
 
-Unlike its JAX twin it has no ``--pipeline``, ``--schedule``,
-``--vstages`` or ``--impl``: the kernels always; the pipeline executor is
-not ported yet.
+Unlike its JAX twin it has no ``--impl``: the kernels always.
 """
 
 from __future__ import annotations
@@ -77,7 +88,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import DISPATCH_MODES, get_arch
+from repro_torch.configs import DEFAULT_SCHEDULE, DISPATCH_MODES, SCHEDULES, get_arch
 from repro_torch import obs
 from repro_torch.convert import shard_params
 from repro_torch.core import planner
@@ -85,10 +96,10 @@ from repro_torch.core import resource_model as rm
 from repro_torch.core.platform import H100, Platform
 from repro_torch.data import MemmapCorpus, SyntheticTokens
 from repro_torch.launch import ranks
-from repro_torch.models.model import LanguageModel, tree_paths
+from repro_torch.models.model import LanguageModel, init_params, tree_paths
 from repro_torch.optim import OptimizerConfig
+from repro_torch.optim.optimizer import adamw_init
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
-from repro_torch.training import init_state
 
 # The platform the planner and the drift report price (a test swaps it).
 PLATFORM = H100
@@ -122,6 +133,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="steps between checkpoints; default: the planner's "
                          "Young-Daly interval clamped to [1, steps/2], else 50")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="pipeline the layer stack over the pod axis (--mesh P,D,M)")
+    ap.add_argument("--schedule", default=None, choices=SCHEDULES,
+                    help="pipeline schedule; default: the planner's choice, else "
+                         f"{DEFAULT_SCHEDULE}")
+    ap.add_argument("--vstages", type=int, default=None,
+                    help="virtual stages a pipeline stage (interleaved_1f1b); default: "
+                         "the planner's choice, else 1")
     ap.add_argument("--metrics-out", default=None,
                     help="write the trainer's telemetry as JSONL here, a Chrome "
                          "trace to <path>.trace.json, and print a model-vs-"
@@ -149,11 +168,12 @@ def production_strategy(arch: str, platform: Platform) -> Optional[planner.Strat
     return planner.best_strategy(get_arch(arch), platform, **PRODUCTION)
 
 
-def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, int]:
+def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, int, str, int]:
     """Print the planner's production strategy for ``args.arch`` on
     ``PLATFORM`` and bind this run's expert dispatch, all-to-all algorithm
-    and chunks and checkpoint interval: a flag wins, else the strategy's
-    choice.  Returns (dispatch, ckpt_every, a2a_algo, a2a_chunks)."""
+    and chunks, checkpoint interval, pipeline schedule and virtual stages:
+    a flag wins, else the strategy's choice.  Returns (dispatch,
+    ckpt_every, a2a_algo, a2a_chunks, schedule, vstages)."""
     best = production_strategy(args.arch, PLATFORM)
     n = PRODUCTION["total_chips"]
     if best is None:
@@ -161,8 +181,6 @@ def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, 
     else:
         say(f"[planner] production-strategy for {args.arch} @{n}x{PLATFORM.name}:")
         say("          " + best.describe())
-        say(f"[planner] schedule {best.schedule} vstages {best.vstages}: printed, not "
-            f"bound (the port has no pipeline executor yet; this run is PP = 1)")
     # Checkpoint cadence: the flag wins, else the resource model's
     # Young-Daly interval, clamped to the run so a short run still
     # checkpoints at least once.
@@ -176,6 +194,29 @@ def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, 
             say(f"[planner] ckpt-every defaulted to {ckpt_every} steps (Young-Daly: "
                 f"t_ckpt={e.t_ckpt:.1f}s tau={e.ckpt_interval_s:.0f}s "
                 f"goodput={e.goodput_factor * 100:.2f}%)")
+    # The schedule and its vstage depth: an explicit --schedule drops the
+    # planner's vstages (they belong to ITS schedule) unless --vstages is
+    # given too; the planner's are clamped to this run's layer reps a stage.
+    if args.schedule:
+        schedule, vstages = args.schedule, args.vstages or 1
+    else:
+        schedule = best.schedule if best is not None else DEFAULT_SCHEDULE
+        vstages = args.vstages or (best.vstages if best is not None else 1)
+        if args.vstages is None and args.pipeline and args.mesh and vstages > 1:
+            arch = get_arch(args.arch)
+            if args.reduced:
+                arch = arch.reduced()
+            pp = int(args.mesh.split(",")[0])
+            rps = max(arch.num_layers // len(arch.block_pattern) // pp, 1)
+            want = vstages
+            vstages = max(v for v in range(1, min(vstages, rps) + 1) if rps % v == 0)
+            if vstages != want:
+                say(f"[planner] vstages {want} -> {vstages} (layer reps per stage: {rps})")
+            if vstages == 1 and schedule == "interleaved_1f1b":
+                schedule = DEFAULT_SCHEDULE
+    note = "--schedule" if args.schedule else "the planner's choice"
+    say(f"[planner] schedule {schedule} vstages {vstages} ({note})"
+        + ("" if args.pipeline else ": bound with --pipeline; this run is PP = 1"))
     moe = get_arch(args.arch).moe
     dispatch = args.dispatch
     if dispatch is None and moe is not None:
@@ -186,7 +227,7 @@ def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, 
     if moe is not None:
         note = "--a2a" if args.a2a or args.a2a_chunks else "the planner's choice"
         say(f"[trainer] ep a2a: {a2a_algo} x{a2a_chunks} chunks ({note})")
-    return dispatch, ckpt_every, a2a_algo, a2a_chunks
+    return dispatch, ckpt_every, a2a_algo, a2a_chunks, schedule, vstages
 
 
 def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, Any]]:
@@ -194,7 +235,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     ``fit`` output with the final state: this rank's shard)."""
     rank = ranks.rank()
     say = print if rank == 0 else (lambda *a, **k: None)
-    dispatch, ckpt_every, a2a_algo, a2a_chunks = plan(args, say)
+    dispatch, ckpt_every, a2a_algo, a2a_chunks, schedule, vstages = plan(args, say)
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
@@ -203,7 +244,8 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
             arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch=dispatch))
         note = "--dispatch" if args.dispatch else "the planner's choice"
         say(f"[trainer] moe dispatch: {arch.moe.dispatch} ({note})")
-    device, mesh = ranks.init(args, arch, a2a_algo, a2a_chunks)
+    device, mesh = ranks.init(args, arch, a2a_algo, a2a_chunks, schedule=schedule,
+                              vstages=vstages if args.pipeline else 1)
     say(mesh.describe())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -214,16 +256,24 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     if args.metrics_out and rank == 0:
         sinks.append(obs.JsonlSink(args.metrics_out))
     telemetry = obs.Telemetry(enabled=ring is not None, sinks=sinks)
-    lm = LanguageModel(arch, mesh, telemetry=telemetry if mesh.ep > 1 else None)
+    lm = LanguageModel(arch, mesh,
+                       telemetry=telemetry if mesh.ep > 1 or mesh.pp > 1 else None)
     opt = OptimizerConfig(lr=args.lr, total_steps=args.steps)
-    # Every rank draws the whole model from the seed and keeps its shard.
-    state = init_state(lm, torch.Generator(device=device).manual_seed(args.seed), device)
-    n_params = sum(p.numel() for p in tree_paths(state["params"]).values())
-    state = {k: shard_params(v, mesh) if k in ("params", "m", "v") else v
-             for k, v in state.items()}
+    # Every rank draws the whole model from the seed and keeps its shard;
+    # the moments are made for the shard alone.
+    params = init_params(arch, torch.Generator(device=device).manual_seed(args.seed), device)
+    n_params = sum(p.numel() for p in tree_paths(params).values())
+    params = shard_params(params, mesh)
+    if device.type == "cuda":  # hand the whole model's blocks back to the card
+        torch.cuda.empty_cache()
+    state = {"params": params, **adamw_init(params)}
     say(f"[model] {arch.name} on {device}: {n_params / 1e6:.1f}M params, fp32 "
         f"masters and moments, bf16 compute, batch {args.batch} x seq {args.seq}"
-        + (f" ({args.batch // mesh.world} sequences a rank)" if mesh.world > 1 else ""))
+        + (f" ({args.batch // mesh.world} sequences a rank)" if mesh.world > 1
+           and mesh.pp == 1 else "")
+        + (f" ({mesh.num_microbatches} microbatches of {args.batch // mesh.num_microbatches}"
+           f" sequences, {args.batch // mesh.num_microbatches // mesh.stage_size} a rank)"
+           if mesh.pp > 1 else ""))
     if args.corpus:
         source = MemmapCorpus(args.corpus, args.batch, args.seq, seed=args.seed)
     else:
@@ -238,7 +288,9 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     p50 = float(np.median(times)) if times else float("nan")
     summary = {
         "arch": arch.name, "dispatch": arch.moe.dispatch if arch.moe else None,
-        "ckpt_every": ckpt_every, "world": mesh.world, "ep": mesh.ep,
+        "ckpt_every": ckpt_every, "world": mesh.world, "ep": mesh.ep, "pp": mesh.pp,
+        "schedule": mesh.schedule if mesh.pp > 1 else None,
+        "vstages": mesh.vstages if mesh.pp > 1 else None,
         "a2a": f"{mesh.a2a_algo} x{mesh.a2a_chunks}",
         "device": str(device), "params": n_params, "steps": len(trainer.step_times),
         "skipped": len(out["anomalies"]),
@@ -247,6 +299,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         "tokens_per_s": args.batch * args.seq / p50,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
+        "peak_mem_gb_ranks": _rank_peaks(device, mesh),
         "resumed_from": trainer.resumed_from, "rollbacks": out["rollbacks"],
         "migrations": out["migrations"],
     }
@@ -257,7 +310,9 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         f"step p50 {summary['step_p50_ms']:.1f} ms, "
         f"{summary['tokens_per_s']:.0f} tokens/s"
         + (f", peak device memory {summary['peak_mem_gb']:.2f} GB"
-           if summary["peak_mem_gb"] is not None else ""))
+           if summary["peak_mem_gb"] is not None else "")
+        + (" (a rank: " + ", ".join(f"{g:.2f}" for g in summary["peak_mem_gb_ranks"]) + ")"
+           if summary["peak_mem_gb_ranks"] else ""))
     if args.ckpt_dir:
         summary["ckpt"] = _ckpt_report(ring.events())
         for name, spans in summary["ckpt"].items():
@@ -274,14 +329,29 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     return summary, trainer, out
 
 
+def _rank_peaks(device, mesh) -> Optional[List[float]]:
+    """Every rank's peak device memory in GB (an all-gather over the world;
+    None on the CPU or at world 1)."""
+    if device.type != "cuda" or mesh.world == 1:
+        return None
+    mine = torch.tensor([torch.cuda.max_memory_allocated(device) / 1e9], device=device)
+    parts = [torch.empty_like(mine) for _ in range(mesh.world)]
+    torch.distributed.all_gather(parts, mine, group=mesh.world_group)
+    return [float(p) for p in parts]
+
+
 def _telemetry_reports(args, arch, events, summary, mesh) -> Dict[str, Any]:
-    """The end-of-run drift report (this run's shape, EP, DP and
-    all-to-all, PP = 1, priced on ``PLATFORM``), the modeled stage-0 memory
-    beside the measured peak, and the Chrome trace (no schedule lanes:
-    PP = 1)."""
-    setup = rm.TrainSetup(b=args.batch, s=args.seq, PP=1, EP=mesh.ep, DP=mesh.dp,
+    """The end-of-run drift report (this run's shape, PP, schedule and
+    vstages, EP, DP and all-to-all, priced on ``PLATFORM``), the modeled
+    stage-0 memory beside the measured peak, and the Chrome trace, with
+    the schedule's lanes, one a stage, when the run is pipelined (their
+    ticks scaled so the lanes span a measured step)."""
+    from repro_torch.core import schedules as sched_lib
+
+    pipe = ({"schedule": mesh.schedule, "vstages": mesh.vstages} if mesh.pp > 1 else {})
+    setup = rm.TrainSetup(b=args.batch, s=args.seq, PP=mesh.pp, EP=mesh.ep, DP=mesh.dp,
                           zero="world", a2a_algo=mesh.a2a_algo,
-                          a2a_chunks=mesh.a2a_chunks,
+                          a2a_chunks=mesh.a2a_chunks, **pipe,
                           **({"dispatch": arch.moe.dispatch} if arch.moe else {}))
     est = rm.estimate(rm.ModelShape.from_arch(arch), setup, PLATFORM)
     tracker = obs.DriftTracker(rm.modeled_phases(est))
@@ -293,10 +363,18 @@ def _telemetry_reports(args, arch, events, summary, mesh) -> Dict[str, Any]:
           f"{summary['step_p50_ms']:.1f} ms; mem_stage0 {est.mem_stage0 / 1e9:.2f} GB vs "
           + (f"peak torch.cuda.max_memory_allocated {peak:.2f} GB" if peak is not None
              else "no device peak on the CPU"))
+    sched, tick_s = None, 1e-3
+    if mesh.pp > 1:
+        sched = sched_lib.build(mesh.schedule, mesh.pp, mesh.num_microbatches, mesh.vstages)
+        steps = [e["dur"] for e in events if e["kind"] == "span" and e["name"] == "train.step"]
+        if len(steps) > 1:
+            tick_s = (sum(steps[1:]) / (len(steps) - 1)) / sched.num_ticks
     trace_path = args.metrics_out + ".trace.json"
-    obs.write_chrome_trace(trace_path, events, process_name=f"train {arch.name}")
+    obs.write_chrome_trace(trace_path, events, schedule=sched, tick_s=tick_s,
+                           process_name=f"train {arch.name}")
     print(f"[obs] {len(events)} events ({n} drift spans) -> {args.metrics_out}; "
-          f"chrome trace: {trace_path}")
+          f"chrome trace: {trace_path}"
+          + (f" ({mesh.pp} stage lanes, {sched.name})" if sched is not None else ""))
     return {"drift": tracker.report(), "trace": trace_path,
             "model": {"t_step_s": est.t_step, "mem_stage0_gb": est.mem_stage0 / 1e9}}
 

@@ -202,21 +202,32 @@ class LanguageModel:
     own sequences (token-sharded), the paged serving steps take the same
     requests on every rank (prefill: each rank's sequence shard of every MoE
     layer's input; decode: weight-parallel).  ``plan=None`` is one rank.
+    Under a pipeline plan (``plan.pp`` > 1) the params hold the rank's
+    stage's chunks too, ``loss`` runs the differentiable pipelined forward
+    and ``loss_and_grads`` the schedule-executing step (``core.pipeline``),
+    each on this rank's rows of every microbatch (``training.shard_batch``);
+    the serving steps and ``forward`` are not pipelined.
     ``telemetry`` (an ``obs.Telemetry``) gets the MoE layers' ``a2a.layer``
-    spans in ``forward`` and ``loss``."""
+    spans in ``forward`` and ``loss`` (and the pipeline's schedule span and
+    instant)."""
 
     def __init__(self, arch: ArchConfig, plan=None, telemetry=None):
         self.arch = arch
         self.plan = plan
         self.telemetry = telemetry
         self.world = 1 if plan is None else plan.world
+        self.pipelined = plan is not None and plan.pp > 1
         self.vp = arch.padded_vocab(VOCAB_PAD_MULTIPLE)
         self.reps = arch.num_layers // len(arch.block_pattern)
 
     # -- embedding / head ---------------------------------------------------
 
     def _embed(self, params, batch) -> torch.Tensor:
-        return params["embed"][batch["tokens"].long()]
+        return self._embed_rows(params["embed"], batch["tokens"])
+
+    @staticmethod
+    def _embed_rows(table, tokens) -> torch.Tensor:
+        return table[tokens.long()]
 
     def _logits(self, w, x) -> torch.Tensor:
         logits = (x @ w.to(x.dtype)).float()
@@ -236,7 +247,10 @@ class LanguageModel:
 
     def forward(self, params, batch):
         """Uncached forward: (logits (b, s, vp) fp32, {"moe_aux_loss",
-        "moe_z_loss"}, expert loads)."""
+        "moe_z_loss"}, expert loads).  Not under a pipeline plan."""
+        if self.pipelined:
+            raise NotImplementedError("forward under a pipeline plan: use loss (the "
+                                      "pipelined forward) or loss_and_grads")
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
@@ -279,31 +293,134 @@ class LanguageModel:
         over the global token count plus ``(aux + z) / W`` (aux and z are
         global on every rank); the terms sum to the global loss, and so do
         the ranks' gradients.  "loss" and "ce" in the metrics are the
-        rank's terms too (``training`` sums them)."""
+        rank's terms too (``training`` sums them).  Under a pipeline plan
+        the stack is :func:`core.pipeline.pipelined_stack_forward` (the CE
+        on the last stage's ranks only), and "moe_aux_loss" and
+        "moe_z_loss" are the rank's terms as well."""
+        if self.pipelined:
+            return self._pipelined_loss(params, batch)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
             params["blocks"], x, self.arch,
             positions=self._positions(b, s, x.device), train=True, plan=self.plan,
             telemetry=self.telemetry)
-        labels = batch["labels"].long()
-        nc = self._loss_chunks(b, s)
-        if nc <= 1:
-            total_ce = self._ce_sum(params, x, labels)
-        else:
-            sc = s // nc
-            total_ce = x.new_zeros((), dtype=torch.float32)
-            for i in range(nc):
-                part = slice(i * sc, (i + 1) * sc)
-                total_ce = total_ce + checkpoint(
-                    self._ce_sum, params, x[:, part], labels[:, part],
-                    use_reentrant=False)
+        total_ce = self._chunked_ce(params, x, batch["labels"].long())
         w = self.world
         ce = total_ce / (b * s * w)
         total = ce + aux["moe_aux_loss"] / w + aux["moe_z_loss"] / w
         metrics = {"loss": total, "ce": ce, "moe_aux_loss": aux["moe_aux_loss"],
                    "moe_z_loss": aux["moe_z_loss"], "expert_load": loads}
         return total, metrics
+
+    def _chunked_ce(self, params, x, labels) -> torch.Tensor:
+        b, s = x.shape[:2]
+        nc = self._loss_chunks(b, s)
+        if nc <= 1:
+            return self._ce_sum(params, x, labels)
+        sc = s // nc
+        total_ce = x.new_zeros((), dtype=torch.float32)
+        for i in range(nc):
+            part = slice(i * sc, (i + 1) * sc)
+            total_ce = total_ce + checkpoint(
+                self._ce_sum, params, x[:, part], labels[:, part], use_reentrant=False)
+        return total_ce
+
+    # -- pipelined training (core.pipeline) -----------------------------------
+
+    def _pipelined_loss(self, params, batch):
+        """This rank's term of the pipelined loss: the CE of its rows of the
+        last stage's output over the global token count, plus its terms of
+        aux and z (``pipelined_stack_forward``)."""
+        from repro_torch.core import pipeline
+
+        tokens = batch["tokens"]
+        y, aux, z, loads = pipeline.pipelined_stack_forward(
+            params["blocks"], tokens, self.arch, self.plan, embed_fn=self._embed_rows,
+            embed_params=params["embed"], telemetry=self.telemetry)
+        n, s = tokens.shape
+        b = n * self.plan.stage_size
+        ce = (self._chunked_ce(params, y, batch["labels"].long()) / (b * s) if y is not None
+              else aux.new_zeros(()))
+        total = ce + aux + z
+        return total, {"loss": total, "ce": ce, "moe_aux_loss": aux, "moe_z_loss": z,
+                       "expert_load": loads}
+
+    def _head_params(self, params):
+        hp = {"final_norm": params["final_norm"]}
+        if not self.arch.tie_embeddings:
+            hp["lm_head"] = params["lm_head"]
+        return hp
+
+    def _make_head_fn(self):
+        """The per-microbatch loss head of the schedule-executing pipeline:
+        (head_params, embed, y (b_l, s, d), labels) -> summed CE (the final
+        norm, the tied or untied head)."""
+        def head_fn(head_params, embed, y, labels):
+            return self._ce_sum({**head_params, "embed": embed}, y, labels.long())
+
+        return head_fn
+
+    def loss_and_grads(self, params, batch, *, schedule=None, vstages=None,
+                       gather_traces: bool = True):
+        """Pipelined loss AND gradients under a schedule IR
+        (``plan.schedule``/``plan.vstages`` unless overridden; the stage's
+        chunks are cut for the plan's depth, so an override keeps it):
+        ``core.pipeline.pipelined_step`` on this rank's rows ``batch``, the
+        training path for pipeline plans, whose executed op order is the
+        schedule's, not autograd's.
+
+        Returns (loss, grads, metrics): the global loss; gradients in the
+        params' tree (this rank's shard, None for integer tables), summed
+        over their groups (``sharding.reduce_grads_``); "ce", "moe_aux_loss",
+        "moe_z_loss" global, "expert_load" (reps, n_moe_positions, E)
+        gathered over the pp group, and the executed (PP, T) traces
+        ``pipeline_occupancy``, ``pipeline_wstash_occupancy`` and
+        ``pipeline_comm_inflight``, comparable 1:1 with the IR's
+        ``occupancy_trace``, ``wstash_trace`` and ``comm_trace`` (without
+        ``gather_traces``: this stage's (T,) rows, and no collective); beside
+        them ``pipeline_stats`` (this rank's hand-offs sent, their wire
+        bytes, the residual-slot bytes and the schedule)."""
+        from repro_torch import sharding
+        from repro_torch.convert import _unstage_chunks
+        from repro_torch.core import pipeline
+
+        plan = self.plan
+        if not self.pipelined:
+            raise ValueError("loss_and_grads needs a pipeline plan (plan.pp > 1)")
+        tokens = batch["tokens"]
+        (ce, aux, z), g, traces, stats = pipeline.pipelined_step(
+            params["blocks"], tokens, batch["labels"], self.arch, plan,
+            head_fn=self._make_head_fn(), head_params=self._head_params(params),
+            embed_fn=self._embed_rows, embed_params=params["embed"], schedule=schedule,
+            vstages=vstages, telemetry=self.telemetry)
+        grads = {"embed": g["embed"], "blocks": g["blocks"],
+                 "final_norm": g["head"]["final_norm"]}
+        if not self.arch.tie_embeddings:
+            grads["lm_head"] = g["head"]["lm_head"]
+        sharding.reduce_grads_(grads, plan)
+        # aux and z are the same on every rank of a stage: one counts them.
+        own = 1.0 if plan.stage_rank == 0 else 0.0
+        terms = sharding.all_reduce_(torch.stack([ce, aux * own, z * own]),
+                                     plan.world_group)
+        M = plan.num_microbatches
+        n, s = tokens.shape
+        ce_mean = terms[0] / (n * plan.stage_size * s)
+        loss = ce_mean + terms[1] / M + terms[2] / M
+        occ = torch.stack(traces)  # (3, T) on the host
+        if gather_traces:
+            occ = occ.to(tokens.device)
+            parts = [torch.empty_like(occ) for _ in range(plan.pp)]
+            torch.distributed.all_gather(parts, occ, group=plan.pp_group)
+            occ = torch.stack(parts, dim=1).cpu()  # (3, PP, T)
+        occ = occ.numpy()
+        loads = stats.pop("loads")
+        metrics = {"loss": loss, "ce": ce_mean, "moe_aux_loss": terms[1] / M,
+                   "moe_z_loss": terms[2] / M,
+                   "expert_load": None if loads is None else _unstage_chunks(loads, plan),
+                   "pipeline_occupancy": occ[0], "pipeline_wstash_occupancy": occ[1],
+                   "pipeline_comm_inflight": occ[2], "pipeline_stats": stats}
+        return loss, grads, metrics
 
     # -- paged serving (continuous batching) --------------------------------
 

@@ -471,7 +471,7 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
     expert leaves are (E_l, ...), the router and the routing table whole.
     ``token_sharded`` (train, prefill): x is this rank's own tokens,
     dispatched through the EP all-to-all; the metrics are meaned over the
-    world.  With ``seq_shard`` x is replicated over the EP group and the
+    stage group (the world without a pipeline).  With ``seq_shard`` x is replicated over the EP group and the
     layer takes this rank's sequence shard of it and all-gathers the output
     back (the reference's ``P(dp, ("ep", "tp"), None)``).  Otherwise
     (decode) x is replicated over the EP group, each rank computes its own
@@ -481,7 +481,7 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
     span around each token-sharded dispatch/combine."""
     if plan is None or plan.world == 1:
         return moe_ffn_local(params, x, arch, train=train)
-    metric_group = plan.world_group if token_sharded else plan.dp_group
+    metric_group = plan.stage_group if token_sharded else plan.dp_group
     if plan.ep == 1:
         return moe_ffn_local(params, x, arch, train=train, metric_group=metric_group)
     if token_sharded and seq_shard:

@@ -95,14 +95,24 @@ def apply_block(
     return x, metrics, new_cache
 
 
+def num_reps(block_params) -> int:
+    """The pattern reps a stacked block tree holds: the whole stack's, or a
+    pipeline stage's chunks (``convert.shard_params``)."""
+    leaf = block_params[0]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
 def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
                   positions: torch.Tensor, train: bool = False, plan=None,
                   telemetry=None):
-    """Run the full layer stack, token-sharded over ``plan``'s ranks
-    (``train``, ``telemetry``: see :func:`apply_block`).
-    Returns (x, {"moe_aux_loss", "moe_z_loss"} scalars, expert_load (reps,
-    n_moe_positions, E) or None)."""
-    reps = arch.num_layers // len(arch.block_pattern)
+    """Run the layer stack the leaves hold (every rep, or a pipeline
+    chunk's), token-sharded over ``plan``'s ranks (``train``,
+    ``telemetry``: see :func:`apply_block`).  Returns (x, {"moe_aux_loss",
+    "moe_z_loss"} scalars, expert_load (reps, n_moe_positions, E) or
+    None)."""
+    reps = num_reps(block_params)
     per_rep = [unstack(p, reps) for p in block_params]
     aux = z = x.new_zeros((), dtype=torch.float32)
     loads = []

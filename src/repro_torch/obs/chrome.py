@@ -19,10 +19,9 @@ Two producers share the format:
 
 All timestamps/durations are microseconds (the trace_event unit).
 
-The port's copy of ``repro.obs.chrome``.  Its launchers run PP = 1, so
-they write no schedule lanes yet (the pipeline executor is ROADMAP Queue 1
-item 3); ``schedule_lane_events`` renders the port's schedule IR all the
-same.
+The port's copy of ``repro.obs.chrome``.  The train launcher's
+pipelined runs (``--pipeline``) write their schedule's lanes, one a stage,
+beside the telemetry of rank 0.
 """
 
 from __future__ import annotations

@@ -43,6 +43,13 @@ writes the files a world-1 run writes, and every rank restores from them,
 taking its own expert slots, so a checkpoint written at one EP degree
 resumes at another.  The fault sites fire on every rank; the launcher
 passes rank 0 alone a printing ``log_fn`` and metric sinks.
+
+Under a pipeline plan (``plan.pp`` > 1) the step is the schedule-executing
+one (``core.pipeline``; ``[trainer] pipelined: PP=... schedule=...`` in the
+log) and the load feed gets the loads gathered over the pp group.  A
+checkpoint directory, and a migration at EP > 1, are refused there: the
+checkpoint's gather over the pp group and the per-stage load stats are
+ROADMAP Queue 1 item 3b.
 """
 
 from __future__ import annotations
@@ -67,6 +74,9 @@ from repro_torch.models.model import LanguageModel, tree_paths
 from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.faults import FaultInjector, TransientDataError
 from repro_torch.training import _host, make_train_step
+
+PP_TODO = ("is not ported yet under a pipeline (ROADMAP.md Queue 1 item 3b: the "
+           "checkpoint's gather over the pp group and the per-stage load stats)")
 
 
 @dataclass
@@ -100,6 +110,14 @@ class Trainer:
                  cfg: TrainerConfig, log_fn: Callable[[str], None] = print,
                  injector: Optional[FaultInjector] = None,
                  telemetry: Optional[obs.Telemetry] = None):
+        plan = lm.plan
+        if plan is not None and plan.pp > 1:
+            if cfg.checkpoint_dir:
+                raise NotImplementedError(f"checkpointing at PP={plan.pp} {PP_TODO}")
+            if plan.ep > 1 and lm.arch.moe and cfg.migrate_every <= cfg.total_steps:
+                raise NotImplementedError(
+                    f"expert migration at PP={plan.pp} x EP={plan.ep} {PP_TODO}; set the "
+                    f"migration interval above the run's steps")
         self.lm = lm
         self.cfg = cfg
         self.opt_cfg = opt_cfg
@@ -181,7 +199,7 @@ class Trainer:
 
         plan = self.plan
         b, s = self._batch_shape
-        setup = rm.TrainSetup(b=b, s=s, PP=1, EP=plan.ep, DP=plan.dp,
+        setup = rm.TrainSetup(b=b, s=s, PP=plan.pp, EP=plan.ep, DP=plan.dp,
                               dispatch=self.lm.arch.moe.dispatch, imbalance=imb,
                               replicas=n_replicas)
         est = rm.estimate(rm.ModelShape.from_arch(self.lm.arch), setup,
@@ -369,6 +387,11 @@ class Trainer:
 
     def _fit(self, state, data: Iterator) -> Dict[str, Any]:
         tel = self.telemetry
+        plan = self.lm.plan
+        if plan is not None and plan.pp > 1:
+            self.log(f"[trainer] pipelined: PP={plan.pp} schedule={plan.schedule} "
+                     + (f"V={plan.vstages} " if plan.vstages > 1 else "")
+                     + f"(M={plan.num_microbatches})")
         # The step counter lives on the host (training.init_state): no fetch.
         start_step = int(state["step"])
         if self.ckpt is not None:

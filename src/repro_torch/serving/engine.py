@@ -138,7 +138,7 @@ def check_ep(ep: int) -> None:
     if MIN_BUCKET % ep:
         raise ValueError(f"ep={ep} does not divide the prefill buckets (powers of two "
                          f"from {MIN_BUCKET}): serving takes ep 1, 2, 4 or 8 (a prefill "
-                         f"padded to a multiple of ep is ROADMAP.md Queue 1 item 3)")
+                         f"padded to a multiple of ep is ROADMAP.md Queue 1 item 3b)")
 
 
 class Engine:

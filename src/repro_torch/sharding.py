@@ -1,25 +1,38 @@
-"""Mesh plan: Piper's EP x DP layout over ``torch.distributed`` ranks.
+"""Mesh plan: Piper's PP x EP x DP layout over ``torch.distributed`` ranks.
 
 The port of ``repro.sharding``.  The reference refines a device mesh
-``(data, model)`` into ``(data, ep, tp)`` with ``ep = gcd(E, |model|)``; here
-the same grid is laid over the ranks of the default process group in
-row-major order, ``rank = (d * ep + e) * tp + t``, and each axis the MoE
-layer reduces or exchanges over gets its own process group:
+``(data, model)`` or ``(pod, data, model)`` into ``(pod, data, ep, tp)``
+with ``ep = gcd(E, |model|)``; here the same grid is laid over the ranks of
+the default process group in row-major order,
+``rank = ((p * D + d) * ep + e) * tp + t``, and each axis the model reduces,
+exchanges or hands off over gets its own process group:
 
-* the **EP group** of a rank: the ``ep`` ranks that share its (d, t); its
-  expert-parallel all-to-all runs there, and the rank's group rank is e;
-* the **data group**: the ``D`` ranks that share its (e, t), which hold the
-  same expert slots and sum their gradients;
-* the **world**: every rank; the non-expert gradients and the token-sharded
-  aux-loss totals are summed over it;
+* the **EP group** of a rank: the ``ep`` ranks that share its (p, d, t);
+  its expert-parallel all-to-all runs there, and the rank's group rank is e;
+* the **data group**: the ``D`` ranks that share its (p, e, t), which hold
+  the same expert slots of the same stage and sum their gradients;
+* the **stage group**: the ``D * ep * tp`` ranks of its pipeline stage p,
+  which hold the same stage's non-expert weights; the token-sharded MoE
+  metrics (aux losses, expert loads) are meaned over it;
+* the **pp group**: the ``P`` ranks that share its (d, e, t), one a stage,
+  between which the pipeline hands microbatches off
+  (``core.pipeline``);
+* the **world**: every rank; the embedding and head gradients are summed
+  over it;
 * with ``hierarchical_a2a``, HALO's lane and node subgroups of the EP group
   (``core.halo``).
 
+Without ``pipeline_on_pod`` the pod axis joins data, as the reference's
+``dp_axes = ("pod", "data")`` does: the grid is ``(P * D, model)`` and the
+stage group is the world.  With it, ``pp = P`` stages run the schedule
+``schedule`` (``vstages`` virtual stages a stage for ``interleaved_1f1b``)
+over ``microbatches`` microbatches (None: 2 * PP), the hand-offs in int8
+with ``compress_p2p`` (``core.compression``).
+
 Layout (the reference's expert-data parallelism): non-expert weights are
-replicated, each EP rank holds the physical expert slots
+replicated within a stage, each EP rank holds the physical expert slots
 ``[e * E_l, (e + 1) * E_l)`` whole, and every rank routes its own tokens.
-TP > 1 is refused: it waits for the pipeline executor (ROADMAP Queue 1
-item 3).
+TP > 1 is refused (ROADMAP Queue 1, item 3b).
 
 ``dist.new_group`` is collective over the whole world: every rank creates
 every group, its own or not, in one fixed order, or the run hangs.  A
@@ -36,11 +49,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import DEFAULT_SCHEDULE, SCHEDULES, ArchConfig
 from repro_torch.core.halo import _pick_inner, lane_groups, node_groups
 
 TP_TODO = ("tensor parallelism (tp > 1) is not ported yet (ROADMAP.md Queue 1, "
-           "item 3)")
+           "item 3b)")
 
 
 def choose_ep(num_experts: int, model_axis: int) -> int:
@@ -51,11 +64,13 @@ def choose_ep(num_experts: int, model_axis: int) -> int:
 
 @dataclass
 class MeshPlan:
-    """A (data, ep, tp) grid over the default process group and this
-    rank's place in it.  ``ep_group``, ``dp_group``, ``world_group``,
-    ``lane_group`` and ``node_group`` are process groups, or None where the
-    group is one rank (or, for the HALO pair, where HALO is off or
-    degenerates to the flat collective)."""
+    """A (pod, data, ep, tp) grid over the default process group and this
+    rank's place in it.  ``ep_group``, ``dp_group``, ``stage_group``,
+    ``pp_group``, ``world_group``, ``lane_group`` and ``node_group`` are
+    process groups, or None where the group is one rank (or, for the HALO
+    pair, where HALO is off or degenerates to the flat collective).
+    ``pp`` > 1 only with ``pipeline_on_pod`` (``make_plan``); the pipeline
+    fields are consulted only then."""
 
     dp: int
     ep: int
@@ -64,9 +79,22 @@ class MeshPlan:
     hierarchical_a2a: bool = False
     a2a_chunks: int = 1
     g1: int = 1  # HALO lane width; 1 = flat
+    pp: int = 1
+    # Pipeline schedule (a core.schedules builder name) and virtual stages
+    # a stage (> 1 only with interleaved_1f1b; must divide the layer reps
+    # a stage); microbatches (None: 2 * pp); int8 hand-offs.
+    schedule: str = DEFAULT_SCHEDULE
+    vstages: int = 1
+    microbatches: Optional[int] = None
+    compress_p2p: bool = False
+    # The batch-sharding axes, as the reference names them: ("pod", "data")
+    # where a pod axis joined data, else ("data",).
+    dp_axes: Tuple[str, ...] = ("data",)
     world_group: Optional[object] = None
     ep_group: Optional[object] = None
     dp_group: Optional[object] = None
+    stage_group: Optional[object] = None
+    pp_group: Optional[object] = None
     lane_group: Optional[object] = None
     node_group: Optional[object] = None
 
@@ -75,30 +103,62 @@ class MeshPlan:
             raise NotImplementedError(TP_TODO)
         if self.a2a_chunks < 1:
             raise ValueError(f"a2a_chunks must be >= 1, got {self.a2a_chunks}")
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"unknown schedule {self.schedule!r}; choose from "
+                             f"{SCHEDULES}")
+        if self.vstages < 1 or (self.vstages > 1 and self.schedule != "interleaved_1f1b"):
+            raise ValueError(f"vstages={self.vstages} needs schedule='interleaved_1f1b', "
+                             f"got {self.schedule!r}")
 
     @property
     def world(self) -> int:
+        return self.pp * self.dp * self.ep * self.tp
+
+    @property
+    def stage_size(self) -> int:
+        """Ranks a pipeline stage: D * ep * tp."""
         return self.dp * self.ep * self.tp
 
     @property
     def coords(self) -> Tuple[int, int, int]:
-        """This rank's (d, e, t)."""
+        """This rank's (d, e, t) within its stage."""
         t = self.rank % self.tp
         e = (self.rank // self.tp) % self.ep
-        return self.rank // (self.ep * self.tp), e, t
+        return (self.rank // (self.ep * self.tp)) % self.dp, e, t
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage p."""
+        return self.rank // self.stage_size
+
+    @property
+    def stage_rank(self) -> int:
+        """This rank's place in its stage group, (d * ep + e) * tp + t."""
+        return self.rank % self.stage_size
 
     @property
     def ep_rank(self) -> int:
         return self.coords[1]
 
     @property
+    def num_microbatches(self) -> int:
+        return self.microbatches or 2 * self.pp
+
+    @property
     def a2a_algo(self) -> str:
         return "halo" if self.hierarchical_a2a else "flat"
 
+    def stage_peer(self, p: int) -> int:
+        """The global rank at stage ``p`` with this rank's (d, e, t)."""
+        return p * self.stage_size + self.stage_rank
+
     def describe(self) -> str:
         """The reference launcher's ``[mesh]`` line."""
-        return (f"[mesh] devices={self.world} ep={self.ep} tp={self.tp} pp=1 "
-                f"dp_axes=('data',) a2a={self.a2a_algo} x{self.a2a_chunks} chunks")
+        return (f"[mesh] devices={self.world} ep={self.ep} tp={self.tp} pp={self.pp} "
+                f"dp_axes={self.dp_axes} a2a={self.a2a_algo} x{self.a2a_chunks} chunks"
+                + (f" schedule={self.schedule}" if self.pp > 1 else "")
+                + (f" vstages={self.vstages}" if self.pp > 1 and self.vstages > 1 else "")
+                + (" compress_p2p" if self.pp > 1 and self.compress_p2p else ""))
 
 
 def _keep(plan: MeshPlan, attr: str, ranks: Sequence[int], mine: bool) -> None:
@@ -112,50 +172,79 @@ def _keep(plan: MeshPlan, attr: str, ranks: Sequence[int], mine: bool) -> None:
 
 
 def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
-              hierarchical_a2a: bool = False, a2a_chunks: int = 1) -> MeshPlan:
-    """Bind ``arch`` to a ``(data, model)`` grid over the initialised
-    default process group (whose size must be data * model), refining the
-    model axis into (ep, tp) by the expert count, and create its groups
-    (on the world's backend)."""
-    if len(mesh_shape) != 2:
-        raise ValueError(f"mesh {tuple(mesh_shape)}: need (data, model); the pod "
-                         f"axis waits for the pipeline executor (ROADMAP.md Queue 1, "
-                         f"item 3)")
-    data, model = (int(n) for n in mesh_shape)
+              pipeline_on_pod: bool = False, schedule: str = DEFAULT_SCHEDULE,
+              vstages: int = 1, microbatches: Optional[int] = None,
+              compress_p2p: bool = False, hierarchical_a2a: bool = False,
+              a2a_chunks: int = 1) -> MeshPlan:
+    """Bind ``arch`` to a ``(data, model)`` or ``(pod, data, model)`` grid
+    over the initialised default process group (whose size must be the
+    grid's), refining the model axis into (ep, tp) by the expert count, and
+    create its groups (on the world's backend).  With ``pipeline_on_pod``
+    the pod axis is the pipeline (pp = P); without it the pod joins data."""
+    if len(mesh_shape) not in (2, 3):
+        raise ValueError(f"mesh {tuple(mesh_shape)}: need (data, model) or "
+                         f"(pod, data, model)")
+    pod = int(mesh_shape[0]) if len(mesh_shape) == 3 else 1
+    data, model = (int(n) for n in mesh_shape[-2:])
+    if pipeline_on_pod and len(mesh_shape) != 3:
+        raise ValueError("pipeline_on_pod requires a pod axis")
+    pp = pod if pipeline_on_pod else 1
+    if not pipeline_on_pod:
+        data *= pod
     n_exp = arch.moe.num_experts if arch.moe is not None else model
     ep = choose_ep(n_exp, model)
     tp = model // ep
     if tp != 1:
-        raise NotImplementedError(f"mesh {data},{model}: ep = gcd({n_exp}, {model}) = "
-                                  f"{ep}, tp = {tp}; {TP_TODO}")
-    world = data * model
+        raise NotImplementedError(f"mesh {','.join(map(str, mesh_shape))}: ep = "
+                                  f"gcd({n_exp}, {model}) = {ep}, tp = {tp}; {TP_TODO}")
+    world = pp * data * model
+    kw = dict(hierarchical_a2a=hierarchical_a2a, a2a_chunks=a2a_chunks, pp=pp,
+              schedule=schedule, vstages=vstages, microbatches=microbatches,
+              compress_p2p=compress_p2p,
+              dp_axes=("pod", "data") if len(mesh_shape) == 3 and not pipeline_on_pod
+              else ("data",))
     if world == 1:
-        return MeshPlan(dp=1, ep=1, hierarchical_a2a=hierarchical_a2a,
-                        a2a_chunks=a2a_chunks)
+        return MeshPlan(dp=1, ep=1, **kw)
     if not dist.is_initialized() or dist.get_world_size() != world:
         have = dist.get_world_size() if dist.is_initialized() else "no process group"
-        raise ValueError(f"mesh {data},{model} needs {world} ranks, have {have}")
-    rank = dist.get_rank()
-    plan = MeshPlan(dp=data, ep=ep, rank=rank, hierarchical_a2a=hierarchical_a2a,
-                    a2a_chunks=a2a_chunks)
+        raise ValueError(f"mesh {','.join(map(str, mesh_shape))} needs {world} ranks, "
+                         f"have {have}")
+    plan = MeshPlan(dp=data, ep=ep, rank=dist.get_rank(), **kw)
     d, e, _ = plan.coords
+    p, n = plan.pp_rank, plan.stage_size
     plan.world_group = dist.group.WORLD
+    plan.stage_group = plan.world_group if pp == 1 else None
     # Every rank creates every group in the same order (new_group is
     # collective); each rank keeps its own.
-    for dd in range(data):
-        _keep(plan, "ep_group", [dd * ep + x for x in range(ep)], dd == d)
-    for ee in range(ep):
-        _keep(plan, "dp_group", [x * ep + ee for x in range(data)], ee == e)
+    if pp > 1:
+        for pp_ in range(pp):
+            _keep(plan, "stage_group", [pp_ * n + x for x in range(n)], pp_ == p)
+        for x in range(n):
+            _keep(plan, "pp_group", [pp_ * n + x for pp_ in range(pp)], x == plan.stage_rank)
+    for pp_ in range(pp):
+        for dd in range(data):
+            _keep(plan, "ep_group", [pp_ * n + dd * ep + x for x in range(ep)],
+                  (pp_, dd) == (p, d))
+        for ee in range(ep):
+            _keep(plan, "dp_group", [pp_ * n + x * ep + ee for x in range(data)],
+                  (pp_, ee) == (p, e))
     g1 = _pick_inner(ep)
     if hierarchical_a2a and 1 < g1 < ep:
         plan.g1 = g1
-        for dd in range(data):
-            for lanes in lane_groups(ep, g1):
-                _keep(plan, "lane_group", [dd * ep + x for x in lanes],
-                      dd == d and e in lanes)
-            for nodes in node_groups(ep, g1):
-                _keep(plan, "node_group", [dd * ep + x for x in nodes],
-                      dd == d and e in nodes)
+        for pp_ in range(pp):
+            for dd in range(data):
+                base = pp_ * n + dd * ep
+                for lanes in lane_groups(ep, g1):
+                    _keep(plan, "lane_group", [base + x for x in lanes],
+                          (pp_, dd) == (p, d) and e in lanes)
+                for nodes in node_groups(ep, g1):
+                    _keep(plan, "node_group", [base + x for x in nodes],
+                          (pp_, dd) == (p, d) and e in nodes)
+    if pp > 1:
+        # The pipeline's hand-offs are batched point-to-point calls on the
+        # world group, and NCCL wants every rank of a group in its first
+        # such call: a barrier first makes that hold.
+        dist.barrier()
     return plan
 
 
@@ -221,3 +310,22 @@ def sum_leaves_(leaves, group) -> None:
     buf = all_reduce_(torch.cat([t.reshape(-1) for t in leaves]), group)
     for t, part in zip(leaves, buf.split([t.numel() for t in leaves])):
         t.copy_(part.view_as(t))
+
+
+def reduce_grads_(grads, plan) -> None:
+    """Sum this rank's partial gradients (a params-shaped tree, None for
+    integer tables) in place into the global ones: the non-expert block
+    leaves over the stage group (the ranks that hold the same stage), the
+    expert leaves over the data group (the same slots of the same stage),
+    and ``embed``, ``final_norm`` and ``lm_head`` over the world (every
+    stage's and data rank's part; the reference's sum over stages)."""
+    from repro_torch.models.model import tree_paths  # the model imports this module
+
+    flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
+    experts = expert_paths(flat)
+    dense = [k for k in flat if k not in experts]
+    if plan.pp > 1:
+        sum_leaves_([flat[k] for k in dense if k.startswith("blocks/")], plan.stage_group)
+        dense = [k for k in dense if not k.startswith("blocks/")]
+    sum_leaves_([flat[k] for k in dense], plan.world_group)
+    sum_leaves_([flat[k] for k in sorted(experts)], plan.dp_group)

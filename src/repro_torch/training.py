@@ -8,7 +8,11 @@ runs in place (``optim.adamw_update``).  Over the ranks of the model's
 ``sharding.MeshPlan`` each rank takes its own rows of the global batch,
 differentiates its term of the global loss, and sums the gradients: the
 replicated (non-expert) ones over the world, the expert ones over the data
-group (the ranks that hold the same expert slots).
+group (the ranks that hold the same expert slots).  Under a pipeline plan
+the step is the schedule-executing one (``LanguageModel.loss_and_grads``,
+``core.pipeline``): each rank takes its rows of every microbatch, and the
+block gradients are summed over the rank's stage (``sharding
+.reduce_grads_``).
 ``make_prefill_step`` / ``make_decode_step`` cast every floating leaf to
 the compute dtype and run ``LanguageModel.prefill`` / ``decode_step``
 without autograd.
@@ -77,11 +81,27 @@ def make_decode_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloa
 
 
 def shard_batch(batch, plan):
-    """This rank's rows of a global batch: ``b / world`` whole sequences
-    (rank r takes rows ``[r * b_l, (r + 1) * b_l)``)."""
+    """This rank's rows of a global batch.  Without a pipeline: ``b /
+    world`` whole sequences, rank r rows ``[r * b_l, (r + 1) * b_l)``.
+    Under one: microbatch mb is rows ``[mb * b_mu, (mb + 1) * b_mu)`` (the
+    reference's ``x.reshape(M, b_mu, ...)``), and the rank at place g of
+    its stage group takes ``b_l = b_mu / stage_size`` whole sequences of
+    each, ``[mb * b_mu + g * b_l, mb * b_mu + (g + 1) * b_l)``, in
+    microbatch order; the microbatches are the reference's."""
     out = {}
     for k, v in batch.items():
         b = v.shape[0]
+        if plan.pp > 1:
+            M, G = plan.num_microbatches, plan.stage_size
+            if b % (M * G):
+                raise ValueError(f"batch {b} does not split into {M} microbatches of "
+                                 f"{G} ranks' whole sequences (b % (M * D * ep) != 0)")
+            b_mu, bl = b // M, b // (M * G)
+            g = plan.stage_rank
+            rows = [v[mb * b_mu + g * bl:mb * b_mu + (g + 1) * bl] for mb in range(M)]
+            out[k] = (torch.cat(rows) if isinstance(v, torch.Tensor)
+                      else np.concatenate(rows))
+            continue
         if b % plan.world:
             raise ValueError(f"batch {b} does not split over {plan.world} ranks")
         bl = b // plan.world
@@ -90,41 +110,57 @@ def shard_batch(batch, plan):
 
 
 def loss_and_grads(lm: LanguageModel, params, batch,
-                   compute_dtype: torch.dtype = torch.bfloat16):
+                   compute_dtype: torch.dtype = torch.bfloat16, *, autograd: bool = False):
     """Differentiate ``lm.loss`` at ``params`` (this rank's shard) on
     ``batch`` (the global batch; device tensors or host arrays).  Returns
     (loss, metrics, grads) with detached metrics and ``grads`` in the
     params' tree (None for integer tables).  Over several ranks each takes
     its rows (:func:`shard_batch`), and the gradients are summed in place
-    into the global ones (the replicated leaves over the world, the expert
-    leaves over the data group), the loss and "ce" terms likewise."""
+    into the global ones (``sharding.reduce_grads_``), the loss and "ce"
+    terms likewise.  Under a pipeline plan it is the schedule-executing
+    ``lm.loss_and_grads`` (its traces not gathered), unless ``autograd``:
+    then autograd through the pipelined forward, the GPipe-ordered oracle
+    (its "moe_aux_loss" and "moe_z_loss" terms summed too)."""
     plan = lm.plan if lm.world > 1 else None
     if plan is not None:
         batch = shard_batch(batch, plan)
     device = params["embed"].device
     batch = {k: _to_device(v, device) for k, v in batch.items()}
+    if lm.pipelined and not autograd:
+        loss, grads, metrics = lm.loss_and_grads(_cast(params, compute_dtype), batch,
+                                                 gather_traces=False)
+        for k in ("pipeline_occupancy", "pipeline_wstash_occupancy",
+                  "pipeline_comm_inflight", "pipeline_stats"):
+            metrics.pop(k)
+        return loss, metrics, grads
     leaves = [p for p in tree_paths(params).values() if p.is_floating_point()]
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss, metrics = lm.loss(_cast(params, compute_dtype), batch)
-        flat_grads = iter(torch.autograd.grad(loss, leaves))
+        # A pipeline stage uses only some leaves (the head on the last).
+        flat_grads = iter(torch.autograd.grad(loss, leaves, allow_unused=lm.pipelined))
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    grads = map_tree(lambda p: next(flat_grads) if p.is_floating_point() else None, params)
+
+    def grad_of(p):
+        if not p.is_floating_point():
+            return None
+        g = next(flat_grads)
+        return torch.zeros_like(p) if g is None else g
+
+    grads = map_tree(grad_of, params)
     loss = loss.detach()
     metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in metrics.items()}
     if plan is not None:
-        flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
-        experts = sharding.expert_paths(flat)
-        sharding.sum_leaves_([g for k, g in flat.items() if k not in experts],
-                             plan.world_group)
-        sharding.sum_leaves_([flat[k] for k in sorted(experts)], plan.dp_group)
-        terms = sharding.all_reduce_(torch.stack([loss, metrics["ce"]]), plan.world_group)
-        loss, metrics["ce"] = terms[0], terms[1]
-        metrics["loss"] = loss
+        sharding.reduce_grads_(grads, plan)
+        keys = ["loss", "ce"] + (["moe_aux_loss", "moe_z_loss"] if lm.pipelined else [])
+        terms = sharding.all_reduce_(torch.stack([metrics[k] for k in keys]),
+                                     plan.world_group)
+        metrics.update(zip(keys, terms))
+        loss = metrics["loss"]
     return loss, metrics, grads
 
 
@@ -134,24 +170,34 @@ def _global_norm(grads, plan, params):
     slot, all-gathered over the EP group and added up in LOGICAL expert
     order (through the params' ``assignment``), so that an expert
     migration, which only relabels slots, leaves the norm's bits (and so
-    the clip) unchanged."""
+    the clip) unchanged.  Under a pipeline plan the block leaves' squares
+    (a stage's chunks) are added over the pp group."""
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
     experts = sorted(sharding.expert_paths(flat))
-    dense = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                         for k, g in flat.items() if k not in experts]).square().sum()
-    if not experts:
-        return dense.sqrt()
-    slots = torch.stack([flat[k].float().square().sum(dim=tuple(range(2, flat[k].dim())))
-                         for k in experts])  # (leaves, reps, E_l)
-    parts = [slots]
-    if plan.ep > 1:
-        parts = [torch.empty_like(slots) for _ in range(plan.ep)]
-        torch.distributed.all_gather(parts, slots, group=plan.ep_group)
-    tables = tree_paths(params)
-    assign = torch.stack([tables[k.rpartition("/")[0] + "/assignment"].long()
-                          for k in experts])  # (leaves, reps, E)
-    logical = torch.cat(parts, dim=2).gather(2, assign)
-    return (dense + logical.sum()).sqrt()
+
+    def squares(keys):
+        return torch.stack([torch.linalg.vector_norm(flat[k], dtype=torch.float32)
+                            for k in keys]).square().sum()
+
+    dense = [k for k in flat if k not in experts]
+    if plan.pp > 1:  # a stage's chunks here, the embedding and head on every stage
+        rest = squares([k for k in dense if not k.startswith("blocks/")])
+        dense = [k for k in dense if k.startswith("blocks/")]
+    total = squares(dense)
+    if experts:
+        slots = torch.stack([flat[k].float().square().sum(
+            dim=tuple(range(2, flat[k].dim()))) for k in experts])  # (leaves, reps, E_l)
+        parts = [slots]
+        if plan.ep > 1:
+            parts = [torch.empty_like(slots) for _ in range(plan.ep)]
+            torch.distributed.all_gather(parts, slots, group=plan.ep_group)
+        tables = tree_paths(params)
+        assign = torch.stack([tables[k.rpartition("/")[0] + "/assignment"].long()
+                              for k in experts])  # (leaves, reps, E)
+        total = total + torch.cat(parts, dim=2).gather(2, assign).sum()
+    if plan.pp > 1:
+        total = sharding.all_reduce_(total.clone(), plan.pp_group) + rest
+    return total.sqrt()
 
 
 def _host(t: torch.Tensor):

@@ -354,7 +354,7 @@ def _args(argv):
     (["--mesh", "1,3"], 3, "tp = 3"),
     (["--mesh", "2,2", "--backend", "nccl"], 4, "NCCL will not put two ranks"),
     (["--mesh", "1,4"], 2, "needs 4 ranks"),
-    (["--mesh", "2,1,4"], 8, "pod axis"),
+    (["--mesh", "1,4", "--pipeline"], 4, "pod axis"),
 ], ids=["tp", "nccl-one-card", "world", "pod"])
 def test_launch_refusals(argv, world, match):
     arch = get_arch("granite-moe-3b-a800m").reduced()

@@ -450,7 +450,9 @@ def test_train_launcher_metrics_out(tmp_path, capsys):
     names = [json.loads(line)["name"] for line in out.read_text().splitlines()]
     assert names.count("train.step") == 3
     assert "[planner] production-strategy for granite-moe-3b-a800m @256xh100-sxm:" in text
-    assert "printed, not bound" in text and "== drift granite-moe-3b-a800m-reduced" in text
+    assert "[planner] schedule zb_h1 vstages 1 (the planner's choice): bound with " \
+        "--pipeline; this run is PP = 1" in text
+    assert "== drift granite-moe-3b-a800m-reduced" in text
     assert "mem_stage0" in text and "[obs]" in text
     assert s["dispatch"] == "ragged"  # the H100 production strategy's
 
