@@ -161,7 +161,37 @@ Phases, each printing its own lines; any failure exits non-zero:
    modeled mem_stage0.  (g) Each schedule's step seconds, bubble fraction
    (``bubble_fraction`` and the IR's idle share), hand-offs and their
    bytes, residual-slot bytes.  gloo stages every hand-off through the
-   host: no time here measures NVLink or NCCL p2p.
+   host: no time here measures NVLink or NCCL p2p;
+15. mesh: the rest of the pod axis, gloo ranks sharing the card, granite
+   at full width, ragged, cf 16, bf16 compute.  (a) The three ragged
+   kernels over a tp lane's receiver buffer (forward and backward), the
+   decode step of a data rank's share, the grouped GEMMs of the capacity
+   paths and flash attention at every prefill bucket, against their plain
+   versions.  (b) Six ranks at ``--mesh 1,6`` (ep 2 x tp 3), depth 2, 6 x
+   512: loss and gathered gradients against the data grid ``--mesh 3,2``
+   (the same sequence a rank, EP 2, no tp) at phase 12's gates (halved
+   expert gradients must fail them), one AdamW step against the grid's as
+   in phase 12, both grids against world 1 at the reference's EP gates
+   (loss 2e-3, element-wise 2e-3, the embedding's relative norm 0.05), and
+   the tp lanes of each EP rank holding bitwise-equal params after the
+   step.  (c) The same ranks serving 4 requests under both dispatches:
+   tokens equal world 1's.  (d) Two ranks at PP 2, depth 4, 1f1b, 4 x
+   512, M 4, aux 0: run A uninterrupted; run B NaN x 3 -> rollback ->
+   SIGTERM -> final save, its resume on another seed's state bitwise A
+   (else no further from A than a repeat A2); the PP 2 checkpoint restored
+   at world 1 and at PP 2 under interleaved_1f1b V 2 with CRC32s equal the
+   manifest's; checkpoint bytes, save and restore seconds.  (e) Four ranks
+   at PP 2 x EP 2 (2,1,2), depth 4, 4 x 256, M 2, tokens in [0, 4):
+   migrations every 2 of 4 steps, each rank's params, m and v bitwise the
+   manual permutation of its stage's slots, the loss trajectory bitwise a
+   permuted-init run's (else 1e-6), a checkpoint saved after them restored
+   at world 1 with CRC32s equal; one migration's seconds and all-gathered
+   bytes.  (f) The same four ranks serving at ``--mesh 2,2`` and ``2,1,2``
+   (the pod joining data), depth 2, both dispatches: tokens equal world
+   1's.  Launch counts zeroed after the world-1 references and read at the
+   end on each rank; every kernel of the phase's paths must be there, none
+   through ``/fma``.  Step seconds and peak GB a rank for each grid are
+   printed, not gated.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -2689,6 +2719,743 @@ def pipeline_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of the pod axis (tp lanes, checkpointing and migration
+# under a pipeline, serving data parallelism), gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_TP, MESH_TP_BATCH = (1, 6), (6, 512)  # ep = gcd(40, 6) = 2, tp = 3
+# The tp grid's control: D 3 x ep 2, the same sequence a rank and the same
+# EP degree, no tp lanes.  In bf16 compute both lie as far from world 1 at
+# 6 x 512 (a worst leaf 2.6e-2 of its largest magnitude, past phase 12's
+# 0.02, which was set at 2 x 512); against each other only the expert
+# gradients differ, by the bf16 rounding of each rank's partial sum.
+MESH_TP_CONTROL = (3, 2)
+# (d) at PIPE_M microbatches; (e) at 2, a sequence a rank of each and
+# phase 13's 1024 tokens a step (every layer's all-to-all ships the cf-16
+# wire through gloo, about 6 s a step at 4 x 512).
+MESH_PP_BATCH, MESH_PP_EP_BATCH, MESH_PP_EP_M = (4, 512), (4, 256), 2
+# Run B of (d): checkpoints every 2 steps (keep 2), NaN at steps 2-4 ->
+# rollback to 2, SIGTERM at 5 -> final save; its resume runs to 6.
+MESH_CK = dict(steps=6, every=2, keep=2, nan=2, sigterm=5)
+MESH_MIG_STEPS = 4  # migrations every MIG_EVERY steps
+MESH_DP = ((2, 2), (2, 1, 2))  # D 2 x ep 2; the pod joining data
+MESH_SERVE = dict(requests=4, prompt=(64, 256), max_new=8, max_seqs=4)
+PATH_KERNELS["mesh"] = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
+                        "ragged_matmul_f32", "ragged_dw_f32")
+
+
+def mesh_prompts(vocab: int) -> list:
+    """The serving runs' prompts (``MESH_SERVE``), from seed 0."""
+    rng = np.random.default_rng(0)
+    lo, hi = MESH_SERVE["prompt"]
+    return [rng.integers(0, vocab, size=int(n))
+            for n in rng.integers(lo, hi + 1, size=MESH_SERVE["requests"])]
+
+
+def mesh_kernel_checks(dev) -> None:
+    """(a) The kernels of phase 15's paths against their plain versions at
+    its shapes (granite full width, EP 2 so E_l = 20, cf ``EP_CF``): the
+    three ragged kernels over one tp lane's receiver buffer (a rank's 512
+    training tokens from each of the two EP ranks of its lane, sorted by
+    local expert into S = E_l x C slots, the sentinel tail NaN, which must
+    come back 0), forward and backward; the decode step of a data rank's
+    share of ``max_seqs`` (ragged over its rows, the grouped GEMMs over
+    (E_l, C, d)); the grouped GEMMs of a prefill bucket's EP shard; and
+    flash attention at every prefill bucket of the serving prompts (one
+    request, 24 / 8 heads of 64), against its fp32 plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+    from repro_torch.models.moe import _capacity
+    from repro_torch.serving.engine import _bucket
+
+    arch = get_arch(ARCH)
+    moe = dataclasses.replace(arch.moe, capacity_factor=EP_CF)
+    d, f, E, k, ep = arch.d_model, moe.d_ff, moe.num_experts, moe.top_k, 2
+    E_l, bf16 = E // ep, torch.bfloat16
+    g, randn, _ = seeded_inputs(dev, E, k, seed=6)
+    wg, wu = (randn(E_l, d, f, scale=d ** -0.5, dtype=bf16) for _ in range(2))
+    wd = randn(E_l, f, d, scale=f ** -0.5, dtype=bf16)
+    wgt, wdt = mm_ops._transposed(wg), mm_ops._transposed(wd)
+    n_checks, t0 = 0, time.perf_counter()
+
+    def local_ids(tokens: int) -> torch.Tensor:
+        ids = torch.rand((tokens, E), generator=g, device=dev).argsort(dim=1)[:, :k]
+        return torch.where(ids < E_l, ids, E_l).reshape(-1)
+
+    def offsets_of(ids: torch.Tensor) -> torch.Tensor:
+        counts = torch.bincount(ids, minlength=E_l + 1)[:E_l]
+        return torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+
+    def nan_tail(rows, cols, n, dtype=torch.float32, scale=1.0):
+        t = randn(rows, cols, scale=scale, dtype=dtype)
+        t[n:] = float("nan")
+        return t
+
+    def held(name, got, want, tol=GEMM_TOL, n=None):
+        nonlocal n_checks
+        n_checks += 1
+        check(f"mesh path {name}", got, want, tol)
+        if n is not None and not bool((got[n:] == 0).all()):
+            fail(f"mesh path {name}: rows past offsets[E_l] are not 0")
+
+    # The lane's receiver buffer: each source packs its rows for this rank
+    # sorted by local expert into S slots, sentinel after.
+    T = MESH_TP_BATCH[0] * MESH_TP_BATCH[1] // (MESH_TP[0] * MESH_TP[1])
+    S = E_l * _capacity(T, moe)
+    recv = torch.full((ep, S), E_l, dtype=torch.long, device=dev)
+    for src in range(ep):
+        lid = local_ids(T).sort().values
+        lid = lid[lid < E_l][:S]
+        recv[src, :lid.numel()] = lid
+    order = recv.reshape(-1).argsort(stable=True)
+    offs = offsets_of(recv.reshape(-1)[order])
+    R, n = ep * S, int(offs[-1])
+    shape = f"tp lane T={T} R={R} occupied={n} E_l={E_l}"
+    x = nan_tail(R, d, n, bf16)
+    for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
+                        mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs)):
+        held(f"ragged_gate_up_silu_f32 {shape} {nm}", a, b, n=n)
+    h = nan_tail(R, f, n)
+    held(f"ragged_matmul_f32 {shape} down fp32 h", mm_ops.ragged_matmul_f32(h, wd, offs),
+         mm_ref.ragged_matmul_f32(h, wd, offs), n=n)
+    dy, da = nan_tail(R, d, n, scale=1e-2), nan_tail(R, f, n, scale=1e-2)
+    held(f"ragged_matmul_f32 {shape} dh", mm_ops.ragged_matmul_f32(dy, wdt, offs),
+         mm_ref.ragged_matmul_f32(dy, wdt, offs), n=n)
+    held(f"ragged_matmul_f32 {shape} dx", mm_ops.ragged_matmul_f32(da, wgt, offs),
+         mm_ref.ragged_matmul_f32(da, wgt, offs), n=n)
+    held(f"ragged_dw_f32 {shape} dW_gate/up bf16 x", mm_ops.ragged_dw_f32(x, da, offs),
+         mm_ref.ragged_dw_f32(x, da, offs))
+    held(f"ragged_dw_f32 {shape} dW_down fp32 h", mm_ops.ragged_dw_f32(h, dy, offs),
+         mm_ref.ragged_dw_f32(h, dy, offs))
+    # Decode over a data rank's share: max_seqs / D tokens, replicated over ep.
+    T = MESH_SERVE["max_seqs"] // MESH_DP[0][0]
+    ids = local_ids(T).sort().values
+    offs = offsets_of(ids)
+    n = int(offs[-1])
+    xs = nan_tail(ids.numel(), d, n, bf16)
+    for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(xs, wg, wu, offs),
+                        mm_ref.ragged_gate_up_silu_f32(xs, wg, wu, offs)):
+        held(f"ragged_gate_up_silu_f32 decode share T={T} {nm}", a, b, n=n)
+    hs = nan_tail(ids.numel(), f, n)
+    held(f"ragged_matmul_f32 decode share T={T} down fp32 h",
+         mm_ops.ragged_matmul_f32(hs, wd, offs), mm_ref.ragged_matmul_f32(hs, wd, offs), n=n)
+    buckets = sorted({_bucket(len(p)) for p in mesh_prompts(arch.vocab_size)})
+    for tag, M in [(f"decode share T={T}", _capacity(T, moe))] + [
+            (f"prefill bucket {b} EP shard", ep * _capacity(b // ep, moe)) for b in buckets]:
+        xg, hg = randn(E_l, M, d, dtype=bf16), randn(E_l, M, f)
+        held(f"grouped_matmul_f32 {tag} ({E_l},{M},{d})x({d},{f}) gate/up",
+             mm_ops.grouped_matmul_f32(xg, wg), mm_ref.grouped_matmul_f32(xg, wg))
+        held(f"grouped_matmul_f32 {tag} ({E_l},{M},{f})x({f},{d}) down fp32 h",
+             mm_ops.grouped_matmul_f32(hg, wd), mm_ref.grouped_matmul_f32(hg, wd))
+    hq, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    for s_ in buckets:
+        qkv = randn(1, s_, hq + 2 * hkv, hd, dtype=bf16)  # strided views, as the model's
+        q, kk, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+        want = fa_ref.attention(q.transpose(1, 2).float(), kk.transpose(1, 2).float(),
+                                v.transpose(1, 2).float()).transpose(1, 2).to(bf16)
+        held(f"flash_attention prefill bucket b=1 s={s_} hq={hq} hkv={hkv} d={hd} bf16 via "
+             f"{fa_ops.design(bf16, hd)}", fa_ops.flash_attention(q, kk, v), want,
+             FA_TOL[bf16])
+    log(f"[check] mesh path kernels at phase 15's shapes (E_l={E_l}, cf {EP_CF:g}, NaN "
+        f"sentinel tails, buckets {buckets}): {n_checks} checks ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, part: str) -> None:
+    """One gloo rank of phase 15 (``torch.multiprocessing`` target); writes
+    ``tmp/<part><r>.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        out = {"tp": _mesh_tp, "pp": _mesh_pp, "r4": _mesh_r4}[part](rank, world, tmp)
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-3000:]}
+    Path(tmp, f"{part}{rank}.json").write_text(json.dumps(out))
+
+
+class _MeshRun:
+    """A rank's share of one part of phase 15: its device and process
+    group, its ``[check]`` records and result lines, and its launch counts
+    from the moment :meth:`start` zeroes them."""
+
+    def __init__(self, rank: int, world: int, tmp: str, part: str):
+        import torch.distributed as dist
+
+        from repro_torch.device import resolve_device
+
+        self.dev = resolve_device("cuda")
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv_{part}", rank=rank,
+                                world_size=world)
+        self.rank, self.lead, self.tmp = rank, rank == 0, tmp
+        self.out, self.checks = {"rank": rank}, []
+
+    def record(self, tag: str, ok: bool, line: str) -> None:
+        self.checks.append(bool(ok))
+        if self.lead:
+            self.out[tag] = f"{line} {'ok' if ok else 'FAIL'}"
+
+    def note(self, tag: str, line: str) -> None:
+        if self.lead:
+            self.out[tag] = line
+
+    def start(self) -> None:
+        import torch.distributed as dist
+
+        from repro_torch import kernels
+
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.perf_counter()
+
+    def peak_gb(self) -> list:
+        """Every rank's peak device memory since the last reset, in GB."""
+        import torch.distributed as dist
+
+        mine = [torch.cuda.max_memory_allocated() / 1e9]
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, mine)
+        torch.cuda.reset_peak_memory_stats()
+        return [round(g[0], 2) for g in got]
+
+    def finish(self) -> dict:
+        import torch.distributed as dist
+
+        from repro_torch import kernels
+
+        torch.cuda.synchronize()
+        self.out["seconds"] = time.perf_counter() - self.t0
+        self.out["counts"] = kernels.launch_counts()
+        self.out["ok"] = all(self.checks)
+        dist.barrier()
+        dist.destroy_process_group()
+        return self.out
+
+
+def _timed(fn):
+    """(fn(), seconds), the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _mesh_arch(depth: int, mode: str = "ragged", **moe):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    base = get_arch(ARCH)
+    return base.replace(num_layers=depth, moe=dataclasses.replace(
+        base.moe, dispatch=mode, capacity_factor=EP_CF, **moe))
+
+
+def _mesh_serve(arch, plan, params, dev) -> list:
+    """The engine's tokens for ``mesh_prompts`` (bf16 weights and cache)."""
+    from repro_torch.convert import shard_params
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.serving import Engine, Request, ServeConfig
+
+    cfg = ServeConfig(max_seqs=MESH_SERVE["max_seqs"], block_size=16, num_blocks=128,
+                      max_blocks_per_seq=17, cache_dtype="bfloat16")
+    eng = Engine(LanguageModel(arch, plan), shard_params(_bf16(params), plan), cfg)
+    res = eng.run([Request(rid=i, tokens=t, max_new_tokens=MESH_SERVE["max_new"])
+                   for i, t in enumerate(mesh_prompts(arch.vocab_size))])
+    return [res[i] for i in sorted(res)]
+
+
+def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
+    """(b), (c): six ranks at ``MESH_TP`` (ep 2 x tp 3), granite at depth 2.
+    Training is held to the data grid ``MESH_TP_CONTROL`` (D 3 x ep 2: the
+    same sequence a rank and the same EP degree, no tp lanes) at phase 12's
+    gates, and both grids to world 1 (rank 0) at the reference's own EP
+    gates; serving to world 1."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding, training
+    from repro_torch.checkpoint import leaf_crc32s
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import adamw_init
+
+    run = _MeshRun(rank, world, tmp, "tp")
+    dev = run.dev
+    arch = _mesh_arch(EP_DEPTH)
+    opt = OptimizerConfig(lr=1e-3)  # step 1 of its 100-step warmup: lr 1e-5
+    lr = 1e-3 / 100
+    batch = SyntheticTokens(arch.vocab_size, *MESH_TP_BATCH).batch_at(0)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+
+    def grads(plan):
+        """(loss, the gathered gradients: on rank 0 alone, which compares)."""
+        loss, _, gr = training.loss_and_grads(LanguageModel(arch, plan),
+                                              shard_params(params, plan), batch)
+        full = tree_paths(gather_params(gr, plan))
+        return float(loss), ({k: g for k, g in full.items() if g is not None}
+                             if run.lead else {})
+
+    def step(plan):
+        """One AdamW step from a copy of the params: (grad norm, skipped,
+        the gathered params and first moment on rank 0, this rank's params
+        after it, the step's seconds)."""
+        p = map_tree(torch.clone, shard_params(params, plan))
+        state = {"params": p, **adamw_init(p)}
+        (_, met), secs = _timed(lambda: training.make_train_step(
+            LanguageModel(arch, plan), opt)(state, batch))
+        after = {k: {n: t for n, t in tree_paths(gather_params(state[k], plan)).items()
+                     if t.is_floating_point()} for k in ("params", "m")}
+        return (float(met["grad_norm"]), int(met["skipped"]), after if run.lead else {},
+                state["params"], secs)
+
+    def reference_gate(got, want):
+        """The reference's check_moe_ep gates: (ok, the worst element-wise
+        gap of a leaf but the embedding, the embedding's relative norm gap,
+        the worst leaf's gap over its largest magnitude)."""
+        rows = ep_grad_gate(got, want)[1]
+        gap = max(r[0] for k, r in rows.items() if k != "embed")
+        emb = float((got["embed"] - want["embed"]).norm() / (want["embed"].norm() + 1e-9))
+        rel = max(r[0] / max(r[1], 1e-30) for r in rows.values())
+        return gap < 2e-3 and emb < 0.05, gap, emb, rel
+
+    ref = {}
+    if run.lead:
+        ref["grads"] = grads(None)
+        ref["step"] = step(None)[:3]
+        for mode in SERVE_MODES:
+            ref[mode] = _mesh_serve(_mesh_arch(EP_DEPTH, mode), None, params, dev)
+    run.start()
+    control = sharding.make_plan(arch, MESH_TP_CONTROL)
+    want_loss, want = grads(control)
+    gn0, _, want_after, _, _ = step(control)
+    del control
+    plan = sharding.make_plan(arch, MESH_TP)
+    run.note("tp/plan", f"--mesh {','.join(map(str, MESH_TP))}: ep {plan.ep}, tp {plan.tp}; "
+                        f"batch {MESH_TP_BATCH[0]} x {MESH_TP_BATCH[1]}, a sequence a rank; the "
+                        f"control grid --mesh {','.join(map(str, MESH_TP_CONTROL))}")
+    (loss, full), secs_g = _timed(lambda: grads(plan))
+    gn, skipped, after, mine, secs = step(plan)
+    peaks = run.peak_gb()
+    lanes = [None] * world
+    dist.all_gather_object(lanes, [list(plan.coords), leaf_crc32s(mine)])
+    del mine
+    if run.lead:
+        ok_g, rows = ep_grad_gate(full, want)
+        worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], 1e-30))
+        same = [k for k in want if torch.equal(full[k], want[k])]
+        run.record("tp/train", (loss == want_loss or abs(loss - want_loss) <= 1e-6) and ok_g,
+                   f"against the control grid: loss {loss!r} vs {want_loss!r} "
+                   f"({'bitwise' if loss == want_loss else f'|d| {abs(loss - want_loss):.3e}'}, "
+                   f"else 1e-6); {len(same)} of {len(want)} gradient leaves bitwise; worst leaf "
+                   f"{worst} max |d| {rows[worst][0]:.3e} of max |want| {rows[worst][1]:.3e} "
+                   f"(relative {rows[worst][0] / rows[worst][1]:.2e} <= {EP_GRAD_REL:g}; "
+                   f"< 2e-3; embed relative norm < 0.05)")
+        experts = sharding.expert_paths(full)
+        bad = {k: v * 0.5 if k in experts else v for k, v in full.items()}
+        caught = sorted(k for k, r in ep_grad_gate(bad, want)[1].items() if not r[2])
+        run.record("tp/planted", caught == sorted(experts),
+                   f"expert gradients x 0.5 fail the gate at {len(caught)} of {len(experts)} "
+                   f"expert leaves, nothing else")
+        m_rows = ep_grad_gate(after["m"], want_after["m"])[1]
+        m_rel = max(r[0] / max(r[1], 1e-30) for r in m_rows.values())
+        p_gap = {k: (after["params"][k] - w).abs() for k, w in want_after["params"].items()}
+        p_max = max(float(v.max()) for v in p_gap.values())
+        p_frac = max(float((v > lr / 100).float().mean()) for v in p_gap.values())
+        run.record("tp/step", skipped == 0 and abs(gn - gn0) <= EP_GRAD_REL * gn0
+                   and m_rel <= EP_GRAD_REL and p_max <= 2 * lr and p_frac <= 0.05,
+                   f"one AdamW step against the control grid's: grad norm {gn!r} vs {gn0!r} "
+                   f"(relative {abs(gn - gn0) / gn0:.2e} <= {EP_GRAD_REL:g}), skipped {skipped}; "
+                   f"first moment worst relative gap {m_rel:.2e} (<= {EP_GRAD_REL:g}); params "
+                   f"max |d| {p_max:.3e} (<= 2 lr = {2 * lr:g}), worst leaf's share moved "
+                   f"differently by > lr/100 {p_frac:.4f} (<= 0.05)")
+        loss1, want1 = ref["grads"]
+        parts = []
+        ok1 = True
+        for tag, (l, g) in (("tp", (loss, full)), ("control", (want_loss, want))):
+            ok, gap, emb, rel = reference_gate(g, want1)
+            ok1 &= ok and abs(l - loss1) < 2e-3
+            parts.append(f"{tag}: loss |d| {abs(l - loss1):.3e} (< 2e-3), worst element-wise "
+                         f"gap {gap:.3e} (< 2e-3, the embedding aside), embed relative norm "
+                         f"{emb:.3e} (< 0.05); worst leaf's gap over its max {rel:.2e}")
+        gn1, skipped1, want1_after = ref["step"]
+        p1 = max(float((after["params"][k] - w).abs().max())
+                 for k, w in want1_after["params"].items())
+        ok1 &= skipped1 == 0 and abs(gn - gn1) <= EP_GRAD_REL * gn1 and p1 <= 2 * lr
+        run.record("tp/world 1", ok1,
+                   f"against world 1 {loss1!r} at the reference's EP gates: " + "; ".join(parts)
+                   + f"; the step's grad norm {gn!r} vs {gn1!r} (relative "
+                   f"{abs(gn - gn1) / gn1:.2e} <= {EP_GRAD_REL:g}), params max |d| {p1:.3e} "
+                   f"(<= 2 lr)")
+        by_e = {}
+        for coords, c in lanes:
+            by_e.setdefault(coords[1], []).append(c)
+        same_lanes = all(all(c == cs[0] for c in cs) for cs in by_e.values())
+        run.record("tp/lanes", same_lanes and len(by_e) == plan.ep and by_e[0] != by_e[1],
+                   f"after the step the {plan.tp} tp lanes of each EP rank hold bitwise-equal "
+                   f"params (per-leaf CRC32s): {same_lanes}")
+        run.note("tp/time", f"loss and gradients {secs_g:.3f} s, one train step {secs:.3f} s "
+                            f"(gloo through the host); peak GB a rank {peaks}")
+    del full, after, want, want_after
+    for mode in SERVE_MODES:
+        tokens, secs = _timed(lambda: _mesh_serve(_mesh_arch(EP_DEPTH, mode),
+                                                  sharding.make_plan(arch, MESH_TP), params,
+                                                  dev))
+        if run.lead:
+            run.record(f"tp/serve/{mode}", tokens == ref[mode],
+                       f"{len(tokens)} requests, tokens equal world 1's: {tokens == ref[mode]} "
+                       f"(first: {tokens[0][:8]}); {secs:.2f} s")
+    run.note("tp/serve/peak", f"peak GB a rank {run.peak_gb()}")
+    return run.finish()
+
+
+def _mesh_pp(rank: int, world: int, tmp: str) -> dict:
+    """(d): checkpointing under a pipeline, two ranks at (2, 1, 1), 1f1b,
+    granite at depth ``PIPE_DEPTH``."""
+    from repro_torch import obs, sharding
+    from repro_torch.checkpoint import checkpoint_steps, leaf_crc32s
+    from repro_torch.convert import shard_params
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.training import init_state
+
+    run = _MeshRun(rank, world, tmp, "pp")
+    dev = run.dev
+    arch = _mesh_arch(PIPE_DEPTH, aux_loss_coef=0.0)
+    quiet = lambda s: None  # noqa: E731
+    data = SyntheticTokens(arch.vocab_size, *MESH_PP_BATCH)
+    ck = MESH_CK
+
+    def plan_of(**kw):
+        return sharding.make_plan(arch, (PIPE_PP, 1, 1), pipeline_on_pod=True,
+                                  microbatches=PIPE_M, **kw)
+
+    def sharded(state, plan):
+        return {k: shard_params(v, plan) if k in ("params", "m", "v") else v
+                for k, v in state.items()}
+
+    def fit(d=None, seed=0, injector=None, every=ck["every"]):
+        """(trainer, fit output, this rank's final state {path: tensor},
+        the run's telemetry ring)."""
+        ring = obs.RingBufferSink()
+        tr = Trainer(LanguageModel(arch, plan_of(schedule="1f1b")),
+                     OptimizerConfig(lr=1e-3, total_steps=ck["steps"]),
+                     TrainerConfig(total_steps=ck["steps"], checkpoint_dir=d,
+                                   checkpoint_every=every, checkpoint_keep=ck["keep"],
+                                   log_every=10 ** 9),
+                     log_fn=quiet, injector=injector,
+                     telemetry=obs.Telemetry(enabled=True, sinks=[ring]))
+        lm = tr.lm
+        out = tr.fit(sharded(init_state(lm, torch.Generator(device=dev).manual_seed(seed),
+                                        dev), lm.plan), data)
+        return tr, out, tree_paths(out["state"]), ring
+
+    def everywhere(x) -> list:
+        got = [None] * world
+        torch.distributed.all_gather_object(got, x)
+        return got
+
+    def spans(ring, name):
+        return [(e["dur"], e["attrs"]) for e in ring.events()
+                if e["kind"] == "span" and e["name"] == name]
+
+    def restored_crc_equal(lm, d):
+        tr = Trainer(lm, OptimizerConfig(lr=1e-3), TrainerConfig(checkpoint_dir=d),
+                     log_fn=quiet)
+        st = init_state(lm, torch.Generator(device=dev).manual_seed(9), dev)
+        if tr.plan is not None:
+            st = sharded(st, tr.plan)
+        (st, step), secs = _timed(lambda: tr._restore_latest(st))
+        crc = leaf_crc32s(tr.global_state(st))
+        manifest = json.loads(Path(d, f"step_{step:08d}", "manifest.json").read_text())
+        return step, crc == manifest["crc32"], secs
+
+    run.start()
+    tr_a, out_a, full_a, _ = fit()
+    peaks = run.peak_gb()
+    loss_a = float(out_a["metrics"]["loss"])
+    times = [round(t, 3) for t in tr_a.step_times]
+    inj = FaultInjector(FaultPlan([FaultSpec("train.nonfinite", step=ck["nan"], count=3),
+                                   FaultSpec("train.sigterm", step=ck["sigterm"])]),
+                        log_fn=quiet)
+    d = f"{tmp}/ckB"
+    tr_b, out_b, _, ring_b = fit(d, injector=inj)
+    saved_b = checkpoint_steps(d)
+    rb = [(r["at_step"], r["to_step"]) for r in out_b["rollbacks"]]
+    nan = list(range(ck["nan"], ck["nan"] + 3))
+    run.record("pp/run B", [a["step"] for a in out_b["anomalies"]] == nan
+               and rb == [(nan[-1], ck["nan"])] and out_b["last_step"] == ck["sigterm"] - 1
+               and saved_b[-1] == ck["sigterm"],
+               f"NaN at steps {[a['step'] for a in out_b['anomalies']]} skipped, rollbacks "
+               f"{rb}, SIGTERM at {ck['sigterm']} -> final save; checkpoints {saved_b}")
+    del out_b
+    # The resume saves once, at its end.
+    tr_c, out_c, full_c, ring_c = fit(d, seed=7, every=10 ** 9)
+    loss_c = float(out_c["metrics"]["loss"])
+    # Bitwise on every rank's shard is bitwise on the global state.
+    same = all(everywhere(all(torch.equal(full_c[k], full_a[k]) for k in full_a)))
+    line = (f"run B's resume (another seed's state) from step {tr_c.resumed_from} to "
+            f"{ck['steps']}: loss {loss_c!r} vs run A's {loss_a!r}; state bitwise A's on "
+            f"every rank: {same}")
+    ok = same and loss_c == loss_a
+    if not ok:
+        # Phase "checkpoint"'s rule: no further from A than a repeat A2.
+        _, out_a2, full_a2, _ = fit()
+
+        def gap(x):
+            return max(everywhere(max(float((x[k].float() - full_a[k].float()).abs().max())
+                                      for k in full_a if full_a[k].is_floating_point())))
+
+        gap_c, gap_2 = gap(full_c), gap(full_a2)
+        ok = gap_c <= gap_2
+        line += f"; max |d| to A {gap_c:.3e} vs a repeat A2's {gap_2:.3e}"
+        del out_a2, full_a2
+    run.record("pp/resume", ok and tr_c.resumed_from == ck["sigterm"], line)
+    del out_c, full_c, full_a, out_a
+    saves = spans(ring_b, "ckpt.save") + spans(ring_c, "ckpt.save")
+    restores = spans(ring_b, "ckpt.restore") + spans(ring_c, "ckpt.restore")
+    if run.lead:
+        run.note("pp/ckpt", (
+            f"a checkpoint {saves[0][1]['bytes']} bytes (the global tree at depth "
+            f"{PIPE_DEPTH}); saves {[round(s, 3) for s, _ in saves]} s (CRC and write, rank "
+            f"0), restores {[round(s, 3) for s, _ in restores]} s; run A steps {times} s "
+            f"(gloo hand-offs through the host); peak GB a rank {peaks}"))
+        # The PP 2 checkpoint restored at world 1, on rank 0 alone.
+        step, crc_ok, secs = restored_crc_equal(LanguageModel(arch), d)
+        run.record("pp/world 1", crc_ok and step == ck["steps"],
+                   f"the PP {PIPE_PP} checkpoint of step {step} restored at world 1 "
+                   f"({secs:.3f} s): CRC32s equal the manifest's: {crc_ok}")
+    step, crc_ok, secs = restored_crc_equal(
+        LanguageModel(arch, plan_of(schedule="interleaved_1f1b", vstages=2)), d)
+    run.record("pp/interleaved V 2", crc_ok and step == ck["steps"],
+               f"restored at PP {PIPE_PP} under interleaved_1f1b, V 2 ({secs:.3f} s): "
+               f"gathered CRC32s equal the manifest's: {crc_ok}")
+    return run.finish()
+
+
+def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
+    """(e) migration at PP 2 x EP 2 (2, 1, 2), granite at depth
+    ``PIPE_DEPTH``, skewed tokens; (f) serving data parallelism at
+    ``MESH_DP``, depth 2, against world 1 on rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.checkpoint import leaf_crc32s
+    from repro_torch.convert import _unstage_chunks, shard_params
+    from repro_torch.core import migration as mig
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.training import init_state
+
+    run = _MeshRun(rank, world, tmp, "r4")
+    dev = run.dev
+    quiet = lambda s: None  # noqa: E731
+    sarch = _mesh_arch(EP_DEPTH)
+    sparams = init_params(sarch, torch.Generator(device=dev).manual_seed(0), dev)
+    ref = ({mode: _mesh_serve(_mesh_arch(EP_DEPTH, mode), None, sparams, dev)
+            for mode in SERVE_MODES} if run.lead else {})
+    run.start()
+
+    # (e) Migrations every MIG_EVERY of MESH_MIG_STEPS steps, swap-only.
+    arch = _mesh_arch(PIPE_DEPTH, max_replicas=0, aux_loss_coef=0.0)
+    plan = sharding.make_plan(arch, (PIPE_PP, 1, 2), pipeline_on_pod=True,
+                              microbatches=MESH_PP_EP_M)
+    lm = LanguageModel(arch, plan)
+    opt = OptimizerConfig(lr=1e-3)
+    moe_pos = [i for i, (_, f) in enumerate(arch.block_pattern) if f == "moe"]
+
+    def batch_at(step: int) -> dict:
+        rng = np.random.default_rng(step)
+        toks = rng.integers(0, 4, size=MESH_PP_EP_BATCH, dtype=np.int32)
+        return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+
+    def sharded(state):
+        return {k: shard_params(v, plan) if k in ("params", "m", "v") else v
+                for k, v in state.items()}
+
+    def stage_slots(state):
+        """This stage's expert leaves of params, m and v all-gathered over
+        the EP group (copies), and its routing tables."""
+        full = {}
+        for t in ("params", "m", "v"):
+            for pos in moe_pos:
+                for k in mig.EXPERT_PARAM_KEYS:
+                    leaf = state[t]["blocks"][pos]["ffn"][k]
+                    parts = [torch.empty_like(leaf) for _ in range(plan.ep)]
+                    dist.all_gather(parts, leaf.contiguous(), group=plan.ep_group)
+                    full[(t, pos, k)] = torch.cat(parts, dim=1)
+        return full, {pos: state["params"]["blocks"][pos]["ffn"]["assignment"].cpu().numpy()
+                      .copy() for pos in moe_pos}
+
+    def permuted_exactly(pre, a0, state) -> bool:
+        """This rank's slots after the migration are the manual permutation
+        of the stage's gathered slots before it."""
+        ok = True
+        E_l = arch.moe.num_experts // plan.ep
+        for (t, pos, k), w in pre.items():
+            a1 = state["params"]["blocks"][pos]["ffn"]["assignment"].cpu().numpy()
+            perm = np.stack([mig.permutation_for(a0[pos][r], a1[r]) for r in range(len(a1))])
+            idx = torch.as_tensor(perm[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l],
+                                  dtype=torch.long, device=dev)
+            idx = idx.reshape(idx.shape + (1,) * (w.dim() - 2)).expand(
+                (w.shape[0], E_l) + w.shape[2:])
+            ok &= torch.equal(state[t]["blocks"][pos]["ffn"][k], torch.gather(w, 1, idx))
+        return bool(ok)
+
+    tr = Trainer(lm, opt, TrainerConfig(checkpoint_dir=f"{tmp}/ckM", migrate_every=MIG_EVERY,
+                                        migrate_threshold=MIG_THRESHOLD), log_fn=quiet)
+    state = sharded(init_state(lm, torch.Generator(device=dev).manual_seed(0), dev))
+    losses, exact, times = [], True, []
+    for s in range(MESH_MIG_STEPS):
+        (state, met), secs = _timed(lambda: tr.train_step(state, batch_at(s)))
+        times.append(round(secs, 3))
+        losses.append(float(met["loss"]))
+        loads = met["expert_load_host"]
+        tr.load_stats.update(np.concatenate([loads[:, i] for i in range(loads.shape[1])]))
+        if (s + 1) % MIG_EVERY:
+            continue
+        pre, a0 = stage_slots(state)
+        n = len(tr.migrations)
+        tr._maybe_migrate(state, s + 1)
+        if len(tr.migrations) > n and tr.migrations[-1]["applied"]:
+            exact &= permuted_exactly(pre, a0, state)
+        del pre
+    peaks = run.peak_gb()
+    applied = [m for m in tr.migrations if m["applied"]]
+    for i, m in enumerate(tr.migrations):
+        run.note(f"mig/migration #{i}", (
+            f"step {m['step']}: imbalance {m['imbalance']:.4f} -> {m['imbalance_post']:.4f}, "
+            f"swaps {m['swaps']}, applied {m['applied']}, {m.get('seconds', 0):.3f} s (gloo "
+            f"through the host, not NVLink), all-gathered {m.get('gathered_bytes', 0)} bytes "
+            f"a rank"))
+    got = [None] * world
+    dist.all_gather_object(got, bool(exact))
+    exact = all(got)
+    # A checkpoint after the migrations, restored at world 1 on rank 0.
+    tr._save(MESH_MIG_STEPS, state, blocking=True)
+    final = {pos: _unstage_chunks(state["params"]["blocks"][pos]["ffn"]["assignment"], plan)
+             for pos in moe_pos}
+    if run.lead:
+        one = init_state(LanguageModel(arch), torch.Generator(device=dev).manual_seed(5), dev)
+        tr1 = Trainer(LanguageModel(arch), opt, TrainerConfig(checkpoint_dir=f"{tmp}/ckM"),
+                      log_fn=quiet)
+        one, step = tr1._restore_latest(one)
+        manifest = json.loads(Path(tmp, "ckM", f"step_{step:08d}",
+                                   "manifest.json").read_text())
+        crc_ok = leaf_crc32s(one) == manifest["crc32"]
+        moved = any(not torch.equal(one["params"]["blocks"][pos]["ffn"]["assignment"],
+                                    torch.arange(arch.moe.num_experts, dtype=torch.int32,
+                                                 device=dev).expand_as(
+                                        one["params"]["blocks"][pos]["ffn"]["assignment"]))
+                    for pos in moe_pos)
+        run.record("mig/checkpoint", crc_ok and moved and step == MESH_MIG_STEPS,
+                   f"saved at PP {plan.pp} x EP {plan.ep} after the migrations (assignments "
+                   f"moved: {moved}), restored at world 1: CRC32s equal the manifest's: "
+                   f"{crc_ok}")
+        del one
+    del state
+    # Run B: the final tables baked into the init, no migration.
+    full = init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+    for pos in moe_pos:
+        a1 = final[pos].cpu().numpy()
+        perm = np.stack([mig.permutation_for(np.arange(a1.shape[1]), a1[r])
+                         for r in range(len(a1))])
+        for t in ("params", "m", "v"):
+            mig.apply_migration_(full[t]["blocks"][pos]["ffn"], perm)
+        full["params"]["blocks"][pos]["ffn"]["assignment"].copy_(final[pos])
+    tr_b = Trainer(lm, opt, TrainerConfig(migrate_every=10 ** 9), log_fn=quiet)
+    state_b = sharded(full)
+    del full
+    losses_b = [float(tr_b.train_step(state_b, batch_at(s))[1]["loss"])
+                for s in range(MESH_MIG_STEPS)]
+    del state_b
+    gap = max(abs(a - b) for a, b in zip(losses, losses_b))
+    run.record("mig/exact", len(applied) >= 1 and exact and (losses == losses_b or gap <= 1e-6),
+               f"PP {plan.pp} x EP {plan.ep}: {len(applied)} migrations applied; each rank's "
+               f"params, m and v after each bitwise the manual permutation of its stage's "
+               f"slots: {exact}; losses {losses} vs permuted init {losses_b}: "
+               + ("bitwise" if losses == losses_b else f"max |d| {gap:.3e} (bound 1e-6)"))
+    run.note("mig/time", f"steps {times} s (gloo through the host); peak GB a rank {peaks}")
+
+    # (f) Serving data parallelism.
+    for mesh in MESH_DP:
+        for mode in SERVE_MODES:
+            splan = sharding.make_plan(sarch, mesh)
+            tokens, secs = _timed(lambda: _mesh_serve(_mesh_arch(EP_DEPTH, mode), splan,
+                                                      sparams, dev))
+            if run.lead:
+                ok = tokens == ref[mode]
+                run.record(f"dp/{','.join(map(str, mesh))}/{mode}", ok,
+                           f"dp {splan.dp} x ep {splan.ep} (dp_axes {splan.dp_axes}): "
+                           f"{len(tokens)} requests, tokens equal world 1's: {ok} (first: "
+                           f"{tokens[0][:8]}); {secs:.2f} s")
+    run.note("dp/peak", f"peak GB a rank {run.peak_gb()}")
+    return run.finish()
+
+
+def mesh_phase(dev):
+    """Phase 15: (a) the kernels at its shapes; (b), (c) six gloo ranks at
+    ``MESH_TP``; (d) two at PP 2 with checkpoints; (e), (f) four at PP 2 x
+    EP 2 and at D 2 x EP 2.  Returns every rank's summed launch counts."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_kernel_checks(dev)
+    log(f"[mesh] gloo ranks on one {torch.cuda.get_device_name(0)}: every collective and "
+        f"hand-off stages through the host, so no all-to-all, hand-off or all-gather time "
+        f"of this phase measures NVLink or NCCL")
+    res = {}
+    for part, world in (("tp", MESH_TP[0] * MESH_TP[1]), ("pp", PIPE_PP), ("r4", 4)):
+        torch.cuda.empty_cache()
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{part}_")
+        t1 = time.perf_counter()
+        try:
+            mp.start_processes(_mesh_rank, args=(world, tmp, part), nprocs=world,
+                               start_method="spawn")
+            res[part] = [json.loads(Path(tmp, f"{part}{r}.json").read_text())
+                         for r in range(world)]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        errors = [f"rank {i}: {r['error']}\n{r['trace']}" for i, r in enumerate(res[part])
+                  if "error" in r]
+        if errors:
+            fail(f"mesh {part}: " + "\n".join(errors))
+        for k, v in res[part][0].items():
+            if "/" in k:
+                tag = "[check]" if v.endswith(("ok", "FAIL")) else "[mesh]"
+                log(f"{tag} mesh {part} x{world} {k}: {v}")
+        log(f"[mesh] {part}: {world} ranks, {time.perf_counter() - t1:.1f} s")
+    counts = {}
+    for part, rs in res.items():
+        for r in rs:
+            label = f"mesh {part} rank {r['rank']}"
+            log(f"[mesh] {label} designs {check_designs(r['counts'], label)}")
+            for name, n in r["counts"].items():
+                counts[name] = counts.get(name, 0) + n
+    for name in PATH_KERNELS["mesh"]:
+        if counts[name] == 0:
+            fail(f"mesh: no rank launched {name}")
+    if not all(r["ok"] for rs in res.values() for r in rs):
+        fail("mesh: a check of the multi-rank runs failed")
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -2735,6 +3502,8 @@ def main() -> None:
     log(f"[phase] migrate done at {time.perf_counter() - t0:.1f}s")
     counts["pipeline"] = pipeline_phase(dev)
     log(f"[phase] pipeline done at {time.perf_counter() - t0:.1f}s")
+    counts["mesh"] = mesh_phase(dev)
+    log(f"[phase] mesh done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

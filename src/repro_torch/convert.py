@@ -82,20 +82,25 @@ def stage_vstages(plan) -> int:
     return plan.vstages if plan.schedule == "interleaved_1f1b" else 1
 
 
-def _stage_chunks(t: torch.Tensor, plan) -> torch.Tensor:
-    """Stage ``plan.pp_rank``'s chunks of a block leaf (reps, ...), in the
-    reference's chunk-major layout (``repro.core.pipeline
+def stage_reps(reps: int, plan) -> np.ndarray:
+    """The global layer reps stage ``plan.pp_rank`` holds, in its local
+    order, in the reference's chunk-major layout (``repro.core.pipeline
     ._stage_block_params``): reps = (V, PP, rpc) v-major, chunk ``c = v *
     PP + s`` holds reps ``[c * rpc, (c + 1) * rpc)``, and stage s keeps
-    ``[:, s]``, (V, rpc, ...), flattened to (V * rpc, ...) so that the reps
-    stay dim 0 and an expert leaf's slots dim 1.  A copy."""
+    chunks s, PP + s, ..., (V - 1) * PP + s."""
     V, PP = stage_vstages(plan), plan.pp
-    reps = t.shape[0]
     if reps % (PP * V):
         raise ValueError(f"{reps} pattern reps do not split over PP*V = {PP}*{V} chunks")
     rpc = reps // (PP * V)
-    return t.reshape((V, PP, rpc) + t.shape[1:])[:, plan.pp_rank].reshape(
-        (V * rpc,) + t.shape[1:]).clone()
+    return np.arange(reps).reshape(V, PP, rpc)[:, plan.pp_rank].reshape(-1)
+
+
+def _stage_chunks(t, plan):
+    """Stage ``plan.pp_rank``'s chunks of a block leaf (reps, ...) (a
+    tensor or a numpy array), :func:`stage_reps` along dim 0, so that the
+    reps stay dim 0 and an expert leaf's slots dim 1.  A copy."""
+    idx = stage_reps(t.shape[0], plan)
+    return t[torch.from_numpy(idx).to(t.device)] if isinstance(t, torch.Tensor) else t[idx]
 
 
 def _unstage_chunks(t: torch.Tensor, plan) -> torch.Tensor:
@@ -109,28 +114,34 @@ def _unstage_chunks(t: torch.Tensor, plan) -> torch.Tensor:
     return staged.reshape((V * PP * rpc,) + t.shape[1:])
 
 
+def shard_leaf(path: str, t, plan, experts):
+    """This rank's part of the global leaf ``t`` at ``path`` (a tensor or a
+    numpy array; ``experts``: the tree's expert paths): under a pipeline
+    (``plan.pp`` > 1) a block leaf's stage chunks (:func:`_stage_chunks`),
+    then an expert leaf's physical slots ``[g * E_l, (g + 1) * E_l)``, g
+    the rank's EP rank, the same on every tp lane and data rank.  Any
+    other leaf is ``t`` itself."""
+    if getattr(plan, "pp", 1) > 1 and path.startswith("blocks/"):
+        t = _stage_chunks(t, plan)
+    if path not in experts or plan.ep == 1:
+        return t
+    E_l = t.shape[1] // plan.ep
+    return t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l]
+
+
 def shard_params(params, plan):
-    """A whole parameter tree -> this rank's: under a pipeline (``plan.pp``
-    > 1) every block leaf keeps the rank's stage's chunks
-    (:func:`_stage_chunks`), while ``embed``, ``final_norm`` and
-    ``lm_head`` stay whole on every stage, as the reference's ``P()``
-    in_specs put them; then each MoE expert leaf (``w_up``, ``w_gate``,
-    ``w_down``, stacked (reps, E, ...)) keeps the rank's physical slots
-    ``[g * E_l, (g + 1) * E_l)`` (g its EP rank) as a copy.  Every other
-    leaf, the router and the routing tables (``assignment``, ``replicas``)
-    included, is the same tensor without a pipeline."""
-    pp = getattr(plan, "pp", 1)
-    if plan is None or (plan.ep == 1 and pp == 1):
+    """A whole parameter tree -> this rank's (:func:`shard_leaf`): ``embed``,
+    ``final_norm`` and ``lm_head`` stay whole on every stage, as the
+    reference's ``P()`` in_specs put them; every sharded leaf is a copy.
+    Every other leaf, the router and the routing tables (``assignment``,
+    ``replicas``) included, is the same tensor without a pipeline."""
+    if plan is None or (plan.ep == 1 and getattr(plan, "pp", 1) == 1):
         return params
     experts = sharding.expert_paths(tree_paths(params))
 
     def leaf(path, t):
-        if pp > 1 and path.startswith("blocks/"):
-            t = _stage_chunks(t, plan)
-        if path not in experts or plan.ep == 1:
-            return t
-        E_l = t.shape[1] // plan.ep
-        return t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l].clone()
+        out = shard_leaf(path, t, plan, experts)
+        return out.clone() if path in experts and plan.ep > 1 else out
 
     return map_tree(leaf, params, with_path=True)
 

@@ -19,7 +19,9 @@ own copy of ``repro.core.migration``.
 * :func:`plan_model` / :func:`apply_model_plan_`: a whole model's plan
   and its application, shared by the trainer's ``_maybe_migrate`` and the
   engine's ``_maybe_rebalance`` (the reference spells the loop out in
-  each).
+  each).  The plan covers every MoE layer of the whole stack; under a
+  pipeline each stage applies its own chunks' rows, and each tp lane the
+  same permutation over its own EP group.
 * :func:`migration_cost` / :func:`replication_bytes`: Table IV's worst-case
   transfer and the one-off replica placement bytes.
 
@@ -269,13 +271,23 @@ class ModelPlan:
     replicas: int
 
 
-def routing_tables(ffns) -> Tuple[List[np.ndarray], Optional[List[np.ndarray]]]:
+def routing_tables(ffns, plan=None) -> Tuple[List[np.ndarray], Optional[List[np.ndarray]]]:
     """The MoE blocks' (assignment, replicas) tables on the host, each
-    (reps, E) / (reps, R); replicas None when the blocks have none."""
-    assign = [f["assignment"].cpu().numpy() for f in ffns]
+    (reps, E) / (reps, R) over the whole stack; replicas None when the
+    blocks have none.  Under a pipeline ``plan`` a stage holds its chunks'
+    rows only, and the tables are all-gathered over the pp group (a
+    collective: every rank calls it)."""
+    from repro_torch.convert import _unstage_chunks
+
+    def host(t):
+        if plan is not None and plan.pp > 1:
+            t = _unstage_chunks(t, plan)
+        return t.cpu().numpy()
+
+    assign = [host(f["assignment"]) for f in ffns]
     if "replicas" not in ffns[0] or ffns[0]["replicas"].shape[-1] == 0:
         return assign, None
-    return assign, [f["replicas"].cpu().numpy() for f in ffns]
+    return assign, [host(f["replicas"]) for f in ffns]
 
 
 def model_imbalance(stats: LoadStats, tables, ep: int) -> float:
@@ -317,14 +329,20 @@ def apply_model_plan_(mplan: ModelPlan, ffns, moments=(), plan=None) -> int:
     """Apply ``mplan`` in place: every MoE block's expert leaves in
     ``ffns`` (the params) and in each tree of ``moments`` (per tree, its
     MoE blocks in the same order) permuted by :func:`apply_migration_`,
-    then the params' routing tables.  Returns the bytes all-gathered."""
+    then the params' routing tables.  Under a pipeline ``plan`` the plan's
+    rows are the whole stack's and a stage applies its own chunks' rows
+    (``convert.stage_reps``).  Returns the bytes all-gathered."""
+    from repro_torch.convert import stage_reps
+
     got = 0
     for j, layer in enumerate(mplan.layers):
+        rows = (stage_reps(layer["perms"].shape[0], plan)
+                if plan is not None and plan.pp > 1 else slice(None))
         for blocks in (ffns,) + tuple(moments):
-            got += apply_migration_(blocks[j], layer["perms"], plan)
-        ffns[j]["assignment"].copy_(torch.from_numpy(layer["assignment"]))
+            got += apply_migration_(blocks[j], layer["perms"][rows], plan)
+        ffns[j]["assignment"].copy_(torch.from_numpy(layer["assignment"][rows]))
         if layer["replicas"] is not None:
-            ffns[j]["replicas"].copy_(torch.from_numpy(layer["replicas"]))
+            ffns[j]["replicas"].copy_(torch.from_numpy(layer["replicas"][rows]))
     return got
 
 

@@ -3,11 +3,13 @@ environment, each rank's device and the mesh plan.
 
 ``torchrun --nproc-per-node N -m repro_torch.launch.{train,serve} --mesh
 D,M`` starts N = D*M ranks (``--mesh P,D,M``: N = P*D*M, the pod axis a
-pipeline with the train launcher's ``--pipeline``, else joined to data);
-without ``torchrun`` a launcher is one rank with no process group.  ``--backend`` defaults to nccl on the card and gloo
-on the CPU.  NCCL will not put two ranks of one communicator on one GPU,
-so nccl with more ranks than cards is refused; gloo takes CUDA tensors by
-staging them through the host, and can share one card between ranks.
+pipeline with the train launcher's ``--pipeline``, else joined to data),
+the model axis M split into ep = gcd(E, M) expert ranks times tp = M / ep
+lanes; without ``torchrun`` a launcher is one rank with no process group.
+``--backend`` defaults to nccl on the card and gloo on the CPU.  NCCL will
+not put two ranks of one communicator on one GPU, so nccl with more ranks
+than cards is refused; gloo takes CUDA tensors by staging them through the
+host, and can share one card between ranks.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ NCCL_ONE_CARD = ("NCCL will not put two ranks of one communicator on one GPU: "
 def add_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--mesh", default=None,
                     help="D,M or P,D,M: [pod x] data x model ranks (world P*D*M, EP = "
-                         "gcd(E, M)); default 1,WORLD_SIZE")
+                         "gcd(E, M), TP = M / EP); default 1,WORLD_SIZE")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="process-group backend; default nccl on the card, gloo "
                          "on the CPU")
@@ -61,16 +63,11 @@ def mesh_of(args: argparse.Namespace, world: int) -> Tuple[int, ...]:
     return shape
 
 
-def check(args: argparse.Namespace, arch, world: int, cards: int) -> str:
-    """Refuse TP > 1, ``--pipeline`` without a pod axis of at least 2, and
-    nccl with more ranks than cards, before any process group exists.
-    Returns the backend."""
+def check(args: argparse.Namespace, world: int, cards: int) -> str:
+    """Refuse ``--pipeline`` without a pod axis of at least 2, and nccl with
+    more ranks than cards, before any process group exists.  Any tp =
+    M / gcd(E, M) is taken.  Returns the backend."""
     shape = mesh_of(args, world)
-    model = shape[-1]
-    ep = sharding.choose_ep(arch.moe.num_experts if arch.moe else model, model)
-    if model // ep != 1:
-        raise SystemExit(f"--mesh {','.join(map(str, shape))}: ep = {ep}, tp = "
-                         f"{model // ep}; {sharding.TP_TODO}")
     if getattr(args, "pipeline", False) and (len(shape) != 3 or shape[0] < 2):
         raise SystemExit(f"--pipeline needs a pod axis of at least 2 stages (--mesh "
                          f"P,D,M with P >= 2), got --mesh {args.mesh}")
@@ -90,7 +87,7 @@ def init(args: argparse.Namespace, arch, a2a_algo: str = "flat", a2a_chunks: int
     compress_p2p, bound with ``args.pipeline``."""
     world = world_size()
     cards = torch.cuda.device_count()
-    backend = check(args, arch, world, cards)
+    backend = check(args, world, cards)
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % cards)

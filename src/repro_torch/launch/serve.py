@@ -29,15 +29,21 @@ telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
 prints the drift of the measured ``engine.decode`` and ``engine.prefill``
 spans against the serving model's pricing of that setup on the H100.
 
-Under ``torchrun --nproc-per-node M ... --mesh 1,M`` (``launch.ranks``) it
-serves over one EP group of M ranks in lockstep: every rank runs the same
-engine on the same requests, holds its expert slots
-(``convert.shard_params``), takes its sequence shard of each MoE layer's
-input in prefill and computes its own experts in decode; the sampled
-tokens are equal on every rank because the logits are.  Rank 0 prints.
-Serving data parallelism (D > 1) and the pod axis (``--mesh P,D,M``) are
-not ported yet (ROADMAP.md Queue 1 item 3b), and the parity probe runs at
-world 1 only.
+Under ``torchrun --nproc-per-node N ... --mesh D,M`` or ``--mesh P,D,M``
+(``launch.ranks``; N the mesh's product, the pod axis joining data) it
+serves over D * P data ranks, each with an EP group of ep = gcd(E, M)
+ranks times tp = M / ep lanes, in lockstep: every rank runs the same
+engine on the same requests and holds its expert slots
+(``convert.shard_params``, the same on every tp lane).  In prefill each
+rank takes its EP group's sequence shard of each MoE layer's input (every
+tp lane the same shard); in decode it computes its own experts over its
+data rank's share of the batch (split over the data group when D divides
+the batch, else whole), and the logits are all-gathered over the data
+group before sampling, so the tokens are equal on every rank.  Rank 0
+prints.  The parity probe runs at world 1 only.
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 -m \\
+        repro_torch.launch.serve --reduced --device cpu --dtype float32 --mesh 2,2
 """
 
 from __future__ import annotations
@@ -182,12 +188,7 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
         arch = arch.reduced()
     arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else arch.moe.dispatch))
     source = "--dispatch" if args.dispatch else "the planner's choice" if best else "the arch's"
-    shape = ranks.mesh_of(args, ranks.world_size())
-    data, model = shape[-2:]
-    if len(shape) != 2 or data != 1:
-        raise SystemExit(f"--mesh {args.mesh}: serving takes --mesh 1,M (one EP group); "
-                         f"serving data parallelism and its pod axis are not ported yet "
-                         f"(ROADMAP.md Queue 1 item 3b)")
+    model = ranks.mesh_of(args, ranks.world_size())[-1]
     try:
         check_ep(sharding.choose_ep(arch.moe.num_experts if arch.moe else model, model))
     except ValueError as e:

@@ -14,33 +14,38 @@ third resumes the second's checkpoint at step 4 and trains to 6):
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt
 
 Expert parallelism over ranks (``torchrun``; ``--mesh D,M`` gives world
-D*M, EP = gcd(E, M) and TP = M / EP, which must be 1; each rank takes
-``batch / world`` whole sequences), and the pipeline (``--mesh P,D,M
---pipeline``: P stages of D*M ranks, each stage running its EP layer, the
-schedule ``--schedule`` with ``--vstages``; each rank takes ``b_mu /
-(D*M)`` whole sequences of every microbatch, ``batch % (M*D*ep) == 0``):
+D*M, EP = gcd(E, M) and TP = M / EP lanes, each lane a token-parallel copy
+of its EP group; each rank takes ``batch / world`` whole sequences), and
+the pipeline (``--mesh P,D,M --pipeline``: P stages of D*M ranks, each
+stage running its EP layer, the schedule ``--schedule`` with
+``--vstages``; each rank takes ``b_mu / (D*M)`` whole sequences of every
+one of the n_mb microbatches, ``batch % (n_mb*D*M) == 0``):
 
-    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --mesh 1,2 --steps 5 --batch 2 --seq 512            # one card each
-    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
-        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,4 \
+    PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,4 \\
         --steps 3 --batch 8 --seq 32                        # gloo on the CPU
-    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
-        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,1,2 \
-        --pipeline --schedule zb_h1 --steps 2 --batch 8 --seq 32
+    PYTHONPATH=src torchrun --nproc-per-node 6 -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 1,6 \\
+        --steps 3 --batch 6 --seq 32                        # ep 2, tp 3
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,1,2 \\
+        --pipeline --schedule zb_h1 --steps 4 --batch 8 --seq 32 \\
+        --ckpt-dir /tmp/ckpt_pp --migrate-every 2
 
 The process group comes from the ``torchrun`` environment (``--backend``:
 nccl on the card, gloo on the CPU; gloo can share one card between
 ranks, nccl cannot and is refused there); a rank's device is
 ``cuda:{LOCAL_RANK % device_count}``.  Rank 0 alone prints and writes
-metrics.  ``--ckpt-dir`` works at any world: the checkpoint holds the
-global state (rank 0 writes it after the expert leaves are gathered), so
-a run at one EP degree resumes at another.  ``--migrate-every`` sets the
-expert-migration controller's interval (EP > 1; its ``[migrate]`` lines
-and the ``migrations=`` count of ``[done]``).  Under ``--pipeline``
-(``[trainer] pipelined: PP=... schedule=... (M=...)``) ``--ckpt-dir``, and
-migration with EP > 1, are refused (ROADMAP Queue 1 item 3b).  Without
-``--pipeline`` a pod axis joins data.
+metrics.  ``--ckpt-dir`` works at any mesh, pipelined or not: the
+checkpoint holds the global state (rank 0 writes it after the expert
+leaves are gathered over the EP group and the block leaves over the pp
+group), so a run at one mesh or schedule resumes at another.
+``--migrate-every`` sets the expert-migration controller's interval (EP >
+1, with or without a pipeline; its ``[migrate]`` lines and the
+``migrations=`` count of ``[done]``).  Without ``--pipeline`` a pod axis
+joins data.
 
 It first prints the planner's production strategy for the arch (256
 H100s, batch 256 x 4096, ZeRO over the world: the reference launcher's

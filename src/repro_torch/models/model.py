@@ -201,7 +201,8 @@ class LanguageModel:
     (``convert.shard_params``): ``forward`` and ``loss`` take this rank's
     own sequences (token-sharded), the paged serving steps take the same
     requests on every rank (prefill: each rank's sequence shard of every MoE
-    layer's input; decode: weight-parallel).  ``plan=None`` is one rank.
+    layer's input; decode: weight-parallel, the batch split over the data
+    group when it divides it, :meth:`decode_step_paged`).  ``plan=None`` is one rank.
     Under a pipeline plan (``plan.pp`` > 1) the params hold the rank's
     stage's chunks too, ``loss`` runs the differentiable pipelined forward
     and ``loss_and_grads`` the schedule-executing step (``core.pipeline``),
@@ -451,7 +452,11 @@ class LanguageModel:
 
         batch: {"tokens": (b, s_pad)} right-padded prompts; lengths: (b,)
         true prompt lengths; block_table: (b, nb).  Pad rows never reach the
-        pages.  Returns (last-valid-position logits (b, vp), cache).
+        pages.  Returns (last-valid-position logits (b, vp), cache).  Every
+        rank of a data group runs every prompt whole and writes its pages,
+        whatever b (the engine's prefill batch is one request, which the
+        reference's rule replicates too), so a slot's pages are whole on the
+        rank that later decodes it (:meth:`decode_step_paged`).
         """
         x = self._embed(params, batch)
         b, s = x.shape[:2]
@@ -471,6 +476,19 @@ class LanguageModel:
         xt = x[torch.arange(b, device=x.device), idx][:, None]  # (b, 1, d)
         return self._head(params, xt)[:, 0], cache
 
+    def _data_share(self, b: int):
+        """This rank's rows of a decode batch of ``b`` rows: ``b / D``
+        consecutive rows of its data group when D divides b, else all of
+        them (the reference's rule: the batch dim is sharded over the data
+        axes when it divides them).  Returns (rows slice, whether split)."""
+        plan = self.plan
+        D = 1 if plan is None else plan.dp
+        if D == 1 or b % D:
+            return slice(0, b), False
+        bl = b // D
+        d = plan.coords[0]
+        return slice(d * bl, (d + 1) * bl), True
+
     def decode_step_paged(self, params, cache, block_table, lengths, batch, *,
                           return_loads: bool = False):
         """One continuous-batching decode step over all sequence slots.
@@ -481,7 +499,18 @@ class LanguageModel:
         (logits (b, vp), cache), the cache updated in place, and with
         ``return_loads`` the MoE layers' logical expert counts (reps,
         n_moe_positions, E) too (the serving rebalancer's load feed).
+
+        Over a data group of D > 1 ranks that divides b, each rank decodes
+        its share of the rows (:meth:`_data_share`): it writes those rows'
+        K/V into its own page pool and reads them back there (a slot's
+        pages are read only by the rank whose share holds the slot, and
+        every rank writes a prefill's), and the logits are all-gathered
+        over the data group, so every rank samples the same tokens.
         """
+        rows, split = self._data_share(batch["tokens"].shape[0])
+        if split:
+            block_table, lengths = block_table[rows], lengths[rows]
+            batch = {k: v[rows] for k, v in batch.items()}
         x = self._embed(params, batch)
         positions = lengths.long()[:, None]
         N, bs = cache[0]["k"].shape[1:3]
@@ -493,11 +522,16 @@ class LanguageModel:
             x, mets, _ = transformer.apply_block(blk, p, x, self.arch,
                                                  positions=positions, cache=pc,
                                                  write=write, plan=self.plan,
-                                                 token_sharded=False)
+                                                 token_sharded=False, data_split=split)
             if mets:
                 loads[r].append(mets["expert_load"])
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         logits = self._head(params, x)[:, 0]
+        if split:
+            parts = [torch.empty_like(logits) for _ in range(self.plan.dp)]
+            torch.distributed.all_gather(parts, logits.contiguous(),
+                                         group=self.plan.dp_group)
+            logits = torch.cat(parts)
         if return_loads:
             return logits, cache, torch.stack([torch.stack(l) for l in loads])
         return logits, cache

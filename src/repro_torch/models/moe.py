@@ -463,25 +463,35 @@ def _replica_ffn(xt, rchan, k: int, w_up, w_gate, w_down, R: int, activation: st
 
 def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
             plan: Optional["sharding.MeshPlan"], *, token_sharded: bool = True,
-            train: bool = False, seq_shard: bool = False, telemetry=None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            train: bool = False, seq_shard: bool = False, data_split: bool = True,
+            telemetry=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The MoE sub-layer on this rank's block of a ``plan`` (None: one rank).
 
     ``params`` hold this rank's expert slots (``convert.shard_params``): the
     expert leaves are (E_l, ...), the router and the routing table whole.
     ``token_sharded`` (train, prefill): x is this rank's own tokens,
-    dispatched through the EP all-to-all; the metrics are meaned over the
-    stage group (the world without a pipeline).  With ``seq_shard`` x is replicated over the EP group and the
-    layer takes this rank's sequence shard of it and all-gathers the output
-    back (the reference's ``P(dp, ("ep", "tp"), None)``).  Otherwise
-    (decode) x is replicated over the EP group, each rank computes its own
-    experts and the outputs are summed over the group; the metrics are
-    meaned over the data group.  ``train``: see :func:`moe_ffn_local`.
-    ``telemetry`` (an ``obs.Telemetry``, or None) gets an ``a2a.layer``
-    span around each token-sharded dispatch/combine."""
+    dispatched through its EP group's all-to-all; the metrics are meaned
+    over the stage group (the world without a pipeline).  With
+    ``seq_shard`` x is replicated over the EP group (and over data and the
+    tp lanes, each lane computing the same) and the layer takes this rank's
+    sequence shard of it and all-gathers the output back over the EP group
+    (the reference's ``P(dp, ("ep", "tp"), None)``, its sequence split over
+    ep alone); the metrics are meaned over the EP group.  Otherwise (decode)
+    x is replicated over the EP group and the tp lanes, each rank computes
+    its own experts and the outputs are summed over the EP group, never
+    over tp; the metrics are meaned over the data group when
+    ``data_split`` (x is this data rank's share of the batch), else not
+    (x is the whole batch on every rank).  ``train``: see
+    :func:`moe_ffn_local`.  ``telemetry`` (an ``obs.Telemetry``, or None)
+    gets an ``a2a.layer`` span around each token-sharded dispatch/combine."""
     if plan is None or plan.world == 1:
         return moe_ffn_local(params, x, arch, train=train)
-    metric_group = plan.stage_group if token_sharded else plan.dp_group
+    if token_sharded and seq_shard:
+        metric_group = plan.ep_group
+    elif token_sharded:
+        metric_group = plan.stage_group
+    else:
+        metric_group = plan.dp_group if data_split else None
     if plan.ep == 1:
         return moe_ffn_local(params, x, arch, train=train, metric_group=metric_group)
     if token_sharded and seq_shard:
@@ -489,11 +499,19 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
         if s % plan.ep:
             raise ValueError(f"sequence {s} does not split over ep={plan.ep} ranks")
         sl = s // plan.ep
-        y, metrics = moe_ffn(params, x[:, plan.ep_rank * sl:(plan.ep_rank + 1) * sl],
-                             arch, plan, train=train, telemetry=telemetry)
+        y, metrics = _moe_ffn_ranks(params, x[:, plan.ep_rank * sl:(plan.ep_rank + 1) * sl],
+                                    arch, plan, True, train, metric_group, telemetry)
         parts = [torch.empty_like(y) for _ in range(plan.ep)]
         torch.distributed.all_gather(parts, y.contiguous(), group=plan.ep_group)
         return torch.cat(parts, dim=1), metrics
+    return _moe_ffn_ranks(params, x, arch, plan, token_sharded, train, metric_group,
+                          telemetry)
+
+
+def _moe_ffn_ranks(params, x, arch: ArchConfig, plan, token_sharded: bool, train: bool,
+                   metric_group, telemetry):
+    """:func:`moe_ffn` at EP > 1 on this rank's x, the metrics meaned over
+    ``metric_group``."""
     moe = arch.moe
     E_l = moe.num_experts // plan.ep
     b, s, d = x.shape

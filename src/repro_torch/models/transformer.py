@@ -55,6 +55,7 @@ def apply_block(
     plan=None,
     token_sharded: bool = True,
     seq_shard: bool = False,
+    data_split: bool = True,
     telemetry=None,
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
@@ -62,8 +63,9 @@ def apply_block(
     the dense SSM/conv cache for a mamba mixer (``models.ssm``).  ``train``
     selects the differentiable attention and capacity-FFN paths; a mamba
     mixer has none yet and raises.  ``plan``, ``token_sharded``,
-    ``seq_shard`` and ``telemetry`` go to :func:`moe.moe_ffn` (the mixer
-    needs no ranks: every rank holds whole sequences)."""
+    ``seq_shard``, ``data_split`` and ``telemetry`` go to
+    :func:`moe.moe_ffn` (the mixer needs no ranks: every rank holds whole
+    sequences)."""
     mixer, ffn = block
     metrics: Dict[str, torch.Tensor] = {}
     h = L.rms_norm(x, params["norm_mixer"], arch.norm_eps)
@@ -88,7 +90,8 @@ def apply_block(
         elif ffn == "moe":
             out, metrics = moe_lib.moe_ffn(params["ffn"], h, arch, plan,
                                            token_sharded=token_sharded, train=train,
-                                           seq_shard=seq_shard, telemetry=telemetry)
+                                           seq_shard=seq_shard, data_split=data_split,
+                                           telemetry=telemetry)
         else:
             raise ValueError(ffn)
         x = x + out

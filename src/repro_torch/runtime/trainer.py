@@ -32,24 +32,28 @@ on every rank of an expert-parallel run in lockstep.
   restarts the controller bit for bit.  At EP = 1 it returns at once, as
   in the reference.
 
-Over several ranks (``models.model.LanguageModel`` with a mesh plan) every
-rank runs this loop on the same global batch stream; the train step takes
-the rank's rows and reduces the gradients, so every rank sees the same
-loss, grad norm and expert loads and skips, rolls back, migrates or steps
-together (each migration checks that every rank planned the same).  The
-checkpoint does not depend on the EP degree: the expert leaves of params,
-m and v are all-gathered to their global (reps, E, ...) form, rank 0
-writes the files a world-1 run writes, and every rank restores from them,
-taking its own expert slots, so a checkpoint written at one EP degree
-resumes at another.  The fault sites fire on every rank; the launcher
-passes rank 0 alone a printing ``log_fn`` and metric sinks.
+Over several ranks (``models.model.LanguageModel`` with a mesh plan: any
+(pod, data, ep, tp) grid, pipelined or not) every rank runs this loop on
+the same global batch stream; the train step takes the rank's rows and
+reduces the gradients, so every rank sees the same loss, grad norm and
+expert loads and skips, rolls back, migrates or steps together (each
+migration checks that every rank of the world planned the same).  The
+checkpoint does not depend on the mesh: the expert leaves of params, m and
+v are all-gathered over the EP group and the block leaves over the pp
+group to the global tree, rank 0 writes the files a world-1 run writes,
+and every rank restores from them, taking its stage's chunks and its
+expert slots (``convert.shard_leaf``), so a checkpoint written at one mesh
+or schedule resumes at another.  SIGTERM's final save and the anomaly
+rollback go through the same save and restore.  The fault sites fire on
+every rank; the launcher passes rank 0 alone a printing ``log_fn`` and
+metric sinks.
 
 Under a pipeline plan (``plan.pp`` > 1) the step is the schedule-executing
 one (``core.pipeline``; ``[trainer] pipelined: PP=... schedule=...`` in the
 log) and the load feed gets the loads gathered over the pp group.  A
-checkpoint directory, and a migration at EP > 1, are refused there: the
-checkpoint's gather over the pp group and the per-stage load stats are
-ROADMAP Queue 1 item 3b.
+migration plans on the whole stack's routing tables (gathered over the pp
+group), one row per (MoE layer, rep), and each stage applies its own
+chunks' rows (``migration.apply_model_plan_``).
 """
 
 from __future__ import annotations
@@ -68,16 +72,12 @@ import torch.distributed as dist
 from repro_torch import obs, sharding
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.checkpointing import restore_checkpoint
-from repro_torch.convert import gather_params
+from repro_torch.convert import gather_params, shard_leaf
 from repro_torch.core import migration as mig
 from repro_torch.models.model import LanguageModel, tree_paths
 from repro_torch.optim.optimizer import OptimizerConfig
 from repro_torch.runtime.faults import FaultInjector, TransientDataError
 from repro_torch.training import _host, make_train_step
-
-PP_TODO = ("is not ported yet under a pipeline (ROADMAP.md Queue 1 item 3b: the "
-           "checkpoint's gather over the pp group and the per-stage load stats)")
-
 
 @dataclass
 class TrainerConfig:
@@ -110,14 +110,6 @@ class Trainer:
                  cfg: TrainerConfig, log_fn: Callable[[str], None] = print,
                  injector: Optional[FaultInjector] = None,
                  telemetry: Optional[obs.Telemetry] = None):
-        plan = lm.plan
-        if plan is not None and plan.pp > 1:
-            if cfg.checkpoint_dir:
-                raise NotImplementedError(f"checkpointing at PP={plan.pp} {PP_TODO}")
-            if plan.ep > 1 and lm.arch.moe and cfg.migrate_every <= cfg.total_steps:
-                raise NotImplementedError(
-                    f"expert migration at PP={plan.pp} x EP={plan.ep} {PP_TODO}; set the "
-                    f"migration interval above the run's steps")
         self.lm = lm
         self.cfg = cfg
         self.opt_cfg = opt_cfg
@@ -231,7 +223,7 @@ class Trainer:
             return state
         moe = [i for i, (_, f) in enumerate(self.lm.arch.block_pattern) if f == "moe"]
         ffns = {t: [state[t]["blocks"][i]["ffn"] for i in moe] for t in ("params", "m", "v")}
-        tables = mig.routing_tables(ffns["params"])
+        tables = mig.routing_tables(ffns["params"], plan)
         if mig.model_imbalance(self.load_stats, tables, plan.ep) < self.cfg.migrate_threshold:
             return state
         # Plan on the host first: the post-move imbalance feeds the pricing
@@ -295,9 +287,10 @@ class Trainer:
                                             decay=self.load_stats.decay)
 
     def global_state(self, state):
-        """The state with every expert leaf of params, m and v all-gathered
-        to its global (reps, E, ...) form (a collective over the EP group);
-        ``state`` itself at world 1."""
+        """The state with every leaf of params, m and v all-gathered to its
+        global form (``convert.gather_params``: the expert leaves over the
+        EP group, the block leaves over the pp group); ``state`` itself at
+        world 1."""
         if self.plan is None:
             return state
         return {k: gather_params(v, self.plan) if k in ("params", "m", "v") else v
@@ -315,16 +308,17 @@ class Trainer:
             dist.barrier(group=self.plan.world_group)
 
     def _shard_of(self, flat_keys):
-        """(key, global array) -> this rank's part: its expert slots of the
-        expert leaves, the rest whole."""
+        """(key, global array) -> this rank's part: of params, m and v its
+        stage's chunks of the block leaves and its expert slots of the
+        expert leaves (``convert.shard_leaf``), the rest whole."""
         plan = self.plan
-        experts = sharding.expert_paths({k: None for k in flat_keys})
+        experts = sharding.expert_paths({k.partition("/")[2]: None for k in flat_keys})
 
         def shard(key, a):
-            if key not in experts:
+            tree, _, path = key.partition("/")
+            if tree not in ("params", "m", "v"):
                 return a
-            E_l = a.shape[1] // plan.ep
-            return a[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l]
+            return shard_leaf(path, a, plan, experts)
 
         return shard
 

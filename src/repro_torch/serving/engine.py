@@ -31,10 +31,12 @@ workload:
 
 The engine is host-driven: device work happens in
 ``LanguageModel.prefill_paged`` / ``decode_step_paged``, and the scheduler
-mutates only small numpy tables between the calls.  Over the ranks of an
-expert-parallel ``LanguageModel`` every rank runs its own engine on the
-same requests in lockstep: the model's collectives line up because the
-schedules do, and the sampled tokens agree because the logits do.
+mutates only small numpy tables between the calls.  Over the ranks of a
+``LanguageModel`` with a mesh plan (EP groups, tp lanes, data ranks) every
+rank runs its own engine on the same requests in lockstep: the model's
+collectives line up because the schedules do, and the sampled tokens agree
+because the logits do (a decode batch split over the data group is
+all-gathered before sampling).
 """
 
 from __future__ import annotations
@@ -134,11 +136,12 @@ def _bucket(n: int, lo: int = MIN_BUCKET) -> int:
 def check_ep(ep: int) -> None:
     """Refuse an EP degree that does not divide every prefill bucket: the
     EP layer takes each rank's sequence shard of a bucket, so ep must
-    divide ``MIN_BUCKET`` (1, 2, 4 or 8)."""
+    divide ``MIN_BUCKET`` (1, 2, 4 or 8).  The tp lanes add no condition:
+    each lane of an EP group takes that group's sequence shard."""
     if MIN_BUCKET % ep:
         raise ValueError(f"ep={ep} does not divide the prefill buckets (powers of two "
-                         f"from {MIN_BUCKET}): serving takes ep 1, 2, 4 or 8 (a prefill "
-                         f"padded to a multiple of ep is ROADMAP.md Queue 1 item 3b)")
+                         f"from {MIN_BUCKET}): serving takes ep 1, 2, 4 or 8, at any tp "
+                         f"and data degree")
 
 
 class Engine:

@@ -2,15 +2,20 @@
 
 The port of ``repro.sharding``.  The reference refines a device mesh
 ``(data, model)`` or ``(pod, data, model)`` into ``(pod, data, ep, tp)``
-with ``ep = gcd(E, |model|)``; here the same grid is laid over the ranks of
-the default process group in row-major order,
-``rank = ((p * D + d) * ep + e) * tp + t``, and each axis the model reduces,
-exchanges or hands off over gets its own process group:
+with ``ep = gcd(E, |model|)`` and ``tp = |model| / ep`` (tp innermost); here
+the same grid is laid over the ranks of the default process group in
+row-major order, ``rank = ((p * D + d) * ep + e) * tp + t``, and each axis
+the model reduces, exchanges or hands off over gets its own process group:
 
 * the **EP group** of a rank: the ``ep`` ranks that share its (p, d, t);
-  its expert-parallel all-to-all runs there, and the rank's group rank is e;
-* the **data group**: the ``D`` ranks that share its (p, e, t), which hold
-  the same expert slots of the same stage and sum their gradients;
+  its expert-parallel all-to-all runs there (the reference's runs over
+  "ep" only), and the rank's group rank is e;
+* the **data group**: the ``D`` ranks that share its (p, e, t); a serving
+  decode batch is split over it when D divides it, and the decode MoE
+  metrics are meaned over it (the reference's ``metric_axes = dp_spec``);
+* the **expert-gradient group**: the ``D * tp`` ranks that share its
+  (p, e), which hold the same expert slots of the same stage and sum their
+  expert gradients (the data group itself when tp = 1);
 * the **stage group**: the ``D * ep * tp`` ranks of its pipeline stage p,
   which hold the same stage's non-expert weights; the token-sharded MoE
   metrics (aux losses, expert loads) are meaned over it;
@@ -20,7 +25,7 @@ exchanges or hands off over gets its own process group:
 * the **world**: every rank; the embedding and head gradients are summed
   over it;
 * with ``hierarchical_a2a``, HALO's lane and node subgroups of the EP group
-  (``core.halo``).
+  (``core.halo``), keyed by (p, d, t) as the EP group is.
 
 Without ``pipeline_on_pod`` the pod axis joins data, as the reference's
 ``dp_axes = ("pod", "data")`` does: the grid is ``(P * D, model)`` and the
@@ -31,8 +36,11 @@ with ``compress_p2p`` (``core.compression``).
 
 Layout (the reference's expert-data parallelism): non-expert weights are
 replicated within a stage, each EP rank holds the physical expert slots
-``[e * E_l, (e + 1) * E_l)`` whole, and every rank routes its own tokens.
-TP > 1 is refused (ROADMAP Queue 1, item 3b).
+``[e * E_l, (e + 1) * E_l)`` whole, replicated over the tp lanes as over
+data, and every rank routes its own tokens: a tp lane is one more
+token-parallel lane of its EP group.  The reference's ZeRO-3 split of the
+expert d_ff over ("data", "tp"), all-gathered inside the layer, gives the
+same function with less memory; it is not ported (ROADMAP Queue 1 item 8).
 
 ``dist.new_group`` is collective over the whole world: every rank creates
 every group, its own or not, in one fixed order, or the run hangs.  A
@@ -52,10 +60,6 @@ import torch.distributed as dist
 from repro_torch.configs.base import DEFAULT_SCHEDULE, SCHEDULES, ArchConfig
 from repro_torch.core.halo import _pick_inner, lane_groups, node_groups
 
-TP_TODO = ("tensor parallelism (tp > 1) is not ported yet (ROADMAP.md Queue 1, "
-           "item 3b)")
-
-
 def choose_ep(num_experts: int, model_axis: int) -> int:
     """Largest EP degree that divides both the expert count (paper Eq 8)
     and the fast-domain axis size (paper Eq 10)."""
@@ -65,10 +69,11 @@ def choose_ep(num_experts: int, model_axis: int) -> int:
 @dataclass
 class MeshPlan:
     """A (pod, data, ep, tp) grid over the default process group and this
-    rank's place in it.  ``ep_group``, ``dp_group``, ``stage_group``,
-    ``pp_group``, ``world_group``, ``lane_group`` and ``node_group`` are
-    process groups, or None where the group is one rank (or, for the HALO
-    pair, where HALO is off or degenerates to the flat collective).
+    rank's place in it.  ``ep_group``, ``dp_group``, ``expert_dp_group``,
+    ``stage_group``, ``pp_group``, ``world_group``, ``lane_group`` and
+    ``node_group`` are process groups, or None where the group is one rank
+    (or, for the HALO pair, where HALO is off or degenerates to the flat
+    collective).
     ``pp`` > 1 only with ``pipeline_on_pod`` (``make_plan``); the pipeline
     fields are consulted only then."""
 
@@ -93,14 +98,13 @@ class MeshPlan:
     world_group: Optional[object] = None
     ep_group: Optional[object] = None
     dp_group: Optional[object] = None
+    expert_dp_group: Optional[object] = None
     stage_group: Optional[object] = None
     pp_group: Optional[object] = None
     lane_group: Optional[object] = None
     node_group: Optional[object] = None
 
     def __post_init__(self):
-        if self.tp != 1:
-            raise NotImplementedError(TP_TODO)
         if self.a2a_chunks < 1:
             raise ValueError(f"a2a_chunks must be >= 1, got {self.a2a_chunks}")
         if self.schedule not in SCHEDULES:
@@ -194,9 +198,6 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     n_exp = arch.moe.num_experts if arch.moe is not None else model
     ep = choose_ep(n_exp, model)
     tp = model // ep
-    if tp != 1:
-        raise NotImplementedError(f"mesh {','.join(map(str, mesh_shape))}: ep = "
-                                  f"gcd({n_exp}, {model}) = {ep}, tp = {tp}; {TP_TODO}")
     world = pp * data * model
     kw = dict(hierarchical_a2a=hierarchical_a2a, a2a_chunks=a2a_chunks, pp=pp,
               schedule=schedule, vstages=vstages, microbatches=microbatches,
@@ -209,9 +210,13 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
         have = dist.get_world_size() if dist.is_initialized() else "no process group"
         raise ValueError(f"mesh {','.join(map(str, mesh_shape))} needs {world} ranks, "
                          f"have {have}")
-    plan = MeshPlan(dp=data, ep=ep, rank=dist.get_rank(), **kw)
-    d, e, _ = plan.coords
+    plan = MeshPlan(dp=data, ep=ep, tp=tp, rank=dist.get_rank(), **kw)
+    d, e, t = plan.coords
     p, n = plan.pp_rank, plan.stage_size
+
+    def at(pp_, dd, ee, tt):
+        return ((pp_ * data + dd) * ep + ee) * tp + tt
+
     plan.world_group = dist.group.WORLD
     plan.stage_group = plan.world_group if pp == 1 else None
     # Every rank creates every group in the same order (new_group is
@@ -223,23 +228,32 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
             _keep(plan, "pp_group", [pp_ * n + x for pp_ in range(pp)], x == plan.stage_rank)
     for pp_ in range(pp):
         for dd in range(data):
-            _keep(plan, "ep_group", [pp_ * n + dd * ep + x for x in range(ep)],
-                  (pp_, dd) == (p, d))
+            for tt in range(tp):
+                _keep(plan, "ep_group", [at(pp_, dd, x, tt) for x in range(ep)],
+                      (pp_, dd, tt) == (p, d, t))
         for ee in range(ep):
-            _keep(plan, "dp_group", [pp_ * n + x * ep + ee for x in range(data)],
-                  (pp_, ee) == (p, e))
+            for tt in range(tp):
+                _keep(plan, "dp_group", [at(pp_, x, ee, tt) for x in range(data)],
+                      (pp_, ee, tt) == (p, e, t))
+            if tp > 1:
+                _keep(plan, "expert_dp_group",
+                      [at(pp_, x, ee, tt) for x in range(data) for tt in range(tp)],
+                      (pp_, ee) == (p, e))
+    if tp == 1:
+        plan.expert_dp_group = plan.dp_group
     g1 = _pick_inner(ep)
     if hierarchical_a2a and 1 < g1 < ep:
         plan.g1 = g1
         for pp_ in range(pp):
             for dd in range(data):
-                base = pp_ * n + dd * ep
-                for lanes in lane_groups(ep, g1):
-                    _keep(plan, "lane_group", [base + x for x in lanes],
-                          (pp_, dd) == (p, d) and e in lanes)
-                for nodes in node_groups(ep, g1):
-                    _keep(plan, "node_group", [base + x for x in nodes],
-                          (pp_, dd) == (p, d) and e in nodes)
+                for tt in range(tp):
+                    mine = (pp_, dd, tt) == (p, d, t)
+                    for lanes in lane_groups(ep, g1):
+                        _keep(plan, "lane_group", [at(pp_, dd, x, tt) for x in lanes],
+                              mine and e in lanes)
+                    for nodes in node_groups(ep, g1):
+                        _keep(plan, "node_group", [at(pp_, dd, x, tt) for x in nodes],
+                              mine and e in nodes)
     if pp > 1:
         # The pipeline's hand-offs are batched point-to-point calls on the
         # world group, and NCCL wants every rank of a group in its first
@@ -316,7 +330,8 @@ def reduce_grads_(grads, plan) -> None:
     """Sum this rank's partial gradients (a params-shaped tree, None for
     integer tables) in place into the global ones: the non-expert block
     leaves over the stage group (the ranks that hold the same stage), the
-    expert leaves over the data group (the same slots of the same stage),
+    expert leaves over the expert-gradient group (the data ranks and tp
+    lanes that hold the same slots of the same stage),
     and ``embed``, ``final_norm`` and ``lm_head`` over the world (every
     stage's and data rank's part; the reference's sum over stages)."""
     from repro_torch.models.model import tree_paths  # the model imports this module
@@ -328,4 +343,4 @@ def reduce_grads_(grads, plan) -> None:
         sum_leaves_([flat[k] for k in dense if k.startswith("blocks/")], plan.stage_group)
         dense = [k for k in dense if not k.startswith("blocks/")]
     sum_leaves_([flat[k] for k in dense], plan.world_group)
-    sum_leaves_([flat[k] for k in sorted(experts)], plan.dp_group)
+    sum_leaves_([flat[k] for k in sorted(experts)], plan.expert_dp_group)

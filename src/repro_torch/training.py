@@ -7,8 +7,9 @@ carries the gradients back to fp32 through the casts; the AdamW update then
 runs in place (``optim.adamw_update``).  Over the ranks of the model's
 ``sharding.MeshPlan`` each rank takes its own rows of the global batch,
 differentiates its term of the global loss, and sums the gradients: the
-replicated (non-expert) ones over the world, the expert ones over the data
-group (the ranks that hold the same expert slots).  Under a pipeline plan
+replicated (non-expert) ones over the world, the expert ones over the
+expert-gradient group (the data ranks and tp lanes that hold the same
+expert slots).  Under a pipeline plan
 the step is the schedule-executing one (``LanguageModel.loss_and_grads``,
 ``core.pipeline``): each rank takes its rows of every microbatch, and the
 block gradients are summed over the rank's stage (``sharding
@@ -95,7 +96,7 @@ def shard_batch(batch, plan):
             M, G = plan.num_microbatches, plan.stage_size
             if b % (M * G):
                 raise ValueError(f"batch {b} does not split into {M} microbatches of "
-                                 f"{G} ranks' whole sequences (b % (M * D * ep) != 0)")
+                                 f"{G} ranks' whole sequences (b % (M * D * ep * tp) != 0)")
             b_mu, bl = b // M, b // (M * G)
             g = plan.stage_rank
             rows = [v[mb * b_mu + g * bl:mb * b_mu + (g + 1) * bl] for mb in range(M)]
@@ -171,7 +172,9 @@ def _global_norm(grads, plan, params):
     order (through the params' ``assignment``), so that an expert
     migration, which only relabels slots, leaves the norm's bits (and so
     the clip) unchanged.  Under a pipeline plan the block leaves' squares
-    (a stage's chunks) are added over the pp group."""
+    (a stage's chunks) are added over the pp group.  Every tp lane holds
+    the same reduced gradients and gathers over its own EP group in the
+    same order, so every rank computes the same bits and clips alike."""
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
     experts = sorted(sharding.expert_paths(flat))
 

@@ -322,9 +322,9 @@ def _args(argv):
 
 def test_a_pod_axis_without_pipeline_joins_data():
     arch = get_arch("granite-moe-3b-a800m").reduced()
-    assert ranks.check(_args(["--mesh", "2,1,4"]), arch, 8, cards=0) == "gloo"
+    assert ranks.check(_args(["--mesh", "2,1,4"]), 8, cards=0) == "gloo"
     assert ranks.mesh_of(_args(["--mesh", "2,1,4"]), 8) == (2, 1, 4)
-    assert ranks.check(_args(["--mesh", "2,1,4", "--pipeline"]), arch, 8, cards=0) == "gloo"
+    assert ranks.check(_args(["--mesh", "2,1,4", "--pipeline"]), 8, cards=0) == "gloo"
 
 
 def _pp_plan(ep=1, rank=0):
@@ -333,28 +333,27 @@ def _pp_plan(ep=1, rank=0):
 
 @pytest.mark.parametrize("case", ["ckpt", "migrate", "pod", "serve"])
 def test_refusals(case, monkeypatch, tmp_path):
-    """Checkpointing at PP > 1 and migration at PP x EP name ROADMAP item
-    3b; ``--pipeline`` needs a pod axis of at least 2; serving takes no pod
-    axis."""
+    """``--pipeline`` needs a pod axis of at least 2.  What this test once
+    refused is taken now: checkpointing at PP > 1, migration at PP x EP and
+    a serving pod axis (``tests/test_torch_mesh.py`` runs each)."""
     arch = get_arch("granite-moe-3b-a800m").reduced()
     opt = OptimizerConfig(lr=1e-3)
     if case == "ckpt":
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            Trainer(LanguageModel(arch, _pp_plan()), opt,
-                    TrainerConfig(total_steps=4, checkpoint_dir=str(tmp_path)))
+        tr = Trainer(LanguageModel(arch, _pp_plan()), opt,
+                     TrainerConfig(total_steps=4, checkpoint_dir=str(tmp_path)))
+        assert tr.ckpt is not None and tr.ckpt.directory == tmp_path
     elif case == "migrate":
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            Trainer(LanguageModel(arch, _pp_plan(ep=2)), opt,
-                    TrainerConfig(total_steps=4, migrate_every=2))
-        Trainer(LanguageModel(arch, _pp_plan(ep=2)), opt,
-                TrainerConfig(total_steps=4, migrate_every=50))
+        for every in (2, 50):
+            tr = Trainer(LanguageModel(arch, _pp_plan(ep=2)), opt,
+                         TrainerConfig(total_steps=4, migrate_every=every))
+            assert tr.load_stats is not None and tr.cfg.migrate_every == every
     elif case == "pod":
         for mesh in ("1,4", "1,1,4"):
             with pytest.raises(SystemExit, match="pod axis"):
-                ranks.check(_args(["--mesh", mesh, "--pipeline"]), arch, 4, cards=0)
+                ranks.check(_args(["--mesh", mesh, "--pipeline"]), 4, cards=0)
     else:
         monkeypatch.setenv("WORLD_SIZE", "4")
-        with pytest.raises(SystemExit, match="item 3b"):
+        with pytest.raises(ValueError, match="mesh 2,1,2 needs 4 ranks, have no process"):
             serve_launch.main(["--reduced", "--device", "cpu", "--mesh", "2,1,2"])
 
 
