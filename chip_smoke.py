@@ -68,9 +68,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    dispatch), batch 2 x 512 tokens, 5 steps on ``SyntheticTokens``, the
    launch counts zeroed just before and read just after: every step must
    have a finite loss and none may be skipped, and each step must launch
-   the ragged kernels once per MoE layer (gate-up), four times (the
-   forward down-projection and the three backward GEMMs) and three times
-   (the weight gradients), none through an ``/fma`` design.  With
+   the ragged kernels, per MoE layer, twice (gate-up: the forward and the
+   backward's recompute under the default remat "full"), five times (the
+   forward down-projection, its recompute and the three backward GEMMs)
+   and three times (the weight gradients), none through an ``/fma``
+   design.  With
    ``--metrics-out`` it prints the planner's lines and the drift report,
    and fails unless the trace validates and the ``step`` row has 4
    samples; the modeled t_step and mem_stage0 are printed beside the
@@ -100,7 +102,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    NaN sentinel tail that must come back 0; the grouped GEMM over (20,
    2 x C, d)).  (c) two gloo ranks sharing the card (EP = 2; NCCL will not
    put two ranks of one communicator on one GPU), granite at full width
-   and depth 2 with capacity factor 16: train steps under both dispatches
+   and depth 1 with capacity factor 16: train steps under both dispatches
    at a2a chunks 1 and 2, their loss and gathered gradients against world
    1 on the same global batch at the reference's EP gates (loss 2e-3,
    gradients 2e-3, the embedding at relative 0.05) and at 0.02 of each
@@ -115,7 +117,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    a2a micro-benchmarks run at world 1 and print no time either;
 13. migrate: expert migration, hot-expert replicas, serving rebalance and
    the EP-agnostic checkpoint, on the same two gloo ranks, granite at full
-   width and depth 2, EP = 2, cf 16, bf16, tokens in [0, 4) (the
+   width and depth 1, EP = 2, cf 16, bf16, tokens in [0, 4) (the
    reference's check_migration_exactness stream).  (a) every kernel of the
    replica path against its plain version at its shapes (R = 2 channels
    over a rank's T x k rows, the hot experts' rows occupied, a NaN
@@ -150,9 +152,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    comm traces equal to the IR's and the peaks to Eq 4 (GPipe: M; the
    interleaved analogue).  (c) The launch counts, zeroed before each
    schedule's step and read after it on each rank, equal to the IR's ops
-   times one op's launches (``PIPE_OP_LAUNCHES``), none through ``/fma``.
-   (d) Four ranks at mesh 2,1,2 (PP 2 x EP 2), 1f1b, batch 8 x 512,
-   against world 1 at (b)'s gates.  (e) 1f1b with int8 hand-offs, its loss
+   times one op's launches (``PIPE_OP_LAUNCHES``: the default remat
+   "full" repeats each rep's forward in a B, Bi and Bw), none through
+   ``/fma``.  (d) Four ranks at mesh 2,1,2 (PP 2 x EP 2), 1f1b, batch 8 x
+   512, against world 1 at (b)'s gates.  (e) 1f1b with int8 hand-offs, its loss
    within 0.1 of the bf16 hand-offs', the bytes a hand-off beside
    ``resource_model.p2p_bytes_per_boundary``.  (f) ``torchrun
    --nproc-per-node 2 -m repro_torch.launch.train --mesh 2,1,1 --pipeline``
@@ -167,7 +170,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    kernels over a tp lane's receiver buffer (forward and backward), the
    decode step of a data rank's share, the grouped GEMMs of the capacity
    paths and flash attention at every prefill bucket, against their plain
-   versions.  (b) Six ranks at ``--mesh 1,6`` (ep 2 x tp 3), depth 2, 6 x
+   versions.  (b) Six ranks at ``--mesh 1,6`` (ep 2 x tp 3), depth 1, 6 x
    512: loss and gathered gradients against the data grid ``--mesh 3,2``
    (the same sequence a rank, EP 2, no tp) at phase 12's gates (halved
    expert gradients must fail them), one AdamW step against the grid's as
@@ -181,17 +184,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    (else no further from A than a repeat A2); the PP 2 checkpoint restored
    at world 1 and at PP 2 under interleaved_1f1b V 2 with CRC32s equal the
    manifest's; checkpoint bytes, save and restore seconds.  (e) Four ranks
-   at PP 2 x EP 2 (2,1,2), depth 4, 4 x 256, M 2, tokens in [0, 4):
+   at PP 2 x EP 2 (2,1,2), depth 2, 4 x 256, M 2, tokens in [0, 4):
    migrations every 2 of 4 steps, each rank's params, m and v bitwise the
    manual permutation of its stage's slots, the loss trajectory bitwise a
    permuted-init run's (else 1e-6), a checkpoint saved after them restored
    at world 1 with CRC32s equal; one migration's seconds and all-gathered
    bytes.  (f) The same four ranks serving at ``--mesh 2,2`` and ``2,1,2``
-   (the pod joining data), depth 2, both dispatches: tokens equal world
+   (the pod joining data), depth 1, both dispatches: tokens equal world
    1's.  Launch counts zeroed after the world-1 references and read at the
    end on each rank; every kernel of the phase's paths must be there, none
    through ``/fma``.  Step seconds and peak GB a rank for each grid are
-   printed, not gated.
+   printed, not gated;
+16. memory: the plan's memory policy, granite at full width, ragged, bf16
+   compute.  First the ragged kernels against their plain versions at
+   (b)'s shapes (2 x 4096 tokens top-8, 65,536 rows).  (a) Full depth, 2 x 512: a loss-and-gradients pass under
+   remat none, dots, full and none again, the loss and every gradient leaf
+   of dots and full bitwise none's (else no further than the repeat), the
+   launches a pass exact (``MEM_REMAT_LAUNCHES``: dots recomputes the
+   ragged kernels, which it cannot see), peak and pass p50 of each.  (b)
+   Full depth, 2 x 4096 (the reference launcher's sequence): 3 train steps
+   under remat full and dots, and none where the resource model's
+   mem_stage0 fits 80 GB; finite losses, none skipped, launches exact,
+   peaks beside mem_stage0.  (c) Full depth, 2 x 512, 5 steps with fp32
+   and bf16 Adam moments: 4 and 2 B a float parameter a moment exactly,
+   the losses within ``MEM_MOMENT_REL``, both peaks.  (d) Four gloo ranks
+   sharing the card at ``--mesh 2,2`` (D 2 x ep 2), depth 2, 4 x 512: the
+   d_ff split in 2 against the whole-slot control, each rank's expert
+   params, m and v exactly half the control's, the loss and gathered
+   gradients bitwise (else phase 12's gates), one AdamW step within 2 lr,
+   each rank's peak with and without the split; a split checkpoint
+   restored at world 1 with CRC32s equal the manifest's; a swap on the
+   slices bitwise the manual permutation; the served tokens equal world
+   1's, with the gather's seconds a decode step (gloo; printed, not
+   gated).
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -1101,9 +1126,10 @@ def ssm_profile_phase(model) -> None:
 # planner's table.  --metrics-out (a temporary directory) is added per run.
 TRAIN_ARGS = ["--arch", ARCH, "--steps", "5", "--batch", "2", "--seq", "512",
               "--seed", "0", "--dispatch", "ragged"]
-# Launches of each kernel per MoE layer and train step under ragged dispatch:
-# RaggedFFN's forward (gate-up, down) and backward (dh, dx_g, dx_u; dW x 3).
-TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 1, "ragged_matmul_f32": 4,
+# Launches of each kernel per MoE layer and train step under ragged dispatch
+# and the default remat "full": RaggedFFN's forward (gate-up, down), the
+# backward's recompute of it, and its backward (dh, dx_g, dx_u; dW x 3).
+TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 2, "ragged_matmul_f32": 5,
                   "ragged_dw_f32": 3, "flash_attention": 0, "grouped_matmul_f32": 0,
                   "ssd_intra_chunk": 0}
 PATH_KERNELS["train"] = tuple(n for n, c in TRAIN_LAUNCHES.items() if c)
@@ -1445,7 +1471,10 @@ def model_phase(dev) -> None:
 # Phase 12: expert parallelism (world 1 over NCCL; two gloo ranks on the card)
 # ---------------------------------------------------------------------------
 
-EP_DEPTH, EP_CF, EP_RANKS = 2, 16.0, 2
+# One layer rep: under remat "full" each rep's all-to-all runs again in
+# the backward, and gloo stages every one through the host, so the
+# multi-rank phases keep to one rep to stay inside the time limit.
+EP_DEPTH, EP_CF, EP_RANKS = 1, 16.0, 2
 # (dispatch, a2a_chunks) of the two-rank train steps.
 EP_CASES = (("ragged", 1), ("ragged", 2), ("capacity", 1), ("capacity", 2))
 EP_SERVE = dict(requests=4, prompt=(64, 512), max_new=8, max_seqs=4)
@@ -2300,7 +2329,7 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
 
 def migrate_phase(dev):
     """Phase 13: the replica path's kernels on the card, then two gloo
-    ranks on the one card (EP = 2; granite full width, depth 2, cf 16):
+    ranks on the one card (EP = 2; granite full width, depth 1, cf 16):
     replication, migration, serving rebalance and the EP-agnostic
     checkpoint.  Returns the two ranks' summed launch counts of those runs."""
     import torch.multiprocessing as mp
@@ -2363,11 +2392,13 @@ PIPE_BATCH, PIPE_EP_BATCH = (4, 512), (8, 512)
 PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("1f1b_overlap", 1), ("zb_h1", 1),
                   ("interleaved_1f1b", 2))
 # Launches a MoE layer of an op's chunk: (gate-up, ragged matmul, dW).  F is
-# the forward; B its recompute, dh, dx_g, dx_u and the three dW; Bi the
-# recompute and the input gradient alone; Bw the recompute and the whole
-# backward (the layers' inputs depend on the chunk's weights).  A Bi of the
-# first chunk launches nothing: nothing upstream takes its input gradient.
-PIPE_OP_LAUNCHES = {"F": (1, 1, 0), "B": (1, 4, 3), "Bi": (1, 4, 0), "Bw": (1, 4, 3)}
+# the forward (no autograd, so no remat); B the chunk's recompute, then,
+# under the default remat "full", each rep's forward again in the backward,
+# dh, dx_g, dx_u and the three dW; Bi the same but the input gradient
+# alone; Bw the same as B (the layers' inputs depend on the chunk's
+# weights).  A Bi of the first chunk launches nothing: nothing upstream
+# takes its input gradient.
+PIPE_OP_LAUNCHES = {"F": (1, 1, 0), "B": (2, 5, 3), "Bi": (2, 5, 0), "Bw": (2, 5, 3)}
 PIPE_KERNELS = ("ragged_gate_up_silu_f32", "ragged_matmul_f32", "ragged_dw_f32")
 PATH_KERNELS["pipeline"] = PIPE_KERNELS
 PIPE_LAUNCH_ARGS = ["--arch", ARCH, "--mesh", "2,1,1", "--pipeline", "--schedule", "1f1b",
@@ -2388,9 +2419,15 @@ def pipe_expected(sched, stage: int, layers: int) -> dict:
 
 def pipe_kernel_checks(dev) -> None:
     """(a) The ragged kernels at the microbatch's shape: one 512-token
-    sequence routed top-8 over granite's 40 experts, T x k = 4096 rows: the
-    gate-up (bf16 x), the down projection (fp32 h), dh and dx (fp32 against
-    the transposed weights) and both weight gradients."""
+    sequence routed top-8 over granite's 40 experts, T x k = 4096 rows."""
+    ragged_family_checks(dev, PIPE_BATCH[1], "pipeline microbatch", seed=4)
+
+
+def ragged_family_checks(dev, tokens: int, what: str, seed: int) -> None:
+    """The ragged kernels at ``tokens`` tokens routed top-k over granite's
+    experts: the gate-up (bf16 x), the down projection (fp32 h), dh and dx
+    (fp32 against the transposed weights) and both weight gradients,
+    against their plain versions at ``GEMM_TOL``."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels.moe_gemm import ops as mm_ops
     from repro_torch.kernels.moe_gemm import ref as mm_ref
@@ -2398,14 +2435,14 @@ def pipe_kernel_checks(dev) -> None:
     arch = get_arch(ARCH)
     d, f, E, k = arch.d_model, arch.moe.d_ff, arch.moe.num_experts, arch.moe.top_k
     bf16 = torch.bfloat16
-    _, randn, routed_offsets = seeded_inputs(dev, E, k, seed=4)
-    offs = routed_offsets(PIPE_BATCH[1])
+    _, randn, routed_offsets = seeded_inputs(dev, E, k, seed=seed)
+    offs = routed_offsets(tokens)
     R = int(offs[-1])
     wg, wu = (randn(E, d, f, scale=d ** -0.5, dtype=bf16) for _ in range(2))
     wd = randn(E, f, d, scale=f ** -0.5, dtype=bf16)
     x, h = randn(R, d, dtype=bf16), randn(R, f)
     dy, da = randn(R, d, scale=1e-2), randn(R, f, scale=1e-2)
-    tag = f"pipeline microbatch T*k={R} E={E}"
+    tag = f"{what} T*k={R} E={E}"
     for nm, a, b in zip(("h", "a_g", "a_u"), mm_ops.ragged_gate_up_silu_f32(x, wg, wu, offs),
                         mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs)):
         check(f"ragged_gate_up_silu_f32 {tag} {nm}", a, b, GEMM_TOL)
@@ -2735,6 +2772,7 @@ MESH_TP_CONTROL = (3, 2)
 # phase 13's 1024 tokens a step (every layer's all-to-all ships the cf-16
 # wire through gloo, about 6 s a step at 4 x 512).
 MESH_PP_BATCH, MESH_PP_EP_BATCH, MESH_PP_EP_M = (4, 512), (4, 256), 2
+MESH_PP_EP_DEPTH = 2  # PP 2 x one rep a stage (see EP_DEPTH)
 # Run B of (d): checkpoints every 2 steps (keep 2), NaN at steps 2-4 ->
 # rollback to 2, SIGTERM at 5 -> final save; its resume runs to 6.
 MESH_CK = dict(steps=6, every=2, keep=2, nan=2, sigterm=5)
@@ -2975,7 +3013,8 @@ def _mesh_serve(arch, plan, params, dev) -> list:
 
 
 def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
-    """(b), (c): six ranks at ``MESH_TP`` (ep 2 x tp 3), granite at depth 2.
+    """(b), (c): six ranks at ``MESH_TP`` (ep 2 x tp 3), granite at depth
+    ``EP_DEPTH``.
     Training is held to the data grid ``MESH_TP_CONTROL`` (D 3 x ep 2: the
     same sequence a rank and the same EP degree, no tp lanes) at phase 12's
     gates, and both grids to world 1 (rank 0) at the reference's own EP
@@ -2992,7 +3031,7 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
 
     run = _MeshRun(rank, world, tmp, "tp")
     dev = run.dev
-    arch = _mesh_arch(EP_DEPTH)
+    arch = _mesh_arch(MEM_SPLIT_DEPTH)
     opt = OptimizerConfig(lr=1e-3)  # step 1 of its 100-step warmup: lr 1e-5
     lr = 1e-3 / 100
     batch = SyntheticTokens(arch.vocab_size, *MESH_TP_BATCH).batch_at(0)
@@ -3248,8 +3287,8 @@ def _mesh_pp(rank: int, world: int, tmp: str) -> dict:
 
 def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     """(e) migration at PP 2 x EP 2 (2, 1, 2), granite at depth
-    ``PIPE_DEPTH``, skewed tokens; (f) serving data parallelism at
-    ``MESH_DP``, depth 2, against world 1 on rank 0."""
+    ``MESH_PP_EP_DEPTH``, skewed tokens; (f) serving data parallelism at
+    ``MESH_DP``, depth ``EP_DEPTH``, against world 1 on rank 0."""
     import torch.distributed as dist
 
     from repro_torch import sharding
@@ -3271,7 +3310,7 @@ def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     run.start()
 
     # (e) Migrations every MIG_EVERY of MESH_MIG_STEPS steps, swap-only.
-    arch = _mesh_arch(PIPE_DEPTH, max_replicas=0, aux_loss_coef=0.0)
+    arch = _mesh_arch(MESH_PP_EP_DEPTH, max_replicas=0, aux_loss_coef=0.0)
     plan = sharding.make_plan(arch, (PIPE_PP, 1, 2), pipeline_on_pod=True,
                               microbatches=MESH_PP_EP_M)
     lm = LanguageModel(arch, plan)
@@ -3456,6 +3495,469 @@ def mesh_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the plan's memory policy (remat, bf16 moments, the d_ff split)
+# ---------------------------------------------------------------------------
+
+MEM_BATCH, MEM_LONG = (2, 512), (2, 4096)  # the training phase's; the reference's seq
+MEM_PASSES, MEM_LONG_STEPS, MEM_MOMENT_STEPS = 3, 3, 5
+MEM_HBM_GB = 80.0
+# bf16 against fp32 moments over (c)'s steps at the launcher's optimizer
+# settings: the loss within this relative gap, the bound of
+# tests/test_torch_memory.py's test of the same pair of runs.
+MEM_MOMENT_REL = 1e-4
+# Launches a MoE layer of one loss-and-gradients pass under each remat
+# (gate-up, ragged matmul, dW): the forward (1, 1, 0) and the backward
+# (0, 3, 3), plus under "full" each rep's forward again.  "dots" keeps the
+# outputs of aten products only; the ragged kernels are extension calls it
+# does not see, so it recomputes them as "full" does.
+MEM_REMAT_LAUNCHES = {"none": (1, 4, 3), "dots": (2, 5, 3), "full": (2, 5, 3)}
+MEM_SPLIT_MESH, MEM_SPLIT_BATCH = (2, 2), (4, 512)  # D 2 x ep 2: d_ff 512 in 2 slices
+MEM_SPLIT_DEPTH = 2
+MEM_SWAP = (0, 25)  # slots swapped in every rep: EP rank 0's and EP rank 1's
+PATH_KERNELS["memory"] = PIPE_KERNELS
+
+
+def mem_kernel_checks(dev) -> None:
+    """The ragged kernels at (b)'s train step: 2 x 4096 tokens routed top-8
+    over granite's 40 experts, T x k = 65,536 rows, in the forward, the
+    recompute and the backward."""
+    ragged_family_checks(dev, MEM_LONG[0] * MEM_LONG[1], "memory (b) step", seed=5)
+
+
+def _mem_arch(depth=None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    base = get_arch(ARCH)
+    arch = base.replace(moe=dataclasses.replace(base.moe, dispatch="ragged"))
+    return arch if depth is None else arch.replace(num_layers=depth)
+
+
+def _mem_modeled_gb(arch, b: int, s: int, remat: str, odt: str = "float32") -> float:
+    """The resource model's mem_stage0 of one rank training ``arch`` at b x
+    s under the policy (``launch.train.memory_setup``: "dots" priced as a
+    checkpointed stack, the eager training attention's s^2 scores)."""
+    from repro_torch import sharding
+    from repro_torch.core import resource_model as rm
+    from repro_torch.core.platform import H100
+    from repro_torch.launch.train import memory_setup
+
+    plan = sharding.MeshPlan(dp=1, ep=1, remat=remat, optimizer_dtype=odt)
+    setup = rm.TrainSetup(b=b, s=s, zero="world", dispatch="ragged", **memory_setup(plan))
+    return rm.estimate(rm.ModelShape.from_arch(arch), setup, H100).mem_stage0 / 1e9
+
+
+def _mem_launches(counts, want, n_moe: int, label: str) -> None:
+    """Fail unless ``counts`` has ``n_moe`` x ``want`` (gate-up, ragged,
+    dW) launches, none through ``/fma``."""
+    want = dict(zip(PIPE_KERNELS, (k * n_moe for k in want)))
+    got = {n: counts[n] for n in PIPE_KERNELS}
+    if got != want:
+        fail(f"memory {label}: launches {got}, expected {want}")
+    check_designs(counts, f"memory {label}")
+
+
+def _mem_remat(dev, add) -> None:
+    """(a) Full depth, 2 x 512: the loss and every gradient leaf under each
+    remat against "none", bitwise, else no further than a repeat of
+    "none"; peak and pass p50 of each; exact launches a pass."""
+    from repro_torch import kernels, sharding, training
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, init_params, tree_paths
+
+    arch = _mem_arch()
+    n_moe = sum(1 for _, f in arch.layers if f == "moe")
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+    p_gb = sum(t.numel() * t.element_size() for t in tree_paths(params).values()) / 1e9
+    batch = SyntheticTokens(arch.vocab_size, *MEM_BATCH).batch_at(0)
+    ref, gaps = None, {}
+    for tag in ("none", "dots", "full", "none again"):
+        remat = tag.split()[0]
+        lm = LanguageModel(arch, sharding.single_device_plan(arch, remat=remat))
+        kernels.reset_launch_counts()
+        loss, _, grads = training.loss_and_grads(lm, params, batch)
+        flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
+        del grads
+        if ref is None:
+            ref = (loss, flat)
+        else:
+            bitwise = torch.equal(loss, ref[0]) and all(torch.equal(g, ref[1][k])
+                                                        for k, g in flat.items())
+            gap = max(float((g - ref[1][k]).abs().max()) for k, g in flat.items())
+            gaps[tag] = (bitwise, gap, abs(float(loss) - float(ref[0])))
+        del flat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = [_timed(lambda: training.loss_and_grads(lm, params, batch))[1]
+                 for _ in range(MEM_PASSES)]
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9 + p_gb
+        counts = kernels.launch_counts()
+        add(counts)
+        _mem_launches(counts, MEM_REMAT_LAUNCHES[remat], n_moe * (MEM_PASSES + 1),
+                      f"(a) remat {tag}")
+        log(f"[memory] (a) full depth {MEM_BATCH[0]} x {MEM_BATCH[1]}, remat {tag}: loss "
+            f"{float(loss)!r}; peak {peak:.2f} GB with the params alone resident "
+            f"({p_gb:.2f} GB of them); loss-and-gradients pass p50 "
+            f"{1e3 * float(np.median(times)):.1f} ms of {MEM_PASSES}; launches a pass "
+            f"{MEM_REMAT_LAUNCHES[remat]} x {n_moe} MoE layers")
+    del ref
+    noise = gaps["none again"][1]
+    for tag in ("dots", "full"):
+        bitwise, gap, dl = gaps[tag]
+        ok = bitwise or gap <= noise
+        line = (f"[check] memory (a) remat {tag} vs none: loss and {len(arch.layers)}-layer "
+                f"gradients " + ("bitwise" if bitwise else
+                                 f"max |d| {gap:.3e} (loss {dl:.3e}) vs a repeat of none "
+                                 f"{noise:.3e}") + f" {'ok' if ok else 'FAIL'}")
+        log(line)
+        if not ok:
+            fail(f"memory (a): remat {tag} differs from none past a repeat's gap")
+    log(f"[memory] (a) repeat of none: " + ("bitwise" if gaps["none again"][0]
+                                             else f"max |d| {noise:.3e}"))
+    del params
+
+
+def _mem_long(dev, add) -> None:
+    """(b) Full depth at the reference's 2 x 4096: 3 train steps under
+    remat full and dots (and none where its modeled peak fits the card),
+    finite losses, none skipped; peaks beside the modeled mem_stage0."""
+    from repro_torch import kernels, sharding, training
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim import OptimizerConfig
+
+    arch = _mem_arch()
+    n_moe = sum(1 for _, f in arch.layers if f == "moe")
+    b, s = MEM_LONG
+    modeled = {r: _mem_modeled_gb(arch, b, s, r) for r in ("none", "dots", "full")}
+    log(f"[memory] (b) modeled mem_stage0 at {b} x {s} on H100: " + ", ".join(
+        f"{r} {g:.2f} GB" for r, g in modeled.items()))
+    data = SyntheticTokens(arch.vocab_size, b, s)
+    for remat in ("full", "dots", "none"):
+        if modeled[remat] > MEM_HBM_GB:
+            log(f"[memory] (b) remat {remat} not run: modeled {modeled[remat]:.2f} GB > "
+                f"{MEM_HBM_GB:g} GB")
+            continue
+        torch.cuda.empty_cache()
+        lm = LanguageModel(arch, sharding.single_device_plan(arch, remat=remat))
+        state = training.init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+        step = training.make_train_step(lm, OptimizerConfig(total_steps=MEM_LONG_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, skipped, times = [], 0, []
+        for i in range(MEM_LONG_STEPS):
+            out, sec = _timed(lambda: step(state, data.batch_at(i)))
+            met = out[1]
+            del out  # holds the state too, which must go before the next remat
+            losses.append(float(met["loss"]))
+            skipped += met["skipped"]
+            times.append(sec)
+        counts = kernels.launch_counts()
+        add(counts)
+        _mem_launches(counts, MEM_REMAT_LAUNCHES[remat], n_moe * MEM_LONG_STEPS,
+                      f"(b) remat {remat}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ok = skipped == 0 and all(np.isfinite(losses))
+        log(f"[check] memory (b) full depth {b} x {s}, remat {remat}: {MEM_LONG_STEPS} steps, "
+            f"losses {losses}, {skipped} skipped; step times "
+            f"{[round(t, 3) for t in times]} s; peak {peak:.2f} GB vs modeled mem_stage0 "
+            f"{modeled[remat]:.2f} GB {'ok' if ok else 'FAIL'}")
+        del state, step
+        if not ok:
+            fail(f"memory (b): remat {remat} at {b} x {s}")
+
+
+def _mem_moments(dev, add) -> None:
+    """(c) Full depth, 2 x 512, 5 steps with fp32 and with bf16 moments:
+    2 B a float parameter a moment, the loss trajectories within
+    ``MEM_MOMENT_REL`` of each other, the peaks."""
+    from repro_torch import kernels, sharding, training
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, tree_paths
+    from repro_torch.optim import OptimizerConfig
+
+    arch = _mem_arch()
+    data = SyntheticTokens(arch.vocab_size, *MEM_BATCH)
+    runs = {}
+    for odt in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        lm = LanguageModel(arch, sharding.single_device_plan(arch, optimizer_dtype=odt))
+        state = training.init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+        n = sum(t.numel() for t in tree_paths(state["params"]).values() if t.is_floating_point())
+        nbytes = [sum(t.numel() * t.element_size() for t in tree_paths(state[m]).values()
+                      if t.is_floating_point()) for m in ("m", "v")]
+        step = training.make_train_step(lm, OptimizerConfig(total_steps=MEM_MOMENT_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses = [float(step(state, data.batch_at(i))[1]["loss"])
+                  for i in range(MEM_MOMENT_STEPS)]
+        add(kernels.launch_counts())
+        runs[odt] = (losses, torch.cuda.max_memory_allocated() / 1e9, nbytes, n)
+        del state, step
+    (l32, p32, b32, n), (l16, p16, b16, _) = runs["float32"], runs["bfloat16"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l32, l16))
+    ok = b16 == [2 * n, 2 * n] and b32 == [4 * n, 4 * n] and rel <= MEM_MOMENT_REL and all(
+        np.isfinite(l16))
+    log(f"[check] memory (c) full depth {MEM_BATCH[0]} x {MEM_BATCH[1]}, {MEM_MOMENT_STEPS} "
+        f"steps: bf16 moments {b16[0] / n:g} + {b16[1] / n:g} B a float param ({n} params; "
+        f"fp32 {b32[0] / n:g} + {b32[1] / n:g}); losses fp32 {l32} vs bf16 {l16}: max "
+        f"relative {rel:.3e} (bound {MEM_MOMENT_REL:g}); peak {p32:.2f} -> {p16:.2f} GB "
+        f"(-{p32 - p16:.2f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("memory (c): bf16 moments")
+
+
+def _memory_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of phase 16 (d) (``torch.multiprocessing`` target);
+    writes ``tmp/mem<r>.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        out = _mem_split(rank, world, tmp)
+    except Exception as e:  # reported to the parent, which fails the phase
+        out = {"error": f"{type(e).__name__}: {e}", "trace": traceback.format_exc()[-3000:]}
+    Path(tmp, f"mem{rank}.json").write_text(json.dumps(out))
+
+
+def _mem_split(rank: int, world: int, tmp: str) -> dict:
+    """(d) Four ranks at ``MEM_SPLIT_MESH``, granite full width, depth
+    ``MEM_SPLIT_DEPTH``: the d_ff split against the whole-slot control (the
+    same plan with ``ffn_split`` 1); a split checkpoint restored at world 1;
+    a swap on the slices; served tokens."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import sharding, training
+    from repro_torch.checkpoint import leaf_crc32s, latest_step
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.core import migration as mig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import adamw_init
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    run = _MeshRun(rank, world, tmp, "mem")
+    dev = run.dev
+    arch = _mesh_arch(MEM_SPLIT_DEPTH)
+    opt = OptimizerConfig(lr=1e-3)  # step 1 of its 100-step warmup: lr 1e-5
+    lr = 1e-3 / 100
+    batch = SyntheticTokens(arch.vocab_size, *MEM_SPLIT_BATCH).batch_at(0)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+    ref_tokens = _mesh_serve(arch, None, params, dev) if run.lead else None
+    split = sharding.make_plan(arch, MEM_SPLIT_MESH)
+    plans = {"whole": dataclasses.replace(split, ffn_split=1, ffn_whole="control"),
+             "split": split}
+    run.note("plan", plans["split"].describe() + " | control: " + plans["whole"].describe())
+    run.start()
+
+    def expert_bytes(state):
+        total = 0
+        for part in ("params", "m", "v"):
+            flat = tree_paths(state[part])
+            total += sum(flat[k].numel() * flat[k].element_size()
+                         for k in sharding.expert_paths(flat))
+        return total
+
+    # One train step each at remat full, on the card alone: held bytes,
+    # peaks, the stepped params (gathered, kept on rank 0).
+    stepped, held, peaks = {}, {}, {}
+    for kind, plan in plans.items():
+        lm = LanguageModel(arch, plan)
+        mine = map_tree(lambda t: t.clone(), shard_params(params, plan))
+        state = {"params": mine, **adamw_init(mine)}
+        held[kind] = expert_bytes(state)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        met = training.make_train_step(lm, opt)(state, batch)[1]
+        peaks[kind] = run.peak_gb()
+        g = gather_params(state["params"], plan)
+        if run.lead:  # on the host: the next kind's peak must not hold it
+            stepped[kind] = (float(met["grad_norm"]), map_tree(lambda t: t.cpu(), g))
+        del state, mine, g
+    ratio = held["whole"] / held["split"]
+    allheld = [None] * world
+    dist.all_gather_object(allheld, ratio)
+    run.record("held", all(r == 2.0 for r in allheld),
+               f"expert params, m and v a rank: {held['split']} B split vs {held['whole']} B "
+               f"whole; ratio on each rank {allheld} (want exactly 2)")
+    run.note("peaks", f"peak GB a rank, one train step at remat full: split "
+             f"{peaks['split']}, whole {peaks['whole']}")
+    if run.lead:
+        (n_s, g_s), (n_w, g_w) = stepped["split"], stepped["whole"]
+        gap = max(float((a - g_w_).abs().max()) for a, g_w_ in
+                  zip(tree_paths(g_s).values(), tree_paths(g_w).values())
+                  if a.is_floating_point())
+        run.record("step", gap <= 2 * lr,
+                   f"one AdamW step: grad norm {n_s!r} vs {n_w!r}; params max |d| {gap:.3e} "
+                   f"(2 lr = {2 * lr:g})")
+    stepped.clear()
+
+    # Loss and gathered gradients, bitwise else phase 12's gates.
+    res = {}
+    for kind, plan in plans.items():
+        (loss, _, grads), secs = _timed(lambda: training.loss_and_grads(
+            LanguageModel(arch, plan), shard_params(params, plan), batch))
+        g = {k: v for k, v in tree_paths(gather_params(grads, plan)).items() if v is not None}
+        del grads
+        if run.lead:
+            res[kind] = (loss, g, secs)
+        del g
+    if run.lead:
+        (l_s, g_s, t_s), (l_w, g_w, t_w) = res["split"], res["whole"]
+        bitwise = torch.equal(l_s, l_w) and all(torch.equal(g_s[k], g_w[k]) for k in g_w)
+        ok, rows = ep_grad_gate(g_s, g_w)
+        worst = max(rows, key=lambda k: rows[k][0] / (rows[k][1] + 1e-30))
+        run.record("grads", bitwise or (ok and abs(float(l_s) - float(l_w)) < 2e-3),
+                   f"loss {float(l_s)!r} vs whole {float(l_w)!r}; {len(g_w)} gathered "
+                   f"gradient leaves " + ("bitwise" if bitwise else
+                                          f"worst {worst} {rows[worst][0]:.3e} of "
+                                          f"{rows[worst][1]:.3e}")
+                   + f"; pass {t_s:.2f} s split, {t_w:.2f} s whole")
+    res.clear()
+
+    # A split checkpoint restored at world 1 (rank 0): CRC32s equal the
+    # manifest's and the state the gathered one.
+    plan = plans["split"]
+    lm = LanguageModel(arch, plan)
+    mine = map_tree(lambda t: t.clone(), shard_params(params, plan))
+    state = {"params": mine, **adamw_init(mine), "step": torch.tensor(1, dtype=torch.int32)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for part in ("m", "v"):
+        for t in tree_paths(state[part]).values():
+            if t.is_floating_point():
+                t.copy_(torch.rand(t.shape, generator=gen, device=dev))
+    ck = Path(tmp, "ck")
+    tr = Trainer(lm, opt, TrainerConfig(checkpoint_dir=str(ck)), log_fn=lambda s: None)
+    (_, secs) = _timed(lambda: tr._save(1, state, blocking=True))
+    full = tr.global_state(state)
+    if run.lead:
+        lm1 = LanguageModel(arch)
+        tr1 = Trainer(lm1, opt, TrainerConfig(checkpoint_dir=str(ck)), log_fn=lambda s: None)
+        st1 = training.init_state(lm1, torch.Generator(device=dev).manual_seed(9), dev)
+        st1, step = tr1._restore_latest(st1)
+        manifest = json.loads((ck / f"step_{step:08d}" / "manifest.json").read_text())
+        crc = leaf_crc32s(st1) == manifest["crc32"]
+        same = all(torch.equal(a, b) for a, b in zip(tree_paths(st1).values(),
+                                                      tree_paths(full).values()))
+        run.record("ckpt", crc and same and step == latest_step(ck),
+                   f"split checkpoint (step {step}, saved in {secs:.2f} s) restored at world "
+                   f"1: CRC32s equal the manifest's {crc}, state equal the gathered {same}")
+        del st1
+    del full
+    dist.barrier()
+
+    # A swap on the slices: the manual permutation of the gathered state.
+    before = {t: gather_params(state[t], plan) for t in ("params", "m", "v")}
+    reps = arch.num_layers // len(arch.block_pattern)
+    E = arch.moe.num_experts
+    perm = np.tile(np.arange(E, dtype=np.int32), (reps, 1))
+    perm[:, list(MEM_SWAP)] = perm[:, list(MEM_SWAP[::-1])]
+    moe_pos = [i for i, (_, f) in enumerate(arch.block_pattern) if f == "moe"]
+    got = sum(mig.apply_migration_(state[t]["blocks"][pos]["ffn"], perm, plan)
+              for t in ("params", "m", "v") for pos in moe_pos)
+    exact = True
+    idx = torch.from_numpy(perm).long().to(dev)
+    for t in ("params", "m", "v"):
+        after = tree_paths(gather_params(state[t], plan))
+        for k, w in tree_paths(before[t]).items():
+            if k in sharding.expert_paths(after):
+                ix = idx.reshape(idx.shape + (1,) * (w.dim() - 2)).expand(w.shape)
+                exact &= torch.equal(after[k], torch.gather(w, 1, ix))
+    del before, state, mine
+    every = [None] * world
+    dist.all_gather_object(every, bool(exact))
+    run.record("migrate", all(every), f"swap of slots {MEM_SWAP} in {reps} reps on the d_ff "
+               f"slices: params, m and v bitwise the manual permutation on every rank "
+               f"{every}; {got} B all-gathered a rank")
+
+    # Serving at the split: tokens equal world 1's; the gather's seconds.
+    spent = []
+    gather = sharding.gather_ffn
+
+    def timed_gather(p, pl, dtype):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gather(p, pl, dtype)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    sharding.gather_ffn = timed_gather
+    try:
+        tokens, secs = _timed(lambda: _mesh_serve(arch, plan, params, dev))
+    finally:
+        sharding.gather_ffn = gather
+    if run.lead:
+        n_moe = len(moe_pos) * reps
+        run.record("serve", tokens == ref_tokens,
+                   f"{len(tokens)} requests at {MEM_SPLIT_MESH}, tokens equal world 1's "
+                   f"(first {tokens[0][:8]}); {secs:.2f} s; the d_ff gather {len(spent)} "
+                   f"calls, {1e3 * float(np.median(spent)):.2f} ms p50 a layer, so "
+                   f"~{1e3 * n_moe * float(np.median(spent)):.2f} ms a decode step of "
+                   f"{n_moe} MoE layers (gloo through the host; not gated)")
+    return run.finish()
+
+
+def memory_phase(dev):
+    """Phase 16: the ragged kernels at (b)'s shapes, then (a) remat none /
+    dots / full at full depth, (b) 2 x 4096, (c) bf16 moments, (d) the d_ff
+    split on four gloo ranks.  Returns the phase's summed launch counts."""
+    import torch.multiprocessing as mp
+
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    mem_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    for part in (_mem_remat, _mem_long, _mem_moments):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        part(dev, add)
+        log(f"[memory] {part.__name__}: {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    world = MEM_SPLIT_MESH[0] * MEM_SPLIT_MESH[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_memory_")
+    t1 = time.perf_counter()
+    try:
+        mp.start_processes(_memory_rank, args=(world, tmp), nprocs=world,
+                           start_method="spawn")
+        res = [json.loads(Path(tmp, f"mem{r}.json").read_text()) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errors = [f"rank {i}: {r['error']}\n{r['trace']}" for i, r in enumerate(res)
+              if "error" in r]
+    if errors:
+        fail("memory (d): " + "\n".join(errors))
+    for k, v in res[0].items():
+        if k in ("plan", "peaks", "held", "step", "grads", "ckpt", "migrate", "serve"):
+            tag = "[check]" if v.endswith(("ok", "FAIL")) else "[memory]"
+            log(f"{tag} memory (d) x{world} {k}: {v}")
+    for r in res:
+        log(f"[memory] (d) rank {r['rank']} designs "
+            f"{check_designs(r['counts'], 'memory (d) rank ' + str(r['rank']))}")
+        add(r["counts"])
+    log(f"[memory] (d): {world} ranks, {time.perf_counter() - t1:.1f} s")
+    if not all(r["ok"] for r in res):
+        fail("memory (d): a check of the split runs failed")
+    for name in PATH_KERNELS["memory"]:
+        if counts.get(name, 0) == 0:
+            fail(f"memory: no run launched {name}")
+    log(f"[memory] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
@@ -3504,6 +4006,8 @@ def main() -> None:
     log(f"[phase] pipeline done at {time.perf_counter() - t0:.1f}s")
     counts["mesh"] = mesh_phase(dev)
     log(f"[phase] mesh done at {time.perf_counter() - t0:.1f}s")
+    counts["memory"] = memory_phase(dev)
+    log(f"[phase] memory done at {time.perf_counter() - t0:.1f}s")
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -35,7 +35,12 @@ Where the port differs from the reference, by design:
   and Adam moments take 39.6 GB of the card's 80).  A checkpoint holds the
   global state whatever the EP degree that wrote it (the trainer gathers
   the expert leaves first); a restore's ``shard`` takes each leaf's part
-  for this rank, read from a memory map of the file.
+  for this rank, read from a memory map of the file;
+* numpy has no bfloat16: a bf16 leaf (the Adam moments of a bf16
+  ``optimizer_dtype``) is written as its raw 16-bit patterns, a uint16
+  ``.npy`` (the port has no uint16 leaf of its own), with "bfloat16" as
+  its manifest dtype and its CRC32 over those bits, so a restore is
+  bitwise.
 """
 
 from __future__ import annotations
@@ -79,10 +84,27 @@ def _crc32(arr: np.ndarray) -> int:
 
 
 def _host(leaf) -> np.ndarray:
-    """A host copy of a tensor leaf; a numpy leaf as it is."""
+    """A host copy of a tensor leaf (a bf16 one as its uint16 bit
+    patterns); a numpy leaf as it is."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _array_dtype(a: np.ndarray) -> str:
+    """The manifest dtype of a host array: "bfloat16" for bf16 bits."""
+    return "bfloat16" if a.dtype == np.uint16 else str(a.dtype)
+
+
+def _to_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor, bf16 bits as bf16."""
+    a = np.array(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def snapshot(state) -> Dict[str, np.ndarray]:
@@ -133,7 +155,7 @@ def save_checkpoint(directory, step: int, state, extras: Optional[dict] = None,
             "step": step,
             "keys": list(host),
             "shapes": {k: list(a.shape) for k, a in host.items()},
-            "dtypes": {k: str(a.dtype) for k, a in host.items()},
+            "dtypes": {k: _array_dtype(a) for k, a in host.items()},
             "crc32": crcs,
             "extras": extras or {},
         }
@@ -205,7 +227,7 @@ def verify_checkpoint(path) -> Tuple[bool, str]:
             return False, f"array {key!r} unreadable: {e}"
         if list(arr.shape) != list(shapes[key]):
             return False, f"shape mismatch for {key!r}"
-        if str(arr.dtype) != dtypes[key]:
+        if _array_dtype(arr) != dtypes[key]:
             return False, f"dtype mismatch for {key!r}"
         if _crc32(arr) != crcs[key]:
             return False, f"crc32 mismatch for {key!r}"
@@ -320,7 +342,7 @@ def _load_into(path: Path, state, shard=None) -> None:
             raise ValueError(f"{path.name}: {key} is {got} in the checkpoint, {want} live")
     with torch.no_grad():
         for key, t in live.items():
-            t.copy_(torch.from_numpy(np.array(arrays[key])))
+            t.copy_(_to_tensor(arrays[key]))
 
 
 class CheckpointManager:

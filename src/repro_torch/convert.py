@@ -21,15 +21,17 @@ from repro_torch.models.model import map_tree, tree_paths
 
 def params_from_numpy(tree, device=None, dtype=torch.float32):
     """numpy tree -> torch tree on ``device`` (default ``cuda``): float
-    leaves become ``dtype``, integer tables (the routing tables
-    ``assignment`` and ``replicas``) int32."""
+    leaves become ``dtype`` (None: bf16 leaves, as ``ml_dtypes`` hands them
+    over, stay bf16 and the others become fp32), integer tables (the
+    routing tables ``assignment`` and ``replicas``) int32."""
     device = resolve_device(device)
 
     def leaf(a):
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.integer):
             return torch.from_numpy(a.astype(np.int32)).to(device)
-        return torch.from_numpy(np.array(a, np.float32)).to(device, dtype)
+        want = dtype or (torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32)
+        return torch.from_numpy(np.array(a, np.float32)).to(device, want)
 
     return map_tree(leaf, tree)
 
@@ -46,12 +48,13 @@ def params_to_numpy(tree):
 
 def state_from_numpy(state, device=None):
     """numpy train state ``{"params", "m", "v", "step"}`` (the JAX
-    ``training.init_state`` tree, as numpy) -> the port's: params and
-    moments fp32 on ``device`` (default ``cuda``), the step a 0-d int32
-    tensor on the CPU, where ``training`` keeps it."""
+    ``training.init_state`` tree, as numpy) -> the port's: params fp32 and
+    moments fp32 or bf16 as the arrays are, on ``device`` (default
+    ``cuda``), the step a 0-d int32 tensor on the CPU, where ``training``
+    keeps it."""
     return {"params": params_from_numpy(state["params"], device),
-            "m": params_from_numpy(state["m"], device),
-            "v": params_from_numpy(state["v"], device),
+            "m": params_from_numpy(state["m"], device, None),
+            "v": params_from_numpy(state["v"], device, None),
             "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}
 
 
@@ -119,14 +122,24 @@ def shard_leaf(path: str, t, plan, experts):
     numpy array; ``experts``: the tree's expert paths): under a pipeline
     (``plan.pp`` > 1) a block leaf's stage chunks (:func:`_stage_chunks`),
     then an expert leaf's physical slots ``[g * E_l, (g + 1) * E_l)``, g
-    the rank's EP rank, the same on every tp lane and data rank.  Any
-    other leaf is ``t`` itself."""
+    the rank's EP rank, and under the plan's d_ff split their slice
+    ``plan.ffn_rank`` of ``plan.ffn_split`` along the d_ff
+    (``sharding.ffn_dim``).  Any other leaf is ``t`` itself."""
     if getattr(plan, "pp", 1) > 1 and path.startswith("blocks/"):
         t = _stage_chunks(t, plan)
-    if path not in experts or plan.ep == 1:
+    if path not in experts:
         return t
-    E_l = t.shape[1] // plan.ep
-    return t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l]
+    if plan.ep > 1:
+        E_l = t.shape[1] // plan.ep
+        t = t[:, plan.ep_rank * E_l:(plan.ep_rank + 1) * E_l]
+    n = getattr(plan, "ffn_split", 1)
+    if n > 1:
+        dim = t.ndim + sharding.ffn_dim(path)
+        f = t.shape[dim] // n
+        index = [slice(None)] * t.ndim
+        index[dim] = slice(plan.ffn_rank * f, (plan.ffn_rank + 1) * f)
+        t = t[tuple(index)]
+    return t
 
 
 def shard_params(params, plan):
@@ -135,24 +148,26 @@ def shard_params(params, plan):
     reference's ``P()`` in_specs put them; every sharded leaf is a copy.
     Every other leaf, the router and the routing tables (``assignment``,
     ``replicas``) included, is the same tensor without a pipeline."""
-    if plan is None or (plan.ep == 1 and getattr(plan, "pp", 1) == 1):
+    split = getattr(plan, "ffn_split", 1) > 1
+    if plan is None or (plan.ep == 1 and getattr(plan, "pp", 1) == 1 and not split):
         return params
     experts = sharding.expert_paths(tree_paths(params))
 
     def leaf(path, t):
         out = shard_leaf(path, t, plan, experts)
-        return out.clone() if path in experts and plan.ep > 1 else out
+        return out.clone() if path in experts and (plan.ep > 1 or split) else out
 
     return map_tree(leaf, params, with_path=True)
 
 
 def gather_params(tree, plan):
     """The inverse of :func:`shard_params` on any tree of the params' shape
-    (params or gradients; None leaves pass): each expert leaf gathered over
-    the EP group, in EP-rank order, along its expert dim, then each block
-    leaf over the pp group (:func:`_unstage_chunks`).  Collective: every
-    rank calls it."""
-    if plan is None or (plan.ep == 1 and plan.pp == 1):
+    (params or gradients; None leaves pass): each expert leaf gathered
+    along its d_ff over the expert-gradient group under the plan's split,
+    then over the EP group, in EP-rank order, along its expert dim, then
+    each block leaf over the pp group (:func:`_unstage_chunks`).
+    Collective: every rank calls it."""
+    if plan is None or (plan.ep == 1 and plan.pp == 1 and plan.ffn_split == 1):
         return tree
     experts = sharding.expert_paths(
         {k: v for k, v in tree_paths(tree).items() if v is not None})
@@ -160,6 +175,10 @@ def gather_params(tree, plan):
     def leaf(path, t):
         if t is None:
             return t
+        if path in experts and plan.ffn_split > 1:
+            parts = [torch.empty_like(t) for _ in range(plan.ffn_split)]
+            torch.distributed.all_gather(parts, t.contiguous(), group=plan.expert_dp_group)
+            t = torch.cat(parts, dim=t.dim() + sharding.ffn_dim(path))
         if path in experts and plan.ep > 1:
             parts = [torch.empty_like(t) for _ in range(plan.ep)]
             torch.distributed.all_gather(parts, t.contiguous(), group=plan.ep_group)

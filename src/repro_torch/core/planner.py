@@ -434,3 +434,17 @@ def min_chips(
         if valid_strategies(arch, platform, n, batch=batch, seq=seq):
             return n
     return None
+
+
+def choose_memory_policy(arch: ArchConfig, kind: str, chips: int,
+                         platform: Platform) -> Tuple[str, str]:
+    """The reference dry run's memory policy (``repro.launch.dryrun
+    .choose_memory_policy``) priced on ``platform``'s HBM: bf16 Adam
+    moments when the fp32 state (12 B a parameter: master, m, v) spread
+    over ``chips`` passes 0.8 of a chip's HBM, else fp32; remat "full" to
+    ``kind`` "train", "none" to serving.  Returns (optimizer_dtype,
+    remat)."""
+    opt_dtype = "float32"
+    if arch.total_params() * 12 / chips > 0.8 * platform.hbm_bytes:
+        opt_dtype = "bfloat16"  # 8 B a parameter of persistent state
+    return opt_dtype, "full" if kind == "train" else "none"

@@ -84,7 +84,8 @@ def init(args: argparse.Namespace, arch, a2a_algo: str = "flat", a2a_chunks: int
     one and none is joined yet), and return (this rank's device, the mesh
     plan).  A rank's card is ``cuda:{LOCAL_RANK % device_count}``.
     ``pipeline``: ``sharding.make_plan``'s schedule, vstages and
-    compress_p2p, bound with ``args.pipeline``."""
+    compress_p2p, bound with ``args.pipeline``, and its memory policy
+    (remat, optimizer_dtype)."""
     world = world_size()
     cards = torch.cuda.device_count()
     backend = check(args, world, cards)

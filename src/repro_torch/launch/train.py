@@ -60,8 +60,15 @@ vstages; the planner's vstages are clamped to a divisor of this run's
 layer reps a stage, its interleaved schedule falling back to the default
 at one).
 
+It binds the memory policy: the planner's ``choose_memory_policy`` (the
+reference dry run's, priced on the H100's HBM for this run's world): remat
+"full", and fp32 Adam moments unless 12 B a parameter over the world passes
+0.8 of a card's HBM; ``--remat`` and ``--optimizer-dtype`` override it.  A
+grid of D * tp > 1 ranks splits the expert d_ff over them where that
+divides it (``sharding``; the ``[mesh]`` line says which).
+
 It draws seeded random fp32 master weights on the device, trains with
-bf16 compute and fp32 Adam moments (the reference plan's
+bf16 compute and the bound moments (the reference plan's
 ``compute_dtype``/``master_dtype``/``optimizer_dtype``) on
 ``SyntheticTokens`` (or a ``--corpus``), and prints the step time,
 tokens/s and, on the card, the peak device memory.  With ``--ckpt-dir``
@@ -71,9 +78,9 @@ bytes and seconds.  With ``--metrics-out PATH`` it writes the trainer's
 telemetry to PATH as JSONL and a Chrome trace to PATH.trace.json, and
 prints the drift of the measured ``train.step``, ``a2a.layer`` (EP > 1),
 ``ckpt.save`` and ``ckpt.restore`` spans against the resource model's
-pricing of this run (its own shape, PP, schedule and vstages, EP, DP and
-all-to-all) on the H100, with the modeled stage-0 memory beside the
-measured peak; a pipelined run's Chrome trace carries its schedule's
+pricing of this run (its own shape, PP, schedule and vstages, EP, DP,
+all-to-all and memory policy) on the H100, with the modeled stage-0
+memory beside the measured peak, and the bound policy and expert split; a pipelined run's Chrome trace carries its schedule's
 lanes, one a stage.
 
 The trainer gets the dataset itself, which has ``batch_at(step)``: the
@@ -104,6 +111,7 @@ from repro_torch.launch import ranks
 from repro_torch.models.model import LanguageModel, init_params, tree_paths
 from repro_torch.optim import OptimizerConfig
 from repro_torch.optim.optimizer import adamw_init
+from repro_torch.sharding import OPTIMIZER_DTYPES, REMAT_MODES
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 # The platform the planner and the drift report price (a test swaps it).
@@ -146,6 +154,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--vstages", type=int, default=None,
                     help="virtual stages a pipeline stage (interleaved_1f1b); default: "
                          "the planner's choice, else 1")
+    ap.add_argument("--remat", default=None, choices=REMAT_MODES,
+                    help="remat of each layer rep; default: the planner's memory "
+                         "policy (full)")
+    ap.add_argument("--optimizer-dtype", default=None, choices=OPTIMIZER_DTYPES,
+                    help="Adam moments' dtype; default: the planner's memory policy")
     ap.add_argument("--metrics-out", default=None,
                     help="write the trainer's telemetry as JSONL here, a Chrome "
                          "trace to <path>.trace.json, and print a model-vs-"
@@ -235,6 +248,31 @@ def plan(args: argparse.Namespace, say=print) -> Tuple[Optional[str], int, str, 
     return dispatch, ckpt_every, a2a_algo, a2a_chunks, schedule, vstages
 
 
+def memory_policy(args: argparse.Namespace, arch, say=print) -> Tuple[str, str]:
+    """The run's (optimizer_dtype, remat): the planner's
+    ``choose_memory_policy`` for training over this launch's world on
+    ``PLATFORM``, each overridden by its flag."""
+    opt_dtype, remat = planner.choose_memory_policy(arch, "train", ranks.world_size(),
+                                                    PLATFORM)
+    opt_dtype, remat = args.optimizer_dtype or opt_dtype, args.remat or remat
+    flags = [f for f, v in (("--remat", args.remat),
+                            ("--optimizer-dtype", args.optimizer_dtype)) if v]
+    note = ", ".join(flags) or "the planner's choice"
+    say(f"[trainer] memory policy: remat={remat} optimizer_dtype={opt_dtype} ({note})")
+    return opt_dtype, remat
+
+
+def memory_setup(plan) -> Dict[str, Any]:
+    """The resource model's memory fields (``rm.TrainSetup``) of a plan's
+    training: activations checkpointed under any remat, the planner's bytes
+    a parameter (16 with fp32 moments, 10 with bf16), and the eager
+    attention's s^2 scores (training attention is eager, as in the
+    reference: no flash kernel has a backward)."""
+    return {"checkpoint_activations": plan.remat != "none",
+            "bytes_per_param": 16 if plan.optimizer_dtype == "float32" else 10,
+            "flash_attention": False}
+
+
 def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, Any]]:
     """Train ``args.steps`` steps; returns (summary, the trainer, its
     ``fit`` output with the final state: this rank's shard)."""
@@ -249,8 +287,10 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
             arch = arch.replace(moe=dataclasses.replace(arch.moe, dispatch=dispatch))
         note = "--dispatch" if args.dispatch else "the planner's choice"
         say(f"[trainer] moe dispatch: {arch.moe.dispatch} ({note})")
+    opt_dtype, remat = memory_policy(args, arch, say)
     device, mesh = ranks.init(args, arch, a2a_algo, a2a_chunks, schedule=schedule,
-                              vstages=vstages if args.pipeline else 1)
+                              vstages=vstages if args.pipeline else 1, remat=remat,
+                              optimizer_dtype=opt_dtype)
     say(mesh.describe())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -271,9 +311,10 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     params = shard_params(params, mesh)
     if device.type == "cuda":  # hand the whole model's blocks back to the card
         torch.cuda.empty_cache()
-    state = {"params": params, **adamw_init(params)}
+    state = {"params": params, **adamw_init(params, mesh.optimizer_dtype)}
     say(f"[model] {arch.name} on {device}: {n_params / 1e6:.1f}M params, fp32 "
-        f"masters and moments, bf16 compute, batch {args.batch} x seq {args.seq}"
+        f"masters, {mesh.optimizer_dtype} moments, bf16 compute, remat {mesh.remat}, "
+        f"batch {args.batch} x seq {args.seq}"
         + (f" ({args.batch // mesh.world} sequences a rank)" if mesh.world > 1
            and mesh.pp == 1 else "")
         + (f" ({mesh.num_microbatches} microbatches of {args.batch // mesh.num_microbatches}"
@@ -295,6 +336,8 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         "arch": arch.name, "dispatch": arch.moe.dispatch if arch.moe else None,
         "ckpt_every": ckpt_every, "world": mesh.world, "ep": mesh.ep, "pp": mesh.pp,
         "schedule": mesh.schedule if mesh.pp > 1 else None,
+        "remat": mesh.remat, "optimizer_dtype": mesh.optimizer_dtype,
+        "ffn_split": mesh.ffn_split,
         "vstages": mesh.vstages if mesh.pp > 1 else None,
         "a2a": f"{mesh.a2a_algo} x{mesh.a2a_chunks}",
         "device": str(device), "params": n_params, "steps": len(trainer.step_times),
@@ -356,7 +399,7 @@ def _telemetry_reports(args, arch, events, summary, mesh) -> Dict[str, Any]:
     pipe = ({"schedule": mesh.schedule, "vstages": mesh.vstages} if mesh.pp > 1 else {})
     setup = rm.TrainSetup(b=args.batch, s=args.seq, PP=mesh.pp, EP=mesh.ep, DP=mesh.dp,
                           zero="world", a2a_algo=mesh.a2a_algo,
-                          a2a_chunks=mesh.a2a_chunks, **pipe,
+                          a2a_chunks=mesh.a2a_chunks, **pipe, **memory_setup(mesh),
                           **({"dispatch": arch.moe.dispatch} if arch.moe else {}))
     est = rm.estimate(rm.ModelShape.from_arch(arch), setup, PLATFORM)
     tracker = obs.DriftTracker(rm.modeled_phases(est))
@@ -364,6 +407,10 @@ def _telemetry_reports(args, arch, events, summary, mesh) -> Dict[str, Any]:
     print(tracker.format_report(
         f"drift {arch.name}: measured on {summary['device']} vs the {PLATFORM.name} model"))
     peak = summary["peak_mem_gb"]
+    print(f"[model] memory policy remat={mesh.remat} optimizer_dtype={mesh.optimizer_dtype}"
+          + (f", expert d_ff split {mesh.ffn_split} ways over data x tp" if mesh.ffn_split > 1
+             else f", expert slots whole ({mesh.ffn_whole})" if mesh.ffn_whole
+             else ", expert slots whole (one data rank and tp lane)"))
     print(f"[model] {PLATFORM.name} t_step {est.t_step * 1e3:.4g} ms vs measured step p50 "
           f"{summary['step_p50_ms']:.1f} ms; mem_stage0 {est.mem_stage0 / 1e9:.2f} GB vs "
           + (f"peak torch.cuda.max_memory_allocated {peak:.2f} GB" if peak is not None

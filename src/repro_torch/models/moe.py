@@ -469,6 +469,9 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
 
     ``params`` hold this rank's expert slots (``convert.shard_params``): the
     expert leaves are (E_l, ...), the router and the routing table whole.
+    Under the plan's d_ff split they hold this rank's d_ff slice, gathered
+    here in x's dtype before any path (``sharding.gather_ffn``): the
+    replica path, the dispatch and the decode all see whole experts.
     ``token_sharded`` (train, prefill): x is this rank's own tokens,
     dispatched through its EP group's all-to-all; the metrics are meaned
     over the stage group (the world without a pipeline).  With
@@ -486,6 +489,11 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
     gets an ``a2a.layer`` span around each token-sharded dispatch/combine."""
     if plan is None or plan.world == 1:
         return moe_ffn_local(params, x, arch, train=train)
+    params = sharding.gather_ffn(params, plan, x.dtype)
+    if params["w_up"].shape[-1] != arch.moe.d_ff:
+        raise ValueError(f"expert leaves hold d_ff {params['w_up'].shape[-1]} after the "
+                         f"plan's {plan.ffn_split}-way gather, the arch {arch.moe.d_ff} "
+                         f"(convert.shard_params)")
     if token_sharded and seq_shard:
         metric_group = plan.ep_group
     elif token_sharded:

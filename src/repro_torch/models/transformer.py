@@ -6,14 +6,32 @@ reps in Python.  The paged serving steps index rep ``r`` of every leaf
 (:func:`rep_params`); the uncached forward and the training loss split
 every leaf into its reps at once (:func:`unstack`), whose backward writes
 each stacked gradient once instead of once per rep.
+
+Under autograd each rep runs under the plan's ``remat`` (the reference's
+``_remat`` of its scan body): "full" keeps only the rep's inputs and
+recomputes the rep in the backward (``torch.utils.checkpoint``); "dots"
+keeps the outputs of the matrix products without batch dims (``aten.mm``,
+``aten.addmm``: ``dots_with_no_batch_dims_saveable``) and recomputes the
+rest; "none" keeps everything.  A recompute runs the rep's collectives
+again (the EP all-to-all, the metric sums, the d_ff gather), on every rank
+in the backward's order, so it always runs to the rep's end; its outputs
+are dropped, so no metric counts twice, and its ``a2a.layer`` spans are
+named ``a2a.layer.recompute``.  "dots" sees aten ops only: a kernel
+called from an extension (the CUDA ragged FFN) is recomputed.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn,
+    set_checkpoint_early_stop,
+)
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -107,29 +125,80 @@ def num_reps(block_params) -> int:
     return leaf.shape[0]
 
 
+# The products "dots" keeps: matrix products without batch dims.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class _Recompute:
+    """The telemetry of a remat recompute: its spans are named
+    ``<name>.recompute``, so the drift report counts the forward's alone."""
+
+    def __init__(self, telemetry):
+        self.telemetry = telemetry
+
+    def span(self, name: str, **attrs):
+        return self.telemetry.span(name + ".recompute", **attrs)
+
+
+def _rep(blocks, x, aux, z, arch: ArchConfig, *, positions, train, plan, telemetry):
+    """One rep of the pattern: (x, aux, z, expert loads (n_moe_positions, E)
+    or None), the aux and z losses added to the carried ones."""
+    loads = []
+    for pos, blk in enumerate(arch.block_pattern):
+        x, metrics, _ = apply_block(blk, blocks[pos], x, arch, positions=positions,
+                                    train=train, plan=plan, telemetry=telemetry)
+        if metrics:
+            aux = aux + metrics["moe_aux_loss"]
+            z = z + metrics["moe_z_loss"]
+            loads.append(metrics["expert_load"])
+    return x, aux, z, (torch.stack(loads) if loads else None)
+
+
+def _remat_rep(mode: str, blocks, x, aux, z, arch: ArchConfig, **kw):
+    """:func:`_rep` under ``torch.utils.checkpoint`` (``mode`` "full" or
+    "dots"); the first call is the forward, any later one a recompute."""
+    calls = []
+
+    def body(h, a, zz):
+        tel = kw["telemetry"]
+        if calls and tel is not None:
+            tel = _Recompute(tel)
+        calls.append(None)
+        return _rep(blocks, h, a, zz, arch, **{**kw, "telemetry": tel})
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if mode == "dots" else noop_context_fn)
+    with set_checkpoint_early_stop(False):
+        return checkpoint(body, x, aux, z, use_reentrant=False, context_fn=context_fn)
+
+
 def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
                   positions: torch.Tensor, train: bool = False, plan=None,
                   telemetry=None):
     """Run the layer stack the leaves hold (every rep, or a pipeline
     chunk's), token-sharded over ``plan``'s ranks (``train``,
-    ``telemetry``: see :func:`apply_block`).  Returns (x, {"moe_aux_loss",
-    "moe_z_loss"} scalars, expert_load (reps, n_moe_positions, E) or
-    None)."""
+    ``telemetry``: see :func:`apply_block`), each rep under the plan's
+    remat when autograd records (module docstring).  Returns (x,
+    {"moe_aux_loss", "moe_z_loss"} scalars, expert_load (reps,
+    n_moe_positions, E) or None)."""
     reps = num_reps(block_params)
     per_rep = [unstack(p, reps) for p in block_params]
+    remat = sharding.remat_of(plan) if torch.is_grad_enabled() else "none"
     aux = z = x.new_zeros((), dtype=torch.float32)
     loads = []
+    kw = dict(positions=positions, train=train, plan=plan, telemetry=telemetry)
     for r in range(reps):
-        rep_loads = []
-        for pos, blk in enumerate(arch.block_pattern):
-            x, metrics, _ = apply_block(blk, per_rep[pos][r], x, arch,
-                                        positions=positions, train=train, plan=plan,
-                                        telemetry=telemetry)
-            if metrics:
-                aux = aux + metrics["moe_aux_loss"]
-                z = z + metrics["moe_z_loss"]
-                rep_loads.append(metrics["expert_load"])
-        if rep_loads:
-            loads.append(torch.stack(rep_loads))
+        blocks = [p[r] for p in per_rep]
+        if remat == "none":
+            x, aux, z, ld = _rep(blocks, x, aux, z, arch, **kw)
+        else:
+            x, aux, z, ld = _remat_rep(remat, blocks, x, aux, z, arch, **kw)
+        if ld is not None:
+            loads.append(ld)
     return x, {"moe_aux_loss": aux, "moe_z_loss": z}, (
         torch.stack(loads) if loads else None)

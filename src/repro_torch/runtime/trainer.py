@@ -289,7 +289,8 @@ class Trainer:
     def global_state(self, state):
         """The state with every leaf of params, m and v all-gathered to its
         global form (``convert.gather_params``: the expert leaves over the
-        EP group, the block leaves over the pp group); ``state`` itself at
+        expert-gradient group under the plan's d_ff split, then over the EP
+        group, the block leaves over the pp group); ``state`` itself at
         world 1."""
         if self.plan is None:
             return state
@@ -309,8 +310,9 @@ class Trainer:
 
     def _shard_of(self, flat_keys):
         """(key, global array) -> this rank's part: of params, m and v its
-        stage's chunks of the block leaves and its expert slots of the
-        expert leaves (``convert.shard_leaf``), the rest whole."""
+        stage's chunks of the block leaves and its expert slots (and d_ff
+        slice) of the expert leaves (``convert.shard_leaf``), the rest
+        whole."""
         plan = self.plan
         experts = sharding.expert_paths({k.partition("/")[2]: None for k in flat_keys})
 

@@ -36,11 +36,22 @@ with ``compress_p2p`` (``core.compression``).
 
 Layout (the reference's expert-data parallelism): non-expert weights are
 replicated within a stage, each EP rank holds the physical expert slots
-``[e * E_l, (e + 1) * E_l)`` whole, replicated over the tp lanes as over
-data, and every rank routes its own tokens: a tp lane is one more
-token-parallel lane of its EP group.  The reference's ZeRO-3 split of the
-expert d_ff over ("data", "tp"), all-gathered inside the layer, gives the
-same function with less memory; it is not ported (ROADMAP Queue 1 item 8).
+``[e * E_l, (e + 1) * E_l)``, and every rank routes its own tokens: a tp
+lane is one more token-parallel lane of its EP group.  The slots' d_ff is
+split over the expert-gradient group (the reference's ZeRO-3 of the
+``"expert_ffn"`` dim over ("data", "tp")): with ``n = D * tp > 1`` dividing
+the expert d_ff, the rank at (d, t) holds slice ``d * tp + t`` of ``n``
+(data-major, tp-minor) of every expert leaf's d_ff (``w_up`` / ``w_gate``
+dim -1, ``w_down`` dim -2) and of its moments, and the MoE layer
+all-gathers the compute-dtype slices over the group (:func:`gather_ffn`,
+whose backward sums the gradient over it and keeps the rank's slice).
+Where ``n`` does not divide d_ff the slots stay whole on every rank, as
+before (the reference's ``shard_map`` refuses such a grid).  Without a
+pod pipeline the pod joins data, so n counts it too.
+
+The plan also carries the reference plan's memory policy: ``remat`` of
+each layer rep in training (none | dots | full, ``models.transformer``)
+and ``optimizer_dtype``, the Adam moments' dtype (``optim``).
 
 ``dist.new_group`` is collective over the whole world: every rank creates
 every group, its own or not, in one fixed order, or the run hangs.  A
@@ -60,6 +71,10 @@ import torch.distributed as dist
 from repro_torch.configs.base import DEFAULT_SCHEDULE, SCHEDULES, ArchConfig
 from repro_torch.core.halo import _pick_inner, lane_groups, node_groups
 
+REMAT_MODES = ("none", "dots", "full")
+OPTIMIZER_DTYPES = ("float32", "bfloat16")
+
+
 def choose_ep(num_experts: int, model_axis: int) -> int:
     """Largest EP degree that divides both the expert count (paper Eq 8)
     and the fast-domain axis size (paper Eq 10)."""
@@ -75,7 +90,8 @@ class MeshPlan:
     (or, for the HALO pair, where HALO is off or degenerates to the flat
     collective).
     ``pp`` > 1 only with ``pipeline_on_pod`` (``make_plan``); the pipeline
-    fields are consulted only then."""
+    fields are consulted only then.  ``ffn_split`` > 1: each expert leaf
+    holds this rank's slice ``ffn_rank`` of the d_ff (module docstring)."""
 
     dp: int
     ep: int
@@ -95,6 +111,15 @@ class MeshPlan:
     # The batch-sharding axes, as the reference names them: ("pod", "data")
     # where a pod axis joined data, else ("data",).
     dp_axes: Tuple[str, ...] = ("data",)
+    # The memory policy: remat of each layer rep (none | dots | full) and
+    # the Adam moments' dtype, the reference plan's defaults.
+    remat: str = "full"
+    optimizer_dtype: str = "float32"
+    # d_ff slices of the expert leaves over the expert-gradient group: D *
+    # tp where that divides the expert d_ff, else 1 (whole slots);
+    # ``ffn_whole`` says why a grid of several such ranks keeps them whole.
+    ffn_split: int = 1
+    ffn_whole: str = ""
     world_group: Optional[object] = None
     ep_group: Optional[object] = None
     dp_group: Optional[object] = None
@@ -113,6 +138,11 @@ class MeshPlan:
         if self.vstages < 1 or (self.vstages > 1 and self.schedule != "interleaved_1f1b"):
             raise ValueError(f"vstages={self.vstages} needs schedule='interleaved_1f1b', "
                              f"got {self.schedule!r}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat {self.remat!r}; choose from {REMAT_MODES}")
+        if self.optimizer_dtype not in OPTIMIZER_DTYPES:
+            raise ValueError(f"unknown optimizer_dtype {self.optimizer_dtype!r}; choose "
+                             f"from {OPTIMIZER_DTYPES}")
 
     @property
     def world(self) -> int:
@@ -145,6 +175,13 @@ class MeshPlan:
         return self.coords[1]
 
     @property
+    def ffn_rank(self) -> int:
+        """This rank's d_ff slice of the expert leaves, d * tp + t (its place
+        in the expert-gradient group)."""
+        d, _, t = self.coords
+        return d * self.tp + t
+
+    @property
     def num_microbatches(self) -> int:
         return self.microbatches or 2 * self.pp
 
@@ -162,7 +199,9 @@ class MeshPlan:
                 f"dp_axes={self.dp_axes} a2a={self.a2a_algo} x{self.a2a_chunks} chunks"
                 + (f" schedule={self.schedule}" if self.pp > 1 else "")
                 + (f" vstages={self.vstages}" if self.pp > 1 and self.vstages > 1 else "")
-                + (" compress_p2p" if self.pp > 1 and self.compress_p2p else ""))
+                + (" compress_p2p" if self.pp > 1 and self.compress_p2p else "")
+                + (f" experts=d_ff/{self.ffn_split} (data x tp)" if self.ffn_split > 1
+                   else f" experts whole ({self.ffn_whole})" if self.ffn_whole else ""))
 
 
 def _keep(plan: MeshPlan, attr: str, ranks: Sequence[int], mine: bool) -> None:
@@ -179,12 +218,15 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
               pipeline_on_pod: bool = False, schedule: str = DEFAULT_SCHEDULE,
               vstages: int = 1, microbatches: Optional[int] = None,
               compress_p2p: bool = False, hierarchical_a2a: bool = False,
-              a2a_chunks: int = 1) -> MeshPlan:
+              a2a_chunks: int = 1, remat: str = "full",
+              optimizer_dtype: str = "float32") -> MeshPlan:
     """Bind ``arch`` to a ``(data, model)`` or ``(pod, data, model)`` grid
     over the initialised default process group (whose size must be the
     grid's), refining the model axis into (ep, tp) by the expert count, and
     create its groups (on the world's backend).  With ``pipeline_on_pod``
-    the pod axis is the pipeline (pp = P); without it the pod joins data."""
+    the pod axis is the pipeline (pp = P); without it the pod joins data.
+    ``remat`` and ``optimizer_dtype``: the memory policy.  The expert d_ff
+    is split over D * tp ranks where that divides it (module docstring)."""
     if len(mesh_shape) not in (2, 3):
         raise ValueError(f"mesh {tuple(mesh_shape)}: need (data, model) or "
                          f"(pod, data, model)")
@@ -199,9 +241,17 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     ep = choose_ep(n_exp, model)
     tp = model // ep
     world = pp * data * model
+    n = data * tp
+    ffn_split, ffn_whole = 1, ""
+    if arch.moe is not None and n > 1:
+        if arch.moe.d_ff % n:
+            ffn_whole = f"d_ff {arch.moe.d_ff} % (data x tp = {n}) != 0"
+        else:
+            ffn_split = n
     kw = dict(hierarchical_a2a=hierarchical_a2a, a2a_chunks=a2a_chunks, pp=pp,
               schedule=schedule, vstages=vstages, microbatches=microbatches,
-              compress_p2p=compress_p2p,
+              compress_p2p=compress_p2p, remat=remat, optimizer_dtype=optimizer_dtype,
+              ffn_split=ffn_split, ffn_whole=ffn_whole,
               dp_axes=("pod", "data") if len(mesh_shape) == 3 and not pipeline_on_pod
               else ("data",))
     if world == 1:
@@ -262,9 +312,16 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     return plan
 
 
-def single_device_plan(arch: ArchConfig) -> MeshPlan:
+def single_device_plan(arch: ArchConfig, *, remat: str = "full",
+                       optimizer_dtype: str = "float32") -> MeshPlan:
     """A one-rank plan: no process group, no collectives."""
-    return make_plan(arch, (1, 1))
+    return make_plan(arch, (1, 1), remat=remat, optimizer_dtype=optimizer_dtype)
+
+
+def remat_of(plan) -> str:
+    """The remat mode of ``plan``; the reference plan's default ("full")
+    without one."""
+    return "full" if plan is None else plan.remat
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +374,58 @@ def expert_paths(flat) -> set:
     return out
 
 
+def ffn_dim(path: str) -> int:
+    """The d_ff dim of an expert leaf (its path or key) ``w_up`` /
+    ``w_gate`` (-1) or ``w_down`` (-2), counted from the end."""
+    return -2 if path.rpartition("/")[2] == "w_down" else -1
+
+
+def split_paths(flat, plan) -> set:
+    """The expert paths of a flat tree whose leaves ``plan`` splits along
+    the d_ff (none without a split)."""
+    if plan is None or plan.ffn_split == 1:
+        return set()
+    return expert_paths(flat)
+
+
+class _GatherFFN(torch.autograd.Function):
+    """An expert leaf's d_ff slices, cast to ``dtype`` and all-gathered over
+    the expert-gradient group in (d, t) order along ``dim``.  The backward
+    sums the gradient in fp32 over the group and keeps this rank's slice
+    (an all-reduce and a slice: gloo has no reduce-scatter), in the dtype
+    of the slice it was given: the fp32 master's, so the sum is not
+    rounded to the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, w, dtype, dim, plan):
+        ctx.dim, ctx.group, ctx.size = dim, plan.expert_dp_group, w.shape[dim]
+        ctx.start = plan.ffn_rank * ctx.size
+        wc = w.to(dtype).contiguous()
+        parts = [torch.empty_like(wc) for _ in range(plan.ffn_split)]
+        dist.all_gather(parts, wc, group=ctx.group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        all_reduce_(g, ctx.group)
+        return g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(), None, None, None
+
+
+def gather_ffn(params, plan, dtype: torch.dtype):
+    """An MoE block's ``params`` with every expert leaf whole along its d_ff,
+    in ``dtype`` (:class:`_GatherFFN`); ``params`` itself without a split.
+    Collective over the expert-gradient group."""
+    if plan is None or plan.ffn_split == 1:
+        return params
+    out = dict(params)
+    for k in EXPERT_KEYS:
+        if params.get(k) is not None:
+            w = params[k]
+            out[k] = _GatherFFN.apply(w, dtype, w.dim() + ffn_dim(k), plan)
+    return out
+
+
 def sum_leaves_(leaves, group) -> None:
     """Sum a list of tensors over ``group`` in place, as one flat bucket."""
     if group is None or not leaves:
@@ -331,7 +440,8 @@ def reduce_grads_(grads, plan) -> None:
     integer tables) in place into the global ones: the non-expert block
     leaves over the stage group (the ranks that hold the same stage), the
     expert leaves over the expert-gradient group (the data ranks and tp
-    lanes that hold the same slots of the same stage),
+    lanes that hold the same slots of the same stage) unless the plan
+    splits them (their backward summed them already, :func:`gather_ffn`),
     and ``embed``, ``final_norm`` and ``lm_head`` over the world (every
     stage's and data rank's part; the reference's sum over stages)."""
     from repro_torch.models.model import tree_paths  # the model imports this module
@@ -343,4 +453,5 @@ def reduce_grads_(grads, plan) -> None:
         sum_leaves_([flat[k] for k in dense if k.startswith("blocks/")], plan.stage_group)
         dense = [k for k in dense if not k.startswith("blocks/")]
     sum_leaves_([flat[k] for k in dense], plan.world_group)
-    sum_leaves_([flat[k] for k in sorted(experts)], plan.expert_dp_group)
+    if plan.ffn_split == 1:
+        sum_leaves_([flat[k] for k in sorted(experts)], plan.expert_dp_group)

@@ -35,11 +35,13 @@ from repro_torch.optim.optimizer import (
 
 
 def init_state(lm: LanguageModel, generator: torch.Generator, device=None):
-    """{"params": fp32 masters, "m", "v": fp32 moments, "step": 0-d int32
-    on the CPU}, the params drawn from ``generator`` on ``device`` (default
+    """{"params": fp32 masters, "m", "v": moments in the plan's
+    ``optimizer_dtype`` (fp32 without a plan), "step": 0-d int32 on the
+    CPU}, the params drawn from ``generator`` on ``device`` (default
     ``cuda``)."""
     params = init_params(lm.arch, generator, resolve_device(device), torch.float32)
-    return {"params": params, **adamw_init(params)}
+    odt = "float32" if lm.plan is None else lm.plan.optimizer_dtype
+    return {"params": params, **adamw_init(params, odt)}
 
 
 def _to_device(a, device: torch.device) -> torch.Tensor:
@@ -52,9 +54,13 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _cast(params, dtype: torch.dtype):
-    """Every floating leaf in ``dtype`` (a leaf already in it is not copied)."""
-    return map_tree(lambda p: p.to(dtype) if p.is_floating_point() else p, params)
+def _cast(params, dtype: torch.dtype, keep=()):
+    """Every floating leaf in ``dtype`` (a leaf already in it is not
+    copied) but those at the paths ``keep``: the d_ff slices of a split
+    plan, which the MoE layer casts as it gathers them, so that their
+    gradients are summed in fp32 (``sharding.gather_ffn``)."""
+    return map_tree(lambda path, p: p.to(dtype) if p.is_floating_point() and path not in keep
+                    else p, params, with_path=True)
 
 
 def make_prefill_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloat16):
@@ -127,8 +133,9 @@ def loss_and_grads(lm: LanguageModel, params, batch,
         batch = shard_batch(batch, plan)
     device = params["embed"].device
     batch = {k: _to_device(v, device) for k, v in batch.items()}
+    keep = sharding.split_paths(tree_paths(params), plan)
     if lm.pipelined and not autograd:
-        loss, grads, metrics = lm.loss_and_grads(_cast(params, compute_dtype), batch,
+        loss, grads, metrics = lm.loss_and_grads(_cast(params, compute_dtype, keep), batch,
                                                  gather_traces=False)
         for k in ("pipeline_occupancy", "pipeline_wstash_occupancy",
                   "pipeline_comm_inflight", "pipeline_stats"):
@@ -138,7 +145,7 @@ def loss_and_grads(lm: LanguageModel, params, batch,
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, metrics = lm.loss(_cast(params, compute_dtype), batch)
+        loss, metrics = lm.loss(_cast(params, compute_dtype, keep), batch)
         # A pipeline stage uses only some leaves (the head on the last).
         flat_grads = iter(torch.autograd.grad(loss, leaves, allow_unused=lm.pipelined))
     finally:
@@ -174,7 +181,9 @@ def _global_norm(grads, plan, params):
     the clip) unchanged.  Under a pipeline plan the block leaves' squares
     (a stage's chunks) are added over the pp group.  Every tp lane holds
     the same reduced gradients and gathers over its own EP group in the
-    same order, so every rank computes the same bits and clips alike."""
+    same order, so every rank computes the same bits and clips alike.
+    Under the d_ff split a slot's sum of squares is first summed over the
+    expert-gradient group, whose ranks hold its slices."""
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
     experts = sorted(sharding.expert_paths(flat))
 
@@ -190,6 +199,8 @@ def _global_norm(grads, plan, params):
     if experts:
         slots = torch.stack([flat[k].float().square().sum(
             dim=tuple(range(2, flat[k].dim()))) for k in experts])  # (leaves, reps, E_l)
+        if plan.ffn_split > 1:
+            sharding.all_reduce_(slots, plan.expert_dp_group)
         parts = [slots]
         if plan.ep > 1:
             parts = [torch.empty_like(slots) for _ in range(plan.ep)]

@@ -212,7 +212,9 @@ def _phase_layers(rank: int, ref, out_dir: str):
     for mode in MODES:
         arch = arch_of(mode)
         for K in CHUNKS:
-            plan = sharding.make_plan(arch, MESH, a2a_chunks=K)
+            # Whole-d_ff slots, sliced here by EP rank: no d_ff split.
+            plan = dataclasses.replace(sharding.make_plan(arch, MESH, a2a_chunks=K),
+                                       ffn_split=1, ffn_whole="control")
             f = {k: (v[plan.ep_rank * 2:(plan.ep_rank + 1) * 2] if k in sharding.EXPERT_KEYS
                      else v).clone() for k, v in ffn.items()}
             for k in wkeys:
@@ -246,7 +248,8 @@ def _phase_layers(rank: int, ref, out_dir: str):
 
     # 7. Rank-budget overflow: ragged at cf 1.25 on skewed tokens.
     arch = arch_of("ragged", 1.25)
-    plan = sharding.make_plan(arch, MESH)
+    plan = dataclasses.replace(sharding.make_plan(arch, MESH), ffn_split=1,
+                               ffn_whole="control")  # whole-d_ff slots
     f = {k: (v[plan.ep_rank * 2:(plan.ep_rank + 1) * 2] if k in sharding.EXPERT_KEYS else v)
          for k, v in ffn.items()}
     xb = x_skew[d_i * bl:(d_i + 1) * bl, m_i * sl:(m_i + 1) * sl]

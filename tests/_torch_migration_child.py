@@ -388,7 +388,9 @@ def _phase8(rank: int, ref, out_dir: str):
     # 1. The replicated layer on (2, 4), live table and sentinel table.
     for mode in MODES:
         arch = arch_of(base, mode)
-        plan = sharding.make_plan(arch, MESH8)
+        # Whole-d_ff slots, sliced here by EP rank: no d_ff split.
+        plan = dataclasses.replace(sharding.make_plan(arch, MESH8), ffn_split=1,
+                                   ffn_whole="control")
         for tag, table in (("rep", TABLE), ("sentinel", (8, 8))):
             f = {k: (v[plan.ep_rank * 2:(plan.ep_rank + 1) * 2] if k in EXPERT_KEYS
                      else v).clone() for k, v in ffn.items()}

@@ -121,6 +121,43 @@ def test_restore_refuses_a_mismatched_state_before_writing(tmp_path, bad):
     _assert_state_equal(live, before)
 
 
+@pytest.mark.parametrize("blocking", [True, False])
+def test_bf16_moments_restore_bitwise(tmp_path, blocking):
+    """A train state with bf16 Adam moments saves (each bf16 leaf as its
+    16-bit patterns, manifest dtype "bfloat16"), verifies and restores bit
+    for bit, and its live CRC32s equal the manifest's."""
+    from repro_torch import sharding
+
+    arch = get_arch(NAME).reduced()
+    lm = LanguageModel(arch, sharding.single_device_plan(arch, optimizer_dtype="bfloat16"))
+    state = init_state(lm, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for t in ("m", "v"):
+        for leaf in tree_paths(state[t]).values():
+            if leaf.is_floating_point():
+                leaf.copy_(torch.randn(leaf.shape, generator=gen).to(torch.bfloat16))
+    assert state["m"]["embed"].dtype == torch.bfloat16
+    mgr = CheckpointManager(tmp_path, log_fn=quiet)
+    mgr.save(3, state, blocking=blocking)
+    mgr.wait()
+    path = tmp_path / "step_00000003"
+    assert verify_checkpoint(path) == (True, "ok")
+    manifest = json.loads((path / "manifest.json").read_text())
+    assert manifest["dtypes"]["m/embed"] == "bfloat16"
+    assert manifest["dtypes"]["params/embed"] == "float32"
+    assert manifest["crc32"] == leaf_crc32s(state)
+    fresh = init_state(lm, torch.Generator().manual_seed(2), "cpu")
+    fresh, step = mgr.restore_latest(fresh)
+    assert step == 3
+    _assert_state_equal(fresh, state)
+    assert leaf_crc32s(fresh) == manifest["crc32"]
+    # The same bits in fp32 are another checkpoint: refused by dtype.
+    wide = init_state(LanguageModel(arch), torch.Generator().manual_seed(2), "cpu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        mgr.restore_latest(wide)
+
+
+
 @pytest.mark.parametrize("where", ["wait", "next_save"])
 def test_async_write_failure_reraises(tmp_path, where):
     """A failed async write re-raises on the next wait() or save(), once;

@@ -227,15 +227,23 @@ def test_tp_equals_the_data_grid_it_replaces(runs, mode):
 @pytest.mark.parametrize("mode", MODES)
 def test_tp_lanes_end_the_step_with_equal_params(runs, mode):
     """One AdamW step at tp 2: no skip, one loss, and the two tp lanes of
-    each EP rank hold bitwise-equal params (the same reduced gradients and
-    the same grad norm, so the same clip)."""
+    each EP rank hold bitwise-equal non-expert params (the same reduced
+    gradients and the same grad norm, so the same clip); their expert
+    leaves are the two halves of the slots' d_ff (the plan's split over
+    data x tp), so they differ."""
     _, r4, _ = runs
     assert len({float(r[f"tpstep/{mode}/loss"]) for r in r4}) == 1
     assert all(int(r[f"tpstep/{mode}/skipped"]) == 0 for r in r4)
+    experts = tuple(f"/ffn/{k}" for k in sharding.EXPERT_KEYS)
     for a, b in ((0, 1), (2, 3)):
         keys = [k for k in r4[a] if k.startswith(f"tpstep/{mode}/local/")]
-        assert keys and all(np.array_equal(r4[a][k], r4[b][k]) for k in keys)
+        dense = [k for k in keys if not k.endswith(experts)]
+        assert dense and all(np.array_equal(r4[a][k], r4[b][k]) for k in dense)
+        for k in set(keys) - set(dense):
+            assert r4[a][k].shape == r4[b][k].shape
+            assert not np.array_equal(r4[a][k], r4[b][k]), k
     w_up = f"tpstep/{mode}/local/blocks/0/ffn/w_up"
+    assert r4[0][w_up].shape[-1] * 2 == get_arch("granite-moe-3b-a800m").reduced().moe.d_ff
     assert not np.array_equal(r4[0][w_up], r4[2][w_up])  # another EP rank's slots
 
 
