@@ -177,7 +177,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    in phase 12, both grids against world 1 at the reference's EP gates
    (loss 2e-3, element-wise 2e-3, the embedding's relative norm 0.05), and
    the tp lanes of each EP rank holding bitwise-equal params after the
-   step.  (c) The same ranks serving 4 requests under both dispatches:
+   step (of every leaf the rule table keeps whole: the sliced ones are
+   each lane's own slices).  (c) The same ranks serving 4 requests under both dispatches:
    tokens equal world 1's.  (d) Two ranks at PP 2, depth 4, 1f1b, 4 x
    512, M 4, aux 0: run A uninterrupted; run B NaN x 3 -> rollback ->
    SIGTERM -> final save, its resume on another seed's state bitwise A
@@ -208,15 +209,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    peaks beside mem_stage0.  (c) Full depth, 2 x 512, 5 steps with fp32
    and bf16 Adam moments: 4 and 2 B a float parameter a moment exactly,
    the losses within ``MEM_MOMENT_REL``, both peaks.  (d) Four gloo ranks
-   sharing the card at ``--mesh 2,2`` (D 2 x ep 2), depth 2, 4 x 512: the
-   d_ff split in 2 against the whole-slot control, each rank's expert
-   params, m and v exactly half the control's, the loss and gathered
-   gradients bitwise (else phase 12's gates), one AdamW step within 2 lr,
-   each rank's peak with and without the split; a split checkpoint
+   sharing the card at ``--mesh 2,2`` (D 2 x ep 2), depth 2, 4 x 512, under
+   three plans: "whole" (every leaf whole on each rank), "split" (the
+   expert d_ff split in 2 alone) and "sliced" (the default: the rule table
+   slices the embedding and attention leaves 4 ways too).  Each rank's
+   expert params, m and v exactly half whole's under split and sliced, and
+   every sliced leaf's exactly a quarter; the loss and gathered gradients
+   of split and sliced bitwise whole's (else phase 12's gates); one AdamW
+   step within 2 lr; each rank's peak, step seconds and held bytes under
+   each plan beside the resource model's ``static_state_bytes`` under
+   ``zero="world"``, the sliced step's gathers and backward sums in ms; a sliced checkpoint
    restored at world 1 with CRC32s equal the manifest's; a swap on the
-   slices bitwise the manual permutation; the served tokens equal world
-   1's, with the gather's seconds a decode step (gloo; printed, not
-   gated).
+   sliced layout bitwise the manual permutation; the served tokens equal
+   world 1's, with the gathers' ms a forward (gloo; printed, not gated).
+   Every multi-rank phase (ep, migrate, pipeline, mesh) runs the default
+   sliced plan: its gates hold the sliced layout at full width.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -227,6 +234,7 @@ result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -3031,7 +3039,7 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
 
     run = _MeshRun(rank, world, tmp, "tp")
     dev = run.dev
-    arch = _mesh_arch(MEM_SPLIT_DEPTH)
+    arch = _mesh_arch(EP_DEPTH)
     opt = OptimizerConfig(lr=1e-3)  # step 1 of its 100-step warmup: lr 1e-5
     lr = 1e-3 / 100
     batch = SyntheticTokens(arch.vocab_size, *MESH_TP_BATCH).batch_at(0)
@@ -3087,7 +3095,8 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
     gn, skipped, after, mine, secs = step(plan)
     peaks = run.peak_gb()
     lanes = [None] * world
-    dist.all_gather_object(lanes, [list(plan.coords), leaf_crc32s(mine)])
+    dist.all_gather_object(lanes, [list(plan.coords), {
+        k: c for k, c in leaf_crc32s(mine).items() if k not in plan.layout}])
     del mine
     if run.lead:
         ok_g, rows = ep_grad_gate(full, want)
@@ -3142,7 +3151,8 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
         same_lanes = all(all(c == cs[0] for c in cs) for cs in by_e.values())
         run.record("tp/lanes", same_lanes and len(by_e) == plan.ep and by_e[0] != by_e[1],
                    f"after the step the {plan.tp} tp lanes of each EP rank hold bitwise-equal "
-                   f"params (per-leaf CRC32s): {same_lanes}")
+                   f"params (per-leaf CRC32s) of every leaf the plan keeps whole: "
+                   f"{same_lanes} (the sliced {sorted(plan.layout)} are each lane's own slices)")
         run.note("tp/time", f"loss and gradients {secs_g:.3f} s, one train step {secs:.3f} s "
                             f"(gloo through the host); peak GB a rank {peaks}")
     del full, after, want, want_after
@@ -3724,19 +3734,88 @@ def _memory_rank(rank: int, world: int, tmp: str) -> None:
     Path(tmp, f"mem{rank}.json").write_text(json.dumps(out))
 
 
-def _mem_split(rank: int, world: int, tmp: str) -> dict:
-    """(d) Four ranks at ``MEM_SPLIT_MESH``, granite full width, depth
-    ``MEM_SPLIT_DEPTH``: the d_ff split against the whole-slot control (the
-    same plan with ``ffn_split`` 1); a split checkpoint restored at world 1;
-    a swap on the slices; served tokens."""
+ZERO_TAGS = ("vocab", "embed", "model_out", "ssm_inner")  # the non-expert rules
+
+
+def _mem_plans(sliced):
+    """Phase 16 (d)'s three plans on one grid: "whole" (every leaf whole on
+    each rank of a stage), "split" (the expert d_ff split alone) and
+    "sliced" (the default: the rule table slices the non-expert weights
+    too)."""
     import dataclasses
 
+    flat = {**sliced.rules, **{t: None for t in ZERO_TAGS}}
+    split = dataclasses.replace(sliced, rules=flat)
+    return {"whole": dataclasses.replace(split, ffn_split=1, ffn_whole="control"),
+            "split": split, "sliced": sliced}
+
+
+class _GatherClock:
+    """Seconds spent in ``sharding``'s weight gathers (forward: the d_ff
+    gather, and ``gather_leaves``, one collective a layer's sliced leaves
+    or the table) and their backward sums while installed, the card
+    synchronized around each, and the model's forwards (its calls of
+    ``LanguageModel._whole``)."""
+
+    def __init__(self):
+        from repro_torch import sharding
+        from repro_torch.models.model import LanguageModel
+
+        self.sharding, self.lm_cls = sharding, LanguageModel
+        self.calls, self.forwards = {"ffn": [], "leaf": [], "backward": []}, 0
+
+    def _count(self, fn):
+        def counted(*a, **k):
+            self.forwards += 1
+            return fn(*a, **k)
+        return counted
+
+    def _wrap(self, fn, key):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.calls[key].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        sh = self.sharding
+        self.saved = (sh.gather_ffn, sh.gather_leaves, sh._GatherSlices.backward)
+        self.whole = self.lm_cls._whole
+        self.lm_cls._whole = self._count(self.whole)
+        sh.gather_ffn = self._wrap(sh.gather_ffn, "ffn")
+        sh.gather_leaves = self._wrap(sh.gather_leaves, "leaf")
+        sh._GatherSlices.backward = staticmethod(self._wrap(sh._GatherSlices.backward,
+                                                            "backward"))
+        return self
+
+    def __exit__(self, *exc):
+        sh = self.sharding
+        sh.gather_ffn, sh.gather_leaves, back = self.saved
+        sh._GatherSlices.backward = staticmethod(back)
+        self.lm_cls._whole = self.whole
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {len(v)} calls {1e3 * sum(v):.2f} ms" for k, v in
+                         self.calls.items())
+
+
+def _mem_split(rank: int, world: int, tmp: str) -> dict:
+    """(d) Four ranks at ``MEM_SPLIT_MESH``, granite full width, depth
+    ``MEM_SPLIT_DEPTH``, under :func:`_mem_plans`' three plans: the bytes a
+    rank holds, its peak and one train step under each; the loss and
+    gathered gradients of "split" and "sliced" against "whole"; a sliced
+    checkpoint restored at world 1; a swap on the slices; served tokens;
+    the gathers' ms a train step and a decode step."""
     import torch.distributed as dist
 
     from repro_torch import sharding, training
     from repro_torch.checkpoint import leaf_crc32s, latest_step
     from repro_torch.convert import gather_params, shard_params
     from repro_torch.core import migration as mig
+    from repro_torch.core import resource_model as rm
     from repro_torch.data import SyntheticTokens
     from repro_torch.models.model import LanguageModel, init_params, map_tree, tree_paths
     from repro_torch.optim import OptimizerConfig
@@ -3751,53 +3830,88 @@ def _mem_split(rank: int, world: int, tmp: str) -> dict:
     batch = SyntheticTokens(arch.vocab_size, *MEM_SPLIT_BATCH).batch_at(0)
     params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
     ref_tokens = _mesh_serve(arch, None, params, dev) if run.lead else None
-    split = sharding.make_plan(arch, MEM_SPLIT_MESH)
-    plans = {"whole": dataclasses.replace(split, ffn_split=1, ffn_whole="control"),
-             "split": split}
-    run.note("plan", plans["split"].describe() + " | control: " + plans["whole"].describe())
+    split_plan = sharding.make_plan(arch, MEM_SPLIT_MESH)
+    plans = _mem_plans(split_plan)
+    layout = plans["sliced"].layout
+    run.note("plan", " | ".join(f"{k}: {p.describe()}" for k, p in plans.items()))
     run.start()
 
-    def expert_bytes(state):
-        total = 0
+    def held_bytes(state):
+        """{"all", "expert": bytes, leaf: bytes of every sliced leaf} of
+        params, m and v."""
+        out = {"all": 0, "expert": 0}
         for part in ("params", "m", "v"):
             flat = tree_paths(state[part])
-            total += sum(flat[k].numel() * flat[k].element_size()
-                         for k in sharding.expert_paths(flat))
-        return total
+            out["all"] += sum(t.numel() * t.element_size() for t in flat.values())
+            out["expert"] += sum(flat[k].numel() * flat[k].element_size()
+                                 for k in sharding.expert_paths(flat))
+            for k in layout:
+                out[k] = out.get(k, 0) + flat[k].numel() * flat[k].element_size()
+        return out
 
     # One train step each at remat full, on the card alone: held bytes,
-    # peaks, the stepped params (gathered, kept on rank 0).
+    # peaks, the stepped params (gathered, kept on rank 0); the gathers'
+    # time in the sliced plan's step.
     stepped, held, peaks = {}, {}, {}
+    clock = _GatherClock()
     for kind, plan in plans.items():
         lm = LanguageModel(arch, plan)
         mine = map_tree(lambda t: t.clone(), shard_params(params, plan))
         state = {"params": mine, **adamw_init(mine)}
-        held[kind] = expert_bytes(state)
+        held[kind] = held_bytes(state)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        met = training.make_train_step(lm, opt)(state, batch)[1]
-        peaks[kind] = run.peak_gb()
+        if kind == "sliced":
+            with clock:
+                met, secs = _timed(lambda: training.make_train_step(lm, opt)(state, batch)[1])
+        else:
+            met, secs = _timed(lambda: training.make_train_step(lm, opt)(state, batch)[1])
+        peaks[kind] = (run.peak_gb(), secs)
         g = gather_params(state["params"], plan)
         if run.lead:  # on the host: the next kind's peak must not hold it
             stepped[kind] = (float(met["grad_norm"]), map_tree(lambda t: t.cpu(), g))
         del state, mine, g
-    ratio = held["whole"] / held["split"]
+    ratio = held["whole"]["expert"] / held["split"]["expert"]
+    quarter = {k: held["whole"][k] / held["sliced"][k] for k in layout}
+    n = plans["sliced"].stage_size
+    mine = [ratio, held["sliced"]["expert"] == held["split"]["expert"],
+            all(q == n for q in quarter.values())]
     allheld = [None] * world
-    dist.all_gather_object(allheld, ratio)
-    run.record("held", all(r == 2.0 for r in allheld),
-               f"expert params, m and v a rank: {held['split']} B split vs {held['whole']} B "
-               f"whole; ratio on each rank {allheld} (want exactly 2)")
-    run.note("peaks", f"peak GB a rank, one train step at remat full: split "
-             f"{peaks['split']}, whole {peaks['whole']}")
+    dist.all_gather_object(allheld, mine)
+    run.record("held", all(r[0] == 2.0 and r[1] for r in allheld),
+               f"expert params, m and v a rank: {held['split']['expert']} B split and sliced vs "
+               f"{held['whole']['expert']} B whole; ratio on each rank "
+               f"{[r[0] for r in allheld]} (want exactly 2)")
+    run.record("zero/held", len(layout) > 0 and all(r[2] for r in allheld),
+               f"non-expert params, m and v a rank: {sum(held['sliced'][k] for k in layout)} B "
+               f"sliced vs {sum(held['whole'][k] for k in layout)} B whole in {len(layout)} "
+               f"sliced leaves; each leaf's whole / sliced on each rank "
+               f"{sorted(set(quarter.values()))} (want exactly {n}); "
+               f"{plans['sliced'].describe().partition(' zero: ')[2]}")
+    run.note("peaks", "peak GB a rank and step seconds, one train step at remat full: "
+             + "; ".join(f"{k} {v[0]} ({v[1]:.2f} s)" for k, v in peaks.items()))
+    setup = rm.TrainSetup(b=MEM_SPLIT_BATCH[0], s=MEM_SPLIT_BATCH[1], EP=split_plan.ep,
+                          DP=split_plan.dp, zero="world", bytes_per_param=16)
+    static = rm.static_state_bytes(rm.ModelShape.from_arch(arch), setup, arch.num_layers)
+    run.note("zero/bytes", "params, m and v a rank, every leaf: " + ", ".join(
+        f"{k} {v['all']} B" for k, v in held.items()) + f"; the resource model's "
+        f"static_state_bytes(zero=\"world\") {static:.0f} B (params, grads, m, v: 16 B a "
+        f"parameter over {setup.P} chips)")
+    run.note("zero/step gathers", f"the sliced plan's train step: {clock.line()} (forward "
+             f"gathers, recompute gathers and backward sums; gloo through the host)")
     if run.lead:
-        (n_s, g_s), (n_w, g_w) = stepped["split"], stepped["whole"]
-        gap = max(float((a - g_w_).abs().max()) for a, g_w_ in
-                  zip(tree_paths(g_s).values(), tree_paths(g_w).values())
-                  if a.is_floating_point())
-        run.record("step", gap <= 2 * lr,
-                   f"one AdamW step: grad norm {n_s!r} vs {n_w!r}; params max |d| {gap:.3e} "
-                   f"(2 lr = {2 * lr:g})")
+        n_w, g_w = stepped["whole"]
+        parts, ok = [], True
+        for kind in ("split", "sliced"):
+            n_k, g_k = stepped[kind]
+            gap = max(float((a - b).abs().max()) for a, b in
+                      zip(tree_paths(g_k).values(), tree_paths(g_w).values())
+                      if a.is_floating_point())
+            ok &= gap <= 2 * lr
+            parts.append(f"{kind}: grad norm {n_k!r}, params max |d| {gap:.3e}")
+        run.record("step", ok, f"one AdamW step against whole (grad norm {n_w!r}): "
+                   + "; ".join(parts) + f" (2 lr = {2 * lr:g})")
     stepped.clear()
 
     # Loss and gathered gradients, bitwise else phase 12's gates.
@@ -3811,21 +3925,24 @@ def _mem_split(rank: int, world: int, tmp: str) -> dict:
             res[kind] = (loss, g, secs)
         del g
     if run.lead:
-        (l_s, g_s, t_s), (l_w, g_w, t_w) = res["split"], res["whole"]
-        bitwise = torch.equal(l_s, l_w) and all(torch.equal(g_s[k], g_w[k]) for k in g_w)
-        ok, rows = ep_grad_gate(g_s, g_w)
-        worst = max(rows, key=lambda k: rows[k][0] / (rows[k][1] + 1e-30))
-        run.record("grads", bitwise or (ok and abs(float(l_s) - float(l_w)) < 2e-3),
-                   f"loss {float(l_s)!r} vs whole {float(l_w)!r}; {len(g_w)} gathered "
-                   f"gradient leaves " + ("bitwise" if bitwise else
-                                          f"worst {worst} {rows[worst][0]:.3e} of "
-                                          f"{rows[worst][1]:.3e}")
-                   + f"; pass {t_s:.2f} s split, {t_w:.2f} s whole")
+        l_w, g_w, t_w = res["whole"]
+        for kind, tag in (("split", "grads"), ("sliced", "zero/grads")):
+            l_s, g_s, t_s = res[kind]
+            bitwise = torch.equal(l_s, l_w) and all(torch.equal(g_s[k], g_w[k]) for k in g_w)
+            ok, rows = ep_grad_gate(g_s, g_w)
+            worst = max(rows, key=lambda k: rows[k][0] / (rows[k][1] + 1e-30))
+            same = sum(torch.equal(g_s[k], g_w[k]) for k in g_w)
+            run.record(tag, bitwise or (ok and abs(float(l_s) - float(l_w)) < 2e-3),
+                       f"{kind}: loss {float(l_s)!r} vs whole {float(l_w)!r}; {same} of "
+                       f"{len(g_w)} gathered gradient leaves bitwise"
+                       + ("" if bitwise else f", worst {worst} {rows[worst][0]:.3e} of "
+                                             f"{rows[worst][1]:.3e}")
+                       + f"; pass {t_s:.2f} s {kind}, {t_w:.2f} s whole")
     res.clear()
 
-    # A split checkpoint restored at world 1 (rank 0): CRC32s equal the
+    # A sliced checkpoint restored at world 1 (rank 0): CRC32s equal the
     # manifest's and the state the gathered one.
-    plan = plans["split"]
+    plan = plans["sliced"]
     lm = LanguageModel(arch, plan)
     mine = map_tree(lambda t: t.clone(), shard_params(params, plan))
     state = {"params": mine, **adamw_init(mine), "step": torch.tensor(1, dtype=torch.int32)}
@@ -3848,13 +3965,14 @@ def _mem_split(rank: int, world: int, tmp: str) -> dict:
         same = all(torch.equal(a, b) for a, b in zip(tree_paths(st1).values(),
                                                       tree_paths(full).values()))
         run.record("ckpt", crc and same and step == latest_step(ck),
-                   f"split checkpoint (step {step}, saved in {secs:.2f} s) restored at world "
+                   f"sliced checkpoint (step {step}, saved in {secs:.2f} s) restored at world "
                    f"1: CRC32s equal the manifest's {crc}, state equal the gathered {same}")
         del st1
     del full
     dist.barrier()
 
-    # A swap on the slices: the manual permutation of the gathered state.
+    # A swap on the slices: the manual permutation of the gathered state,
+    # the sliced leaves unchanged.
     before = {t: gather_params(state[t], plan) for t in ("params", "m", "v")}
     reps = arch.num_layers // len(arch.block_pattern)
     E = arch.moe.num_experts
@@ -3871,38 +3989,30 @@ def _mem_split(rank: int, world: int, tmp: str) -> dict:
             if k in sharding.expert_paths(after):
                 ix = idx.reshape(idx.shape + (1,) * (w.dim() - 2)).expand(w.shape)
                 exact &= torch.equal(after[k], torch.gather(w, 1, ix))
+            else:
+                exact &= torch.equal(after[k], w)
     del before, state, mine
     every = [None] * world
     dist.all_gather_object(every, bool(exact))
-    run.record("migrate", all(every), f"swap of slots {MEM_SWAP} in {reps} reps on the d_ff "
-               f"slices: params, m and v bitwise the manual permutation on every rank "
-               f"{every}; {got} B all-gathered a rank")
+    run.record("migrate", all(every), f"swap of slots {MEM_SWAP} in {reps} reps on the sliced "
+               f"layout: params, m and v bitwise the manual permutation (the rest unchanged) "
+               f"on every rank {every}; {got} B all-gathered a rank")
 
-    # Serving at the split: tokens equal world 1's; the gather's seconds.
-    spent = []
-    gather = sharding.gather_ffn
-
-    def timed_gather(p, pl, dtype):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = gather(p, pl, dtype)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return out
-
-    sharding.gather_ffn = timed_gather
-    try:
+    # Serving on the sliced layout: tokens equal world 1's; the gathers'
+    # seconds a decode step.
+    clock = _GatherClock()
+    with clock:
         tokens, secs = _timed(lambda: _mesh_serve(arch, plan, params, dev))
-    finally:
-        sharding.gather_ffn = gather
     if run.lead:
-        n_moe = len(moe_pos) * reps
+        ffn, leaf, fwd = clock.calls["ffn"], clock.calls["leaf"], clock.forwards
         run.record("serve", tokens == ref_tokens,
                    f"{len(tokens)} requests at {MEM_SPLIT_MESH}, tokens equal world 1's "
-                   f"(first {tokens[0][:8]}); {secs:.2f} s; the d_ff gather {len(spent)} "
-                   f"calls, {1e3 * float(np.median(spent)):.2f} ms p50 a layer, so "
-                   f"~{1e3 * n_moe * float(np.median(spent)):.2f} ms a decode step of "
-                   f"{n_moe} MoE layers (gloo through the host; not gated)")
+                   f"(first {tokens[0][:8]}); {secs:.2f} s; {fwd} forwards (prefills and decode "
+                   f"steps): the d_ff gather {len(ffn)} calls, {1e3 * sum(ffn):.2f} ms; the "
+                   f"other weights' {len(leaf)} calls, {1e3 * sum(leaf):.2f} ms (the largest, "
+                   f"the table, {1e3 * max(leaf):.2f} ms); "
+                   f"{1e3 * (sum(ffn) + sum(leaf)) / max(fwd, 1):.2f} ms of gathers a forward "
+                   f"(gloo through the host; not gated)")
     return run.finish()
 
 
@@ -3941,7 +4051,8 @@ def memory_phase(dev):
     if errors:
         fail("memory (d): " + "\n".join(errors))
     for k, v in res[0].items():
-        if k in ("plan", "peaks", "held", "step", "grads", "ckpt", "migrate", "serve"):
+        if k in ("plan", "peaks", "held", "zero/held", "zero/bytes", "zero/step gathers",
+                 "step", "grads", "zero/grads", "ckpt", "migrate", "serve"):
             tag = "[check]" if v.endswith(("ok", "FAIL")) else "[memory]"
             log(f"{tag} memory (d) x{world} {k}: {v}")
     for r in res:
@@ -3965,6 +4076,17 @@ def main() -> None:
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the repository")
     sys.path.insert(0, str(src))
+    # Bytecode written under the checkout's build/: where the interpreter
+    # is told not to write any (PYTHONDONTWRITEBYTECODE) and none is cached
+    # beside the installed packages, every rank this script spawns compiles
+    # torch's modules from source again, torch._dynamo among them
+    # (torch.utils.checkpoint reads it at its first call): 34 s against
+    # 25 s for two ranks' first three steps on an H100
+    # (scripts/port_first_step_profile.py).
+    os.environ["PYTHONDONTWRITEBYTECODE"] = ""
+    os.environ["PYTHONPYCACHEPREFIX"] = str(src.parent / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
     from repro_torch.device import resolve_device
 
     dev = resolve_device("cuda")

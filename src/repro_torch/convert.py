@@ -1,7 +1,8 @@
 """Parameter trees, train states and dense serving caches between the JAX
 package and the port, as numpy; and a whole parameter tree to and from one
 rank's shard (:func:`shard_params`, :func:`gather_params`): its pipeline
-stage's layer chunks and its expert slots.
+stage's layer chunks, its slice of every leaf the plan's rules slice, and
+its expert slots.
 
 The two packages' trees have the same paths (``models.model.param_tree``):
 dicts keyed alike and a tuple of per-pattern-position block dicts with
@@ -121,12 +122,17 @@ def shard_leaf(path: str, t, plan, experts):
     """This rank's part of the global leaf ``t`` at ``path`` (a tensor or a
     numpy array; ``experts``: the tree's expert paths): under a pipeline
     (``plan.pp`` > 1) a block leaf's stage chunks (:func:`_stage_chunks`),
-    then an expert leaf's physical slots ``[g * E_l, (g + 1) * E_l)``, g
-    the rank's EP rank, and under the plan's d_ff split their slice
-    ``plan.ffn_rank`` of ``plan.ffn_split`` along the d_ff
-    (``sharding.ffn_dim``).  Any other leaf is ``t`` itself."""
+    then a non-expert leaf's slice of every dim the plan's rules slice
+    (``sharding.slice_leaf``, ``MeshPlan.layout``), or an expert leaf's
+    physical slots ``[g * E_l, (g + 1) * E_l)``, g the rank's EP rank, and
+    under the plan's d_ff split their slice ``plan.ffn_rank`` of
+    ``plan.ffn_split`` along the d_ff (``sharding.ffn_dim``).  Any other
+    leaf is ``t`` itself."""
     if getattr(plan, "pp", 1) > 1 and path.startswith("blocks/"):
         t = _stage_chunks(t, plan)
+    axes = getattr(plan, "layout", {}).get(path)
+    if axes is not None:
+        return sharding.slice_leaf(t, axes, plan)
     if path not in experts:
         return t
     if plan.ep > 1:
@@ -143,31 +149,38 @@ def shard_leaf(path: str, t, plan, experts):
 
 
 def shard_params(params, plan):
-    """A whole parameter tree -> this rank's (:func:`shard_leaf`): ``embed``,
-    ``final_norm`` and ``lm_head`` stay whole on every stage, as the
-    reference's ``P()`` in_specs put them; every sharded leaf is a copy.
-    Every other leaf, the router and the routing tables (``assignment``,
-    ``replicas``) included, is the same tensor without a pipeline."""
+    """A whole parameter tree -> this rank's (:func:`shard_leaf`): a leaf no
+    rule slices (the norms, the router, the routing tables ``assignment``
+    and ``replicas``; the embedding under a pipeline where its d_model does
+    not divide) is the same tensor on every stage without a pipeline, as
+    the reference's ``P()`` in_specs put it; every sliced or sharded leaf
+    is a copy."""
     split = getattr(plan, "ffn_split", 1) > 1
-    if plan is None or (plan.ep == 1 and getattr(plan, "pp", 1) == 1 and not split):
+    layout = getattr(plan, "layout", {})
+    if plan is None or (plan.ep == 1 and getattr(plan, "pp", 1) == 1 and not split
+                        and not layout):
         return params
     experts = sharding.expert_paths(tree_paths(params))
 
     def leaf(path, t):
         out = shard_leaf(path, t, plan, experts)
-        return out.clone() if path in experts and (plan.ep > 1 or split) else out
+        copy = path in layout or (path in experts and (plan.ep > 1 or split))
+        return out.clone() if copy and out is not t else out
 
     return map_tree(leaf, params, with_path=True)
 
 
 def gather_params(tree, plan):
     """The inverse of :func:`shard_params` on any tree of the params' shape
-    (params or gradients; None leaves pass): each expert leaf gathered
-    along its d_ff over the expert-gradient group under the plan's split,
-    then over the EP group, in EP-rank order, along its expert dim, then
-    each block leaf over the pp group (:func:`_unstage_chunks`).
-    Collective: every rank calls it."""
-    if plan is None or (plan.ep == 1 and plan.pp == 1 and plan.ffn_split == 1):
+    (params, moments or gradients; None leaves pass): each sliced leaf
+    all-gathered over its group (``sharding.gather_leaf``, no cast, no
+    autograd), each expert leaf gathered along its d_ff over the
+    expert-gradient group under the plan's split, then over the EP group,
+    in EP-rank order, along its expert dim; then each block leaf over the
+    pp group (:func:`_unstage_chunks`).  Collective: every rank calls it."""
+    layout = plan.layout if plan is not None else {}
+    if plan is None or (plan.ep == 1 and plan.pp == 1 and plan.ffn_split == 1
+                        and not layout):
         return tree
     experts = sharding.expert_paths(
         {k: v for k, v in tree_paths(tree).items() if v is not None})
@@ -175,6 +188,9 @@ def gather_params(tree, plan):
     def leaf(path, t):
         if t is None:
             return t
+        if path in layout:
+            with torch.no_grad():
+                t = sharding.gather_leaf(t, layout[path], plan)
         if path in experts and plan.ffn_split > 1:
             parts = [torch.empty_like(t) for _ in range(plan.ffn_split)]
             torch.distributed.all_gather(parts, t.contiguous(), group=plan.expert_dp_group)

@@ -33,8 +33,9 @@ Under ``torchrun --nproc-per-node N ... --mesh D,M`` or ``--mesh P,D,M``
 (``launch.ranks``; N the mesh's product, the pod axis joining data) it
 serves over D * P data ranks, each with an EP group of ep = gcd(E, M)
 ranks times tp = M / ep lanes, in lockstep: every rank runs the same
-engine on the same requests and holds its expert slots
-(``convert.shard_params``, the same on every tp lane).  In prefill each
+engine on the same requests and holds its expert slots and its slice of
+every leaf the plan's rule table slices (``convert.shard_params``; each
+forward gathers the embedding and each layer its projections).  In prefill each
 rank takes its EP group's sequence shard of each MoE layer's input (every
 tp lane the same shard); in decode it computes its own experts over its
 data rank's share of the batch (split over the data group when D divides

@@ -65,7 +65,9 @@ reference dry run's, priced on the H100's HBM for this run's world): remat
 "full", and fp32 Adam moments unless 12 B a parameter over the world passes
 0.8 of a card's HBM; ``--remat`` and ``--optimizer-dtype`` override it.  A
 grid of D * tp > 1 ranks splits the expert d_ff over them where that
-divides it (``sharding``; the ``[mesh]`` line says which).
+divides it, and every grid slices the embedding, attention and dense-FFN
+leaves by the reference's rule table (``sharding``; the ``[mesh]`` line
+names the sliced leaves and every dim kept whole, and why).
 
 It draws seeded random fp32 master weights on the device, trains with
 bf16 compute and the bound moments (the reference plan's
@@ -80,8 +82,10 @@ prints the drift of the measured ``train.step``, ``a2a.layer`` (EP > 1),
 ``ckpt.save`` and ``ckpt.restore`` spans against the resource model's
 pricing of this run (its own shape, PP, schedule and vstages, EP, DP,
 all-to-all and memory policy) on the H100, with the modeled stage-0
-memory beside the measured peak, and the bound policy and expert split; a pipelined run's Chrome trace carries its schedule's
-lanes, one a stage.
+memory beside the measured peak, the bound policy and expert split, and
+this rank's held bytes (expert, sliced and whole params, m and v) beside
+the model's ``static_state_bytes`` under ``zero="world"``; a pipelined
+run's Chrome trace carries its schedule's lanes, one a stage.
 
 The trainer gets the dataset itself, which has ``batch_at(step)``: the
 JAX twin wraps it in ``Prefetcher(iter(data))``, whose stream starts at
@@ -101,7 +105,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import DEFAULT_SCHEDULE, DISPATCH_MODES, SCHEDULES, get_arch
-from repro_torch import obs
+from repro_torch import obs, sharding
 from repro_torch.convert import shard_params
 from repro_torch.core import planner
 from repro_torch.core import resource_model as rm
@@ -312,6 +316,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     if device.type == "cuda":  # hand the whole model's blocks back to the card
         torch.cuda.empty_cache()
     state = {"params": params, **adamw_init(params, mesh.optimizer_dtype)}
+    held = held_bytes(state, mesh)
     say(f"[model] {arch.name} on {device}: {n_params / 1e6:.1f}M params, fp32 "
         f"masters, {mesh.optimizer_dtype} moments, bf16 compute, remat {mesh.remat}, "
         f"batch {args.batch} x seq {args.seq}"
@@ -348,6 +353,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
         "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
                         if device.type == "cuda" else None),
         "peak_mem_gb_ranks": _rank_peaks(device, mesh),
+        "held_bytes": held,
         "resumed_from": trainer.resumed_from, "rollbacks": out["rollbacks"],
         "migrations": out["migrations"],
     }
@@ -375,6 +381,20 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
             summary.update(_telemetry_reports(args, arch, ring.events(), summary, mesh))
         telemetry.close()
     return summary, trainer, out
+
+
+def held_bytes(state, mesh) -> Dict[str, int]:
+    """This rank's bytes of params, m and v: "expert" (the MoE FFNs' expert
+    leaves), "sliced" (the non-expert leaves the plan's rules slice) and
+    "whole" (the rest)."""
+    out = {"expert": 0, "sliced": 0, "whole": 0}
+    for part in ("params", "m", "v"):
+        flat = tree_paths(state[part])
+        experts = sharding.expert_paths(flat)
+        for k, t in flat.items():
+            kind = "expert" if k in experts else "sliced" if k in mesh.layout else "whole"
+            out[kind] += t.numel() * t.element_size()
+    return out
 
 
 def _rank_peaks(device, mesh) -> Optional[List[float]]:
@@ -411,6 +431,14 @@ def _telemetry_reports(args, arch, events, summary, mesh) -> Dict[str, Any]:
           + (f", expert d_ff split {mesh.ffn_split} ways over data x tp" if mesh.ffn_split > 1
              else f", expert slots whole ({mesh.ffn_whole})" if mesh.ffn_whole
              else ", expert slots whole (one data rank and tp lane)"))
+    held = summary["held_bytes"]
+    static = rm.static_state_bytes(rm.ModelShape.from_arch(arch), setup,
+                                   arch.num_layers / mesh.pp)
+    print(f"[model] held a rank (params, m, v): expert {held['expert'] / 1e9:.4f} GB, "
+          f"non-expert {(held['sliced'] + held['whole']) / 1e9:.4f} GB ("
+          f"{held['sliced'] / 1e9:.4f} in {len(mesh.layout)} sliced leaves, "
+          f"{held['whole'] / 1e9:.4f} whole) vs static_state_bytes(zero=\"world\") "
+          f"{static / 1e9:.4f} GB (params, grads, m, v over {setup.P} chips)")
     print(f"[model] {PLATFORM.name} t_step {est.t_step * 1e3:.4g} ms vs measured step p50 "
           f"{summary['step_p50_ms']:.1f} ms; mem_stage0 {est.mem_stage0 / 1e9:.2f} GB vs "
           + (f"peak torch.cuda.max_memory_allocated {peak:.2f} GB" if peak is not None

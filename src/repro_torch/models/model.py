@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_lib
@@ -37,29 +38,36 @@ DENSE_ATTN_CACHE_TODO = ("the dense cache holds mamba mixers only; attention in 
 
 @dataclass(frozen=True)
 class ParamMeta:
+    """A leaf's shape, its logical dim tags (the reference's, which
+    ``sharding.MeshPlan.rules`` maps onto the mesh; None: a dim no rule
+    slices) and its initializer."""
+
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"  # normal | embed | zeros | ones | arange | fill | a_log | dt_bias
     fan_in: int = 0
 
     def stacked(self, reps: int) -> "ParamMeta":
-        return ParamMeta((reps,) + self.shape, self.init, self.fan_in)
+        return ParamMeta((reps,) + self.shape, ("layers",) + self.logical, self.init,
+                         self.fan_in)
 
 
 def _attn_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
     d, hq, hkv = a.d_model, a.q_dim, a.kv_dim
     return {
-        "wq": ParamMeta((d, hq), fan_in=d),
-        "wk": ParamMeta((d, hkv), fan_in=d),
-        "wv": ParamMeta((d, hkv), fan_in=d),
-        "wo": ParamMeta((hq, d), fan_in=hq),
+        "wq": ParamMeta((d, hq), ("embed", "model_out"), fan_in=d),
+        "wk": ParamMeta((d, hkv), ("embed", "model_out"), fan_in=d),
+        "wv": ParamMeta((d, hkv), ("embed", "model_out"), fan_in=d),
+        "wo": ParamMeta((hq, d), ("model_out", "embed"), fan_in=hq),
     }
 
 
 def _dense_ffn_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
     d, f = a.d_model, a.d_ff
-    t = {"w_up": ParamMeta((d, f), fan_in=d), "w_down": ParamMeta((f, d), fan_in=f)}
+    t = {"w_up": ParamMeta((d, f), ("embed", "model_out"), fan_in=d),
+         "w_down": ParamMeta((f, d), ("model_out", "embed"), fan_in=f)}
     if a.ffn_activation == "swiglu":
-        t["w_gate"] = ParamMeta((d, f), fan_in=d)
+        t["w_gate"] = ParamMeta((d, f), ("embed", "model_out"), fan_in=d)
     return t
 
 
@@ -67,18 +75,18 @@ def _moe_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
     m = a.moe
     d, f, E = a.d_model, m.d_ff, m.num_experts
     t = {
-        "w_router": ParamMeta((d, E), fan_in=d),
-        "w_up": ParamMeta((E, d, f), fan_in=d),
-        "w_down": ParamMeta((E, f, d), fan_in=f),
+        "w_router": ParamMeta((d, E), (None, None), fan_in=d),
+        "w_up": ParamMeta((E, d, f), ("expert", None, "expert_ffn"), fan_in=d),
+        "w_down": ParamMeta((E, f, d), ("expert", "expert_ffn", None), fan_in=f),
         # logical expert -> physical slot routing table (int32)
-        "assignment": ParamMeta((E,), init="arange"),
+        "assignment": ParamMeta((E,), (None,), init="arange"),
     }
     if m.max_replicas > 0:
         # Hot-expert replica channels: a logical expert id a channel,
         # sentinel E = free (fan_in holds the fill value).
-        t["replicas"] = ParamMeta((m.max_replicas,), init="fill", fan_in=E)
+        t["replicas"] = ParamMeta((m.max_replicas,), (None,), init="fill", fan_in=E)
     if a.ffn_activation == "swiglu":
-        t["w_gate"] = ParamMeta((E, d, f), fan_in=d)
+        t["w_gate"] = ParamMeta((E, d, f), ("expert", None, "expert_ffn"), fan_in=d)
     return t
 
 
@@ -90,28 +98,28 @@ def _mamba_tree(a: ArchConfig) -> Dict[str, ParamMeta]:
     nh = s.num_heads(d)
     w = s.conv_width
     return {
-        "w_z": ParamMeta((d, d_in), fan_in=d),
-        "w_x": ParamMeta((d, d_in), fan_in=d),
-        "w_B": ParamMeta((d, gn), fan_in=d),
-        "w_C": ParamMeta((d, gn), fan_in=d),
-        "w_dt": ParamMeta((d, nh), fan_in=d),
-        "conv_x_w": ParamMeta((d_in, w), fan_in=w),
-        "conv_x_b": ParamMeta((d_in,), init="zeros"),
-        "conv_B_w": ParamMeta((gn, w), fan_in=w),
-        "conv_B_b": ParamMeta((gn,), init="zeros"),
-        "conv_C_w": ParamMeta((gn, w), fan_in=w),
-        "conv_C_b": ParamMeta((gn,), init="zeros"),
-        "A_log": ParamMeta((nh,), init="a_log"),
-        "D": ParamMeta((nh,), init="ones"),
-        "dt_bias": ParamMeta((nh,), init="dt_bias"),
-        "norm_scale": ParamMeta((d_in,), init="zeros"),
-        "out_proj": ParamMeta((d_in, d), fan_in=d_in),
+        "w_z": ParamMeta((d, d_in), ("embed", "ssm_inner"), fan_in=d),
+        "w_x": ParamMeta((d, d_in), ("embed", "ssm_inner"), fan_in=d),
+        "w_B": ParamMeta((d, gn), ("embed", None), fan_in=d),
+        "w_C": ParamMeta((d, gn), ("embed", None), fan_in=d),
+        "w_dt": ParamMeta((d, nh), ("embed", None), fan_in=d),
+        "conv_x_w": ParamMeta((d_in, w), ("ssm_inner", None), fan_in=w),
+        "conv_x_b": ParamMeta((d_in,), ("ssm_inner",), init="zeros"),
+        "conv_B_w": ParamMeta((gn, w), (None, None), fan_in=w),
+        "conv_B_b": ParamMeta((gn,), (None,), init="zeros"),
+        "conv_C_w": ParamMeta((gn, w), (None, None), fan_in=w),
+        "conv_C_b": ParamMeta((gn,), (None,), init="zeros"),
+        "A_log": ParamMeta((nh,), (None,), init="a_log"),
+        "D": ParamMeta((nh,), (None,), init="ones"),
+        "dt_bias": ParamMeta((nh,), (None,), init="dt_bias"),
+        "norm_scale": ParamMeta((d_in,), ("ssm_inner",), init="zeros"),
+        "out_proj": ParamMeta((d_in, d), ("ssm_inner", "embed"), fan_in=d_in),
     }
 
 
 def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
     mixer, ffn = block
-    t: Dict[str, Any] = {"norm_mixer": ParamMeta((a.d_model,), init="zeros")}
+    t: Dict[str, Any] = {"norm_mixer": ParamMeta((a.d_model,), (None,), init="zeros")}
     if mixer.startswith("attn"):
         t["mixer"] = _attn_tree(a)
     elif mixer == "mamba":
@@ -119,7 +127,7 @@ def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn != "none":
-        t["norm_ffn"] = ParamMeta((a.d_model,), init="zeros")
+        t["norm_ffn"] = ParamMeta((a.d_model,), (None,), init="zeros")
         t["ffn"] = _dense_ffn_tree(a) if ffn == "dense" else _moe_tree(a)
     return t
 
@@ -141,14 +149,21 @@ def param_tree(a: ArchConfig) -> Dict[str, Any]:
     reps = a.num_layers // len(a.block_pattern)
     vp = a.padded_vocab(VOCAB_PAD_MULTIPLE)
     tree: Dict[str, Any] = {
-        "embed": ParamMeta((vp, a.d_model), init="embed"),
+        "embed": ParamMeta((vp, a.d_model), ("vocab", "model_out"), init="embed"),
         "blocks": tuple(map_tree(lambda m: m.stacked(reps), _block_tree(a, blk))
                         for blk in a.block_pattern),
-        "final_norm": ParamMeta((a.d_model,), init="zeros"),
+        "final_norm": ParamMeta((a.d_model,), (None,), init="zeros"),
     }
     if not a.tie_embeddings:
-        tree["lm_head"] = ParamMeta((a.d_model, vp), fan_in=a.d_model)
+        tree["lm_head"] = ParamMeta((a.d_model, vp), ("model_out", "vocab"), fan_in=a.d_model)
     return tree
+
+
+def logical_tags(a: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """The flat ``{path: logical tags}`` of ``a``'s parameters, paths as
+    :func:`tree_paths` spells them (the reference's ``param_tree`` tags,
+    ``"layers"`` first on a block leaf)."""
+    return {p: m.logical for p, m in tree_paths(param_tree(a)).items()}
 
 
 def _init_leaf(meta: ParamMeta, gen: torch.Generator, device, dtype):
@@ -197,8 +212,10 @@ class LanguageModel:
     per-layer cache for mamba mixers.
 
     With a ``sharding.MeshPlan`` the MoE layers run expert-parallel over its
-    ranks, on params that hold this rank's expert slots
-    (``convert.shard_params``): ``forward`` and ``loss`` take this rank's
+    ranks, on params that hold this rank's expert slots and its slice of
+    every leaf the plan's rules slice (``convert.shard_params``; each
+    forward gathers the embedding once and each layer its own leaves,
+    ``sharding.gather_leaf``): ``forward`` and ``loss`` take this rank's
     own sequences (token-sharded), the paged serving steps take the same
     requests on every rank (prefill: each rank's sequence shard of every MoE
     layer's input; decode: weight-parallel, the batch split over the data
@@ -222,6 +239,20 @@ class LanguageModel:
         self.reps = arch.num_layers // len(arch.block_pattern)
 
     # -- embedding / head ---------------------------------------------------
+
+    def _whole(self, params):
+        """``params`` with the embedding (and an untied head) gathered whole
+        in the compute dtype (``final_norm``'s) where the plan slices them
+        (``sharding.gather_leaf``): once a forward, so that the lookup and
+        the tied head share one table and its gradient is summed once."""
+        layout = {} if self.plan is None else self.plan.layout
+        out = params
+        for k in ("embed", "lm_head"):
+            if k in layout and k in params:
+                out = dict(params) if out is params else out
+                out[k] = sharding.gather_leaf(params[k], layout[k], self.plan,
+                                              params["final_norm"].dtype)
+        return out
 
     def _embed(self, params, batch) -> torch.Tensor:
         return self._embed_rows(params["embed"], batch["tokens"])
@@ -252,6 +283,7 @@ class LanguageModel:
         if self.pipelined:
             raise NotImplementedError("forward under a pipeline plan: use loss (the "
                                       "pipelined forward) or loss_and_grads")
+        params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
@@ -300,6 +332,7 @@ class LanguageModel:
         "moe_z_loss" are the rank's terms as well."""
         if self.pipelined:
             return self._pipelined_loss(params, batch)
+        params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
@@ -336,6 +369,7 @@ class LanguageModel:
         from repro_torch.core import pipeline
 
         tokens = batch["tokens"]
+        params = self._whole(params)
         y, aux, z, loads = pipeline.pipelined_stack_forward(
             params["blocks"], tokens, self.arch, self.plan, embed_fn=self._embed_rows,
             embed_params=params["embed"], telemetry=self.telemetry)
@@ -382,7 +416,6 @@ class LanguageModel:
         ``gather_traces``: this stage's (T,) rows, and no collective); beside
         them ``pipeline_stats`` (this rank's hand-offs sent, their wire
         bytes, the residual-slot bytes and the schedule)."""
-        from repro_torch import sharding
         from repro_torch.convert import _unstage_chunks
         from repro_torch.core import pipeline
 
@@ -390,15 +423,23 @@ class LanguageModel:
         if not self.pipelined:
             raise ValueError("loss_and_grads needs a pipeline plan (plan.pp > 1)")
         tokens = batch["tokens"]
+        # A sliced embedding (and head) is gathered once a step; the
+        # executor sums its whole gradient over microbatches, and its
+        # gather's backward runs here, once.
+        with torch.no_grad():
+            top = self._whole(params)
         (ce, aux, z), g, traces, stats = pipeline.pipelined_step(
             params["blocks"], tokens, batch["labels"], self.arch, plan,
-            head_fn=self._make_head_fn(), head_params=self._head_params(params),
-            embed_fn=self._embed_rows, embed_params=params["embed"], schedule=schedule,
+            head_fn=self._make_head_fn(), head_params=self._head_params(top),
+            embed_fn=self._embed_rows, embed_params=top["embed"], schedule=schedule,
             vstages=vstages, telemetry=self.telemetry)
         grads = {"embed": g["embed"], "blocks": g["blocks"],
                  "final_norm": g["head"]["final_norm"]}
         if not self.arch.tie_embeddings:
             grads["lm_head"] = g["head"]["lm_head"]
+        for k, axes in plan.layout.items():
+            if k in ("embed", "lm_head") and k in grads:
+                grads[k] = sharding.reduce_slice(grads[k], axes, plan)
         sharding.reduce_grads_(grads, plan)
         # aux and z are the same on every rank of a stage: one counts them.
         own = 1.0 if plan.stage_rank == 0 else 0.0
@@ -458,6 +499,7 @@ class LanguageModel:
         reference's rule replicates too), so a slot's pages are whole on the
         rank that later decodes it (:meth:`decode_step_paged`).
         """
+        params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         positions = self._positions(b, s, x.device)
@@ -511,6 +553,7 @@ class LanguageModel:
         if split:
             block_table, lengths = block_table[rows], lengths[rows]
             batch = {k: v[rows] for k, v in batch.items()}
+        params = self._whole(params)
         x = self._embed(params, batch)
         positions = lengths.long()[:, None]
         N, bs = cache[0]["k"].shape[1:3]
@@ -562,11 +605,12 @@ class LanguageModel:
         (last-position logits (b, vp), cache): one dict per pattern position,
         leaves stacked (reps, ...) as ``init_cache`` makes them."""
         self._dense_cache_only()
+        params = self._whole(params)
         x = self._embed(params, batch)
         caches = [[] for _ in self.arch.block_pattern]
         for _, pos, blk, p in self._layers(params):
             x, _, nc = transformer.apply_block(blk, p, x, self.arch, positions=None,
-                                               return_cache=True)
+                                               return_cache=True, plan=self.plan)
             caches[pos].append(nc)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         logits = self._head(params, x[:, -1:])[:, 0]
@@ -579,11 +623,12 @@ class LanguageModel:
         only attention mixers read).  Returns (logits (b, vp), cache), the
         cache updated IN PLACE (the reference returns a new one)."""
         self._dense_cache_only()
+        params = self._whole(params)
         x = self._embed(params, batch)
         for r, pos, blk, p in self._layers(params):
             x, _, _ = transformer.apply_block(
                 blk, p, x, self.arch, positions=None,
-                cache={k: v[r] for k, v in cache[pos].items()})
+                cache={k: v[r] for k, v in cache[pos].items()}, plan=self.plan)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x)[:, 0], cache
 
@@ -603,4 +648,4 @@ def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
 
 
 __all__ = ["LanguageModel", "ParamMeta", "VOCAB_PAD_MULTIPLE", "init_params",
-           "map_tree", "param_tree", "tree_paths"]
+           "logical_tags", "map_tree", "param_tree", "tree_paths"]

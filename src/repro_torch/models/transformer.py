@@ -13,7 +13,7 @@ recomputes the rep in the backward (``torch.utils.checkpoint``); "dots"
 keeps the outputs of the matrix products without batch dims (``aten.mm``,
 ``aten.addmm``: ``dots_with_no_batch_dims_saveable``) and recomputes the
 rest; "none" keeps everything.  A recompute runs the rep's collectives
-again (the EP all-to-all, the metric sums, the d_ff gather), on every rank
+again (the EP all-to-all, the metric sums, the weights' gathers), on every rank
 in the backward's order, so it always runs to the rep's end; its outputs
 are dropped, so no metric counts twice, and its ``a2a.layer`` spans are
 named ``a2a.layer.recompute``.  "dots" sees aten ops only: a kernel
@@ -83,20 +83,23 @@ def apply_block(
     mixer has none yet and raises.  ``plan``, ``token_sharded``,
     ``seq_shard``, ``data_split`` and ``telemetry`` go to
     :func:`moe.moe_ffn` (the mixer needs no ranks: every rank holds whole
-    sequences)."""
+    sequences).  The mixer's and a dense FFN's leaves that ``plan`` slices
+    are gathered whole in x's dtype just before they are used
+    (``sharding.gather_block``; a recompute gathers them again)."""
     mixer, ffn = block
     metrics: Dict[str, torch.Tensor] = {}
     h = L.rms_norm(x, params["norm_mixer"], arch.norm_eps)
+    mp = sharding.gather_block(params, block, arch, plan, x.dtype, "mixer")
     if mixer.startswith("attn"):
         window = arch.sliding_window if mixer == "attn_local" else None
         out, new_cache = L.attention_proj(
-            params["mixer"], h, arch, positions, window=window, cache=cache,
+            mp, h, arch, positions, window=window, cache=cache,
             write=write, return_kv=return_cache and cache is None, train=train,
         )
     elif mixer == "mamba":
         if train:
             raise NotImplementedError(SSM_TRAINING_TODO)
-        out, new_cache = ssm_lib.mamba_block(params["mixer"], h, arch, cache=cache,
+        out, new_cache = ssm_lib.mamba_block(mp, h, arch, cache=cache,
                                              return_cache=return_cache)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
@@ -104,7 +107,8 @@ def apply_block(
     if ffn != "none":
         h = L.rms_norm(x, params["norm_ffn"], arch.norm_eps)
         if ffn == "dense":
-            out = L.dense_ffn(params["ffn"], h, arch.ffn_activation)
+            out = L.dense_ffn(sharding.gather_block(params, block, arch, plan, x.dtype, "ffn"),
+                              h, arch.ffn_activation)
         elif ffn == "moe":
             out, metrics = moe_lib.moe_ffn(params["ffn"], h, arch, plan,
                                            token_sharded=token_sharded, train=train,

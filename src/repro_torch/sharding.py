@@ -16,14 +16,16 @@ the model reduces, exchanges or hands off over gets its own process group:
 * the **expert-gradient group**: the ``D * tp`` ranks that share its
   (p, e), which hold the same expert slots of the same stage and sum their
   expert gradients (the data group itself when tp = 1);
+* the **model group**: the ``ep * tp`` ranks that share its (p, d), the
+  reference's "model" axis;
 * the **stage group**: the ``D * ep * tp`` ranks of its pipeline stage p,
-  which hold the same stage's non-expert weights; the token-sharded MoE
-  metrics (aux losses, expert loads) are meaned over it;
+  which run the same stage's layers on their own tokens; the token-sharded
+  MoE metrics (aux losses, expert loads) are meaned over it;
 * the **pp group**: the ``P`` ranks that share its (d, e, t), one a stage,
   between which the pipeline hands microbatches off
   (``core.pipeline``);
-* the **world**: every rank; the embedding and head gradients are summed
-  over it;
+* the **world**: every rank; the gradients of the weights no rule slices
+  (norms, router) are summed over it;
 * with ``hierarchical_a2a``, HALO's lane and node subgroups of the EP group
   (``core.halo``), keyed by (p, d, t) as the EP group is.
 
@@ -34,8 +36,30 @@ stage group is the world.  With it, ``pp = P`` stages run the schedule
 over ``microbatches`` microbatches (None: 2 * PP), the hand-offs in int8
 with ``compress_p2p`` (``core.compression``).
 
-Layout (the reference's expert-data parallelism): non-expert weights are
-replicated within a stage, each EP rank holds the physical expert slots
+Layout (the reference's rule table, ``MeshPlan.rules``, :func:`default_rules`).
+Every parameter carries the reference's logical dim tags
+(``models.model.ParamMeta.logical``), and the rules map a tag onto mesh
+axes: "vocab" and "embed" (a matrix's d_model dim) over data ("vocab"
+whole under a pod pipeline), "model_out" and "ssm_inner" over (ep, tp).  A
+non-expert leaf holds, on each dim, the slice of the rank's coordinates
+along that dim's axes (data-major, then ep, then tp), where the axes'
+size product n > 1 divides the dim; a dim n does not divide stays whole
+(``MeshPlan.whole``, named by :meth:`MeshPlan.describe`), and so do the
+norms and the router, which no rule names.  A layer all-gathers its sliced
+leaves where it uses them, in the compute dtype, one collective a group
+(:func:`gather_block`, :func:`gather_leaves`: over the stage group for a
+leaf sliced over data and (ep, tp), the data group for data alone, the
+model group for (ep, tp) alone), and the gather's
+backward sums the fp32 gradient over the stage's ranks, which all computed
+parts of it, and keeps the slice (:func:`reduce_slice`).  The embedding is
+gathered once a forward (under a pipeline once a step, at the executor's
+entry).  Without ``pipeline_on_pod`` the pod joins data, and so the
+slicing (the reference's "embed" rule names "data" alone: a port choice,
+fewer bytes, the same function).
+
+The experts (the reference's expert-data parallelism; the rules'
+"expert" and "expert_ffn" entries, which ``make_plan`` reads into ``ep``
+and ``ffn_split``): each EP rank holds the physical expert slots
 ``[e * E_l, (e + 1) * E_l)``, and every rank routes its own tokens: a tp
 lane is one more token-parallel lane of its EP group.  The slots' d_ff is
 split over the expert-gradient group (the reference's ZeRO-3 of the
@@ -61,9 +85,10 @@ skipped (a sum over one rank is the value itself).
 
 from __future__ import annotations
 
+import functools
 import math
-from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -73,6 +98,22 @@ from repro_torch.core.halo import _pick_inner, lane_groups, node_groups
 
 REMAT_MODES = ("none", "dots", "full")
 OPTIMIZER_DTYPES = ("float32", "bfloat16")
+MESH_AXES = ("data", "ep", "tp")  # a stage's axes, in rank order
+# The tags of the expert leaves: their slots and d_ff slices follow the
+# plan's ``ep`` and ``ffn_split`` (the rules' "expert" and "expert_ffn"
+# entries, which ``make_plan`` reads), not the per-dim layout.
+EXPERT_TAGS = ("expert", "expert_ffn")
+
+Rules = Dict[str, Optional[Tuple[str, ...]]]
+
+
+def default_rules(pipeline_on_pod: bool = False) -> Rules:
+    """The reference's rule table (``repro.sharding.default_rules``) for the
+    parameter tags: tag -> the mesh axes its dim is sliced over (None:
+    whole).  Under a pod pipeline the vocab dim stays whole, as there."""
+    return {"vocab": None if pipeline_on_pod else ("data",), "embed": ("data",),
+            "model_out": ("ep", "tp"), "ssm_inner": ("ep", "tp"),
+            "expert": ("ep",), "expert_ffn": ("data", "tp")}
 
 
 def choose_ep(num_experts: int, model_axis: int) -> int:
@@ -91,7 +132,9 @@ class MeshPlan:
     collective).
     ``pp`` > 1 only with ``pipeline_on_pod`` (``make_plan``); the pipeline
     fields are consulted only then.  ``ffn_split`` > 1: each expert leaf
-    holds this rank's slice ``ffn_rank`` of the d_ff (module docstring)."""
+    holds this rank's slice ``ffn_rank`` of the d_ff (module docstring).
+    ``rules`` and ``arch``: the non-expert leaves' layout (:attr:`layout`);
+    a plan built by hand has no rules and keeps them whole."""
 
     dp: int
     ep: int
@@ -120,9 +163,13 @@ class MeshPlan:
     # ``ffn_whole`` says why a grid of several such ranks keeps them whole.
     ffn_split: int = 1
     ffn_whole: str = ""
+    # The rule table (tag -> mesh axes) and the arch whose tags it slices.
+    rules: Rules = field(default_factory=dict)
+    arch: Optional[ArchConfig] = field(default=None, repr=False, compare=False)
     world_group: Optional[object] = None
     ep_group: Optional[object] = None
     dp_group: Optional[object] = None
+    model_group: Optional[object] = None
     expert_dp_group: Optional[object] = None
     stage_group: Optional[object] = None
     pp_group: Optional[object] = None
@@ -189,6 +236,28 @@ class MeshPlan:
     def a2a_algo(self) -> str:
         return "halo" if self.hierarchical_a2a else "flat"
 
+    def axis_size(self, axis: str) -> int:
+        return {"data": self.dp, "ep": self.ep, "tp": self.tp}[axis]
+
+    @property
+    def layout(self) -> Dict[str, Tuple[Optional[Tuple[str, ...]], ...]]:
+        """``{path: axes of each dim}`` of every non-expert leaf the plan
+        slices (a dim's axes None where it stays whole); empty without an
+        arch or rules."""
+        return _layout(self.arch, _rules_key(self.rules), self.dp, self.ep, self.tp)[0]
+
+    @property
+    def whole(self) -> Dict[str, str]:
+        """``{path: why}`` of every non-expert leaf dim a rule names that
+        stays whole because the axes' size product does not divide it."""
+        return _layout(self.arch, _rules_key(self.rules), self.dp, self.ep, self.tp)[1]
+
+    def block_layout(self, block) -> Dict[str, Tuple[Optional[Tuple[str, ...]], ...]]:
+        """:attr:`layout` of one rep of a block of kind ``block``, keyed
+        ``"mixer/wq"``, without the reps dim: what a layer gathers."""
+        return _block_layout(self.arch, block, _rules_key(self.rules), self.dp, self.ep,
+                             self.tp)
+
     def stage_peer(self, p: int) -> int:
         """The global rank at stage ``p`` with this rank's (d, e, t)."""
         return p * self.stage_size + self.stage_rank
@@ -201,7 +270,19 @@ class MeshPlan:
                 + (f" vstages={self.vstages}" if self.pp > 1 and self.vstages > 1 else "")
                 + (" compress_p2p" if self.pp > 1 and self.compress_p2p else "")
                 + (f" experts=d_ff/{self.ffn_split} (data x tp)" if self.ffn_split > 1
-                   else f" experts whole ({self.ffn_whole})" if self.ffn_whole else ""))
+                   else f" experts whole ({self.ffn_whole})" if self.ffn_whole else "")
+                + self._describe_zero())
+
+    def _describe_zero(self) -> str:
+        layout, whole = self.layout, self.whole
+        if not layout and not whole:
+            return ""
+        out = f" zero: {len(layout)} leaves sliced"
+        if layout:
+            out += " (" + ", ".join(sorted(layout)) + ")"
+        if whole:
+            out += "; whole: " + ", ".join(f"{k} {why}" for k, why in sorted(whole.items()))
+        return out
 
 
 def _keep(plan: MeshPlan, attr: str, ranks: Sequence[int], mine: bool) -> None:
@@ -212,6 +293,65 @@ def _keep(plan: MeshPlan, attr: str, ranks: Sequence[int], mine: bool) -> None:
         g = dist.new_group(list(ranks))
         if mine:
             setattr(plan, attr, g)
+
+
+def _rules_key(rules: Rules):
+    return tuple(sorted((k, tuple(v) if v else None) for k, v in rules.items()))
+
+
+def _dim_axes(tag, size: int, rules: dict, sizes: dict):
+    """(axes a dim tagged ``tag`` of ``size`` is sliced over or None, why a
+    dim a rule names stays whole or "")."""
+    rule = rules.get(tag) if tag is not None else None
+    if not rule:
+        return None, ""
+    n = math.prod(sizes[a] for a in rule)
+    if n == 1:
+        return None, ""
+    if size % n:
+        return None, f"({size} % ({' x '.join(rule)} = {n}) != 0)"
+    return rule, ""
+
+
+def _leaf_axes(logical, shape, rules: dict, sizes: dict):
+    if any(t in EXPERT_TAGS for t in logical):
+        return None, []
+    axes, whole = [], []
+    for i, (tag, size) in enumerate(zip(logical, shape)):
+        a, why = _dim_axes(tag, size, rules, sizes)
+        axes.append(a)
+        if why:
+            whole.append(f"dim {i} {why}")
+    return (tuple(axes) if any(axes) else None), whole
+
+
+@functools.lru_cache(maxsize=256)
+def _layout(arch, rules, dp: int, ep: int, tp: int):
+    if arch is None or not rules:
+        return {}, {}
+    from repro_torch.models.model import param_tree, tree_paths  # the model imports this
+
+    rules, sizes = dict(rules), {"data": dp, "ep": ep, "tp": tp}
+    layout, whole = {}, {}
+    for path, meta in tree_paths(param_tree(arch)).items():
+        axes, why = _leaf_axes(meta.logical, meta.shape, rules, sizes)
+        if axes is not None:
+            layout[path] = axes
+        if why:
+            whole[path] = "; ".join(why)
+    return layout, whole
+
+
+@functools.lru_cache(maxsize=256)
+def _block_layout(arch, block, rules, dp: int, ep: int, tp: int):
+    """:func:`_layout` of the first pattern position of kind ``block``
+    (every position of a kind has its tags), keyed within the block,
+    without the reps dim."""
+    layout = _layout(arch, rules, dp, ep, tp)[0]
+    if not layout:
+        return {}
+    prefix = f"blocks/{arch.block_pattern.index(tuple(block))}/"
+    return {k[len(prefix):]: axes[1:] for k, axes in layout.items() if k.startswith(prefix)}
 
 
 def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
@@ -226,7 +366,8 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     create its groups (on the world's backend).  With ``pipeline_on_pod``
     the pod axis is the pipeline (pp = P); without it the pod joins data.
     ``remat`` and ``optimizer_dtype``: the memory policy.  The expert d_ff
-    is split over D * tp ranks where that divides it (module docstring)."""
+    is split over D * tp ranks where that divides it, and every other
+    weight laid out by the reference's rule table (module docstring)."""
     if len(mesh_shape) not in (2, 3):
         raise ValueError(f"mesh {tuple(mesh_shape)}: need (data, model) or "
                          f"(pod, data, model)")
@@ -241,7 +382,9 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     ep = choose_ep(n_exp, model)
     tp = model // ep
     world = pp * data * model
-    n = data * tp
+    rules = default_rules(pipeline_on_pod)
+    sizes = {"data": data, "ep": ep, "tp": tp}
+    n = math.prod(sizes[a] for a in rules["expert_ffn"])
     ffn_split, ffn_whole = 1, ""
     if arch.moe is not None and n > 1:
         if arch.moe.d_ff % n:
@@ -251,7 +394,7 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
     kw = dict(hierarchical_a2a=hierarchical_a2a, a2a_chunks=a2a_chunks, pp=pp,
               schedule=schedule, vstages=vstages, microbatches=microbatches,
               compress_p2p=compress_p2p, remat=remat, optimizer_dtype=optimizer_dtype,
-              ffn_split=ffn_split, ffn_whole=ffn_whole,
+              ffn_split=ffn_split, ffn_whole=ffn_whole, rules=rules, arch=arch,
               dp_axes=("pod", "data") if len(mesh_shape) == 3 and not pipeline_on_pod
               else ("data",))
     if world == 1:
@@ -289,8 +432,14 @@ def make_plan(arch: ArchConfig, mesh_shape: Sequence[int], *,
                 _keep(plan, "expert_dp_group",
                       [at(pp_, x, ee, tt) for x in range(data) for tt in range(tp)],
                       (pp_, ee) == (p, e))
+        if data > 1:
+            for dd in range(data):
+                _keep(plan, "model_group", [at(pp_, dd, x, y) for x in range(ep)
+                                            for y in range(tp)], (pp_, dd) == (p, d))
     if tp == 1:
         plan.expert_dp_group = plan.dp_group
+    if data == 1:
+        plan.model_group = plan.stage_group
     g1 = _pick_inner(ep)
     if hierarchical_a2a and 1 < g1 < ep:
         plan.g1 = g1
@@ -380,50 +529,198 @@ def ffn_dim(path: str) -> int:
     return -2 if path.rpartition("/")[2] == "w_down" else -1
 
 
-def split_paths(flat, plan) -> set:
-    """The expert paths of a flat tree whose leaves ``plan`` splits along
-    the d_ff (none without a split)."""
-    if plan is None or plan.ffn_split == 1:
-        return set()
-    return expert_paths(flat)
+def _assemble(parts: List[torch.Tensor], dims) -> torch.Tensor:
+    """A group's slices, in group-rank order, back into one tensor:
+    ``dims`` lists (dim, slice count) from the outermost axis in rank order
+    to the innermost."""
+    if not dims:
+        return parts[0]
+    (dim, n), rest = dims[0], dims[1:]
+    k = len(parts) // n
+    return torch.cat([_assemble(parts[i * k:(i + 1) * k], rest) for i in range(n)], dim)
 
 
-class _GatherFFN(torch.autograd.Function):
-    """An expert leaf's d_ff slices, cast to ``dtype`` and all-gathered over
-    the expert-gradient group in (d, t) order along ``dim``.  The backward
-    sums the gradient in fp32 over the group and keeps this rank's slice
-    (an all-reduce and a slice: gloo has no reduce-scatter), in the dtype
-    of the slice it was given: the fp32 master's, so the sum is not
-    rounded to the compute dtype."""
-
-    @staticmethod
-    def forward(ctx, w, dtype, dim, plan):
-        ctx.dim, ctx.group, ctx.size = dim, plan.expert_dp_group, w.shape[dim]
-        ctx.start = plan.ffn_rank * ctx.size
-        wc = w.to(dtype).contiguous()
-        parts = [torch.empty_like(wc) for _ in range(plan.ffn_split)]
-        dist.all_gather(parts, wc, group=ctx.group)
-        return torch.cat(parts, dim)
+class _GatherSlices(torch.autograd.Function):
+    """Leaves' slices, cast to ``dtype`` and all-gathered over ``group`` in
+    one collective, each reassembled along its dims (:func:`_assemble`;
+    ``specs``: per leaf, its (dim, slice count) list and its slice's (dim,
+    offset) list).  The backward sums the leaves' gradients in fp32 over
+    ``group`` in one all-reduce, keeps this rank's slices (an all-reduce and
+    a narrow: gloo has no usable reduce-scatter), then sums those in one
+    all-reduce over ``rest``, the ranks that hold the same slices and
+    computed parts of the gradients too (None: no such ranks).  The
+    gradients are returned in fp32, so a master's sum is not rounded to the
+    compute dtype."""
 
     @staticmethod
-    def backward(ctx, g):
-        g = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
-        all_reduce_(g, ctx.group)
-        return g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(), None, None, None
+    def forward(ctx, dtype, specs, group, rest, *ws):
+        ctx.specs, ctx.group, ctx.rest = specs, group, rest
+        ctx.shapes = [w.shape for w in ws]
+        flat = torch.cat([w.to(dtype).reshape(-1) for w in ws])
+        parts = [torch.empty_like(flat) for _ in range(group_size(group))]
+        dist.all_gather(parts, flat, group=group)
+        outs, off = [], 0
+        for w, (dims, _) in zip(ws, specs):
+            outs.append(_assemble([p[off:off + w.numel()].view(w.shape) for p in parts], dims))
+            off += w.numel()
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        full = all_reduce_(torch.cat([g.reshape(-1).float() for g in gs]), ctx.group)
+        mine, off = [], 0
+        for g, shape, (_, starts) in zip(gs, ctx.shapes, ctx.specs):
+            t = full[off:off + g.numel()].view(g.shape)
+            off += g.numel()
+            for dim, start in starts:
+                t = t.narrow(dim, start, shape[dim])
+            mine.append(t.reshape(-1))
+        flat = all_reduce_(torch.cat(mine), ctx.rest)
+        sizes = [math.prod(shape) for shape in ctx.shapes]
+        return (None, None, None, None) + tuple(
+            t.view(shape) for t, shape in zip(flat.split(sizes), ctx.shapes))
 
 
 def gather_ffn(params, plan, dtype: torch.dtype):
     """An MoE block's ``params`` with every expert leaf whole along its d_ff,
-    in ``dtype`` (:class:`_GatherFFN`); ``params`` itself without a split.
+    in ``dtype``: their slices gathered over the expert-gradient group in
+    (d, t) order, in one collective (:class:`_GatherSlices`; no other rank
+    holds the same slots' slice); ``params`` itself without a split.
     Collective over the expert-gradient group."""
     if plan is None or plan.ffn_split == 1:
         return params
-    out = dict(params)
-    for k in EXPERT_KEYS:
-        if params.get(k) is not None:
-            w = params[k]
-            out[k] = _GatherFFN.apply(w, dtype, w.dim() + ffn_dim(k), plan)
+    keys = [k for k in EXPERT_KEYS if params.get(k) is not None]
+    specs = []
+    for k in keys:
+        w = params[k]
+        dim = w.dim() + ffn_dim(k)
+        specs.append((((dim, plan.ffn_split),), ((dim, plan.ffn_rank * w.shape[dim]),)))
+    whole = _GatherSlices.apply(dtype, tuple(specs), plan.expert_dp_group, None,
+                                *(params[k] for k in keys))
+    return {**params, **dict(zip(keys, whole))}
+
+
+# The group a leaf's slices are gathered over, by the axes its dims are
+# sliced over, and the group that holds the same slice (the rest of the
+# stage).
+_ZERO_GROUPS = {frozenset(("data",)): ("dp_group", "model_group"),
+                frozenset(("ep", "tp")): ("model_group", "dp_group"),
+                frozenset(MESH_AXES): ("stage_group", None)}
+
+
+def zero_groups(plan, axes):
+    """(gather group, rest group) of a leaf whose dims are sliced over
+    ``axes`` (a :attr:`MeshPlan.layout` entry)."""
+    used = frozenset(a for rule in axes if rule for a in rule)
+    if used not in _ZERO_GROUPS:
+        raise ValueError(f"rules slice a leaf over {sorted(used)}: only data, (ep, tp) "
+                         f"or both have a group")
+    gather, rest = _ZERO_GROUPS[used]
+    return getattr(plan, gather), (getattr(plan, rest) if rest else None)
+
+
+def _slice_index(plan, rule) -> int:
+    """This rank's slice along a dim sliced over ``rule``'s axes (mixed
+    radix over them, the first outermost)."""
+    d, e, t = plan.coords
+    coord = {"data": d, "ep": e, "tp": t}
+    i = 0
+    for a in rule:
+        i = i * plan.axis_size(a) + coord[a]
+    return i
+
+
+def _zero_dims(axes):
+    """(dim, axes) of the sliced dims, outermost in rank order first."""
+    return sorted(((i, rule) for i, rule in enumerate(axes) if rule),
+                  key=lambda x: MESH_AXES.index(x[1][0]))
+
+
+def slice_leaf(t, axes, plan):
+    """This rank's slice of a whole leaf ``t`` (a tensor or a numpy array)
+    whose dims are sliced over ``axes``: a view."""
+    index = [slice(None)] * t.ndim
+    for dim, rule in _zero_dims(axes):
+        n = math.prod(plan.axis_size(a) for a in rule)
+        size = t.shape[dim] // n
+        i = _slice_index(plan, rule)
+        index[dim] = slice(i * size, (i + 1) * size)
+    return t[tuple(index)]
+
+
+def _gather_specs(ws, axes_list, plan):
+    """:class:`_GatherSlices`' specs of slices ``ws`` sliced over
+    ``axes_list``."""
+    specs = []
+    for w, axes in zip(ws, axes_list):
+        dims = _zero_dims(axes)
+        specs.append((tuple((dim, math.prod(plan.axis_size(a) for a in rule))
+                            for dim, rule in dims),
+                       tuple((dim, _slice_index(plan, rule) * w.shape[dim])
+                             for dim, rule in dims)))
+    return tuple(specs)
+
+
+def gather_leaves(ws, axes_list, plan, dtype: Optional[torch.dtype] = None):
+    """The whole leaves from this rank's slices ``ws``, whose dims are
+    sliced over ``axes_list`` (:attr:`MeshPlan.layout` entries sharing one
+    gather group, :func:`zero_groups`), in ``dtype`` (the slices' without
+    one): one all-gather over the group; differentiable, the backward
+    summing the gradients over the stage's ranks and keeping the slices
+    (:class:`_GatherSlices`).  Collective over the gather group."""
+    group, rest = zero_groups(plan, axes_list[0])
+    return _GatherSlices.apply(dtype or ws[0].dtype, _gather_specs(ws, axes_list, plan),
+                               group, rest, *ws)
+
+
+def gather_leaf(w: torch.Tensor, axes, plan, dtype: Optional[torch.dtype] = None):
+    """:func:`gather_leaves` of one leaf."""
+    return gather_leaves([w], [axes], plan, dtype)[0]
+
+
+def reduce_slice(g: torch.Tensor, axes, plan) -> torch.Tensor:
+    """The backward of :func:`gather_leaf` on a whole gradient ``g`` (an
+    fp32 copy is made): summed over the gather group, this rank's slice,
+    summed over the rest of the stage."""
+    group, rest = zero_groups(plan, axes)
+    g = all_reduce_(g.to(torch.float32, memory_format=torch.contiguous_format, copy=True),
+                    group)
+    return all_reduce_(slice_leaf(g, axes, plan).contiguous(), rest)
+
+
+def gather_block(params, block, arch, plan, dtype: torch.dtype, part: str):
+    """One rep's ``params[part]`` ("mixer" or "ffn") of a block of kind
+    ``block`` with every leaf the plan slices gathered whole in ``dtype``,
+    one collective a gather group (:func:`gather_leaves`); the dict itself
+    when the plan slices none."""
+    sub = params[part]
+    if plan is None:
+        return sub
+    layout = plan.block_layout(block)
+    buckets = {}
+    for k in sub:
+        axes = layout.get(f"{part}/{k}")
+        if axes is not None:
+            buckets.setdefault(zero_groups(plan, axes), []).append((k, axes))
+    if not buckets:
+        return sub
+    out = dict(sub)
+    for items in buckets.values():
+        keys = [k for k, _ in items]
+        out.update(zip(keys, gather_leaves([sub[k] for k in keys], [a for _, a in items],
+                                           plan, dtype)))
     return out
+
+
+def sliced_paths(flat, plan) -> set:
+    """The paths of a flat param tree whose leaves ``plan`` slices (the
+    experts' d_ff under a split, every leaf of :attr:`MeshPlan.layout`):
+    a layer gathers them in the compute dtype, so they stay fp32 masters
+    until then."""
+    if plan is None:
+        return set()
+    experts = expert_paths(flat) if plan.ffn_split > 1 else set()
+    return experts | (set(plan.layout) & set(flat))
 
 
 def sum_leaves_(leaves, group) -> None:
@@ -437,21 +734,28 @@ def sum_leaves_(leaves, group) -> None:
 
 def reduce_grads_(grads, plan) -> None:
     """Sum this rank's partial gradients (a params-shaped tree, None for
-    integer tables) in place into the global ones: the non-expert block
-    leaves over the stage group (the ranks that hold the same stage), the
-    expert leaves over the expert-gradient group (the data ranks and tp
+    integer tables) in place into the global ones: the whole non-expert
+    block leaves over the stage group (the ranks that run the same stage),
+    the expert leaves over the expert-gradient group (the data ranks and tp
     lanes that hold the same slots of the same stage) unless the plan
-    splits them (their backward summed them already, :func:`gather_ffn`),
-    and ``embed``, ``final_norm`` and ``lm_head`` over the world (every
-    stage's and data rank's part; the reference's sum over stages)."""
+    splits them, and the other whole leaves (``final_norm``, and the
+    embedding and head where kept whole) over the world (every stage's and
+    data rank's part; the reference's sum over stages).  A sliced leaf's
+    gather summed its gradient over its stage already (:func:`gather_leaf`,
+    :func:`gather_ffn`); under a pipeline a sliced embedding or head, which
+    every stage holds, is added over the pp group."""
     from repro_torch.models.model import tree_paths  # the model imports this module
 
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
     experts = expert_paths(flat)
-    dense = [k for k in flat if k not in experts]
+    sliced = plan.layout
+    dense = [k for k in flat if k not in experts and k not in sliced]
     if plan.pp > 1:
         sum_leaves_([flat[k] for k in dense if k.startswith("blocks/")], plan.stage_group)
         dense = [k for k in dense if not k.startswith("blocks/")]
+        top = [flat[k] for k in sorted(sliced) if k in flat and not k.startswith("blocks/")]
+        if top:
+            sum_leaves_(top, plan.pp_group)
     sum_leaves_([flat[k] for k in dense], plan.world_group)
     if plan.ffn_split == 1:
         sum_leaves_([flat[k] for k in sorted(experts)], plan.expert_dp_group)

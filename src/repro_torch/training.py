@@ -6,10 +6,11 @@ master weights are cast to the compute dtype inside the graph, so autograd
 carries the gradients back to fp32 through the casts; the AdamW update then
 runs in place (``optim.adamw_update``).  Over the ranks of the model's
 ``sharding.MeshPlan`` each rank takes its own rows of the global batch,
-differentiates its term of the global loss, and sums the gradients: the
-replicated (non-expert) ones over the world, the expert ones over the
-expert-gradient group (the data ranks and tp lanes that hold the same
-expert slots).  Under a pipeline plan
+differentiates its term of the global loss, and sums the gradients: a
+sliced leaf's in its gather's backward (``sharding.gather_leaf``,
+``sharding.gather_ffn``), the whole ones over the world, the whole-slot
+expert ones over the expert-gradient group (the data ranks and tp lanes
+that hold the same expert slots).  Under a pipeline plan
 the step is the schedule-executing one (``LanguageModel.loss_and_grads``,
 ``core.pipeline``): each rank takes its rows of every microbatch, and the
 block gradients are summed over the rank's stage (``sharding
@@ -56,9 +57,9 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
 
 def _cast(params, dtype: torch.dtype, keep=()):
     """Every floating leaf in ``dtype`` (a leaf already in it is not
-    copied) but those at the paths ``keep``: the d_ff slices of a split
-    plan, which the MoE layer casts as it gathers them, so that their
-    gradients are summed in fp32 (``sharding.gather_ffn``)."""
+    copied) but those at the paths ``keep``: the leaves the plan slices,
+    which a layer casts as it gathers them, so that their gradients are
+    summed in fp32 (``sharding.sliced_paths``)."""
     return map_tree(lambda path, p: p.to(dtype) if p.is_floating_point() and path not in keep
                     else p, params, with_path=True)
 
@@ -133,7 +134,7 @@ def loss_and_grads(lm: LanguageModel, params, batch,
         batch = shard_batch(batch, plan)
     device = params["embed"].device
     batch = {k: _to_device(v, device) for k, v in batch.items()}
-    keep = sharding.split_paths(tree_paths(params), plan)
+    keep = sharding.sliced_paths(tree_paths(params), plan)
     if lm.pipelined and not autograd:
         loss, grads, metrics = lm.loss_and_grads(_cast(params, compute_dtype, keep), batch,
                                                  gather_traces=False)
@@ -172,30 +173,55 @@ def loss_and_grads(lm: LanguageModel, params, batch,
     return loss, metrics, grads
 
 
+def _squares(flat, keys) -> torch.Tensor:
+    """The summed squares of the leaves ``keys`` (0 for none), in fp32."""
+    if not keys:
+        return torch.zeros((), dtype=torch.float32, device=next(iter(flat.values())).device)
+    return torch.stack([torch.linalg.vector_norm(flat[k], dtype=torch.float32)
+                        for k in keys]).square().sum()
+
+
+def _sliced_squares(flat, keys, plan) -> torch.Tensor:
+    """The summed squares of the sliced leaves ``keys``: each gather
+    group's leaves' squares summed over that group, whose ranks hold their
+    slices.  Every rank that holds the same slices sums the same values in
+    the same order, so every rank gets the same bits."""
+    total = _squares(flat, [])
+    by_group = {}
+    for k in sorted(keys):
+        by_group.setdefault(sharding.zero_groups(plan, plan.layout[k])[0], []).append(k)
+    for group, ks in by_group.items():
+        total = total + sharding.all_reduce_(
+            torch.stack([_squares(flat, [k]) for k in ks]), group).sum()
+    return total
+
+
 def _global_norm(grads, plan, params):
-    """The global grad norm of reduced gradients: the replicated leaves'
-    squares once; the expert leaves' as one sum of squares per expert
-    slot, all-gathered over the EP group and added up in LOGICAL expert
-    order (through the params' ``assignment``), so that an expert
+    """The global grad norm of reduced gradients: the whole leaves' squares
+    once; a sliced leaf's squares summed over its gather group
+    (:func:`_sliced_squares`); the expert leaves' as one sum of squares per
+    expert slot, all-gathered over the EP group and added up in LOGICAL
+    expert order (through the params' ``assignment``), so that an expert
     migration, which only relabels slots, leaves the norm's bits (and so
     the clip) unchanged.  Under a pipeline plan the block leaves' squares
     (a stage's chunks) are added over the pp group.  Every tp lane holds
-    the same reduced gradients and gathers over its own EP group in the
-    same order, so every rank computes the same bits and clips alike.
-    Under the d_ff split a slot's sum of squares is first summed over the
-    expert-gradient group, whose ranks hold its slices."""
+    the same whole gradients and gathers over its own groups in the same
+    order, so every rank computes the same bits and clips alike.  Under the
+    d_ff split a slot's sum of squares is first summed over the
+    expert-gradient group, whose ranks hold its slices.  The sliced leaves'
+    sums are rounded in another order than a whole-leaf run's: the norm
+    may differ from it by ulps."""
     flat = {k: g for k, g in tree_paths(grads).items() if g is not None}
     experts = sorted(sharding.expert_paths(flat))
-
-    def squares(keys):
-        return torch.stack([torch.linalg.vector_norm(flat[k], dtype=torch.float32)
-                            for k in keys]).square().sum()
-
-    dense = [k for k in flat if k not in experts]
+    sliced = [k for k in flat if k in plan.layout]
+    dense = [k for k in flat if k not in experts and k not in plan.layout]
     if plan.pp > 1:  # a stage's chunks here, the embedding and head on every stage
-        rest = squares([k for k in dense if not k.startswith("blocks/")])
+        rest = (_squares(flat, [k for k in dense if not k.startswith("blocks/")])
+                + _sliced_squares(flat, [k for k in sliced if not k.startswith("blocks/")],
+                                  plan))
         dense = [k for k in dense if k.startswith("blocks/")]
-    total = squares(dense)
+        sliced = [k for k in sliced if k.startswith("blocks/")]
+    total = _squares(flat, dense) + _sliced_squares(flat, sliced, plan)
     if experts:
         slots = torch.stack([flat[k].float().square().sum(
             dim=tuple(range(2, flat[k].dim()))) for k in experts])  # (leaves, reps, E_l)

@@ -225,21 +225,28 @@ def test_tp_equals_the_data_grid_it_replaces(runs, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_tp_lanes_end_the_step_with_equal_params(runs, mode):
+def test_tp_lanes_end_the_step_with_equal_params(runs, monkeypatch, mode):
     """One AdamW step at tp 2: no skip, one loss, and the two tp lanes of
-    each EP rank hold bitwise-equal non-expert params (the same reduced
-    gradients and the same grad norm, so the same clip); their expert
-    leaves are the two halves of the slots' d_ff (the plan's split over
-    data x tp), so they differ."""
+    each EP rank hold bitwise-equal params of every leaf the plan keeps
+    whole (the same reduced gradients and the same grad norm, so the same
+    clip); their expert leaves are the two halves of the slots' d_ff (the
+    plan's split over data x tp), and the leaves the rule table slices over
+    (ep, tp) (the attention projections, the embedding's d_model) their own
+    slices, so they differ."""
     _, r4, _ = runs
     assert len({float(r[f"tpstep/{mode}/loss"]) for r in r4}) == 1
     assert all(int(r[f"tpstep/{mode}/skipped"]) == 0 for r in r4)
-    experts = tuple(f"/ffn/{k}" for k in sharding.EXPERT_KEYS)
+    base = get_arch("granite-moe-3b-a800m").reduced()
+    arch = base.replace(moe=dataclasses.replace(base.moe, num_experts=TP_E))
+    _, plan = _groups(monkeypatch, arch, (1, 4), 0)
+    pre = f"tpstep/{mode}/local/"
+    apart = tuple(f"/ffn/{k}" for k in sharding.EXPERT_KEYS)
+    assert {"embed", "blocks/0/mixer/wq"} <= set(plan.layout)
     for a, b in ((0, 1), (2, 3)):
-        keys = [k for k in r4[a] if k.startswith(f"tpstep/{mode}/local/")]
-        dense = [k for k in keys if not k.endswith(experts)]
-        assert dense and all(np.array_equal(r4[a][k], r4[b][k]) for k in dense)
-        for k in set(keys) - set(dense):
+        keys = [k for k in r4[a] if k.startswith(pre)]
+        whole = [k for k in keys if not k.endswith(apart) and k[len(pre):] not in plan.layout]
+        assert whole and all(np.array_equal(r4[a][k], r4[b][k]) for k in whole)
+        for k in set(keys) - set(whole):
             assert r4[a][k].shape == r4[b][k].shape
             assert not np.array_equal(r4[a][k], r4[b][k]), k
     w_up = f"tpstep/{mode}/local/blocks/0/ffn/w_up"
