@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
+
+With no argument it runs every phase below.  With phase names
+(``PHASES``: kernels, model, small_parity, serving, parity, profile,
+dense_cache, ssm_serving, ssm_parity, ssm_profile, ssm_train, training,
+checkpoint, ep, migrate, pipeline, mesh, memory) it builds the kernels
+and runs those phases alone, with what they need (parity the serving
+phase, ssm_profile SSM serving, ep training), under the same set-up,
+and prints each phase's seconds instead of the ``kernels`` and ``ok``
+lines.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -34,7 +43,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. small parity: the reduced model's forward, and two fp32 train steps
    (loss, grad norm, params), on the card (kernels) against the same
    weights on the CPU (plain versions), both dispatch modes; the reduced
-   mamba2-370m's prefill and decode steps likewise;
+   mamba2-370m's prefill and decode steps likewise; the reduced
+   jamba-1.5-large-398b (mamba and attention mixers, dense and MoE FFNs,
+   ragged): fp32 forward logits, the training loss and every gradient,
+   then a bf16 prefill and 4 decode steps through every
+   kernel of its path, each kernel's first call at each shape against its
+   plain version, the logits no further from the CPU's fp32 run than twice
+   the CPU's bf16 run; the reduced mamba2's training loss, gradients and
+   two train steps;
 4. serving: ``repro_torch.launch.serve.serve`` at full width (32 layers,
    random bf16 weights), first under capacity and then under ragged
    dispatch.  The kernels' launch counts are zeroed just before each run
@@ -51,6 +67,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``Engine.step`` under each dispatch: wall time, the card's busy time and
    idle share, device activities and the top kernels; no bf16 launch may
    reach an ``/fma`` design;
+6b. dense cache: granite at full width and depth, ragged, through
+   ``make_prefill_step`` / ``make_decode_step`` with a dense K/V cache.
+   (a) fp32: 4 prompts of 248 tokens, 8 decode steps (cache_len 256)
+   against the uncached forward over the 256, at the paged path's bound;
+   (b) bf16: 4 x 512 prompts and 32 greedy steps after a warm-up, the
+   tokens equal to the paged engine's on the same prompts and weights (a
+   divergence only where the dense run's top-2 logits lie within 2e-2),
+   the launches of flash attention and the ragged kernels a prefill and a
+   decode step equal to the engine's; prefill ms, decode p50 beside the
+   engine's, peak memory, and 8 dense decode steps under ``torch.profiler``.
+   Each kernel's first call at each shape in (a)'s prefill and decode and
+   in (b)'s warm-up (the same calls as its counted run, held by their
+   launches) is held against its plain version on the same inputs;
 7. SSM serving: ``repro_torch.training.make_prefill_step`` /
    ``make_decode_step`` on mamba2-370m at full width and depth (48 layers,
    random bf16 weights from seed 0): 4 prompts x 2048 tokens then 32
@@ -63,6 +92,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    steps against the uncached forward over the 256 tokens, at 2e-4;
 9. SSM profile: ``torch.profiler`` over one 4 x 2048 prefill and 8 decode
    steps;
+9b. SSM training: (a) ``repro_torch.launch.train`` on mamba2-370m at full
+   width and depth, 4 x 2048 tokens, bf16 compute, 5 steps: none skipped,
+   no kernel launched (the SSD trains through its eager path, as the
+   reference's), step p50, tokens/s, peak memory beside the modeled
+   mem_stage0, the drift table, then one step under ``torch.profiler``;
+   (b) fp32 at 1 x 2048: the training loss (eager SSD) against the
+   cross-entropy of the forward's logits (the ``ssd_intra_chunk/fma``
+   kernel, once a layer), within 1e-5 relative, and that kernel's call at
+   this shape against its plain version;
 10. training: ``repro_torch.launch.train.train`` at full width and depth
    (32 layers, fp32 masters and Adam moments, bf16 compute, ragged
    dispatch), batch 2 x 512 tokens, 5 steps on ``SyntheticTokens``, the
@@ -276,6 +314,17 @@ SSM_PARITY_BOUND = 2e-4  # chunked vs recurrent SSD in fp32 (tests/test_ssm.py)
 # times the same): a 512-token prefill, a decode step of 4 sequences, and a
 # train step of 2 x 512 tokens.
 PREFILL_TOKENS, DECODE_TOKENS, TRAIN_TOKENS = 512, 4, 1024
+
+
+# Ranks start from a fork server that has imported this script, torch,
+# torch._dynamo (which ``torch.utils.checkpoint`` imports at its first
+# call) and the port once (``main`` sets its preload list), instead of
+# each spawned rank importing them again: that took 11-16 s a rank's first
+# step (scripts/port_first_step_profile.py).  The server never touches the
+# card, so its children initialise CUDA as spawned ones do.
+RANK_START = "forkserver"
+RANK_PRELOAD = ["__main__", "torch._dynamo", "torch.distributed", "repro_torch.training",
+                "repro_torch.runtime.trainer", "repro_torch.serving", "repro_torch.launch.train"]
 
 
 def fail(msg: str) -> None:
@@ -726,6 +775,7 @@ def small_parity_phase(dev):
               dict(rtol=0.0, atol=1e-5))
         train_parity(lm, params_cpu, dev, mode)
     ssm_small_parity(dev)
+    jamba_small_parity(dev)
 
 
 def ssm_small_parity(dev) -> None:
@@ -761,7 +811,225 @@ def ssm_small_parity(dev) -> None:
                   t.cpu(), want_c[path], tol)
 
 
-def train_parity(lm, params_cpu, dev, mode: str) -> None:
+# A gradient leaf on the card against the CPU, fp32: its largest gap within
+# this share of its largest magnitude, or of 1 where that is smaller (the
+# CPU tests' model-parity atol, scaled up with the leaf).  A leaf's gradient
+# sums many tokens' terms, so its rounding follows the largest of them:
+# reduced jamba's embedding gradient (up to ~6.7) differs by 1.1e-5 on
+# elements far smaller than that (measured on the card), as it differs
+# from the JAX package's on the CPU (1.4e-5), and a sum that cancels (an
+# A_log gradient of ~2e-3) keeps its terms' absolute rounding (4.4e-8).
+GRAD_REL_FP32 = 1e-5
+
+
+def grad_parity(lm, params_cpu, dev, label: str) -> None:
+    """The fp32 training loss (1e-5 relative) and every gradient leaf of
+    ``lm`` (``GRAD_REL_FP32`` of max(1, the leaf's largest magnitude)) on
+    the card against the CPU."""
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models.model import map_tree, tree_paths
+    from repro_torch.training import loss_and_grads
+
+    batch = SyntheticTokens(lm.arch.vocab_size, 2, 64).batch_at(0)
+    runs = [loss_and_grads(lm, map_tree(lambda t: t.to(where), params_cpu), batch,
+                           torch.float32) for where in (dev, "cpu")]
+    (loss, _, grads), (want_loss, _, want) = runs
+    ok = abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    log(f"[check] {label} training loss, card vs cpu, fp32: {float(loss):.7f} vs "
+        f"{float(want_loss):.7f} (rtol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label}: the training loss disagrees between card and cpu")
+    want = tree_paths(want)
+    bad, worst = [], (0.0, "", 0.0)
+    for path, g in tree_paths(grads).items():
+        if g is None:
+            continue
+        g, w = g.cpu().double(), want[path].double()
+        gap, scale = float((g - w).abs().max()), max(1.0, float(w.abs().max()))
+        worst = max(worst, (gap / scale, path, gap))
+        if gap > GRAD_REL_FP32 * scale:
+            bad.append(path)
+    log(f"[check] {label} gradients, card vs cpu, fp32: {len(want)} leaves, worst "
+        f"{worst[1]} {worst[2]:.3e} = {worst[0]:.3e} of max(1, its largest magnitude) "
+        f"(<= {GRAD_REL_FP32:g}) {'ok' if not bad else 'FAIL'}")
+    if bad:
+        fail(f"{label}: gradients {bad[:4]} disagree between card and cpu")
+
+
+# Reduced jamba in bf16 on the card: each kernel call it makes is held
+# against its plain version on the same inputs at the kernel phase's
+# tolerances; the whole run's logits against the CPU's fp32 run must lie no
+# further than twice the CPU's own bf16 run does (bf16 moves the reduced
+# model's logits 10-27 % of their magnitude on either side, the rounding
+# of each kernel's one bf16 output and of the eager ops between them
+# flipping some routes, measured on the card: no tighter model-level gate
+# holds between two bf16 runs).
+JAMBA_BF16_SLACK = 2.0
+JAMBA = "jamba-1.5-large-398b"
+PATH_KERNELS_JAMBA = ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matmul_f32",
+                      "ssd_intra_chunk")
+
+
+class _FirstCalls:
+    """Within the block, the inputs of the first call of each kernel
+    wrapper of ``PATH_KERNELS_JAMBA`` at each shape (``calls``: (name, args,
+    kwargs)), the model's own calls going through unchanged.  It sees a
+    call only through its module's attribute, so
+    ``first_calls_against_plain`` fails a kernel launched with no call
+    seen."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.moe_gemm import ops as mm_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+
+        self.targets = [(fa_ops, "flash_attention"), (mm_ops, "ragged_gate_up_silu_f32"),
+                        (mm_ops, "ragged_matmul_f32"), (ssd_ops, "ssd_intra_chunk")]
+        self.calls, self.seen, self.saved = [], set(), []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+
+            def wrapped(*a, _real=real, _name=name, **kw):
+                key = (_name,) + tuple(tuple(t.shape) + (t.dtype,) for t in a
+                                       if torch.is_tensor(t))
+                if key not in self.seen:
+                    self.seen.add(key)
+                    self.calls.append((_name, [t.clone() if torch.is_tensor(t) else t
+                                               for t in a], dict(kw)))
+                return _real(*a, **kw)
+
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def first_calls_against_plain(calls, counts, label: str) -> None:
+    """Each captured kernel call again on the card against its plain
+    version on the same inputs (``FA_TOL``, ``GEMM_TOL``, ``SSD_TOL``).
+    ``counts`` are the launches made while ``calls`` were captured: a
+    kernel launched there with no captured call fails the run, since its
+    check would hold nothing."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    seen = {name for name, _, _ in calls}
+    unseen = sorted(n for n, v in counts.items() if v and "/" not in n and n not in seen)
+    if unseen:
+        fail(f"{label}: {unseen} launched with no call captured to hold against the plain "
+             f"version")
+    for name, a, kw in calls:
+        shapes = "x".join(str(tuple(t.shape)) for t in a if torch.is_tensor(t))
+        if name == "flash_attention":
+            q, k, v = a
+            got = fa_ops.flash_attention(q, k, v, **kw)
+            want = fa_ref.attention(*(t.transpose(1, 2).float() for t in (q, k, v)),
+                                    causal=kw.get("causal", True), window=kw.get("window"),
+                                    softcap=kw.get("logit_softcap")).transpose(1, 2)
+            pairs, tol = [(got, want.to(q.dtype))], FA_TOL[q.dtype]
+        elif name == "ssd_intra_chunk":
+            x, dA, B, C = a
+            got = ssd_ops.ssd_intra_chunk(x, dA, B, C).flatten(0, 1)
+            fold = [t.flatten(0, 1) for t in (x, dA.to(x.dtype), B, C)]
+            pairs = [(got, ssd_ref.ssd_intra_chunk(*(t.float() for t in fold)).to(x.dtype))]
+            tol = SSD_TOL[x.dtype]
+        elif name == "ragged_gate_up_silu_f32":
+            pairs = list(zip(mm_ops.ragged_gate_up_silu_f32(*a),
+                             mm_ref.ragged_gate_up_silu_f32(*a)))
+            tol = GEMM_TOL
+        else:
+            pairs, tol = [(mm_ops.ragged_matmul_f32(*a), mm_ref.ragged_matmul_f32(*a))], GEMM_TOL
+        for i, (got, want) in enumerate(pairs):
+            check(f"{label} {name} {shapes}{f' out {i}' if len(pairs) > 1 else ''}, its "
+                  f"first call at this shape", got, want, tol)
+
+
+def jamba_small_parity(dev) -> None:
+    """Reduced jamba (16 layers: mamba and attention mixers, dense and MoE
+    FFNs, ragged, capacity factor 16) and reduced mamba2, on the card
+    against the CPU: jamba's fp32 forward logits (at 1e-5 of their largest
+    magnitude: its untied head gives logits up to ~6, where both packages'
+    fp32 runs lie 1.4e-5 to 2.4e-5 from a float64 one, tests/test_torch_jamba.py),
+    the training loss and every gradient (``grad_parity``; not
+    ``train_parity``'s params after two Adam steps: the card's untied head
+    and embedding gradients are not bitwise run to run, and Adam's first
+    steps move an element whose gradient cancels to ~0 by a sizeable part
+    of lr, 7.3e-05 and 1.44e-04 past that gate's 1e-4 in two runs of the
+    same code); then a bf16 prefill of 32 and 4 decode steps through every
+    kernel of its path (each launched, none through ``/fma``, each first
+    call at a shape against its plain version), its logits against the
+    CPU's fp32 run (``JAMBA_BF16_SLACK``); mamba2's training loss,
+    gradients and two steps."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, map_tree
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    base = get_arch(JAMBA).reduced()
+    arch = base.replace(moe=dataclasses.replace(base.moe, dispatch="ragged",
+                                                capacity_factor=16.0))
+    lm = LanguageModel(arch)
+    params_cpu = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, arch.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    want, _, _ = lm.forward(params_cpu, {"tokens": toks})
+    got, _, _ = lm.forward(map_tree(lambda t: t.to(dev), params_cpu), {"tokens": toks.to(dev)})
+    check(f"reduced {JAMBA} forward logits, card vs cpu, fp32", got.cpu(), want,
+          dict(rtol=0.0, atol=1e-5 * float(want[..., :arch.vocab_size].abs().max())))
+    grad_parity(lm, params_cpu, dev, f"reduced {JAMBA}")
+
+    prompts = np.random.default_rng(2).integers(0, arch.vocab_size, (2, 36))
+    runs = {}
+    for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        p = map_tree(lambda t: t.to(where), params_cpu)
+        prefill, decode = make_prefill_step(lm, dtype), make_decode_step(lm, dtype)
+        kernels.reset_launch_counts()
+        with _FirstCalls() as first:
+            logits, cache = prefill(p, {"tokens": prompts[:, :32]})
+            cache = lm.pad_cache(cache, 36)
+            out = [logits]
+            for i in range(32, 36):
+                logits, cache = decode(p, cache, {"tokens": prompts[:, i:i + 1]}, i)
+                out.append(logits)
+        if where == dev:
+            torch.cuda.synchronize()
+            counts, calls = kernels.launch_counts(), first.calls
+        runs[where, dtype] = [o.float().cpu()[:, :arch.vocab_size] for o in out]
+    for name in PATH_KERNELS_JAMBA:
+        if counts[name] == 0:
+            fail(f"reduced {JAMBA} bf16 prefill and decode never launched {name}")
+    log(f"[check] reduced {JAMBA} bf16 prefill 32 + 4 decode steps on the card: designs "
+        f"{check_designs(counts, 'jamba bf16 prefill/decode')}")
+    first_calls_against_plain(calls, counts, f"reduced {JAMBA} bf16")
+    for i, (a, b, c) in enumerate(zip(runs[dev, torch.bfloat16], runs["cpu", torch.bfloat16],
+                                      runs["cpu", torch.float32])):
+        card, plain = float((a - c).abs().max()), float((b - c).abs().max())
+        ok = bool(torch.isfinite(a).all()) and card <= JAMBA_BF16_SLACK * plain
+        log(f"[check] reduced {JAMBA} bf16 {'prefill' if i == 0 else f'decode step {i}'}: "
+            f"max |dlogits| against the cpu's fp32 run {card:.3e} on the card, {plain:.3e} "
+            f"in the cpu's bf16 run (<= {JAMBA_BF16_SLACK:g}x; card vs cpu bf16 "
+            f"{float((a - b).abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"reduced {JAMBA}: the card's bf16 run strays from fp32 beyond the cpu's")
+
+    arch = get_arch(SSM_ARCH).reduced()
+    lm = LanguageModel(arch)
+    params_cpu = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    grad_parity(lm, params_cpu, dev, f"reduced {SSM_ARCH}")
+    train_parity(lm, params_cpu, dev, f"{SSM_ARCH} (no MoE)", seq=64)
+
+
+def train_parity(lm, params_cpu, dev, mode: str, seq: int = 40) -> None:
     """Two fp32 train steps of the reduced model on the card (kernels)
     against the CPU (plain versions) from the same state.  Held as the CPU
     trajectory test holds the port against the JAX package
@@ -781,7 +1049,7 @@ def train_parity(lm, params_cpu, dev, mode: str) -> None:
     for where in ("cpu", dev):  # copies: the update runs in place
         p = map_tree(lambda t: t.to(where, copy=True), params_cpu)
         states.append({"params": p, **adamw_init(p)})
-    data = SyntheticTokens(lm.arch.vocab_size, 2, 40)
+    data = SyntheticTokens(lm.arch.vocab_size, 2, seq)  # an SSM's: a multiple of its chunk
     for i in range(2):
         batch = data.batch_at(i)
         _, want = step(states[0], batch)
@@ -940,15 +1208,17 @@ def _profiled(fn, label: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    # The raw device activities: ``prof.events()`` would first build a tree
+    # of every CPU op in Python, ~10 s a decode window.
     spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        r = ev.time_range
-        spans.append((r.start, r.end))
-        n = _kernel_name(ev.name)
+        start, dur = ev.start_ns() / 1e3, ev.duration_ns() / 1e3
+        spans.append((start, start + dur))
+        n = _kernel_name(ev.name())
         t, c = by_name.get(n, (0.0, 0))
-        by_name[n] = (t + r.elapsed_us(), c + 1)
+        by_name[n] = (t + dur, c + 1)
     if not spans:
         fail(f"profile {label}: torch.profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
@@ -1124,6 +1394,274 @@ def ssm_profile_phase(model) -> None:
 
     _profiled(run_prefill, f"{SSM_ARCH} prefill 4 x 2048")
     _profiled(run_decode, f"{SSM_ARCH} decode, 4 sequences, 8 steps")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: Mamba2 training at full width and depth
+# ---------------------------------------------------------------------------
+
+# The SSM serving cell's tokens, 5 steps; the planner binds remat "full".
+SSM_TRAIN_ARGS = ["--arch", SSM_ARCH, "--steps", "5", "--batch", "4", "--seq", "2048",
+                  "--seed", "0"]
+SSM_TRAIN_FP32 = (1, 2048)
+SSM_TRAIN_REL = 1e-5  # the eager SSD's loss against the kernel path's, fp32
+PATH_KERNELS["ssm_train"] = ()  # the SSD has no backward: training runs no kernel
+
+
+def ssm_train_phase(dev):
+    """(a) ``launch/train.py --arch mamba2-370m`` at 4 x 2048, bf16 compute,
+    5 steps: no step skipped (so every loss and grad norm finite), no
+    kernel launched (the SSD's eager path), the drift table; (b) one fp32
+    pass at 1 x 2048: the training loss (eager SSD) against the
+    cross-entropy of ``LanguageModel.forward``'s logits (the SSD kernel,
+    48 launches) on the same weights.  Returns (a)'s launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_train_"))
+    args = train.parse_args(SSM_TRAIN_ARGS + ["--metrics-out", str(tmp / "train.jsonl")])
+    kernels.reset_launch_counts()
+    summary, trainer, out = train.train(args)
+    counts = kernels.launch_counts()
+    check_telemetry(summary, ("step",), "ssm training", n=summary["steps"] - 1)
+    shutil.rmtree(tmp, ignore_errors=True)
+    m, steps = summary["model"], summary["steps"]
+    log(f"[ssm_train] {summary['arch']} full width ({summary['params'] / 1e6:.1f} M params, "
+        f"{get_arch(SSM_ARCH).num_layers} layers), batch {args.batch} x seq {args.seq}, remat "
+        f"{summary['remat']}: {steps} steps, {summary['skipped']} skipped, final loss "
+        f"{summary['loss']:.4f}, step times "
+        f"{[round(1e3 * t, 1) for t in summary['step_times_s']]} ms, step p50 "
+        f"{summary['step_p50_ms']:.1f} ms (steps 2-{steps}), {summary['tokens_per_s']:.0f} "
+        f"tokens/s, peak torch.cuda.max_memory_allocated {summary['peak_mem_gb']:.2f} GB vs "
+        f"mem_stage0 {m['mem_stage0_gb']:.2f} GB modeled (t_step {1e3 * m['t_step_s']:.3f} ms "
+        f"modeled); launches {dict((k, v) for k, v in counts.items() if v)}")
+    if steps != 5 or summary["skipped"] or not np.isfinite(summary["loss"]):
+        fail(f"ssm training: {steps} steps, {summary['skipped']} skipped, loss {summary['loss']}")
+    if any(counts.values()):
+        fail(f"ssm training launched kernels {counts}: its SSD runs the eager path")
+    batch = SyntheticTokens(get_arch(SSM_ARCH).vocab_size, args.batch, args.seq).batch_at(steps)
+    state = out["state"]
+    _profiled(lambda: trainer.train_step(state, batch),
+              f"{SSM_ARCH} train step (full width, batch {args.batch} x {args.seq})")
+    del trainer, out, state
+
+    arch, lm, params = _ssm_model(dev, torch.float32)
+    b, s = SSM_TRAIN_FP32
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in SyntheticTokens(arch.vocab_size, b, s).batch_at(0).items()}
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        loss, _ = lm.loss(params, batch)
+        torch.cuda.synchronize()
+        c_loss = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        with _FirstCalls() as first:
+            logits, _, _ = lm.forward(params, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        c_fwd = kernels.launch_counts()
+        labels = batch["labels"].long()
+        ce = (torch.logsumexp(logits, -1) - logits.gather(-1, labels[..., None])[..., 0]).mean()
+    rel = abs(float(loss) - float(ce)) / abs(float(ce))
+    ok = (rel <= SSM_TRAIN_REL and c_loss["ssd_intra_chunk"] == 0
+          and c_fwd["ssd_intra_chunk"] == c_fwd["ssd_intra_chunk/fma"] == arch.num_mamba_layers)
+    log(f"[check] {SSM_ARCH} full depth fp32 {b} x {s}: training loss (eager SSD) "
+        f"{float(loss):.7f} vs forward's cross-entropy (ssd_intra_chunk/fma x "
+        f"{c_fwd['ssd_intra_chunk']}) {float(ce):.7f}, relative {rel:.3e} (<= "
+        f"{SSM_TRAIN_REL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the eager SSD's training loss disagrees with the kernel path's")
+    del logits
+    first_calls_against_plain(first.calls, c_fwd, f"{SSM_ARCH} full depth fp32 {b} x {s}")
+    del params, first
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: granite with a dense attention cache at full width and depth
+# ---------------------------------------------------------------------------
+
+DENSE_FP32 = dict(b=4, prompt=248, steps=8)  # cache_len 256: the uncached forward's
+DENSE_BF16 = dict(b=4, prompt=512, steps=32)
+DENSE_TIE = 2e-2  # a divergence must be a near-tie: top-2 logit gap of the dense run
+PATH_KERNELS["dense_cache"] = ("flash_attention", "ragged_gate_up_silu_f32",
+                               "ragged_matmul_f32")
+
+
+def dense_cache_phase(dev):
+    """granite-moe-3b-a800m (ragged) through ``make_prefill_step`` /
+    ``make_decode_step`` with a dense K/V cache.  (a) fp32: 4 prompts of
+    248, 8 decode steps on the true next tokens (cache_len 256), against the
+    uncached forward over the 256, at the paged path's bound; (b) bf16: a
+    warm-up, then 4 x 512 prompts and 32 greedy steps, the tokens against
+    the paged engine's on the same prompts and weights (a divergence only
+    at a near-tie), the launches a prefill and a decode step equal to the
+    engine's.  Returns (b)'s launch counts."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel, init_params
+    from repro_torch.serving import Engine, Request, ServeConfig
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    base = get_arch(ARCH)
+    arch = base.replace(moe=dataclasses.replace(base.moe, dispatch="ragged"))
+    lm = LanguageModel(arch)
+    gen = torch.Generator(device=dev)
+
+    # (a) fp32 parity against the uncached forward.
+    b, l, k = DENSE_FP32["b"], DENSE_FP32["prompt"], DENSE_FP32["steps"]
+    params = init_params(arch, gen.manual_seed(0), dev, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, arch.vocab_size, (b, l + k)))
+    with torch.no_grad():
+        full, _, _ = lm.forward(params, {"tokens": toks.to(dev)})
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        logits, cache = make_prefill_step(lm, torch.float32)(params, {"tokens": toks[:, :l]})
+        cache = lm.pad_cache(cache, l + k)
+        decode = make_decode_step(lm, torch.float32)
+        err = 0.0
+        for i in range(l, l + k):
+            err = max(err, float((logits - full[:, i - 1]).abs().max()))
+            logits, cache = decode(params, cache, {"tokens": toks[:, i:i + 1]}, i)
+        err = max(err, float((logits - full[:, l + k - 1]).abs().max()))
+    torch.cuda.synchronize()
+    counted = kernels.launch_counts()
+    ok = err <= serve.PARITY_BOUND
+    log(f"[parity] {ARCH} dense cache: prefill {l} + {k} decode steps vs uncached forward over "
+        f"{l + k}, {b} sequences, fp32 full width: max |dlogits| = {err:.3e} (bound "
+        f"{serve.PARITY_BOUND:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the dense-cache decode disagrees with the uncached forward")
+    del full, cache, logits
+    first_calls_against_plain(first.calls, counted, f"{ARCH} dense cache fp32 {b} x {l} + {k}")
+    del params, first
+    torch.cuda.empty_cache()
+
+    # (b) bf16 greedy against the paged engine.
+    b, l, k = DENSE_BF16["b"], DENSE_BF16["prompt"], DENSE_BF16["steps"]
+    params = init_params(arch, gen.manual_seed(0), dev, torch.bfloat16)
+    prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+    prompts = np.random.default_rng(6).integers(0, arch.vocab_size, (b, l))
+
+    def greedy(steps, counted=None):
+        """(tokens (b, steps + 1), top-2 gaps, prefill ms, decode step ms)."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        pre_ms = 1e3 * (time.perf_counter() - t0)
+        if counted is not None:
+            counted["prefill"] = kernels.launch_counts()
+            kernels.reset_launch_counts()
+        cache = lm.pad_cache(cache, l + steps)
+        toks, gaps, step_ms = [], [], []
+        for i in range(steps + 1):
+            top = logits.float().topk(2, dim=-1)
+            toks.append(top.indices[:, :1])
+            gaps.append(top.values[:, 0] - top.values[:, 1])
+            if i == steps:
+                break
+            t = time.perf_counter()
+            logits, _ = decode(params, cache, {"tokens": toks[-1]}, l + i)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        if counted is not None:
+            counted["decode"] = kernels.launch_counts()
+        return (torch.cat(toks, 1).cpu().numpy(), torch.stack(gaps, 1).cpu().numpy(), pre_ms,
+                step_ms)
+
+    # The warm-up pays each shape's first-call set-up and captures each
+    # kernel's first call at each shape: the counted run below makes the
+    # same calls (the same prompts and weights; decode attends eagerly, so
+    # only the cache's length differs), held by its launches a prefill and
+    # a decode step, and runs without the capture's copies.
+    warm = {}
+    with _FirstCalls() as first:
+        greedy(2, warm)
+    torch.cuda.reset_peak_memory_stats()
+    dense = {}
+    toks, gaps, pre_ms, step_ms = greedy(k, dense)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(step_ms))
+    log(f"[dense_cache] {ARCH} full width bf16, ragged: prefill {b} x {l} {pre_ms:.2f} ms, "
+        f"{k} decode steps p50 {p50:.2f} ms ({1e3 * b / p50:.1f} tokens/s), peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GB; launches a prefill "
+        f"{dict((n, v) for n, v in dense['prefill'].items() if v)}, decode "
+        f"{dict((n, v) for n, v in dense['decode'].items() if v)}")
+    counts = {n: dense["prefill"][n] + dense["decode"][n] for n in dense["prefill"]}
+    log(f"[dense_cache] designs {check_designs(counts, 'dense cache')}")
+    for name in PATH_KERNELS["dense_cache"]:
+        if counts[name] == 0:
+            fail(f"dense cache never launched {name}")
+    same = (warm["prefill"] == dense["prefill"]
+            and all(2 * dense["decode"][n] == k * warm["decode"][n] for n in dense["decode"]))
+    log(f"[check] dense cache bf16: the warm-up's launches a prefill and a decode step equal "
+        f"the counted run's {'ok' if same else 'FAIL'}")
+    if not same:
+        fail("the dense cache's warm-up and counted runs launch differently")
+    first_calls_against_plain(first.calls, {n: warm["prefill"][n] + warm["decode"][n]
+                                            for n in warm["prefill"]},
+                              f"{ARCH} dense cache bf16 {b} x {l} + decode")
+    del first
+
+    logits, cache = prefill(params, {"tokens": prompts})
+    cache = lm.pad_cache(cache, l + 8)
+
+    def window():
+        nonlocal logits
+        for i in range(8):
+            logits, _ = decode(params, cache, {"tokens": logits.argmax(-1, keepdim=True)}, l + i)
+
+    _profiled(window, f"{ARCH} dense-cache decode, {b} sequences, 8 steps")
+    del cache, logits
+
+    cfg = ServeConfig(max_seqs=b, block_size=16, num_blocks=256, max_blocks_per_seq=40,
+                      cache_dtype="bfloat16")
+    eng = Engine(lm, params, cfg)
+    kernels.reset_launch_counts()
+    out = eng.run([Request(rid=i, tokens=prompts[i], max_new_tokens=k + 1) for i in range(b)])
+    torch.cuda.synchronize()
+    paged = kernels.launch_counts()
+    dec_s = serve._span_seconds(eng, "engine.decode")
+    pre_s = serve._span_seconds(eng, "engine.prefill")
+    log(f"[dense_cache] the paged engine on the same prompts: {eng.decode_steps} decode steps "
+        f"p50 {1e3 * float(np.median(dec_s)):.2f} ms (dense {p50:.2f} ms, ratio "
+        f"{p50 / (1e3 * float(np.median(dec_s))):.3f}), {b} prefills of 1 x {l} mean "
+        f"{1e3 * float(np.mean(pre_s)):.2f} ms (dense {b} x {l} in one: {pre_ms:.2f} ms)")
+    for name in PATH_KERNELS["dense_cache"]:
+        per_prefill, per_step = dense["prefill"][name], dense["decode"][name] / k
+        want = b * per_prefill + eng.decode_steps * per_step
+        ok = paged[name] == want
+        log(f"[check] dense cache launches of {name}: {per_prefill} a prefill, {per_step:g} a "
+            f"decode step; the paged engine {paged[name]} over {b} prefills and "
+            f"{eng.decode_steps} decode steps (want {want:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"dense and paged launches of {name} differ")
+    paged_toks = np.asarray([out[i] for i in range(b)])
+    same = paged_toks.shape == toks.shape and bool((paged_toks == toks).all())
+    if same:
+        log(f"[check] dense cache bf16 greedy tokens ({b} x {k + 1}) equal the paged "
+            f"engine's ok")
+    else:
+        rows, cols = np.nonzero(paged_toks != toks)
+        first = {int(r): int(c) for r, c in zip(rows[::-1], cols[::-1])}  # first per row
+        worst = max(float(gaps[r, c]) for r, c in first.items())
+        ok = worst < DENSE_TIE
+        log(f"[check] dense cache bf16 greedy tokens ({b} x {k + 1}) against the paged "
+            f"engine's: {len(first)} rows diverge, at {first}; the dense run's top-2 gap "
+            f"there at most {worst:.3e} (< {DENSE_TIE:g}: a near-tie) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("dense and paged greedy tokens diverge away from a near-tie")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1856,7 +2394,7 @@ def ep_phase(dev):
     t0 = time.perf_counter()
     try:
         mp.start_processes(_ep_rank, args=(EP_RANKS, tmp), nprocs=EP_RANKS,
-                           start_method="spawn")
+                           start_method=RANK_START)
         res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2170,6 +2708,7 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                f"step, max |d| / max |want| {rel[0]:.3e}, {rel[1]:.3e} (<= {EP_GRAD_REL:g})"
                + ("" if mode == "capacity" else "; tokens must be equal"))
 
+    out["laps"] = out.get("laps", "") + f" (c) at {time.perf_counter() - t0:.1f} s"
     # (c) Migration: one permutation pass, and the trajectory of a run whose
     # init carried the final permutation (swap-only: bitwise).  With
     # replica channels, run A starts on (b)'s live table, which the planner
@@ -2245,6 +2784,7 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                   f"{'1e-6' if replicas == 0 else '2e-3'})"))
         del state, state_b, full
 
+    out["laps"] = out.get("laps", "") + f" (d) at {time.perf_counter() - t0:.1f} s"
     # (d) Serving rebalance on skewed prompts.
     for mode in ("ragged", "capacity"):
         arch = arch_of(mode)
@@ -2257,6 +2797,7 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                f"{[r['replicas'] for r in rebal]}); tokens equal the static engine's: "
                f"{got == want}")
 
+    out["laps"] = out.get("laps", "") + f" (e) at {time.perf_counter() - t0:.1f} s"
     # (e) The EP-agnostic checkpoint: B saves at step MIG_STEPS // 2, after
     # a migration; it restores at world 1 (rank 0 alone) and at EP 2, and
     # its resume to MIG_STEPS is the uninterrupted run A.
@@ -2273,7 +2814,7 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
         return tr_, o
 
     half = MIG_STEPS // 2
-    tr_a, out_a = ck_fit(f"{tmp}/ckA", MIG_STEPS, 0)
+    tr_a, out_a = ck_fit(None, MIG_STEPS, 0)  # uninterrupted: nothing to save
     state_a = host_state(tr_a, out_a["state"])
     tr_b, out_b = ck_fit(f"{tmp}/ckB", half, 0)
     state_b = host_state(tr_b, out_b["state"])
@@ -2355,7 +2896,7 @@ def migrate_phase(dev):
     t0 = time.perf_counter()
     try:
         mp.start_processes(_migrate_rank, args=(EP_RANKS, tmp), nprocs=EP_RANKS,
-                           start_method="spawn")
+                           start_method=RANK_START)
         res = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(EP_RANKS)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2383,7 +2924,7 @@ def migrate_phase(dev):
         f"not measured): {size:.0f} bytes a GPU, {secs * 1e3:.4f} ms at "
         f"{H100.migration_bw / 1e9:.0f} GB/s over {H100.chips_per_node} GPUs")
     log(f"[migrate] phase {time.perf_counter() - t0:.1f} s (two-rank runs "
-        f"{res[0]['seconds']:.1f} s on rank 0)")
+        f"{res[0]['seconds']:.1f} s on rank 0;{res[0].get('laps', '')})")
     if not res[0]["ok"]:
         fail("migrate: a check of the two-rank runs failed")
     return counts
@@ -2728,7 +3269,7 @@ def pipeline_phase(dev):
         tmp = tempfile.mkdtemp(prefix=f"chip_smoke_pipe_{part}_")
         try:
             mp.start_processes(_pipe_rank, args=(world, tmp, part), nprocs=world,
-                               start_method="spawn")
+                               start_method=RANK_START)
             res[part] = [json.loads(Path(tmp, f"{part}{r}.json").read_text())
                          for r in range(world)]
         finally:
@@ -3475,7 +4016,7 @@ def mesh_phase(dev):
         t1 = time.perf_counter()
         try:
             mp.start_processes(_mesh_rank, args=(world, tmp, part), nprocs=world,
-                               start_method="spawn")
+                               start_method=RANK_START)
             res[part] = [json.loads(Path(tmp, f"{part}{r}.json").read_text())
                          for r in range(world)]
         finally:
@@ -4042,7 +4583,7 @@ def memory_phase(dev):
     t1 = time.perf_counter()
     try:
         mp.start_processes(_memory_rank, args=(world, tmp), nprocs=world,
-                           start_method="spawn")
+                           start_method=RANK_START)
         res = [json.loads(Path(tmp, f"mem{r}.json").read_text()) for r in range(world)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4069,7 +4610,10 @@ def memory_phase(dev):
     return counts
 
 
-def main() -> None:
+def main(names=()) -> None:
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown:
+        fail(f"unknown phases {unknown}; the phases are {', '.join(PHASES)}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     src = Path(__file__).resolve().parent / "src"
@@ -4087,6 +4631,11 @@ def main() -> None:
     os.environ["PYTHONPYCACHEPREFIX"] = str(src.parent / "build" / "pycache")
     sys.dont_write_bytecode = False
     sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    multiprocessing.set_forkserver_preload(RANK_PRELOAD)
+    forkserver.ensure_running()  # its imports overlap the kernels' build
     from repro_torch.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -4096,40 +4645,52 @@ def main() -> None:
     log(card)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    entries = kernel_phase(dev)
-    log(f"[phase] kernels done at {time.perf_counter() - t0:.1f}s")
-    model_phase(dev)
-    log(f"[phase] model done at {time.perf_counter() - t0:.1f}s")
-    small_parity_phase(dev)
-    log(f"[phase] small parity done at {time.perf_counter() - t0:.1f}s")
-    counts, case = serving_phase()
-    log(f"[phase] serving done at {time.perf_counter() - t0:.1f}s")
-    parity_phase(case)
-    log(f"[phase] parity done at {time.perf_counter() - t0:.1f}s")
-    profile_phase(dev)
-    log(f"[phase] profile done at {time.perf_counter() - t0:.1f}s")
-    counts["ssm"], model = ssm_serving_phase(dev)
-    log(f"[phase] ssm serving done at {time.perf_counter() - t0:.1f}s")
-    ssm_parity_phase(dev)
-    log(f"[phase] ssm parity done at {time.perf_counter() - t0:.1f}s")
-    ssm_profile_phase(model)
-    del model
-    log(f"[phase] ssm profile done at {time.perf_counter() - t0:.1f}s")
-    counts["train"], train_summary = training_phase()
-    log(f"[phase] training done at {time.perf_counter() - t0:.1f}s")
-    counts["checkpoint"] = checkpoint_phase(dev)
-    log(f"[phase] checkpoint done at {time.perf_counter() - t0:.1f}s")
-    ep_world1_phase(train_summary)
-    counts["ep"] = ep_phase(dev)
-    log(f"[phase] ep done at {time.perf_counter() - t0:.1f}s")
-    counts["migrate"] = migrate_phase(dev)
-    log(f"[phase] migrate done at {time.perf_counter() - t0:.1f}s")
-    counts["pipeline"] = pipeline_phase(dev)
-    log(f"[phase] pipeline done at {time.perf_counter() - t0:.1f}s")
-    counts["mesh"] = mesh_phase(dev)
-    log(f"[phase] mesh done at {time.perf_counter() - t0:.1f}s")
-    counts["memory"] = memory_phase(dev)
-    log(f"[phase] memory done at {time.perf_counter() - t0:.1f}s")
+    want = set(names) | {NEEDS[n] for n in names if n in NEEDS}
+    run = (lambda name: name in want) if names else (lambda name: True)
+    counts, seconds, out = {}, {}, {}
+
+    def phase(name, fn, *args):
+        if not run(name):
+            return None
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"[phase] {name.replace('_', ' ')} done at {time.perf_counter() - t0:.1f}s")
+        return out[name]
+
+    if not run("kernels"):
+        from repro_torch import kernels
+
+        kernels.build()
+    entries = phase("kernels", kernel_phase, dev)
+    phase("model", model_phase, dev)
+    phase("small_parity", small_parity_phase, dev)
+    if phase("serving", serving_phase) is not None:
+        counts.update(out["serving"][0])
+    phase("parity", lambda: parity_phase(out["serving"][1]))
+    phase("profile", profile_phase, dev)
+    counts["dense_cache"] = phase("dense_cache", dense_cache_phase, dev)
+    if phase("ssm_serving", ssm_serving_phase, dev) is not None:
+        counts["ssm"] = out["ssm_serving"][0]
+    phase("ssm_parity", ssm_parity_phase, dev)
+    phase("ssm_profile", lambda: ssm_profile_phase(out.pop("ssm_serving")[1]))
+    out.pop("ssm_serving", None)
+    counts["ssm_train"] = phase("ssm_train", ssm_train_phase, dev)
+    if phase("training", training_phase) is not None:
+        counts["train"] = out["training"][0]
+    counts["checkpoint"] = phase("checkpoint", checkpoint_phase, dev)
+    counts["ep"] = phase("ep", lambda: (ep_world1_phase(out["training"][1]), ep_phase(dev))[1])
+    counts["migrate"] = phase("migrate", migrate_phase, dev)
+    counts["pipeline"] = phase("pipeline", pipeline_phase, dev)
+    counts["mesh"] = phase("mesh", mesh_phase, dev)
+    counts["memory"] = phase("memory", memory_phase, dev)
+    # The fork server exits when it reads this process's end; wait for that
+    # here so that none outlives the script (``_stop``: the module has no
+    # public call for it).
+    getattr(forkserver._forkserver, "_stop", lambda: None)()
+    if names:
+        print(json.dumps({"phases": seconds}), flush=True)
+        return
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
@@ -4143,5 +4704,11 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+PHASES = ("kernels", "model", "small_parity", "serving", "parity", "profile", "dense_cache",
+          "ssm_serving", "ssm_parity", "ssm_profile", "ssm_train", "training", "checkpoint",
+          "ep", "migrate", "pipeline", "mesh", "memory")
+NEEDS = {"parity": "serving", "ssm_profile": "ssm_serving", "ep": "training"}
+
+
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]))

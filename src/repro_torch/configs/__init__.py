@@ -14,9 +14,10 @@ from repro_torch.configs.base import (
     SSMCfg,
 )
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as GRANITE_MOE_3B
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5_LARGE
 from repro_torch.configs.mamba2_370m import CONFIG as MAMBA2_370M
 
-ARCHS = {c.name: c for c in (GRANITE_MOE_3B, MAMBA2_370M)}
+ARCHS = {c.name: c for c in (GRANITE_MOE_3B, MAMBA2_370M, JAMBA_1_5_LARGE)}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -2,15 +2,16 @@
 
 Functions of tensors; parameters are plain dicts, as in the JAX package.
 Prefill attention runs the flash kernel (``kernels.flash_attention``);
-paged decode gathers its pages and runs the eager ``attention`` here, which
-the JAX package likewise leaves to XLA.  Training runs the eager
-``attention`` with autograd too: the flash kernel has no backward, in the
-JAX package or here.
+decode, paged (gathering its pages) or over a dense cache, runs the eager
+``attention`` here, which the JAX package likewise leaves to XLA.
+Training runs the eager ``attention`` with autograd too: the flash kernel
+has no backward, in the JAX package or here.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 from typing import Optional
 
 import torch
@@ -138,7 +139,7 @@ def attention(q, k, v, *, q_offset=0, window: Optional[int] = None,
 
 
 def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
-                   write=None, return_kv=False, train=False):
+                   cache_index=None, write=None, return_kv=False, train=False):
     """Full attention sub-layer: QKV proj -> rope -> attention -> out proj.
 
     ``cache=None`` (prefill / uncached forward): the flash kernel, and with
@@ -150,7 +151,13 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     decode): the new K/V rows are written into their pages IN PLACE through
     ``write`` (a :class:`repro_torch.serving.kv_cache.WritePlan`, built here
     when not given), the prefix is gathered, and eager attention runs with
-    per-sequence offsets and lengths.  Returns (out, new_cache).
+    per-sequence offsets and lengths.
+    ``cache`` = {"k", "v"} (b, cache_len, kv, hd) (dense decode): the new
+    rows are written at ``cache_index`` (a Python int, so no device sync)
+    IN PLACE, and eager attention runs over rows ``[0, cache_index + s)``
+    with ``q_offset=cache_index``.  The reference's update clamps an index
+    past the end and overwrites the last row; here it raises.  Returns
+    (out, new_cache).
     """
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
@@ -160,7 +167,19 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     k = positional_embed(k, positions, cfg.rope_type, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and "block_table" not in cache:
+        idx = operator.index(cache_index)
+        kv_len = idx + s
+        if idx < 0 or kv_len > cache["k"].shape[1]:
+            raise ValueError(f"cache_index {idx} + {s} new rows past the cache's "
+                             f"{cache['k'].shape[1]} rows")
+        cache["k"][:, idx:kv_len] = k
+        cache["v"][:, idx:kv_len] = v
+        new_cache = cache
+        # Rows past kv_len are masked in the reference; here they are not read.
+        out = attention(q, cache["k"][:, :kv_len], cache["v"][:, :kv_len], q_offset=idx,
+                        window=window, logit_softcap=cfg.attn_logit_softcap)
+    elif cache is not None:
         bt, lens = cache["block_table"], cache["lengths"]
         if write is None:
             N, bs = cache["k_pages"].shape[:2]

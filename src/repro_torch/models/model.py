@@ -1,5 +1,6 @@
 """Language model: parameter tree, init, forward, training loss, paged
-serving steps (attention) and dense-cache serving steps (Mamba2).
+serving steps (attention) and dense-cache serving steps (attention, Mamba2
+and hybrid stacks).
 
 The port of ``repro.models.model``.  The parameter tree has the JAX
 package's paths and leaf shapes: ``{"embed", "blocks": (one dict per
@@ -10,6 +11,7 @@ so ``repro_torch.convert`` maps one onto the other leaf by leaf.
 from __future__ import annotations
 
 import math
+import operator
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -25,10 +27,6 @@ from repro_torch.models.layers import rms_norm, softcap
 from repro_torch.serving import kv_cache as kv_lib
 
 VOCAB_PAD_MULTIPLE = 256
-# Where a dense attention cache stands (ROADMAP.md, Queue 1).
-DENSE_ATTN_CACHE_TODO = ("the dense cache holds mamba mixers only; attention in "
-                         "it (jamba and other hybrids) is not ported yet "
-                         "(ROADMAP.md Queue 1, item 5: Jamba)")
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +207,8 @@ def init_params(a: ArchConfig, generator: torch.Generator, device=None,
 class LanguageModel:
     """An ArchConfig's forward, training loss and serving steps (whatever
     device the params live on): paged for attention mixers, a dense
-    per-layer cache for mamba mixers.
+    per-layer cache for any stack (K/V for attention, the SSM state for
+    mamba).
 
     With a ``sharding.MeshPlan`` the MoE layers run expert-parallel over its
     ranks, on params that hold this rank's expert slots and its slice of
@@ -579,37 +578,42 @@ class LanguageModel:
             return logits, cache, torch.stack([torch.stack(l) for l in loads])
         return logits, cache
 
-    # -- dense-cache serving (mamba mixers) ----------------------------------
+    # -- dense-cache serving -------------------------------------------------
 
-    def _dense_cache_only(self) -> None:
-        if any(m != "mamba" for m, _ in self.arch.block_pattern):
-            raise NotImplementedError(DENSE_ATTN_CACHE_TODO)
-
-    def init_cache(self, batch: int, dtype=torch.bfloat16, device=None):
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16, device=None):
         """One dense cache per pattern position, leaves stacked (reps, ...):
-        {"ssm", "conv_x", "conv_B", "conv_C"} for a mamba mixer.  Zeros,
-        allocated (``decode_step`` updates them in place).  Attention
-        mixers, whose cache the reference sizes by a ``cache_len``, are not
-        ported and raise."""
+        {"k", "v"} (reps, batch, cache_len, kv_heads, head_dim) for an
+        attention mixer, {"ssm", "conv_x", "conv_B", "conv_C"} for a mamba
+        mixer (whose state does not grow with ``cache_len``).  Zeros,
+        allocated (``decode_step`` updates them in place)."""
         device = resolve_device(device)
-        self._dense_cache_only()
+        a = self.arch
         caches = []
-        for _ in self.arch.block_pattern:
-            c = ssm_lib.init_ssm_cache(self.arch, batch, dtype, device)
-            caches.append({k: v[None].repeat((self.reps,) + (1,) * v.dim())
-                           for k, v in c.items()})
+        for mixer, _ in a.block_pattern:
+            if mixer.startswith("attn"):
+                shape = (self.reps, batch, cache_len, a.num_kv_heads, a.head_dim)
+                caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                               "v": torch.zeros(shape, dtype=dtype, device=device)})
+            else:
+                c = ssm_lib.init_ssm_cache(a, batch, dtype, device)
+                caches.append({k: v[None].repeat((self.reps,) + (1,) * v.dim())
+                               for k, v in c.items()})
         return tuple(caches)
 
     def prefill(self, params, batch):
         """Forward over a prompt (one length for the whole batch), emitting
         (last-position logits (b, vp), cache): one dict per pattern position,
-        leaves stacked (reps, ...) as ``init_cache`` makes them."""
-        self._dense_cache_only()
+        leaves stacked (reps, ...): the prompt's K/V (reps, b, s, kv, hd) for
+        an attention mixer (the reference's ``return_kv``; pad it to a
+        ``cache_len`` to decode on, as ``init_cache`` sizes one), the SSM
+        cache for a mamba mixer."""
         params = self._whole(params)
         x = self._embed(params, batch)
+        b, s = x.shape[:2]
+        positions = self._positions(b, s, x.device)
         caches = [[] for _ in self.arch.block_pattern]
         for _, pos, blk, p in self._layers(params):
-            x, _, nc = transformer.apply_block(blk, p, x, self.arch, positions=None,
+            x, _, nc = transformer.apply_block(blk, p, x, self.arch, positions=positions,
                                                return_cache=True, plan=self.plan)
             caches[pos].append(nc)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
@@ -617,18 +621,42 @@ class LanguageModel:
         return logits, tuple({k: torch.stack([c[k] for c in per_rep])
                               for k in per_rep[0]} for per_rep in caches)
 
-    def decode_step(self, params, cache, batch, index):
+    def pad_cache(self, cache, cache_len: int):
+        """A prefill's cache made ready to decode on: each attention
+        position's K/V copied into zeros of ``cache_len`` rows (the padding
+        the reference's callers do by hand); mamba positions as they are."""
+        out = []
+        for (mixer, _), c in zip(self.arch.block_pattern, cache):
+            if mixer.startswith("attn"):
+                s = c["k"].shape[2]
+                if s > cache_len:
+                    raise ValueError(f"a prompt of {s} tokens does not fit {cache_len} rows")
+                c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, cache_len - s))
+                     for k, v in c.items()}
+            out.append(c)
+        return tuple(out)
+
+    def decode_step(self, params, cache, batch, index: int):
         """One token: batch {"tokens": (b, 1)}; ``index``: the current cache
-        fill, the reference's argument (the new token's position, which
-        only attention mixers read).  Returns (logits (b, vp), cache), the
-        cache updated IN PLACE (the reference returns a new one)."""
-        self._dense_cache_only()
+        fill, a Python int (the new token's position: its RoPE position and
+        the row each attention layer writes; it reads rows [0, index]).
+        Returns (logits (b, vp), cache), the cache updated IN PLACE (the
+        reference returns a new one).  An index past an attention cache's
+        end raises before any layer runs (the reference clamps it and
+        overwrites the last row)."""
+        index = operator.index(index)
+        for (mixer, _), c in zip(self.arch.block_pattern, cache):
+            if mixer.startswith("attn") and not 0 <= index < c["k"].shape[2]:
+                raise ValueError(f"decode index {index} past the cache's "
+                                 f"{c['k'].shape[2]} rows")
         params = self._whole(params)
         x = self._embed(params, batch)
+        positions = torch.full((x.shape[0], 1), index, dtype=torch.long, device=x.device)
         for r, pos, blk, p in self._layers(params):
             x, _, _ = transformer.apply_block(
-                blk, p, x, self.arch, positions=None,
-                cache={k: v[r] for k, v in cache[pos].items()}, plan=self.plan)
+                blk, p, x, self.arch, positions=positions,
+                cache={k: v[r] for k, v in cache[pos].items()}, cache_index=index,
+                plan=self.plan, token_sharded=False, data_split=False)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x)[:, 0], cache
 

@@ -9,8 +9,21 @@ prefill has at most a few dozen chunks).  The projections stay separate
 matrices (z, x, B, C, dt), as in the reference, so the parameter trees
 match leaf for leaf.
 
-Forward only: the intra-chunk kernel has no backward, in the reference or
-here, and Mamba2 training is not ported yet.  Layouts and dtype casts
+Training (``train=True``) takes the reference's ``impl="xla"`` intra-chunk
+term instead of the kernel, which has no backward in the reference or
+here: ``exp(segsum(dA))`` and the four-operand contraction
+(``repro.models.ssm:110-114``), with the reference's casts, so bf16 rounds
+where it rounds, and autograd differentiates it.  Every call that does
+not train keeps the kernel.  The chunk prefixes of both paths are summed
+in fp64 and rounded once to fp32, as the kernel takes them
+(``kernels/ssd/ref.py`` says why), where the reference sums in fp32: the
+training path is then the kernel's plain version under autograd, and its
+loss agrees with the kernel path's at full width.  The masked upper
+triangle of the decay is ``exp(-inf)`` taken after a ``torch.where``, so
+its gradient is 0, never NaN.  With many heads (jamba: 256) each group
+of ``head_group`` heads runs under ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint`` does, so its (b, nc, h, cl, cl) decay is
+recomputed in the backward rather than kept.  Layouts and dtype casts
 follow the reference, so fp32 runs agree with it to rounding.
 """
 
@@ -20,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -44,22 +58,28 @@ def ssd_chunked(
     chunk: int,
     initial_state: Optional[torch.Tensor] = None,  # (b, h, p, n)
     head_group: int = 32,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.  Returns (y (b, l, h, p), final_state (b, h, p, n)).
 
-    With many heads (jamba: 256) the reference walks head groups of
-    ``head_group`` one after another to bound the live memory; heads are
-    independent, so the loop here is exact (and needs no remat in a
-    forward).
+    ``train`` selects the differentiable intra-chunk term (module
+    docstring); otherwise the kernel runs.  With many heads (jamba: 256)
+    the reference walks head groups of ``head_group`` one after another to
+    bound the live memory; heads are independent, so the loop here is
+    exact, and under ``train`` each group is recomputed in the backward.
     """
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     if h > head_group and h % head_group == 0 and g == 1 and initial_state is None:
+        def group(xi, dti, ai, B_, C_):
+            return ssd_chunked(xi, dti, ai, B_, C_, chunk, head_group=h, train=train)
+
         ys, fins = [], []
         for i in range(0, h, head_group):
             part = slice(i, i + head_group)
-            y, fin = ssd_chunked(x[:, :, part], dt[:, :, part], a[part], B, C, chunk,
-                                 head_group=h)
+            args = (x[:, :, part], dt[:, :, part], a[part], B, C)
+            y, fin = (checkpoint(group, *args, use_reentrant=False) if train
+                      else group(*args))
             ys.append(y)
             fins.append(fin)
         return torch.cat(ys, dim=2), torch.cat(fins, dim=1)
@@ -79,8 +99,10 @@ def ssd_chunked(
     # once (kernels/ssd/ref.py says why)
     A_cs = torch.cumsum(dAc.double(), dim=2).float()
 
-    # Intra-chunk ("diagonal block") term: the kernel.
-    Y_diag = ssd_ops.ssd_intra_chunk(xc, dAc, Bc, Cc)
+    # Intra-chunk ("diagonal block") term: the kernel, or under ``train``
+    # the reference's XLA einsums.
+    Y_diag = (_intra_chunk(xc, A_cs, to_chunks(B), to_chunks(C)) if train
+              else ssd_ops.ssd_intra_chunk(xc, dAc, Bc, Cc))
 
     # Per-chunk states.
     decay_states = torch.exp(A_cs[:, :, -1:, :] - A_cs)  # (b, nc, cl, h)
@@ -107,6 +129,27 @@ def ssd_chunked(
     return y, final_state
 
 
+def _intra_chunk(xc, A_cs, Bg, Cg) -> torch.Tensor:
+    """The reference's intra-chunk term (``impl="xla"``) from the chunk
+    prefixes A_cs (b, nc, cl, h): L = exp(segsum(dA)) in fp32, cast to C's
+    dtype, then sum_s (C_l·B_s) L[l, s] x_s.  C·Bᵀ is taken once a B/C
+    group (Bg, Cg: (b, nc, cl, g, n)) and read by the group's heads, the
+    values of the reference's per-head products."""
+    cl, h = A_cs.shape[2], A_cs.shape[3]
+    cs = A_cs.transpose(2, 3)  # (b, nc, h, cl)
+    seg = cs[..., :, None] - cs[..., None, :]  # (b, nc, h, cl, cl)
+    mask = torch.ones((cl, cl), dtype=torch.bool, device=cs.device).tril()
+    # exp after the where: the masked entries are exp(-inf) = 0 with a zero
+    # gradient (exp of a positive seg there could overflow, and inf * 0 is
+    # NaN in the backward)
+    L = torch.exp(torch.where(mask, seg, float("-inf"))).to(Cg.dtype)
+    S = torch.einsum("bclgn,bcsgn->bcgls", Cg, Bg)
+    g = Bg.shape[3]
+    if g > 1:
+        S = S.repeat_interleave(h // g, dim=2)  # one group broadcasts as it is
+    return torch.einsum("bchls,bcshp->bclhp", S * L, xc)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d, a cross-correlation as the reference's
     ``lax.conv``: out[t, c] = sum_k w[c, k] x[t - (width - 1) + k, c].
@@ -129,8 +172,10 @@ def mamba_block(
     *,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     return_cache: bool = False,
+    train: bool = False,
 ):
     """Mamba2 mixer sub-layer.  Returns (out (b, l, d), new cache or None).
+    ``train`` runs the SSD's differentiable path (:func:`ssd_chunked`).
 
     cache = {"ssm": (b, h, p, n), "conv_x": (b, w-1, d_in), "conv_B",
     "conv_C"} runs one decode token (l = 1) and updates the cache IN PLACE
@@ -183,7 +228,8 @@ def mamba_block(
         xh = xs_c.reshape(b, l, nh, s.head_dim)
         Bg = B_c.reshape(b, l, s.n_groups, s.state_size)
         Cg = C_c.reshape(b, l, s.n_groups, s.state_size)
-        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, l))
+        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, l),
+                               train=train)
         y = y + xh * params["D"][None, None, :, None].to(x.dtype)
         y = y.reshape(b, l, d_in)
         if return_cache:

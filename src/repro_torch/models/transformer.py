@@ -37,10 +37,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-# Where Mamba2 training stands (ROADMAP.md, Queue 1).
-SSM_TRAINING_TODO = ("Mamba2 training is not ported yet (ROADMAP.md Queue 1, "
-                     "item 5: Mamba2 training)")
-
 
 def rep_params(tree, r: int):
     """Rep ``r`` of every stacked ``(reps, ...)`` leaf of a param tree."""
@@ -67,6 +63,7 @@ def apply_block(
     *,
     positions: torch.Tensor,
     cache: Optional[Dict[str, Any]] = None,
+    cache_index: Optional[int] = None,
     write=None,
     return_cache: bool = False,
     train: bool = False,
@@ -78,9 +75,11 @@ def apply_block(
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
     (x, moe metrics or {}, new cache or None): K/V for an attention mixer,
-    the dense SSM/conv cache for a mamba mixer (``models.ssm``).  ``train``
-    selects the differentiable attention and capacity-FFN paths; a mamba
-    mixer has none yet and raises.  ``plan``, ``token_sharded``,
+    the dense SSM/conv cache for a mamba mixer (``models.ssm``).  An
+    attention mixer's ``cache`` is paged (``"block_table"`` in it, written
+    through ``write``) or dense ({"k", "v"} written at ``cache_index``,
+    ``layers.attention_proj``).  ``train`` selects the differentiable
+    attention, SSD and capacity-FFN paths.  ``plan``, ``token_sharded``,
     ``seq_shard``, ``data_split`` and ``telemetry`` go to
     :func:`moe.moe_ffn` (the mixer needs no ranks: every rank holds whole
     sequences).  The mixer's and a dense FFN's leaves that ``plan`` slices
@@ -93,14 +92,12 @@ def apply_block(
     if mixer.startswith("attn"):
         window = arch.sliding_window if mixer == "attn_local" else None
         out, new_cache = L.attention_proj(
-            mp, h, arch, positions, window=window, cache=cache,
+            mp, h, arch, positions, window=window, cache=cache, cache_index=cache_index,
             write=write, return_kv=return_cache and cache is None, train=train,
         )
     elif mixer == "mamba":
-        if train:
-            raise NotImplementedError(SSM_TRAINING_TODO)
         out, new_cache = ssm_lib.mamba_block(mp, h, arch, cache=cache,
-                                             return_cache=return_cache)
+                                             return_cache=return_cache, train=train)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
     x = x + out

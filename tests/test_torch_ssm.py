@@ -38,7 +38,6 @@ from repro_torch.convert import (
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.models import ssm
-from repro_torch.models import transformer
 from repro_torch.models.model import LanguageModel, init_params, tree_paths
 from repro_torch.serving.kv_cache import PagedLayout
 
@@ -308,7 +307,7 @@ def test_prefill_then_decode_matches_uncached_forward(l, k):
 def test_init_cache_matches_reference():
     plan, arch_j, _, arch_t, _ = setup()
     want = JLM(arch_j, plan).init_cache(3, 16, jnp.float32)
-    got = LanguageModel(arch_t).init_cache(3, torch.float32, "cpu")
+    got = LanguageModel(arch_t).init_cache(3, 16, torch.float32, "cpu")
     _close_trees(got, want, 0.0, "init_cache")
     assert all(t.is_contiguous() for c in got for t in c.values())
 
@@ -335,29 +334,30 @@ def test_convert_roundtrip_mamba():
     back = tree_paths(params_to_numpy(params_t))
     for path, a in tree_paths(jax.tree.map(np.asarray, params_j)).items():
         assert back[path].dtype == a.dtype and np.array_equal(back[path], a), path
-    cache = LanguageModel(get_arch(NAME).reduced()).init_cache(2, torch.float32, "cpu")
+    cache = LanguageModel(get_arch(NAME).reduced()).init_cache(2, 16, torch.float32, "cpu")
     cache[0]["ssm"].normal_()
     again = cache_from_numpy(cache_to_numpy(cache), "cpu")
     assert torch.equal(again[0]["ssm"], cache[0]["ssm"])
 
 
 def test_guards():
+    """What the port still refuses: a paged cache for mamba mixers (as the
+    reference), a prompt that is no multiple of the chunk past one chunk,
+    grad inputs to the SSD kernel's wrapper (no backward, as the
+    reference's); and an attention cache index past its end (the
+    reference clamps it)."""
     _, _, _, arch_t, params_t = setup()
     lm = LanguageModel(arch_t)
     with pytest.raises(NotImplementedError, match="attention mixers only"):
         lm.init_paged_cache(PagedLayout(num_blocks=4, block_size=8, max_seqs=1,
                                         max_blocks_per_seq=4), device="cpu")
-    p0 = {k: v[0] for k, v in params_t["blocks"][0].items() if k != "mixer"}
-    p0["mixer"] = {k: v[0] for k, v in params_t["blocks"][0]["mixer"].items()}
-    x = torch.zeros((1, 4, arch_t.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.apply_block(("mamba", "none"), p0, x, arch_t, positions=None,
-                                train=True)
-    toks = torch.from_numpy(_tokens(1, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss(params_t, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="Jamba"):
-        LanguageModel(get_arch("granite-moe-3b-a800m").reduced()).init_cache(
-            1, torch.float32, "cpu")
     with pytest.raises(ValueError, match="multiple of the chunk"):
         lm.prefill(params_t, {"tokens": torch.from_numpy(_tokens(1, 40))})
+    x = torch.zeros((1, 1, 8, 2, 16), requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        ssd_ops.ssd_intra_chunk(x, torch.zeros((1, 1, 8, 2)), torch.zeros((1, 1, 8, 2, 8)),
+                                torch.zeros((1, 1, 8, 2, 8)))
+    granite = LanguageModel(get_arch("granite-moe-3b-a800m").reduced())
+    cache = granite.init_cache(1, 4, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="past the cache"):
+        granite.decode_step(None, cache, {"tokens": torch.zeros((1, 1), dtype=torch.long)}, 4)
