@@ -6,7 +6,7 @@
 With no argument it runs every phase below.  With phase names
 (``PHASES``: kernels, model, small_parity, serving, parity, profile,
 dense_cache, ssm_serving, ssm_parity, ssm_profile, ssm_train, training,
-checkpoint, ep, migrate, pipeline, mesh, memory) it builds the kernels
+checkpoint, ep, migrate, pipeline, mesh, memory, archs) it builds the kernels
 and runs those phases alone, with what they need (parity the serving
 phase, ssm_profile SSM serving, ep training), under the same set-up,
 and prints each phase's seconds instead of the ``kernels`` and ``ok``
@@ -261,7 +261,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    sliced layout bitwise the manual permutation; the served tokens equal
    world 1's, with the gathers' ms a forward (gloo; printed, not gated).
    Every multi-rank phase (ep, migrate, pipeline, mesh) runs the default
-   sliced plan: its gates hold the sliced layout at full width.
+   sliced plan: its gates hold the sliced layout at full width;
+17. archs: the dense and MoE archs that need no frontend.  (a)
+   ``flash_attention`` at head dim 256 (gemma2-9b's 16 query heads over 8,
+   b 1; s 512, 4096 and 6144, the window of 4096 masking only past 4096;
+   window and none; softcap 50; q, k, v strided views of one fused
+   projection), bf16 through ``/tc`` and fp32 through ``/fma``, each
+   against its plain version at ``FA_TOL``, and their times at gemma2's
+   local layer beside the bound, the plain version and SDPA (causal with
+   GQA, a window mask past 4096, no softcap: SDPA has none), in the
+   ``kernels`` line's flash entry under ``head_dim_256``.  (b) gemma2-9b
+   at full width and depth (42 layers), random bf16 weights:
+   ``launch.serve.serve`` on 4 requests of 4200-5120 prompt tokens, 8 new
+   tokens each: all finished, no preemption, exactly 42
+   ``flash_attention/tc`` launches a prefill, none ``/fma``, none in
+   decode, no other kernel; prefill ms, decode p50 and peak memory.  Then
+   fp32 (37 GB of weights): the uncached forward over request 0's
+   sequence (``flash_attention/fma`` once a layer), and that sequence
+   through the launcher's paged ``parity_probe`` (7 decode steps) and
+   through ``make_prefill_step`` / ``make_decode_step`` (8, from the
+   prompt's last token), each within
+   ``PARITY_BOUND`` x max(1, the logits' largest magnitude), the
+   absolute figure printed.  (c) smollm-360m at full width and depth:
+   ``launch.serve.main`` (the granite serving cell's requests; bf16 engine,
+   then its fp32 parity probe at ``PARITY_BOUND``; flash ``/tc`` once a
+   layer a prefill, ``/fma`` only in the probe), then
+   ``launch.train.train``, 5 steps at 2 x 512: none skipped, a finite
+   loss, no kernel launched; step p50 and peak.  (d) grok-1-314b at full
+   width and depth 1 (8 experts top-2, expert d_ff 32768, d_model 6144),
+   bf16, under both dispatches: a 1 x 512 prefill and 4 decode steps,
+   finite logits, every kernel of the dispatch's path launched, none
+   through ``/fma``, each kernel's first call at each shape against its
+   plain version.  The launch counts of (b)-(d) are this path's.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -872,20 +903,30 @@ PATH_KERNELS_JAMBA = ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matm
 
 class _FirstCalls:
     """Within the block, the inputs of the first call of each kernel
-    wrapper of ``PATH_KERNELS_JAMBA`` at each shape (``calls``: (name, args,
-    kwargs)), the model's own calls going through unchanged.  It sees a
-    call only through its module's attribute, so
+    wrapper of ``PATH_KERNELS_JAMBA`` and of ``grouped_matmul_f32`` at each
+    shape and set of non-tensor keywords (a window, a softcap; ``calls``:
+    (name, args, kwargs)), the model's own calls going through unchanged.
+    It sees a call only through its module's attribute, so
     ``first_calls_against_plain`` fails a kernel launched with no call
-    seen."""
+    seen.  Inputs are copied, but for tensors whose storage is one of
+    ``keep``'s (the model's weights, which no call writes: grok's experts
+    are 3.2 GB a matrix), held as they are."""
 
-    def __init__(self):
+    def __init__(self, keep=()):
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.moe_gemm import ops as mm_ops
         from repro_torch.kernels.ssd import ops as ssd_ops
 
         self.targets = [(fa_ops, "flash_attention"), (mm_ops, "ragged_gate_up_silu_f32"),
-                        (mm_ops, "ragged_matmul_f32"), (ssd_ops, "ssd_intra_chunk")]
+                        (mm_ops, "ragged_matmul_f32"), (ssd_ops, "ssd_intra_chunk"),
+                        (mm_ops, "grouped_matmul_f32")]
+        self.keep = {t.untyped_storage().data_ptr() for t in keep}
         self.calls, self.seen, self.saved = [], set(), []
+
+    def _copy(self, t):
+        if not torch.is_tensor(t) or t.untyped_storage().data_ptr() in self.keep:
+            return t
+        return t.clone()
 
     def __enter__(self):
         for mod, name in self.targets:
@@ -893,12 +934,12 @@ class _FirstCalls:
             self.saved.append((mod, name, real))
 
             def wrapped(*a, _real=real, _name=name, **kw):
-                key = (_name,) + tuple(tuple(t.shape) + (t.dtype,) for t in a
-                                       if torch.is_tensor(t))
+                key = ((_name,) + tuple(tuple(t.shape) + (t.dtype,) for t in a
+                                        if torch.is_tensor(t))
+                       + tuple(sorted((k, v) for k, v in kw.items() if not torch.is_tensor(v))))
                 if key not in self.seen:
                     self.seen.add(key)
-                    self.calls.append((_name, [t.clone() if torch.is_tensor(t) else t
-                                               for t in a], dict(kw)))
+                    self.calls.append((_name, [self._copy(t) for t in a], dict(kw)))
                 return _real(*a, **kw)
 
             setattr(mod, name, wrapped)
@@ -911,7 +952,8 @@ class _FirstCalls:
 
 def first_calls_against_plain(calls, counts, label: str) -> None:
     """Each captured kernel call again on the card against its plain
-    version on the same inputs (``FA_TOL``, ``GEMM_TOL``, ``SSD_TOL``).
+    version on the same inputs (``FA_TOL``, ``GEMM_TOL``, ``SSD_TOL``), one
+    at a time (each plain version's fp32 temporaries freed before the next).
     ``counts`` are the launches made while ``calls`` were captured: a
     kernel launched there with no captured call fails the run, since its
     check would hold nothing."""
@@ -931,6 +973,7 @@ def first_calls_against_plain(calls, counts, label: str) -> None:
         shapes = "x".join(str(tuple(t.shape)) for t in a if torch.is_tensor(t))
         if name == "flash_attention":
             q, k, v = a
+            shapes += "".join(f" {n}={kw[n]}" for n in ("window", "logit_softcap") if kw.get(n))
             got = fa_ops.flash_attention(q, k, v, **kw)
             want = fa_ref.attention(*(t.transpose(1, 2).float() for t in (q, k, v)),
                                     causal=kw.get("causal", True), window=kw.get("window"),
@@ -946,11 +989,15 @@ def first_calls_against_plain(calls, counts, label: str) -> None:
             pairs = list(zip(mm_ops.ragged_gate_up_silu_f32(*a),
                              mm_ref.ragged_gate_up_silu_f32(*a)))
             tol = GEMM_TOL
+        elif name == "grouped_matmul_f32":
+            pairs = [(mm_ops.grouped_matmul_f32(*a), mm_ref.grouped_matmul_f32(*a))]
+            tol = GEMM_TOL
         else:
             pairs, tol = [(mm_ops.ragged_matmul_f32(*a), mm_ref.ragged_matmul_f32(*a))], GEMM_TOL
         for i, (got, want) in enumerate(pairs):
             check(f"{label} {name} {shapes}{f' out {i}' if len(pairs) > 1 else ''}, its "
                   f"first call at this shape", got, want, tol)
+        del pairs, got, want
 
 
 def jamba_small_parity(dev) -> None:
@@ -2708,7 +2755,6 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                f"step, max |d| / max |want| {rel[0]:.3e}, {rel[1]:.3e} (<= {EP_GRAD_REL:g})"
                + ("" if mode == "capacity" else "; tokens must be equal"))
 
-    out["laps"] = out.get("laps", "") + f" (c) at {time.perf_counter() - t0:.1f} s"
     # (c) Migration: one permutation pass, and the trajectory of a run whose
     # init carried the final permutation (swap-only: bitwise).  With
     # replica channels, run A starts on (b)'s live table, which the planner
@@ -2784,7 +2830,6 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                   f"{'1e-6' if replicas == 0 else '2e-3'})"))
         del state, state_b, full
 
-    out["laps"] = out.get("laps", "") + f" (d) at {time.perf_counter() - t0:.1f} s"
     # (d) Serving rebalance on skewed prompts.
     for mode in ("ragged", "capacity"):
         arch = arch_of(mode)
@@ -2797,7 +2842,6 @@ def _migrate_rank_body(rank: int, world: int, tmp: str) -> dict:
                f"{[r['replicas'] for r in rebal]}); tokens equal the static engine's: "
                f"{got == want}")
 
-    out["laps"] = out.get("laps", "") + f" (e) at {time.perf_counter() - t0:.1f} s"
     # (e) The EP-agnostic checkpoint: B saves at step MIG_STEPS // 2, after
     # a migration; it restores at world 1 (rank 0 alone) and at EP 2, and
     # its resume to MIG_STEPS is the uninterrupted run A.
@@ -2924,7 +2968,7 @@ def migrate_phase(dev):
         f"not measured): {size:.0f} bytes a GPU, {secs * 1e3:.4f} ms at "
         f"{H100.migration_bw / 1e9:.0f} GB/s over {H100.chips_per_node} GPUs")
     log(f"[migrate] phase {time.perf_counter() - t0:.1f} s (two-rank runs "
-        f"{res[0]['seconds']:.1f} s on rank 0;{res[0].get('laps', '')})")
+        f"{res[0]['seconds']:.1f} s on rank 0)")
     if not res[0]["ok"]:
         fail("migrate: a check of the two-rank runs failed")
     return counts
@@ -4610,6 +4654,366 @@ def memory_phase(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the dense and MoE archs that need no frontend
+# ---------------------------------------------------------------------------
+
+GEMMA, SMOLLM, GROK = "gemma2-9b", "smollm-360m", "grok-1-314b"
+# (a) flash attention at gemma2's heads (b 1, 16 query heads over 8, head
+# dim 256), its local layers' window and its attention softcap; the window
+# masks only past 4096 tokens, hence 6144.
+ARCHS_FA_SEQS = (512, 4096, 6144)
+# (b) gemma2 bf16 serving: 4 requests of 4200-5120 prompt tokens (past the
+# window), 8 new tokens each, blocks enough for all four at once.
+GEMMA_SERVE_ARGS = ["--arch", GEMMA, "--requests", "4", "--prompt-min", "4200",
+                    "--prompt-max", "5120", "--max-new", "8", "--max-seqs", "4",
+                    "--block-size", "16", "--num-blocks", "1300", "--seed", "0"]
+# (c) smollm-360m: the granite serving cell's requests, and the training
+# phase's 5 steps at 2 x 512.
+SMOLLM_SERVE_ARGS = ["--arch", SMOLLM] + SERVE_ARGS[2:]
+SMOLLM_TRAIN_ARGS = ["--arch", SMOLLM, "--steps", "5", "--batch", "2", "--seq", "512",
+                     "--seed", "0"]
+# (d) grok-1-314b at full width and depth 1: a 1 x 512 prefill, 4 decode steps.
+GROK_PREFILL, GROK_DECODE = 512, 4
+PATH_KERNELS["archs"] = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
+                         "ragged_matmul_f32")
+
+
+def archs_flash_checks(dev) -> list:
+    """(a) ``flash_attention`` at head dim 256 against its plain version
+    (bf16 ``/tc``, fp32 ``/fma``; window 4096 and none; softcap 50; q, k, v
+    strided views of one fused projection) at each of ``ARCHS_FA_SEQS``,
+    and the times at gemma2's local layer (window and softcap) beside the
+    bound, the plain version and SDPA; returns one row per dtype and s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    arch = get_arch(GEMMA)
+    hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    W, cap = arch.sliding_window, arch.attn_logit_softcap
+    _, randn, _ = seeded_inputs(dev, 1, 1, seed=26)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in ARCHS_FA_SEQS:
+            qkv = randn(1, s, hq + 2 * hkv, d, dtype=dtype)
+            q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+            design = fa_ops.design(dtype, d)
+            errs = []
+            for win in (W, None):
+                want = fa_ref.attention(*(t.transpose(1, 2).float() for t in (q, k, v)),
+                                        window=win, softcap=cap).transpose(1, 2).to(dtype)
+                errs.append(check(f"archs flash_attention b=1 s={s} hq={hq} hkv={hkv} d={d} "
+                                  f"window={win} softcap={cap:g} {dtype} via {design}",
+                                  fa_ops.flash_attention(q, k, v, window=win,
+                                                         logit_softcap=cap), want,
+                                  FA_TOL[dtype]))
+                del want
+            qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            pos = torch.arange(s, device=dev)
+            visible = torch.clamp(pos + 1, max=W)  # keys a row attends: causal, window
+            mask = ((pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - W)
+                    if s > W else None)
+            ms = device_ms(fa_ops.flash_attention_launch(q, k, v, window=W,
+                                                         logit_softcap=cap)[1])
+            plain_ms = device_ms(lambda: fa_ref.attention(qc, kc, vc, window=W, softcap=cap),
+                                 reps=5, warmup=1)
+            try:
+                lib_ms = device_ms(
+                    (lambda: sdpa(qc, kc, vc, is_causal=True, enable_gqa=True)) if mask is None
+                    else (lambda: sdpa(qc, kc, vc, attn_mask=mask, enable_gqa=True)))
+            except (RuntimeError, TypeError, NotImplementedError) as e:
+                log(f"[time] flash_attention s={s}: library call unavailable "
+                    f"({type(e).__name__}: {e})")
+                lib_ms = None
+            sz = q.element_size()
+            b_ms, b_by = bound_ms(2 * s * (hq + hkv) * d * sz,
+                                  [(4 * hq * d * float(visible.sum()), dtype)])
+            row = {"shape": f"b=1 s={s} hq={hq} hkv={hkv} d={d} window={W} softcap={cap:g} "
+                            f"{str(dtype)[6:]}", "design": design, "max_abs_err": max(errs),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"[time] flash_attention {row['shape']} via flash_attention/{design}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib} (SDPA "
+                f"enable_gqa, {'causal' if mask is None else 'causal and window mask'}, no "
+                f"softcap: it has none), bound {b_ms:.4f} ms ({b_by})")
+            rows.append(row)
+            del qkv, q, k, v, qc, kc, vc, mask
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _add_counts(total: dict, c: dict) -> None:
+    for n, v in c.items():
+        total[n] = total.get(n, 0) + v
+
+
+def archs_gemma(dev, counts: dict) -> None:
+    """(b) gemma2-9b at full width and depth: bf16 serving through
+    ``launch.serve.serve`` (every request finished, exactly one
+    ``flash_attention/tc`` launch an attention layer a prefill, none
+    ``/fma``, none in decode), then fp32: request 0's sequence through the
+    launcher's paged probe and through ``make_prefill_step`` /
+    ``make_decode_step``, each step's logits against the uncached forward
+    (``/fma`` at d = 256) within ``PARITY_BOUND`` x max(1, the logits'
+    largest magnitude).  In both, each flash call's first at a shape and
+    mask (the prefill bucket, local and global layers) is held against
+    its plain version (``FA_TOL``)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.parse_args(GEMMA_SERVE_ARGS)
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        summ, case = serve.serve(args)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add_counts(counts, c)
+    arch = case.arch
+    n_attn, prefills = arch.num_attn_layers, summ["requests"] + summ["preemptions"]
+    log(f"[archs] {GEMMA} full width and depth ({arch.total_params() / 1e9:.3f} B params, "
+        f"{n_attn} attention layers, head dim {arch.head_dim}), bf16, paged: "
+        f"{summ['finished']}/{summ['requests']} requests finished, prompts "
+        f"{summ['prefill_tokens']} tokens, prefill mean {summ['prefill_ms_mean']:.2f} ms, "
+        f"decode step p50 {summ['decode_step_p50_ms']:.2f} ms, {summ['decode_tok_s']:.1f} "
+        f"tokens/s, {summ['preemptions']} preemptions, peak torch.cuda.max_memory_allocated "
+        f"{peak:.2f} GB")
+    log(f"[archs] {GEMMA} designs {check_designs(c, GEMMA + ' serving')}")
+    want = {"flash_attention": n_attn * prefills, "flash_attention/tc": n_attn * prefills,
+            "flash_attention/fma": 0}
+    got = {n: c[n] for n in want}
+    others = {n: v for n, v in c.items() if v and not n.startswith("flash_attention")}
+    ok = (summ["finished"] == summ["requests"] and summ["preemptions"] == 0 and got == want
+          and not others)
+    log(f"[check] archs {GEMMA} serving: launches {got}, want {n_attn} /tc a prefill x "
+        f"{prefills} prefills and none in decode ({want}); other kernels {others} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{GEMMA} serving: requests, preemptions or flash launches are off")
+    first_calls_against_plain(first.calls, c, f"{GEMMA} bf16 serving")
+    del first
+
+    # fp32 parity against the uncached forward.
+    params = serve._weights(arch, dev, case.seed, "float32")
+    lm = LanguageModel(arch)
+    seq, plen = case.seq, case.plen
+    toks = torch.from_numpy(seq.astype(np.int64)).to(dev)
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        with torch.no_grad():
+            full, _, _ = lm.forward(params, {"tokens": toks[None]})
+        torch.cuda.synchronize()
+        fwd = kernels.launch_counts()
+        layout = dataclasses.replace(case.layout, max_seqs=1,
+                                     num_blocks=-(-len(seq) // case.layout.block_size) + 1)
+        t0 = time.perf_counter()
+        err_p, n_p = serve.parity_probe(lm, params, layout, seq, plen, ref=full)
+        t_p = time.perf_counter() - t0
+        # The dense cache decodes the prompt's last token too: 8 steps.
+        prefill = make_prefill_step(lm, torch.float32)
+        decode = make_decode_step(lm, torch.float32)
+        t0 = time.perf_counter()
+        lp = plen - 1
+        logits, cache = prefill(params, {"tokens": toks[None, :lp]})
+        cache = lm.pad_cache(cache, len(seq))
+        errs = [float((logits[0] - full[0, lp - 1]).abs().max())]
+        for i in range(len(seq) - lp):
+            logits, cache = decode(params, cache, {"tokens": toks[None, lp + i:lp + i + 1]},
+                                   lp + i)
+            errs.append(float((logits[0] - full[0, lp + i]).abs().max()))
+        torch.cuda.synchronize()
+        t_d = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    scale = max(1.0, float(full[..., :arch.vocab_size].abs().max()))
+    bound = serve.PARITY_BOUND * scale
+    ok = fwd["flash_attention/fma"] == fwd["flash_attention"] == n_attn
+    log(f"[check] archs {GEMMA} fp32 uncached forward over {len(seq)} tokens: "
+        f"flash_attention/fma {fwd['flash_attention/fma']} launches (want {n_attn}), logits "
+        f"up to {scale:.4f} in magnitude {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{GEMMA} fp32 forward did not run flash_attention/fma once a layer")
+    for what, err, n, t in (("paged (launch.serve.parity_probe)", err_p, n_p, t_p),
+                            ("dense cache (make_prefill_step / make_decode_step)", max(errs),
+                             len(errs), t_d)):
+        ok = err <= bound
+        log(f"[parity] {GEMMA} fp32 full width and depth, {what}: prefill {len(seq) - n + 1} "
+            f"+ {n - 1} decode steps vs the uncached forward over {len(seq)}: max |dlogits| = "
+            f"{err:.3e} (gate {serve.PARITY_BOUND:g} x max(1, {scale:.4f}) = {bound:.3e}) "
+            f"{'ok' if ok else 'FAIL'} ({t:.1f} s)")
+        if not ok:
+            fail(f"{GEMMA} fp32 {what} disagrees with the uncached forward")
+    del params, full, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_calls_against_plain(first.calls, c, f"{GEMMA} fp32 forward, paged and dense-cache "
+                                              f"prefills")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def archs_smollm(counts: dict) -> None:
+    """(c) smollm-360m at full width and depth: ``launch.serve.main`` (the
+    bf16 engine, then its fp32 parity probe at ``PARITY_BOUND``), then
+    ``launch.train.train``, 5 steps at 2 x 512: none skipped, a finite loss,
+    no kernel launched (training attention is eager).  Each flash call of
+    ``serve.main``'s first at a shape (its 15 query heads over 5; bf16 and
+    fp32) is held against its plain version (``FA_TOL``)."""
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve, train
+
+    arch = get_arch(SMOLLM)
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        summ = serve.main(SMOLLM_SERVE_ARGS)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    n_attn, prefills = arch.num_attn_layers, summ["requests"] + summ["preemptions"]
+    # bf16 prefills take /tc; the fp32 probe's paged prefill and its
+    # uncached forward take /fma, once a layer each.
+    want = {"flash_attention/tc": n_attn * prefills, "flash_attention/fma": 2 * n_attn}
+    got = {n: c[n] for n in want}
+    ok = (summ["finished"] == summ["requests"] and got == want
+          and summ["parity_dense"] <= serve.PARITY_BOUND)
+    log(f"[archs] {SMOLLM} full width and depth ({arch.total_params() / 1e6:.1f} M params): "
+        f"{summ['finished']}/{summ['requests']} requests finished, decode step p50 "
+        f"{summ['decode_step_p50_ms']:.2f} ms, {summ['decode_tok_s']:.1f} tokens/s, prefill "
+        f"mean {summ['prefill_ms_mean']:.2f} ms; fp32 parity {summ['parity_dense']:.3e} "
+        f"(bound {serve.PARITY_BOUND:g})")
+    log(f"[check] archs {SMOLLM} serve.main: flash launches {got}, want {want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{SMOLLM} serving: requests, parity or flash launches are off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_calls_against_plain(first.calls, c, f"{SMOLLM} serve.main")
+    del first
+
+    args = train.parse_args(SMOLLM_TRAIN_ARGS)
+    kernels.reset_launch_counts()
+    summ, _, out = train.train(args)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    launched = {n: v for n, v in c.items() if v}
+    ok = (summ["steps"] == 5 and summ["skipped"] == 0 and np.isfinite(summ["loss"])
+          and not launched)
+    log(f"[archs] {SMOLLM} training: {summ['steps']} steps, {summ['skipped']} skipped, final "
+        f"loss {summ['loss']:.4f}, step p50 {summ['step_p50_ms']:.1f} ms, "
+        f"{summ['tokens_per_s']:.0f} tokens/s, peak torch.cuda.max_memory_allocated "
+        f"{summ['peak_mem_gb']:.2f} GB")
+    log(f"[check] archs {SMOLLM} training: 0 skipped, finite loss, kernel launches "
+        f"{launched} (want none) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{SMOLLM} training: skipped steps, a non-finite loss or a kernel launch")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def archs_grok(dev, counts: dict) -> None:
+    """(d) grok-1-314b at full width, depth 1 (8 experts top-2, expert d_ff
+    32768, d_model 6144: 9.7 GB of bf16 experts), under each dispatch: a
+    1 x 512 prefill and 4 greedy decode steps through ``make_prefill_step``
+    / ``make_decode_step``, each kernel's first call at each shape held
+    against its plain version, every kernel of the dispatch's path
+    launched, none through ``/fma``."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, tree_paths
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    base = get_arch(GROK).replace(num_layers=1)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(0), dev,
+                         torch.bfloat16)
+    weights = [t for t in tree_paths(params).values() if t.is_floating_point()]
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, base.vocab_size,
+                                                              (1, GROK_PREFILL)))
+    for mode in SERVE_MODES:
+        arch = base.replace(moe=dataclasses.replace(base.moe, dispatch=mode))
+        lm = LanguageModel(arch)
+        prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _FirstCalls(keep=weights) as first:
+            logits, cache = prefill(params, {"tokens": toks})
+            cache = lm.pad_cache(cache, GROK_PREFILL + GROK_DECODE)
+            finite = bool(torch.isfinite(logits[..., :arch.vocab_size]).all())
+            for i in range(GROK_DECODE):
+                logits, _ = decode(params, cache, {"tokens": logits.argmax(-1, keepdim=True)},
+                                   GROK_PREFILL + i)
+                finite &= bool(torch.isfinite(logits[..., :arch.vocab_size]).all())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        _add_counts(counts, c)
+        log(f"[archs] {GROK} full width, depth 1 ({arch.total_params() / 1e9:.3f} B params), "
+            f"{mode}, bf16: 1 x {GROK_PREFILL} prefill and {GROK_DECODE} decode steps in "
+            f"{secs:.2f} s, peak torch.cuda.max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+            f"{dict((n, v) for n, v in c.items() if v and '/' not in n)}")
+        log(f"[archs] {GROK} {mode} designs {check_designs(c, f'{GROK} {mode}')}")
+        missing = [n for n in PATH_KERNELS[mode] if c[n] == 0]
+        log(f"[check] archs {GROK} {mode}: logits finite, every kernel of the path launched "
+            f"(missing {missing}) {'ok' if finite and not missing else 'FAIL'}")
+        if not finite or missing:
+            fail(f"{GROK} {mode}: non-finite logits or {missing} never launched")
+        del cache, logits
+        first_calls_against_plain(first.calls, c, f"{GROK} depth 1 {mode}")
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def archs_phase(dev):
+    """The dense and MoE archs that need no frontend (phase 17): (a) the
+    kernel at d = 256, (b) gemma2-9b, (c) smollm-360m, (d) grok-1-314b at
+    depth 1.  Returns (the launch counts of (b)-(d)'s runs, (a)'s rows)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = archs_flash_checks(dev)
+    done_at = [("a", time.perf_counter() - t0)]
+    counts: dict = {}
+    archs_gemma(dev, counts)
+    done_at.append(("b", time.perf_counter() - t0))
+    archs_smollm(counts)
+    done_at.append(("c", time.perf_counter() - t0))
+    archs_grok(dev, counts)
+    done_at.append(("d", time.perf_counter() - t0))
+    for name in PATH_KERNELS["archs"]:
+        if counts.get(name, 0) == 0:
+            fail(f"archs: no run launched {name}")
+    log(f"[archs] launches {dict((n, v) for n, v in counts.items() if v)}; parts done at "
+        + ", ".join(f"({p}) {t:.1f} s" for p, t in done_at))
+    return counts, rows
+
+
 def main(names=()) -> None:
     unknown = sorted(set(names) - set(PHASES))
     if unknown:
@@ -4684,6 +5088,8 @@ def main(names=()) -> None:
     counts["pipeline"] = phase("pipeline", pipeline_phase, dev)
     counts["mesh"] = phase("mesh", mesh_phase, dev)
     counts["memory"] = phase("memory", memory_phase, dev)
+    if phase("archs", archs_phase, dev) is not None:
+        counts["archs"], fa256 = out["archs"]
     # The fork server exits when it reads this process's end; wait for that
     # here so that none outlives the script (``_stop``: the module has no
     # public call for it).
@@ -4694,6 +5100,7 @@ def main(names=()) -> None:
     for name, e in entries.items():  # each main-path run's counts, and in all
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
+    entries["flash_attention"]["head_dim_256"] = fa256  # phase archs (a)
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
              "ragged_matmul_f32", "ragged_dw_f32", "ssd_intra_chunk")
     if sorted(entries) != sorted(names):
@@ -4706,7 +5113,7 @@ def main(names=()) -> None:
 
 PHASES = ("kernels", "model", "small_parity", "serving", "parity", "profile", "dense_cache",
           "ssm_serving", "ssm_parity", "ssm_profile", "ssm_train", "training", "checkpoint",
-          "ep", "migrate", "pipeline", "mesh", "memory")
+          "ep", "migrate", "pipeline", "mesh", "memory", "archs")
 NEEDS = {"parity": "serving", "ssm_profile": "ssm_serving", "ep": "training"}
 
 

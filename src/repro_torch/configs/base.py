@@ -106,6 +106,7 @@ class ArchConfig:
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
+    scale_embeddings: bool = False  # gemma2: the embedding rows times sqrt(d_model)
     norm_eps: float = 1e-6
     ffn_activation: str = "swiglu"  # swiglu (3 matrices) | gelu (2)
     # True if the mixers' cost is sub-quadratic in context (SSM / hybrid

@@ -21,7 +21,7 @@ Two executors interpret the schedule IR of ``core.schedules``:
   starting at a parameter), so the backward runs them all, in reverse tick
   order on every rank, which cannot deadlock.  Autograd through it is the GPipe-ordered backward: the
   oracle of the reference's tests, and ``LanguageModel.loss`` under a
-  pipeline plan.
+  pipeline plan; without autograd, ``LanguageModel.forward`` under one.
 * :func:`pipelined_step`, the schedule-executing train step: it interprets
   ``tick_tables(build(schedule, PP, M, V))`` tick by tick.  **F** runs the
   tick's chunk without autograd; its input stays parked in one of the
@@ -199,10 +199,13 @@ class _HandOff(torch.autograd.Function):
 
 def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig, plan, *,
                             embed_fn: Callable, embed_params, vstages: Optional[int] = None,
-                            telemetry=None):
+                            train: bool = True, telemetry=None):
     """The differentiable pipelined stack (module docstring) on this rank's
     rows ``tokens`` (M * b_l, s) of every microbatch and its stage's chunks
-    ``block_params`` (V * rpc, ...).  Returns (y, aux, z, loads): y (M * b_l,
+    ``block_params`` (V * rpc, ...), each layer on its training path, or
+    with ``train=False`` on its serving path (the flash-attention and
+    expert kernels; ``LanguageModel.forward``, under ``torch.no_grad``).
+    Returns (y, aux, z, loads): y (M * b_l,
     s, d), the model output, on the last stage and None elsewhere; aux and
     z this rank's terms of the losses' global values (the stage's F sums
     over ``M * stage_size``, so the terms of all ranks sum to them, with
@@ -257,7 +260,7 @@ def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig
         else:
             h, slots[ft.slot[s, t]] = slots[ft.slot[s, t]], None
         y, mets, ld = transformer.stack_forward(chunks[v], h, arch, positions=positions,
-                                                train=True, plan=plan, telemetry=telemetry)
+                                                train=train, plan=plan, telemetry=telemetry)
         aux = aux + mets["moe_aux_loss"]
         z = z + mets["moe_z_loss"]
         if ld is not None:

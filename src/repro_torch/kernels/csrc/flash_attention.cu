@@ -28,13 +28,23 @@
 // the causal diagonal or left of the window are skipped.  Inputs are read
 // through strides, so the model's (b, s, h, d) layout needs no transpose
 // copy; the output is written in that layout.
+//
+// d = 256 (gemma2-9b) has its own layout (Layout<256>): one thread a row
+// would hold 512 fp32 registers of q and accumulator, and two 32-key fp32
+// tiles of K and V would take 64 KB, past the 48 KB of static shared
+// memory (ptxas refuses it, and with it the whole library).  So four
+// neighbouring threads share a row, each holding a quarter of its q and
+// accumulator (float4 chunks four apart, so the four read neighbouring
+// 16-byte bank groups of a key row), their partial dot products summed
+// by two xor shuffles (every lane gets the same sum, so the four keep one
+// softmax state); and a K/V tile is 16 keys, 32 KB.  Products and sums
+// stay fp32.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block = threads per block
-constexpr int BKV = 32;  // keys per shared-memory tile
+constexpr int BQ = 64;   // query rows per block
 constexpr int CH = 16;   // keys per online-softmax update
 constexpr float NEG_INF = -1e30f;
 
@@ -42,26 +52,41 @@ struct Strides {
   long long b, s, h;
 };
 
+// Per head dim: threads that share a query row (TPR) and keys per
+// shared-memory tile (BKV).
+template <int D> struct Layout {
+  static constexpr int TPR = 1, BKV = 32;
+};
+template <> struct Layout<256> {
+  static constexpr int TPR = 4, BKV = 16;
+};
+
 template <int D, typename T>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(BQ * Layout<D>::TPR)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int HQ, int HKV,
               int SQ, int SKV, Strides qs, Strides ks, Strides vs, int causal,
               int window, float softcap, float scale) {
+  constexpr int TPR = Layout<D>::TPR, BKV = Layout<D>::BKV, THREADS = BQ * TPR;
+  constexpr int NC = D / 4 / TPR;  // float4 chunks of the row a thread holds
+  static_assert(2 * BKV * D * 4 <= 48 * 1024, "static shared memory");
   __shared__ __align__(16) float k_t[BKV][D];
   __shared__ __align__(16) float v_t[BKV][D];
   const int q_start = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (HQ / HKV);
-  const int qi = q_start + threadIdx.x;
+  const int part = threadIdx.x % TPR;  // this thread's chunks: part + c * TPR
+  const int qi = q_start + threadIdx.x / TPR;
   const bool q_ok = qi < SQ;
 
-  float qr[D], acc[D];
+  float qr[4 * NC], acc[4 * NC];
   const T* qp = q + b * qs.b + (long long)min(qi, SQ - 1) * qs.s + h * qs.h;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = q_ok ? to_f32(qp[d]) : 0.f;
-    acc[d] = 0.f;
-  }
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qr[4 * c + e] = q_ok ? to_f32(qp[4 * (part + c * TPR) + e]) : 0.f;
+      acc[4 * c + e] = 0.f;
+    }
   float m = NEG_INF, l = 0.f;
 
   // Block-level relevance: keys <= the tile's last row (causal), keys
@@ -72,7 +97,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0) kv_begin = max(0, q_start - (window - 1)) / BKV * BKV;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
-    for (int i = threadIdx.x; i < BKV * D; i += BQ) {
+    for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
       const int r = i / D, c = i % D, key = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (key < SKV) {
@@ -92,13 +117,17 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = k0 + c0 + j;
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 kk = *reinterpret_cast<const float4*>(&k_t[c0 + j][d]);
-          dot = fmaf(qr[d], kk.x, dot);
-          dot = fmaf(qr[d + 1], kk.y, dot);
-          dot = fmaf(qr[d + 2], kk.z, dot);
-          dot = fmaf(qr[d + 3], kk.w, dot);
+        for (int c = 0; c < NC; ++c) {
+          const float4 kk =
+              *reinterpret_cast<const float4*>(&k_t[c0 + j][4 * (part + c * TPR)]);
+          dot = fmaf(qr[4 * c], kk.x, dot);
+          dot = fmaf(qr[4 * c + 1], kk.y, dot);
+          dot = fmaf(qr[4 * c + 2], kk.z, dot);
+          dot = fmaf(qr[4 * c + 3], kk.w, dot);
         }
+#pragma unroll
+        for (int off = 1; off < TPR; off <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
         float sc = dot * scale;
         if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
         bool vis = true;
@@ -111,18 +140,19 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m - m_new);
       l *= alpha;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+      for (int d = 0; d < 4 * NC; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int j = 0; j < CH; ++j) {
         const float p = expf(s[j] - m_new);  // exp(-inf) = 0 past the end
         l += p;
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&v_t[c0 + j][d]);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+        for (int c = 0; c < NC; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(&v_t[c0 + j][4 * (part + c * TPR)]);
+          acc[4 * c] = fmaf(p, vv.x, acc[4 * c]);
+          acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
         }
       }
       m = m_new;
@@ -133,7 +163,10 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   T* op = out + (((long long)b * SQ + qi) * HQ + h) * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = from_f32<T>(acc[d] * inv);
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      op[4 * (part + c * TPR) + e] = from_f32<T>(acc[4 * c + e] * inv);
 }
 
 }  // namespace
@@ -155,7 +188,7 @@ extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
     using T = elem_t<decltype(tp)>;
     auto go = [&](auto dt_) {
       constexpr int DD = decltype(dt_)::value;
-      fa_fwd_kernel<DD, T><<<grid, BQ, 0, (cudaStream_t)stream>>>(
+      fa_fwd_kernel<DD, T><<<grid, BQ * Layout<DD>::TPR, 0, (cudaStream_t)stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(out), HQ, HKV, SQ, SKV, qs,
           ks, vs, causal, window, softcap, scale);
@@ -165,6 +198,7 @@ extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
     else if (D == 32) go(Int<32>{});
     else if (D == 64) go(Int<64>{});
     else if (D == 128) go(Int<128>{});
+    else if (D == 256) go(Int<256>{});
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -39,6 +39,19 @@
 // Rows of q, k and v are read through their strides (the model's fused-QKV
 // views need no copy) and must be 16-byte aligned (the wrapper checks);
 // rows past the end are zero-filled on load and never stored.
+//
+// d = 256 (gemma2-9b) is its own layout (Layout<256>): its fp32 output
+// accumulator alone is 128 registers a thread (o[32][4]), Q held as A
+// fragments would add 64 and S of a 64-key tile 32, past what 255
+// registers leave for addresses and the P pieces.  So Q is not held: each
+// k step of S = Q.K^T reads its A fragment from the Q tile, which stays
+// resident in shared memory (one ldmatrix beside the two of K); and a key
+// tile is 32 keys (S 16 registers).  Three stages of 64-key tiles would
+// take 236,544 B of shared memory, past the 232,448 a block may have; two
+// stages of 32-key tiles take 101,376 B, so two blocks fit an SM.  There
+// the card's bound is its tensor rate: at gemma2's prefill (b = 1, s =
+// 4096, 16 query heads over 8 KV heads) one causal call is 137.5 GFLOP
+// (0.139 ms at 989 TFLOP/s) against 100.7 MB of q, k, v and out (0.030 ms).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -46,7 +59,6 @@
 namespace {
 
 constexpr int BQ = 64;   // query rows per block (16 per warp)
-constexpr int BKV = 64;  // keys per shared-memory tile
 constexpr int THREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
@@ -54,10 +66,20 @@ struct Strides {
   long long b, s, h;
 };
 
-template <int D> __host__ __device__ constexpr int stages() { return D == 128 ? 2 : 3; }
+// Per head dim: keys per shared-memory tile, cp.async ring depth, and
+// whether Q's A fragments are held in registers (else re-read each k step).
+template <int D> struct Layout {
+  static constexpr int BKV = 64, STAGES = D == 128 ? 2 : 3;
+  static constexpr bool Q_REGS = true;
+};
+template <> struct Layout<256> {
+  static constexpr int BKV = 32, STAGES = 2;
+  static constexpr bool Q_REGS = false;
+};
 template <int D> constexpr int smem_bytes() {
-  return (BQ + 2 * stages<D>() * BKV) * (D + 8) * 2;
+  return (BQ + 2 * Layout<D>::STAGES * Layout<D>::BKV) * (D + 8) * 2;
 }
+static_assert(smem_bytes<256>() <= 232448 / 2, "two d = 256 blocks must fit an SM");
 
 // rows [row0, row0 + ROWS) of one head into a [ROWS][D + 8] tile; rows at
 // or past nvalid are zero-filled.
@@ -78,7 +100,9 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out, int HQ, int HKV, int SQ,
              int SKV, Strides qs, Strides ks, Strides vs, int causal, int window,
              float softcap, float scale) {
-  constexpr int STAGES = stages<D>(), LD = D + 8, KD = D / 16, NT = BKV / 8, DT = D / 8;
+  constexpr int BKV = Layout<D>::BKV, STAGES = Layout<D>::STAGES;
+  constexpr bool Q_REGS = Layout<D>::Q_REGS;
+  constexpr int LD = D + 8, KD = D / 16, NT = BKV / 8, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
   bf16* k_s = q_s + BQ * LD;                  // [STAGES][BKV][LD]
@@ -111,10 +135,14 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<STAGES - 1>();  // the Q group has landed
   __syncthreads();
-  uint32_t qf[KD][4];
+  // This lane's ldmatrix row of the warp's Q rows, and the A fragments
+  // (held only where Layout says so).
+  const bf16* q_row = q_s + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[Q_REGS ? KD : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldmatrix_x4(qf[kk], q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_row + kk * 16);
+  }
 
   float o[DT][4];
 #pragma unroll
@@ -139,15 +167,23 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[nt][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) qa[c] = qf[kk][c];
+      } else {
+        ldmatrix_x4(qa, q_row + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];
         ldmatrix_x4(kf, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
                             ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
+    }
 
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -262,5 +298,6 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
   else if (D == 32) go(Int<32>{});
   else if (D == 64) go(Int<64>{});
   else if (D == 128) go(Int<128>{});
+  else if (D == 256) go(Int<256>{});
   return rc;
 }

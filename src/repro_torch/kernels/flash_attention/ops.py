@@ -11,7 +11,8 @@ tensor-core kernel (``csrc/flash_attention_tc.cu``, entry point
 16-byte aligned rows; fp32 to the CUDA-core kernel
 (``csrc/flash_attention.cu``, ``flash_attention_fma``,
 ``flash_attention/fma``), which keeps fp32 products.  Either launch also
-counts once under ``flash_attention``.
+counts once under ``flash_attention``.  Both take head dims 16 to 256
+(d = 256 in a layout of its own in each source).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ _FLASH = {
     "fma": Kernel("flash_attention", "flash_attention_fma", _ARGS,
                   ("flash_attention", "flash_attention/fma")),
 }
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def design(dtype: torch.dtype, d: int) -> str:

@@ -16,8 +16,10 @@ with the uncached forward.  The replay runs under the configured dispatch
 and, when that is not ``ragged``, under ``ragged`` too; the ragged error
 must stay within ``PARITY_BOUND`` = 1e-5, the twin's bound (dropless
 dispatch recomputes and drops nothing, so the paged path differs from the
-forward only by summation order).  ``serve`` and ``decode_parity`` are the
-two halves of ``main``, for callers that run them apart.
+forward only by summation order).  A dense arch (no MoE layer) serves
+without a dispatch and runs the probe once, as "dense", at the same bound.
+``serve`` and ``decode_parity`` are the two halves of ``main``, for
+callers that run them apart.
 
 Before it serves, it prints the serving planner's strategy for the arch at
 production scale (``--chips`` H100s under a ``--slo-ms`` per-token decode
@@ -74,10 +76,12 @@ PARITY_BOUND = 1e-5  # max |dlogits| of the fp32 ragged paged decode
 PLATFORM = H100
 
 
-def parity_probe(lm: LanguageModel, params, layout, seq: np.ndarray, plen: int):
+def parity_probe(lm: LanguageModel, params, layout, seq: np.ndarray, plen: int,
+                 ref: Optional[torch.Tensor] = None):
     """Paged prefill of ``seq[:plen]`` then one decode step per remaining
     token, each step's logits against the uncached forward over ``seq``
-    (fp32 cache).  Returns (max |dlogits|, number of compared steps)."""
+    (fp32 cache; ``ref``, its (1, len(seq), vocab) logits where the caller
+    has them).  Returns (max |dlogits|, number of compared steps)."""
     dev = params["embed"].device
     pool = BlockPool(layout)
     slot = pool.admit(plen)
@@ -89,7 +93,8 @@ def parity_probe(lm: LanguageModel, params, layout, seq: np.ndarray, plen: int):
     toks = torch.from_numpy(seq.astype(np.int64)).to(dev)
     logits, cache = lm.prefill_paged(params, {"tokens": toks[None, :plen]}, cache,
                                      table(), torch.tensor([plen], device=dev))
-    ref, _, _ = lm.forward(params, {"tokens": toks[None]})
+    if ref is None:
+        ref, _, _ = lm.forward(params, {"tokens": toks[None]})
     errs = [(logits[0] - ref[0, plen - 1]).abs().max()]
     for i in range(len(seq) - plen):
         pool.extend(slot, 1)
@@ -100,8 +105,10 @@ def parity_probe(lm: LanguageModel, params, layout, seq: np.ndarray, plen: int):
     return float(torch.stack(errs).max()), len(errs)
 
 
-def _with_dispatch(arch, dispatch: str):
-    if dispatch == arch.moe.dispatch:
+def _with_dispatch(arch, dispatch: Optional[str]):
+    """``arch`` with its MoE layers under ``dispatch``; a dense arch (or no
+    dispatch) as it is."""
+    if arch.moe is None or dispatch is None or dispatch == arch.moe.dispatch:
         return arch
     return arch.replace(moe=dataclasses.replace(arch.moe, dispatch=dispatch))
 
@@ -187,8 +194,9 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = arch.reduced()
-    arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else arch.moe.dispatch))
+    arch = _with_dispatch(arch, args.dispatch or (best.dispatch if best else None))
     source = "--dispatch" if args.dispatch else "the planner's choice" if best else "the arch's"
+    kind = f"moe dispatch {arch.moe.dispatch} ({source})" if arch.moe else "dense"
     model = ranks.mesh_of(args, ranks.world_size())[-1]
     try:
         check_ep(sharding.choose_ep(arch.moe.num_experts if arch.moe else model, model))
@@ -196,8 +204,7 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
         raise SystemExit(f"--mesh {args.mesh}: {e}") from None
     device, mesh = ranks.init(args, arch)
     say(mesh.describe())
-    say(f"[serve] {arch.name} on {device}: moe dispatch {arch.moe.dispatch} ({source}), "
-        f"{args.dtype} weights and cache")
+    say(f"[serve] {arch.name} on {device}: {kind}, {args.dtype} weights and cache")
 
     lm = LanguageModel(arch, mesh)
     max_total = args.prompt_max + args.max_new
@@ -227,7 +234,8 @@ def serve(args: argparse.Namespace) -> Tuple[Dict, ParityCase]:
     prefill_s = _span_seconds(engine, "engine.prefill")
     n_preempt = sum(1 for e in engine.trace if e[0] == "preempt")
     summary = {
-        "arch": arch.name, "dispatch": arch.moe.dispatch, "max_seqs": cfg.max_seqs,
+        "arch": arch.name, **({"dispatch": arch.moe.dispatch} if arch.moe else {}),
+        "max_seqs": cfg.max_seqs,
         "device": str(device), "world": mesh.world, "ep": mesh.ep, "outputs": out,
         "finished": len(out), "requests": len(reqs), "steps": engine.step_no,
         "wall_s": wall, "decode_steps": engine.decode_steps,
@@ -256,7 +264,8 @@ def _telemetry_reports(args, arch, engine, device) -> Dict:
     ``PLATFORM``, and the Chrome trace of the engine's events."""
     events = engine.trace_ring.events()
     setup = rm.ServeSetup(batch=engine.cfg.max_seqs, context=args.context,
-                          prefill_len=args.prefill_len, dispatch=arch.moe.dispatch)
+                          prefill_len=args.prefill_len,
+                          **({"dispatch": arch.moe.dispatch} if arch.moe else {}))
     se = rm.serve_estimate(rm.ModelShape.from_arch(arch), setup, PLATFORM)
     tracker = obs.DriftTracker(rm.modeled_serve_phases(se))
     n = tracker.observe_events(events)
@@ -272,32 +281,41 @@ def _telemetry_reports(args, arch, engine, device) -> Dict:
 
 
 def decode_parity(case: ParityCase, modes: Sequence[str]) -> Dict[str, float]:
-    """Replay ``case`` under each dispatch in ``modes`` with fp32 weights
-    (the serving run's seed) and an fp32 cache; returns max |dlogits| per
-    mode."""
+    """Replay ``case`` under each dispatch in ``modes`` (for a dense arch
+    the one mode "dense") with fp32 weights (the serving run's seed) and an
+    fp32 cache; returns max |dlogits| per mode."""
     params = _weights(case.arch, case.device, case.seed, "float32")
     errs = {}
     for mode in modes:
-        err, n = parity_probe(LanguageModel(_with_dispatch(case.arch, mode)), params,
-                              case.layout, case.seq, case.plen)
+        arch = _with_dispatch(case.arch, None if mode == "dense" else mode)
+        err, n = parity_probe(LanguageModel(arch), params, case.layout, case.seq, case.plen)
         print(f"[parity] paged {mode} decode vs uncached forward: max |dlogits| "
               f"= {err:.3e} over {n} steps")
         errs[mode] = err
     return errs
 
 
+def parity_modes(arch: ArchConfig) -> List[str]:
+    """The probe's modes: the served dispatch, then ragged (the gated one)
+    where that is not it; "dense" alone for a dense arch."""
+    if arch.moe is None:
+        return ["dense"]
+    dispatch = arch.moe.dispatch
+    return [dispatch] + (["ragged"] if dispatch != "ragged" else [])
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     summary, case = serve(parse_args(argv))
     if summary["world"] > 1:
         return summary
-    dispatch = case.arch.moe.dispatch
-    modes = [dispatch] + (["ragged"] if dispatch != "ragged" else [])
+    modes = parity_modes(case.arch)
     for mode, err in decode_parity(case, modes).items():
         summary[f"parity_{mode}"] = err
-    if summary["parity_ragged"] > PARITY_BOUND:
-        raise AssertionError(f"ragged decode parity violated: "
-                             f"{summary['parity_ragged']:.3e} > {PARITY_BOUND}")
-    print(f"[parity] ragged OK (<= {PARITY_BOUND:g})")
+    gated = modes[-1]  # ragged, or dense: no dispatch recomputes or drops a row
+    if summary[f"parity_{gated}"] > PARITY_BOUND:
+        raise AssertionError(f"{gated} decode parity violated: "
+                             f"{summary[f'parity_{gated}']:.3e} > {PARITY_BOUND}")
+    print(f"[parity] {gated} OK (<= {PARITY_BOUND:g})")
     return summary
 
 

@@ -220,10 +220,11 @@ class LanguageModel:
     layer's input; decode: weight-parallel, the batch split over the data
     group when it divides it, :meth:`decode_step_paged`).  ``plan=None`` is one rank.
     Under a pipeline plan (``plan.pp`` > 1) the params hold the rank's
-    stage's chunks too, ``loss`` runs the differentiable pipelined forward
-    and ``loss_and_grads`` the schedule-executing step (``core.pipeline``),
-    each on this rank's rows of every microbatch (``training.shard_batch``);
-    the serving steps and ``forward`` are not pipelined.
+    stage's chunks too, ``loss`` runs the differentiable pipelined forward,
+    ``forward`` the same executor without autograd, and ``loss_and_grads``
+    the schedule-executing step (``core.pipeline``), each on this rank's
+    rows of every microbatch (``training.shard_batch``); the serving steps
+    are not pipelined.
     ``telemetry`` (an ``obs.Telemetry``) gets the MoE layers' ``a2a.layer``
     spans in ``forward`` and ``loss`` (and the pipeline's schedule span and
     instant)."""
@@ -256,9 +257,16 @@ class LanguageModel:
     def _embed(self, params, batch) -> torch.Tensor:
         return self._embed_rows(params["embed"], batch["tokens"])
 
-    @staticmethod
-    def _embed_rows(table, tokens) -> torch.Tensor:
-        return table[tokens.long()]
+    def _embed_rows(self, table, tokens) -> torch.Tensor:
+        """The table's rows of ``tokens``; with ``scale_embeddings`` (gemma2)
+        times sqrt(d_model) rounded to the rows' dtype first, as the
+        reference's ``jnp.asarray(math.sqrt(d_model), x.dtype)`` (59.75 in
+        bf16 at d_model 3584): the product of two values of that dtype,
+        rounded once."""
+        x = table[tokens.long()]
+        if self.arch.scale_embeddings:
+            x = x * torch.tensor(math.sqrt(self.arch.d_model), dtype=x.dtype).item()
+        return x
 
     def _logits(self, w, x) -> torch.Tensor:
         logits = (x @ w.to(x.dtype)).float()
@@ -278,10 +286,10 @@ class LanguageModel:
 
     def forward(self, params, batch):
         """Uncached forward: (logits (b, s, vp) fp32, {"moe_aux_loss",
-        "moe_z_loss"}, expert loads).  Not under a pipeline plan."""
+        "moe_z_loss"}, expert loads).  Under a pipeline plan:
+        :meth:`_pipelined_forward`."""
         if self.pipelined:
-            raise NotImplementedError("forward under a pipeline plan: use loss (the "
-                                      "pipelined forward) or loss_and_grads")
+            return self._pipelined_forward(params, batch)
         params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
@@ -290,6 +298,36 @@ class LanguageModel:
             plan=self.plan, telemetry=self.telemetry)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x), aux, loads
+
+    def _pipelined_forward(self, params, batch):
+        """``forward`` under a pipeline plan, the reference's ``_stack_out``
+        -> ``pipelined_stack_forward``: the port's forward executor without
+        autograd, every layer on its serving path (flash attention, the
+        expert kernels) as in the forward at world 1, on this rank's rows
+        ``batch["tokens"]`` of every microbatch.  The last stage applies the
+        final norm and the head, and its logits reach every rank of its pp
+        group (the reference's SPMD forward gives every device the whole
+        array).  aux and z are their global values: the ranks' terms summed;
+        the expert loads are gathered over the pp group."""
+        from repro_torch.core import pipeline
+
+        plan = self.plan
+        tokens = batch["tokens"]
+        with torch.no_grad():
+            params = self._whole(params)
+            y, aux, z, loads = pipeline.pipelined_stack_forward(
+                params["blocks"], tokens, self.arch, plan, embed_fn=self._embed_rows,
+                embed_params=params["embed"], train=False, telemetry=self.telemetry)
+            if y is not None:
+                logits = self._head(params, rms_norm(y, params["final_norm"],
+                                                     self.arch.norm_eps))
+            else:
+                logits = torch.empty(tokens.shape + (self.vp,), dtype=torch.float32,
+                                     device=tokens.device)
+            torch.distributed.broadcast(logits, src=plan.stage_peer(plan.pp - 1),
+                                        group=plan.pp_group)
+            terms = sharding.all_reduce_(torch.stack([aux, z]), plan.world_group)
+        return logits, {"moe_aux_loss": terms[0], "moe_z_loss": terms[1]}, loads
 
     # -- training loss --------------------------------------------------------
 

@@ -6,9 +6,11 @@
         (``XLA_FLAGS=--xla_force_host_platform_device_count=8``, set by the
         caller): gpipe, 1f1b, 1f1b_overlap and zb_h1 at mesh (4, 1, 1),
         interleaved_1f1b at (2, 1, 1) with V = 2, 1f1b with compress_p2p at
-        (4, 1, 1), and 1f1b at (2, 1, 2) and (2, 2, 2) (cf 16); the chunk
-        layout of ``_stage_block_params``; the int8 helpers on seeded
-        arrays.  Writes inputs, losses, gradients and traces to OUT.npz.
+        (4, 1, 1), and 1f1b at (2, 1, 2) and (2, 2, 2) (cf 16); the
+        pipelined ``LanguageModel.forward`` at (2, 1, 1), flat and with V =
+        2; the chunk layout of ``_stage_block_params``; the int8 helpers on
+        seeded arrays.  Writes inputs, losses, gradients, logits and traces
+        to OUT.npz.
 
     python tests/_torch_pipeline_child.py port REF.npz OUT_DIR
         The port on gloo ranks of this machine's CPU, from the same
@@ -32,6 +34,8 @@ FLAT = ("gpipe", "1f1b", "1f1b_overlap", "zb_h1")
 MESH_EP = {"2,1,2": (8, 32), "2,2,2": (16, 32)}  # mesh -> token batch (b, s)
 INT8_SIZES = (1000, 3 * 7 * 37, 4096 + 5)  # none a multiple of the 256 block
 STAGED = ("blocks/0/ffn/w_up", "blocks/0/mixer/wq", "blocks/0/norm_mixer")
+# The pipelined forward's plans at (2, 1, 1): flat (1f1b) and interleaved.
+FORWARD_PLANS = {"fwd2": {}, "fwd2v": {"schedule": "interleaved_1f1b", "vstages": 2}}
 
 
 def arch_of(get_arch, layers: int = 4, cf: float = 8.0):
@@ -108,6 +112,12 @@ def run_jax(out_path: str) -> None:
     run("pp2/interleaved_1f1b", arch, (2, 1, 1), toks, schedule="interleaved_1f1b",
         vstages=2)
     run("pp4/compress", arch, (4, 1, 1), toks, schedule="1f1b", compress_p2p=True)
+    for tag, kw in FORWARD_PLANS.items():
+        mesh = host_mesh((2, 1, 1), names)
+        lm = LanguageModel(arch, make_plan(mesh, arch, pipeline_on_pod=True, **kw))
+        with mesh:
+            logits, _, loads = jax.jit(lm.forward)(params, {"tokens": jnp.asarray(toks)})
+        out[f"{tag}/logits"], out[f"{tag}/loads"] = np.asarray(logits), np.asarray(loads)
     arch16 = arch_of(get_arch, cf=16.0)
     for mesh, (b, s) in MESH_EP.items():
         run(f"ep/{mesh}", arch16, tuple(int(n) for n in mesh.split(",")), tokens(b, s),
@@ -258,6 +268,31 @@ def _forward_loss(arch, plan, params, batch):
     return float(sharding.all_reduce_(term.clone(), plan.world_group))
 
 
+def _pipelined_forward(res, tag, arch, plan, params, batch):
+    """``LanguageModel.forward`` under ``plan`` on this rank's rows: rank
+    0's logits, aux, z and loads to ``res``, and the largest gap of any
+    rank's logits from the world-1 forward of its rows."""
+    import torch
+
+    from repro_torch import sharding, training
+    from repro_torch.convert import shard_params
+    from repro_torch.models.model import LanguageModel
+
+    toks = torch.as_tensor(training.shard_batch(batch, plan)["tokens"])
+    logits, aux, loads = LanguageModel(arch, plan).forward(shard_params(params, plan),
+                                                           {"tokens": toks})
+    one, aux1, loads1 = LanguageModel(arch).forward(params, {"tokens": toks})
+    gap = (logits - one).abs().max()
+    torch.distributed.all_reduce(gap, op=torch.distributed.ReduceOp.MAX)
+    res[f"{tag}/logits"] = logits.numpy()
+    res[f"{tag}/gap_world1"] = gap.numpy()
+    res[f"{tag}/loads"] = loads.numpy()
+    res[f"{tag}/world1_loads"] = sharding.all_reduce_(loads1.clone(),
+                                                       plan.stage_group).numpy()
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        res[f"{tag}/{k}"] = aux[k].numpy()
+
+
 def _phase_pp4(rank: int, ref):
     import torch
 
@@ -357,6 +392,10 @@ def _phase_pp2(rank: int, ref):
         res[f"staged/pp2/{path}"] = torch.stack(parts).numpy()
     flat_plan = sharding.make_plan(arch, (2, 1, 1), pipeline_on_pod=True)
     res["forward2/loss"] = np.asarray(_forward_loss(arch, flat_plan, params, batch))
+    for tag, kw in FORWARD_PLANS.items():
+        _pipelined_forward(res, tag, arch,
+                           sharding.make_plan(arch, (2, 1, 1), pipeline_on_pod=True, **kw),
+                           params, {"tokens": ref["toks"]})
     _world1(res, "world1", arch, params, batch, rank)
     return res
 
@@ -388,6 +427,7 @@ def _pp_x_ep(res, mesh: str, arch, params, rank: int) -> None:
     wire, moe.WIRE_DTYPE = moe.WIRE_DTYPE, torch.float32
     try:
         _pipelined(res, f"ep32/{mesh}", arch, plan, params, batch, traces=False)
+        _pipelined_forward(res, f"fwd32/{mesh}", arch, plan, params, batch)
     finally:
         moe.WIRE_DTYPE = wire
     _world1(res, f"ep1/{mesh}", arch, params, batch, rank)

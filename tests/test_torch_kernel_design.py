@@ -120,7 +120,8 @@ def test_tile_codes_match_the_cuda_source():
 
 @pytest.mark.parametrize("dtype,d,kind", [
     (BF16, 16, "tc"), (BF16, 32, "tc"), (BF16, 64, "tc"), (BF16, 128, "tc"),
-    (FP32, 16, "fma"), (FP32, 32, "fma"), (FP32, 64, "fma"), (FP32, 128, "fma"),
+    (BF16, 256, "tc"), (FP32, 16, "fma"), (FP32, 32, "fma"), (FP32, 64, "fma"),
+    (FP32, 128, "fma"), (FP32, 256, "fma"),
 ])
 def test_flash_design(dtype, d, kind):
     assert fa_ops.design(dtype, d) == kind
@@ -133,6 +134,8 @@ def test_designs_refuse_what_no_kernel_takes():
         mm_ops.grouped_design(BF16, torch.float64, 8)
     with pytest.raises(ValueError):
         fa_ops.design(BF16, 24)
+    with pytest.raises(ValueError):
+        fa_ops.design(FP32, 512)
     with pytest.raises(ValueError):
         fa_ops.design(torch.float16, 64)
 

@@ -159,7 +159,8 @@ def test_ragged_ffn(counts, activation):
 @pytest.mark.parametrize(
     "b,hq,hkv,s,d,window,cap",
     [(2, 4, 2, 128, 32, None, None), (1, 8, 8, 256, 64, 64, None),
-     (2, 4, 1, 96, 16, None, 50.0), (1, 2, 2, 64, 128, 32, 30.0)],
+     (2, 4, 1, 96, 16, None, 50.0), (1, 2, 2, 64, 128, 32, 30.0),
+     (1, 4, 2, 128, 256, 32, 50.0)],  # gemma2-9b's head dim, window and softcap
 )
 def test_flash_attention(b, hq, hkv, s, d, window, cap, dtype):
     rng = np.random.default_rng(0)

@@ -239,7 +239,8 @@ def test_cuda_calls_never_reach_plain(dev, no_plain):
     "b,hq,hkv,s,d,window,cap",
     [(2, 4, 2, 128, 32, None, None), (1, 8, 8, 256, 64, 64, None),
      (2, 4, 1, 96, 16, None, 50.0), (1, 2, 2, 64, 128, 32, 30.0),
-     (1, 24, 8, 100, 64, None, None), (1, 24, 8, 512, 64, None, None)],
+     (1, 24, 8, 100, 64, None, None), (1, 24, 8, 512, 64, None, None),
+     (1, 16, 8, 512, 256, None, 50.0), (1, 16, 8, 300, 256, 128, 50.0)],
 )
 def test_flash_attention_kernel(dev, b, hq, hkv, s, d, window, cap, dtype):
     rng = np.random.default_rng(1)
@@ -388,7 +389,7 @@ def test_grouped_matmul_tensor_core_designs(dev, M, K, N, xdt, no_plain):
     _close(got, want, **GEMM_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (6, 2), (8, 2)])
 @pytest.mark.parametrize("s,window,cap", [(100, None, None), (130, 40, None),
                                           (64, None, 30.0), (200, 64, 50.0)])
@@ -407,6 +408,28 @@ def test_flash_attention_tensor_core_design(dev, d, hq, hkv, s, window, cap, no_
     f = lambda t: t.transpose(1, 2).float().cpu()  # noqa: E731
     want = _ATTN(f(q), f(k), f(v), window=window, softcap=cap).transpose(1, 2)
     _close(got, want.to(torch.bfloat16), **FA_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (16, 8)])
+@pytest.mark.parametrize("s,window,cap", [(100, None, None), (130, 40, None),
+                                          (200, 64, 50.0), (300, None, 30.0)])
+def test_flash_attention_fma_design_at_head_dim_256(dev, hq, hkv, s, window, cap, no_plain):
+    """fp32 at d = 256 (four threads a query row, 16-key tiles) through
+    the fma kernel, GQA 1 and 2 (gemma2's 16 over 8), window and softcap,
+    the inputs strided views of one fused projection; never the tensor-core
+    kernel."""
+    rng = np.random.default_rng(hq + s)
+    qkv = _t(rng.standard_normal((2, s, hq + 2 * hkv, 256)), torch.float32, dev)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    before = _designs("flash_attention")
+    got = fa_ops.flash_attention(q, k, v, window=window, logit_softcap=cap)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("flash_attention")) == {
+        "flash_attention": 1, "flash_attention/tc": 0, "flash_attention/fma": 1}
+    f = lambda t: t.transpose(1, 2).cpu()  # noqa: E731
+    want = _ATTN(f(q), f(k), f(v), window=window, softcap=cap).transpose(1, 2)
+    assert got.dtype == torch.float32 and got.shape == (2, s, hq, 256)
+    _close(got, want, **FA_TOL[torch.float32])
 
 
 def test_fp32_calls_take_the_fma_designs(dev):

@@ -52,7 +52,8 @@ from repro_torch.obs import validate_chrome_trace
 from repro_torch.optim import OptimizerConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-from _torch_pipeline_child import FLAT, INT8_SIZES, MESH_EP, STAGED, arch_of, int8_inputs
+from _torch_pipeline_child import (FLAT, FORWARD_PLANS, INT8_SIZES, MESH_EP, STAGED, arch_of,
+                                   int8_inputs)
 from test_torch_ep import close_wire
 
 CHILD = Path(__file__).with_name("_torch_pipeline_child.py")
@@ -386,3 +387,37 @@ def test_a_schedule_override_keeps_the_stage_chunks_depth():
 def test_arch_of_is_the_reference_childs():
     a = arch_of(get_arch)
     assert (a.num_layers, a.moe.capacity_factor, a.moe.aux_loss_coef) == (4, 8.0, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# LanguageModel.forward under a pipeline plan
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tag", list(FORWARD_PLANS))
+def test_pipelined_forward_matches_world1_and_reference(runs, tag):
+    """``forward`` at PP 2 (flat, and interleaved at V 2; ep = 1, so no
+    wire): the logits on every rank of the pp group within 1e-5 of the
+    world-1 forward of its rows, rank 0's within 1e-5 of the reference's
+    pipelined forward on fake host devices, and the expert loads equal to
+    both."""
+    ref, res, _, _ = runs
+    assert float(res[f"{tag}/gap_world1"]) <= LOSS_ATOL
+    np.testing.assert_allclose(res[f"{tag}/logits"], ref[f"{tag}/logits"], rtol=0,
+                               atol=LOSS_ATOL)
+    np.testing.assert_array_equal(res[f"{tag}/loads"], ref[f"{tag}/loads"])
+    np.testing.assert_array_equal(res[f"{tag}/loads"], res[f"{tag}/world1_loads"])
+    assert float(res[f"{tag}/moe_aux_loss"]) == 0.0  # the child's arch: aux coefficient 0
+    assert np.isfinite(res[f"{tag}/moe_z_loss"])
+
+
+@pytest.mark.parametrize("mesh", list(MESH_EP))
+def test_pipelined_forward_under_pp_x_ep_matches_world1(runs, mesh):
+    """``forward`` at PP 2 x EP 2 (and x data 2 at (2, 2, 2)), the
+    all-to-all's payload in fp32: every rank's logits within 1e-5 of the
+    world-1 forward of its rows; the expert loads (summed over the stage's
+    ranks) equal world 1's."""
+    _, res, _, _ = runs
+    tag = f"fwd32/{mesh}"
+    assert float(res[f"{tag}/gap_world1"]) <= LOSS_ATOL
+    np.testing.assert_array_equal(res[f"{tag}/loads"], res[f"{tag}/world1_loads"])
