@@ -6,7 +6,8 @@
 With no argument it runs every phase below.  With phase names
 (``PHASES``: kernels, model, small_parity, serving, parity, profile,
 dense_cache, ssm_serving, ssm_parity, ssm_profile, ssm_train, training,
-checkpoint, ep, migrate, pipeline, mesh, memory, archs) it builds the kernels
+checkpoint, ep, migrate, pipeline, mesh, memory, archs, frontend) it builds the
+kernels
 and runs those phases alone, with what they need (parity the serving
 phase, ssm_profile SSM serving, ep training), under the same set-up,
 and prints each phase's seconds instead of the ``kernels`` and ``ok``
@@ -117,15 +118,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    measured step p50 and peak memory.  Then one more step under
    ``torch.profiler``;
 11. checkpoint: ``repro_torch.runtime.trainer.Trainer`` on granite at full
-   width and depth 2 (ragged, batch 2 x 512): runs A and A2, 12 steps
-   each with no checkpoint (the launch counts zeroed before A and read
-   after it, held per step as in phase 10); run B, checkpoints every 4
+   width and depth 2 (ragged, batch 2 x 512): run A, 12 steps with no
+   checkpoint (the launch counts zeroed before it and read after it,
+   held per step as in phase 10); run B, checkpoints every 4
    steps, keep 2, NaN at steps 5-7 (rolled back to 4) and SIGTERM at 10
    (final save), then a fresh trainer on a state from another seed that
    resumes at 10 and ends at 12.  After each restore the live state's
    CRC32s must equal the manifest's; the resumed state and loss must equal
-   A's bit for bit when A2 equals A, and otherwise lie no further from A
-   than A2 does.  A byte flipped in the newest checkpoint must be
+   A's bit for bit, or else a repeat A2 of run A (run only then) decides:
+   bitwise if A2 equals A, else no further from A than A2.  A byte flipped in the newest checkpoint must be
    quarantined and the restore fall back.  Prints the bytes a checkpoint,
    the snapshot, save (CRC and write), verify and restore seconds and
    GB/s, their drift against the H100 model's t_ckpt (and the full-depth
@@ -196,8 +197,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    512, against world 1 at (b)'s gates.  (e) 1f1b with int8 hand-offs, its loss
    within 0.1 of the bf16 hand-offs', the bytes a hand-off beside
    ``resource_model.p2p_bytes_per_boundary``.  (f) ``torchrun
-   --nproc-per-node 2 -m repro_torch.launch.train --mesh 2,1,1 --pipeline``
-   at full width and depth (16 layers a rank), 3 steps: finite losses, a
+   --nproc-per-node 2`` of ``repro_torch.launch.train --mesh 2,1,1
+   --pipeline`` at full width, depth 16 (8 layers a rank; 32 until the
+   budget rule cut it), 3 steps: finite losses, a
    valid trace with two stage lanes, each rank's peak memory beside the
    modeled mem_stage0.  (g) Each schedule's step seconds, bubble fraction
    (``bubble_fraction`` and the IR's idle share), hand-offs and their
@@ -293,6 +295,44 @@ Phases, each printing its own lines; any failure exits non-zero:
    finite logits, every kernel of the dispatch's path launched, none
    through ``/fma``, each kernel's first call at each shape against its
    plain version.  The launch counts of (b)-(d) are this path's.
+18. frontend: the frontend archs and the paper's own configs.  (a)
+   ``flash_attention`` at qwen2-vl-7b's heads (28 over 4, d 128: a GQA
+   group of 7) and musicgen-large's (32 over 32, d 64), causal, s 512 and
+   4096, bf16 ``/tc`` and fp32 ``/fma``, each against its plain version at
+   ``FA_TOL`` and timed beside the bound, the plain version and SDPA; the
+   expert GEMMs at piper-m10b-e16's widths (16 experts top-2, K 5120, N
+   20480; the gelu FFN's up and down projections, grouped at its capacity
+   and ragged, the train pass's dh and both dW pairs) and
+   piper-super-545b's (160 experts top-6, d_ff 3584), each against its
+   plain version at ``GEMM_TOL`` and timed beside the bound, the plain
+   version and the library's one call (``torch.bmm``,
+   ``torch._grouped_mm``); all of (a) in the ``kernels`` line's entries
+   under ``frontend``.  (b) qwen2-vl-7b at full width and depth (28
+   layers, M-RoPE): ``launch.serve.serve`` bf16 on 4 requests of
+   1024-2048 prompt tokens, 8 new each: all finished, no preemption,
+   exactly 28 ``flash_attention/tc`` launches a prefill, none ``/fma``,
+   none in decode; then fp32: request 0's sequence through the paged
+   probe and the dense-cache steps against the uncached forward within
+   ``PARITY_BOUND`` x max(1, the logits' largest magnitude), the forward
+   on ``embeds`` equal to the table's rows of the tokens bitwise the token
+   forward, and seeded random ``embeds`` through a prefill and 8 decode
+   steps fed ``{"embeds": (1, 1, d)}`` alone, against the uncached
+   forward over the same embeds within the same bound.  (c)
+   musicgen-large at full width and depth (48 layers, no positional
+   embedding): ``launch.serve.serve`` bf16, then its fp32 paged probe
+   held as qwen2-vl's, then one ``make_train_step`` step on 2 x 512 seeded
+   embeds in bf16 compute: finite loss and grad norm, none skipped, the
+   untied table's moments exactly 0, no kernel; peak beside the resource
+   model's mem_stage0.  (d) piper-m10b-e16 at full width, depth 1, bf16,
+   under both dispatches: a 1 x 512 prefill and 4 decode steps, launches
+   exactly the derived counts (gelu: two expert launches a MoE layer a
+   pass, no fused gate-up), finite logits; then one forward and backward
+   on 1 x 512 (ragged, fp32 masters, bf16 compute): finite loss and
+   gradients, launches exactly ``GELU_TRAIN_LAUNCHES``.  (e)
+   piper-super-545b at full width, depth 1, as (d)'s serving.  In (b)-(e)
+   each kernel call's first at a shape is held against its plain version
+   and no launch takes ``/fma`` in bf16.  The launch counts of (b)-(e)
+   are this path's.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -457,6 +497,33 @@ def check(name: str, got, want, tol) -> float:
     return err
 
 
+def kernel_row(name, shape, dtype, launch, plain, library, nbytes, ops, err,
+               source, replaces, design=None):
+    """Time one kernel launch beside its plain version, the library call
+    (None: no one call computes it) and the bound; returns its row of the
+    ``kernels`` line.  ``dtype`` labels the row; ``ops`` prices the work
+    for the bound (see ``bound_ms``); ``design`` names the kernel design
+    the launch takes, counted as ``<name>/<design>``.  The row carries no
+    launch count: ``main`` adds the main path's to each kernel's entry."""
+    ms = device_ms(launch)
+    plain_ms = device_ms(plain, reps=5, warmup=1)
+    lib_ms = None
+    if library is not None:
+        try:
+            lib_ms = device_ms(library)
+        except (RuntimeError, TypeError, NotImplementedError) as e:
+            log(f"[time] {name}: library call unavailable ({type(e).__name__}: {e})")
+    b_ms, b_by = bound_ms(nbytes, ops)
+    via = f" via {name}/{design}" if design else ""
+    log(f"[time] {name} {shape} {str(dtype)[6:]}{via}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+        f", bound {b_ms:.4f} ms ({b_by})")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "shape": f"{shape} {str(dtype)[6:]}", "design": design,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -483,29 +550,6 @@ def kernel_phase(dev):
 
     entries = {}
 
-    def report(name, shape, dtype, launch, plain, library, nbytes, ops, err,
-               source, replaces, design=None):
-        """``dtype`` labels the entry; ``ops`` prices the work for the bound
-        (see ``bound_ms``); ``design`` names the kernel design the launch
-        takes, counted as ``<name>/<design>``."""
-        ms = device_ms(launch)
-        plain_ms = device_ms(plain, reps=5, warmup=1)
-        lib_ms = None
-        if library is not None:
-            try:
-                lib_ms = device_ms(library)
-            except (RuntimeError, TypeError, NotImplementedError) as e:
-                log(f"[time] {name}: library call unavailable ({type(e).__name__}: {e})")
-        b_ms, b_by = bound_ms(nbytes, ops)
-        via = f" via {name}/{design}" if design else ""
-        log(f"[time] {name} {shape} {str(dtype)[6:]}{via}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            f", bound {b_ms:.4f} ms ({b_by})")
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "shape": f"{shape} {str(dtype)[6:]}", "design": design, "launches": 0,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib_ms}
-
     # Down-projections take the fp32 hidden activation, as in the model.
     # -- grouped_matmul_f32 (capacity dispatch) ------------------------------
     # Expert capacity C of each prefill bucket the serving phase's 64-512
@@ -524,14 +568,14 @@ def kernel_phase(dev):
                         mm_ref.grouped_matmul_f32(x, w), GEMM_TOL)
             if tag.split()[0] in ("edge", "bucket"):  # checked, not timed
                 continue
-            e = report("grouped_matmul_f32", f"{tag} ({E},{M},{K})x({K},{N})", rate_dtype(x, w),
-                       mm_ops.grouped_matmul_f32_launch(x, w)[1],
-                       lambda: mm_ref.grouped_matmul_f32(x, w),
-                       (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
-                       x.numel() * x.element_size() + w.numel() * w.element_size()
-                       + E * M * N * 4, gemm_ops(2 * E * M * K * N, x.dtype, w.dtype), err,
-                       mm_ops._GROUPED[design].path,
-                       "src/repro/kernels/moe_gemm/moe_gemm.py:67", design)
+            e = kernel_row("grouped_matmul_f32", f"{tag} ({E},{M},{K})x({K},{N})", rate_dtype(x, w),
+                           mm_ops.grouped_matmul_f32_launch(x, w)[1],
+                           lambda: mm_ref.grouped_matmul_f32(x, w),
+                           (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
+                           x.numel() * x.element_size() + w.numel() * w.element_size()
+                           + E * M * N * 4, gemm_ops(2 * E * M * K * N, x.dtype, w.dtype), err,
+                           mm_ops._GROUPED[design].path,
+                           "src/repro/kernels/moe_gemm/moe_gemm.py:67", design)
             if tag == "prefill gate/up" and dtype == torch.bfloat16:
                 entries["grouped_matmul_f32"] = e
 
@@ -555,14 +599,14 @@ def kernel_phase(dev):
         T, (Ec, K_, F_), rows = x.shape[0], wg.shape, int(offs[-1])
         design, _, tile = ragged_via(x, wg).partition("/")
         touched = int((offs[1:] > offs[:-1]).sum())
-        e = report("ragged_gate_up_silu_f32",
-                   f"{tag} ({T},{K_})x2({Ec},{K_},{F_}){f' {tile}' if tile else ''}",
-                   rate_dtype(x, wg), mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
-                   lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
-                   rows * K_ * x.element_size() + 2 * touched * K_ * F_ * wg.element_size()
-                   + 3 * T * F_ * 4, gemm_ops(4 * rows * K_ * F_, x.dtype, wg.dtype), err,
-                   mm_ops._GATE_UP[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:253",
-                   design)
+        e = kernel_row("ragged_gate_up_silu_f32",
+                       f"{tag} ({T},{K_})x2({Ec},{K_},{F_}){f' {tile}' if tile else ''}",
+                       rate_dtype(x, wg), mm_ops.ragged_gate_up_silu_f32_launch(x, wg, wu, offs)[1],
+                       lambda: mm_ref.ragged_gate_up_silu_f32(x, wg, wu, offs), None,
+                       rows * K_ * x.element_size() + 2 * touched * K_ * F_ * wg.element_size()
+                       + 3 * T * F_ * 4, gemm_ops(4 * rows * K_ * F_, x.dtype, wg.dtype), err,
+                       mm_ops._GATE_UP[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:253",
+                       design)
         if grouped_mm and x.dtype == wg.dtype == torch.bfloat16:
             ms = device_ms(lambda: torch.nn.functional.silu(grouped_mm(x, wg, offs=offs[1:]))
                            * grouped_mm(x, wu, offs=offs[1:]))
@@ -576,16 +620,16 @@ def kernel_phase(dev):
         T, (Ec, K_, N_), rows = x.shape[0], w.shape, int(offs[-1])
         design, _, tile = ragged_via(x, w).partition("/")
         touched = int((offs[1:] > offs[:-1]).sum())
-        return report("ragged_matmul_f32",
-                      f"{tag} ({T},{K_})x({Ec},{K_},{N_}){f' {tile}' if tile else ''}",
-                      rate_dtype(x, w), mm_ops.ragged_matmul_f32_launch(x, w, offs)[1],
-                      lambda: mm_ref.ragged_matmul_f32(x, w, offs),
-                      (lambda: grouped_mm(x, w, offs=offs[1:]))
-                      if grouped_mm and x.dtype == w.dtype else None,
-                      rows * K_ * x.element_size() + touched * K_ * N_ * w.element_size()
-                      + T * N_ * 4, gemm_ops(2 * rows * K_ * N_, x.dtype, w.dtype), err,
-                      mm_ops._RAGGED[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:178",
-                      design)
+        return kernel_row("ragged_matmul_f32",
+                          f"{tag} ({T},{K_})x({Ec},{K_},{N_}){f' {tile}' if tile else ''}",
+                          rate_dtype(x, w), mm_ops.ragged_matmul_f32_launch(x, w, offs)[1],
+                          lambda: mm_ref.ragged_matmul_f32(x, w, offs),
+                          (lambda: grouped_mm(x, w, offs=offs[1:]))
+                          if grouped_mm and x.dtype == w.dtype else None,
+                          rows * K_ * x.element_size() + touched * K_ * N_ * w.element_size()
+                          + T * N_ * 4, gemm_ops(2 * rows * K_ * N_, x.dtype, w.dtype), err,
+                          mm_ops._RAGGED[design].path, "src/repro/kernels/moe_gemm/moe_gemm.py:178",
+                          design)
 
     for dtype in (torch.float32, torch.bfloat16):
         for tag, offs in cases:
@@ -653,15 +697,15 @@ def kernel_phase(dev):
                     mm_ops.ragged_dw_f32(x, gr, offs), mm_ref.ragged_dw_f32(x, gr, offs),
                     GEMM_TOL)
         xb, gb = x.to(torch.bfloat16), gr.to(torch.bfloat16)
-        e = report("ragged_dw_f32", f"{tag} T={rows} ({rows},{K_})x({rows},{N_}) fp32 g",
-                   xdt, mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
-                   lambda: mm_ref.ragged_dw_f32(x, gr, offs),
-                   # the library's grouped GEMM with the ragged dimension as
-                   # its contraction (2-D x 2-D), on bf16 operands
-                   (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
-                   rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
-                   gemm_ops(2 * rows * K_ * N_, x.dtype, gr.dtype), err, mm_ops._DW.path,
-                   "src/repro/kernels/moe_gemm/moe_gemm.py:335", "tc")
+        e = kernel_row("ragged_dw_f32", f"{tag} T={rows} ({rows},{K_})x({rows},{N_}) fp32 g",
+                       xdt, mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
+                       lambda: mm_ref.ragged_dw_f32(x, gr, offs),
+                       # the library's grouped GEMM with the ragged dimension as
+                       # its contraction (2-D x 2-D), on bf16 operands
+                       (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm else None,
+                       rows * K_ * x.element_size() + rows * N_ * 4 + E * K_ * N_ * 4,
+                       gemm_ops(2 * rows * K_ * N_, x.dtype, gr.dtype), err, mm_ops._DW.path,
+                       "src/repro/kernels/moe_gemm/moe_gemm.py:335", "tc")
         if xdt == torch.bfloat16:
             entries["ragged_dw_f32"] = e
     for xdt in (torch.float32, torch.bfloat16):
@@ -697,23 +741,23 @@ def kernel_phase(dev):
                 continue
             qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, kk, v))
             sz = q.element_size()
-            e = report("flash_attention", f"b={b} s={s} hq={h1} hkv={h2} d={dh}", dtype,
-                       fa_ops.flash_attention_launch(q, kk, v)[1],
-                       lambda: fa_ref.attention(qc, kc, vc),
-                       lambda: torch.nn.functional.scaled_dot_product_attention(
-                           qc, kc, vc, is_causal=True, enable_gqa=True),
-                       2 * b * s * h1 * dh * sz + 2 * b * s * h2 * dh * sz,
-                       [(4 * b * h1 * dh * s * (s + 1) / 2, dtype)], err,
-                       fa_ops._FLASH[design].path,
-                       "src/repro/kernels/flash_attention/flash_attention.py:103", design)
+            e = kernel_row("flash_attention", f"b={b} s={s} hq={h1} hkv={h2} d={dh}", dtype,
+                           fa_ops.flash_attention_launch(q, kk, v)[1],
+                           lambda: fa_ref.attention(qc, kc, vc),
+                           lambda: torch.nn.functional.scaled_dot_product_attention(
+                               qc, kc, vc, is_causal=True, enable_gqa=True),
+                           2 * b * s * h1 * dh * sz + 2 * b * s * h2 * dh * sz,
+                           [(4 * b * h1 * dh * s * (s + 1) / 2, dtype)], err,
+                           fa_ops._FLASH[design].path,
+                           "src/repro/kernels/flash_attention/flash_attention.py:103", design)
             if s == 512 and dtype == torch.bfloat16:
                 entries["flash_attention"] = e
 
-    entries["ssd_intra_chunk"] = ssd_kernel_checks(dev, g, report)
+    entries["ssd_intra_chunk"] = ssd_kernel_checks(dev, g)
     return entries
 
 
-def ssd_kernel_checks(dev, g, report):
+def ssd_kernel_checks(dev, g):
     """ssd_intra_chunk against its plain version at mamba2-370m's prefill
     shapes and the edge cases, B and C as stride-0 head views (one 1 x 200
     case with per-head B and C); returns the 4 x 2048 bf16 entry.  The
@@ -767,10 +811,10 @@ def ssd_kernel_checks(dev, g, report):
             ops = first if design == "fma" else [
                 (pairs / hh * 2 * nn, torch.bfloat16),
                 *gemm_ops(pairs * 2 * pp, torch.float32, torch.bfloat16)]
-            e = report("ssd_intra_chunk", f"{tag} (g={G},cl={cl},h={hh},p={pp},n={nn})",
-                       dtype, ssd_ops.ssd_intra_chunk_launch(*fold)[1],
-                       lambda: ssd_ref.ssd_intra_chunk(*fold), None, nbytes, ops, err,
-                       ssd_ops._SSD[design].path, "src/repro/kernels/ssd/ssd.py:51", design)
+            e = kernel_row("ssd_intra_chunk", f"{tag} (g={G},cl={cl},h={hh},p={pp},n={nn})",
+                           dtype, ssd_ops.ssd_intra_chunk_launch(*fold)[1],
+                           lambda: ssd_ref.ssd_intra_chunk(*fold), None, nbytes, ops, err,
+                           ssd_ops._SSD[design].path, "src/repro/kernels/ssd/ssd.py:51", design)
             if design == "tc":
                 old_ms, old_by = bound_ms(nbytes, first)
                 log(f"[time] ssd_intra_chunk {tag} bf16: the first version's pricing "
@@ -903,8 +947,8 @@ PATH_KERNELS_JAMBA = ("flash_attention", "ragged_gate_up_silu_f32", "ragged_matm
 
 class _FirstCalls:
     """Within the block, the inputs of the first call of each kernel
-    wrapper of ``PATH_KERNELS_JAMBA`` and of ``grouped_matmul_f32`` at each
-    shape and set of non-tensor keywords (a window, a softcap; ``calls``:
+    wrapper of ``PATH_KERNELS_JAMBA``, of ``grouped_matmul_f32`` and of
+    ``ragged_dw_f32`` (the ragged FFN's backward) at each shape and set of non-tensor keywords (a window, a softcap; ``calls``:
     (name, args, kwargs)), the model's own calls going through unchanged.
     It sees a call only through its module's attribute, so
     ``first_calls_against_plain`` fails a kernel launched with no call
@@ -919,7 +963,7 @@ class _FirstCalls:
 
         self.targets = [(fa_ops, "flash_attention"), (mm_ops, "ragged_gate_up_silu_f32"),
                         (mm_ops, "ragged_matmul_f32"), (ssd_ops, "ssd_intra_chunk"),
-                        (mm_ops, "grouped_matmul_f32")]
+                        (mm_ops, "grouped_matmul_f32"), (mm_ops, "ragged_dw_f32")]
         self.keep = {t.untyped_storage().data_ptr() for t in keep}
         self.calls, self.seen, self.saved = [], set(), []
 
@@ -992,6 +1036,8 @@ def first_calls_against_plain(calls, counts, label: str) -> None:
         elif name == "grouped_matmul_f32":
             pairs = [(mm_ops.grouped_matmul_f32(*a), mm_ref.grouped_matmul_f32(*a))]
             tol = GEMM_TOL
+        elif name == "ragged_dw_f32":
+            pairs, tol = [(mm_ops.ragged_dw_f32(*a), mm_ref.ragged_dw_f32(*a))], GEMM_TOL
         else:
             pairs, tol = [(mm_ops.ragged_matmul_f32(*a), mm_ref.ragged_matmul_f32(*a))], GEMM_TOL
         for i, (got, want) in enumerate(pairs):
@@ -1798,10 +1844,11 @@ def _max_gap(a: dict, b: dict) -> dict:
 
 
 def checkpoint_phase(dev):
-    """Runs A and A2 (12 uninterrupted steps each), run B (checkpoints every
-    4 steps, keep 2, NaN at steps 5-7 -> rollback to 4, SIGTERM at 10 ->
-    final save) and its resume on a state from another seed, then a flipped
-    byte in the newest checkpoint; returns run A's launch counts."""
+    """Run A (12 uninterrupted steps; a repeat A2 only where the resume is
+    not A's bit for bit), run B (checkpoints every 4 steps, keep 2, NaN at
+    steps 5-7 -> rollback to 4, SIGTERM at 10 -> final save) and its resume
+    on a state from another seed, then a flipped byte in the newest
+    checkpoint; returns run A's launch counts."""
     import dataclasses
 
     from repro_torch import kernels, obs
@@ -1857,9 +1904,6 @@ def checkpoint_phase(dev):
     counts = kernels.launch_counts()
     host_a, loss_a = _state_on_host(out_a["state"]), float(out_a["metrics"]["loss"])
     del out_a
-    _, out_a2, _ = run(0)
-    host_a2, loss_a2 = _state_on_host(out_a2["state"]), float(out_a2["metrics"]["loss"])
-    del out_a2
     n_moe = sum(1 for _, ffn in arch.layers if ffn == "moe")
     per_step = {n: counts[n] / CKPT_STEPS for n in TRAIN_LAUNCHES}
     log(f"[checkpoint] {arch.name} full width, depth {CKPT_DEPTH}, batch 2 x 512, ragged: run A "
@@ -1870,11 +1914,6 @@ def checkpoint_phase(dev):
         if counts[name] != k * n_moe * CKPT_STEPS:
             fail(f"checkpoint run A launched {name} {counts[name]} times, expected "
                  f"{k} x {n_moe} MoE layers x {CKPT_STEPS} steps")
-    gap_a2 = _max_gap(host_a2, host_a)
-    deterministic = all(torch.equal(host_a[k], host_a2[k]) for k in host_a) and loss_a == loss_a2
-    log(f"[checkpoint] run A2 against A: bitwise equal {deterministic}, max |gap| {gap_a2}, "
-        f"loss {loss_a2:.9g} vs {loss_a:.9g}")
-    del host_a2
 
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
     try:
@@ -1904,13 +1943,24 @@ def checkpoint_phase(dev):
             fail("checkpoint resume: wrong start or end step")
         host_b, loss_b = _state_on_host(out_r["state"]), float(out_r["metrics"]["loss"])
         gap_b = _max_gap(host_b, host_a)
-        if deterministic:
-            ok = all(torch.equal(host_a[k], host_b[k]) for k in host_a) and loss_b == loss_a
-            rule = "bitwise equal, as A2 is"
-        else:
-            ok = all(gap_b[p] <= gap_a2[p] for p in gap_b) and \
-                abs(loss_b - loss_a) <= abs(loss_a2 - loss_a)
-            rule = "no further from A than A2 is"
+        ok = all(torch.equal(host_a[k], host_b[k]) for k in host_a) and loss_b == loss_a
+        rule = "bitwise equal"
+        if not ok:
+            # A repeat A2 of run A decides: bitwise A's if A2 is, else no
+            # further from A than A2.
+            _, out_a2, _ = run(0)
+            host_a2, loss_a2 = _state_on_host(out_a2["state"]), float(out_a2["metrics"]["loss"])
+            del out_a2
+            gap_a2 = _max_gap(host_a2, host_a)
+            deterministic = (all(torch.equal(host_a[k], host_a2[k]) for k in host_a)
+                             and loss_a == loss_a2)
+            log(f"[checkpoint] run A2 against A: bitwise equal {deterministic}, max |gap| "
+                f"{gap_a2}, loss {loss_a2:.9g} vs {loss_a:.9g}")
+            if not deterministic:
+                ok = all(gap_b[p] <= gap_a2[p] for p in gap_b) and \
+                    abs(loss_b - loss_a) <= abs(loss_a2 - loss_a)
+            rule = "bitwise equal, as A2 is" if deterministic else "no further from A than A2 is"
+            del host_a2
         log(f"[check] checkpoint: resumed run B against A, {rule}: max |gap| {gap_b}, loss "
             f"{loss_b:.9g} vs {loss_a:.9g} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -2994,6 +3044,9 @@ PIPE_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("1f1b_overlap", 1), ("zb_h1", 1),
 PIPE_OP_LAUNCHES = {"F": (1, 1, 0), "B": (2, 5, 3), "Bi": (2, 5, 0), "Bw": (2, 5, 3)}
 PIPE_KERNELS = ("ragged_gate_up_silu_f32", "ragged_matmul_f32", "ragged_dw_f32")
 PATH_KERNELS["pipeline"] = PIPE_KERNELS
+# (f)'s depth: PERF.md's budget rule cut it from 32 layers to 16 (8 a
+# rank) once a whole run passed ~1100 s (1153 s on an H100, PERF.md §6).
+PIPE_LAUNCH_DEPTH = 16
 PIPE_LAUNCH_ARGS = ["--arch", ARCH, "--mesh", "2,1,1", "--pipeline", "--schedule", "1f1b",
                     "--backend", "gloo", "--steps", "3", "--batch", "4", "--seq", "512",
                     "--seed", "0", "--dispatch", "ragged"]
@@ -3252,9 +3305,11 @@ def _pipe_pp_x_ep(rank: int, world: int, tmp: str) -> dict:
 
 
 def pipe_launcher(dev) -> None:
-    """(f) ``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh
-    2,1,1 --pipeline`` at full width and depth: finite losses, a trace with
-    two stage lanes, every rank's peak memory beside the modeled stage-0
+    """(f) ``torchrun --nproc-per-node 2`` of ``repro_torch.launch.train
+    --mesh 2,1,1 --pipeline`` at full width, ``PIPE_LAUNCH_DEPTH`` layers
+    (a wrapper cuts the registry's granite to that depth in the ranks'
+    processes, the launcher unchanged): finite losses, a trace with two
+    stage lanes, every rank's peak memory beside the modeled stage-0
     memory."""
     import os
     import re
@@ -3263,9 +3318,18 @@ def pipe_launcher(dev) -> None:
 
     src = Path(__file__).resolve().parent / "src"
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_launch_"))
+    launcher = tmp / "launch_train.py"
+    launcher.write_text(
+        "import sys\n"
+        "from repro_torch.configs import ARCHS\n"
+        f"ARCHS[{ARCH!r}] = ARCHS[{ARCH!r}].replace(num_layers={PIPE_LAUNCH_DEPTH})\n"
+        "from repro_torch.launch import ranks, train\n"
+        "try:\n"
+        "    train.main(sys.argv[1:])\n"
+        "finally:\n"
+        "    ranks.shutdown()\n")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "2", "-m", "repro_torch.launch.train"] + PIPE_LAUNCH_ARGS + [
-        "--metrics-out", str(tmp / "m.jsonl")]
+           "2", str(launcher)] + PIPE_LAUNCH_ARGS + ["--metrics-out", str(tmp / "m.jsonl")]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -3288,7 +3352,8 @@ def pipe_launcher(dev) -> None:
     ok = (done is not None and int(done.group(1)) == 2 and int(done.group(3)) == 0
           and all(np.isfinite(losses + [float(done.group(2))]))
           and lanes == ["stage 0", "stage 1"])
-    log(f"[check] pipeline launcher (granite full width and depth, 16 layers a rank, PP 2, "
+    log(f"[check] pipeline launcher (granite full width, depth {PIPE_LAUNCH_DEPTH}, "
+        f"{PIPE_LAUNCH_DEPTH // 2} layers a rank, PP 2, "
         f"1f1b, gloo): 3 steps, skipped 0 (the sentinel: every step's loss and grad norm "
         f"finite), logged losses {losses + [float(done.group(2)) if done else None]}, trace "
         f"valid with lanes {lanes} {'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
@@ -3299,7 +3364,7 @@ def pipe_launcher(dev) -> None:
 def pipeline_phase(dev):
     """Phase 14: (a) the ragged kernels at the microbatch shape; (b), (c),
     (e), (g) two gloo ranks sharing the card; (d) four; (f) the launcher at
-    full depth.  Returns the two ranks' summed launch counts of (b)'s steps."""
+    depth ``PIPE_LAUNCH_DEPTH``.  Returns the two ranks' summed launch counts of (b)'s steps."""
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
@@ -5014,6 +5079,582 @@ def archs_phase(dev):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the frontend archs and the paper's own configs
+# ---------------------------------------------------------------------------
+
+QWEN, MUSICGEN = "qwen2-vl-7b", "musicgen-large"
+M10B, SUPER = "piper-m10b-e16", "piper-super-545b"
+# (a) flash attention at qwen2-vl's heads (28 over 4, d 128: a GQA group
+# of 7) and musicgen's (32 over 32, d 64), causal, no window or softcap.
+FRONTEND_FA_SEQS = (512, 4096)
+# (b) qwen2-vl bf16 serving: 4 requests of 1024-2048 prompt tokens, 8 new
+# tokens each, blocks enough for all four at once.
+QWEN_SERVE_ARGS = ["--arch", QWEN, "--requests", "4", "--prompt-min", "1024",
+                   "--prompt-max", "2048", "--max-new", "8", "--max-seqs", "4",
+                   "--block-size", "16", "--num-blocks", "600", "--seed", "0"]
+# (c) musicgen: 4 requests of 64-512 prompt tokens, 8 new; one train step
+# on 2 x 512 seeded embeds.
+MUSICGEN_SERVE_ARGS = ["--arch", MUSICGEN, "--requests", "4", "--prompt-min", "64",
+                       "--prompt-max", "512", "--max-new", "8", "--max-seqs", "4",
+                       "--block-size", "16", "--num-blocks", "256", "--seed", "0"]
+MUSICGEN_TRAIN = (2, 512)
+# (d), (e) the paper's configs at full width, depth 1: a 1 x 512 prefill
+# and 4 decode steps under each dispatch; M10B also a 1 x 512 forward and
+# backward (ragged, bf16 compute).
+PIPER_PREFILL, PIPER_DECODE = 512, 4
+# A MoE layer's ragged launches in one train pass under remat "full" with
+# the 2-matrix gelu expert FFN (``RaggedFFN``): the forward's up and down
+# GEMMs, again in the recompute, then dh and dx; dW_down and dW_up.  No
+# fused gate-up (SwiGLU's (2, 5, 3) is ``TRAIN_LAUNCHES``).
+GELU_TRAIN_LAUNCHES = {"ragged_gate_up_silu_f32": 0, "ragged_matmul_f32": 6,
+                       "ragged_dw_f32": 2}
+PATH_KERNELS["frontend"] = ("flash_attention", "grouped_matmul_f32",
+                            "ragged_gate_up_silu_f32", "ragged_matmul_f32", "ragged_dw_f32")
+
+
+def moe_serve_launches(arch, passes: int) -> dict:
+    """The expert kernels' launches of ``passes`` serving passes (a prefill
+    or a decode step each) of ``arch``: a MoE layer a pass takes one
+    grouped launch a matrix under capacity (three for SwiGLU, two for
+    gelu); under ragged, SwiGLU's fused gate-up and its down projection,
+    gelu's up and down projections."""
+    n = arch.num_moe_layers * passes
+    swiglu = arch.ffn_activation == "swiglu"
+    if arch.moe.dispatch == "capacity":
+        return {"grouped_matmul_f32": (3 if swiglu else 2) * n,
+                "ragged_gate_up_silu_f32": 0, "ragged_matmul_f32": 0}
+    return {"grouped_matmul_f32": 0, "ragged_gate_up_silu_f32": n if swiglu else 0,
+            "ragged_matmul_f32": n if swiglu else 2 * n}
+
+
+def frontend_flash_checks(dev) -> list:
+    """(a) ``flash_attention`` at qwen2-vl's and musicgen's heads against its
+    plain version (bf16 ``/tc``, fp32 ``/fma``; q, k, v strided views of one
+    fused projection) at each of ``FRONTEND_FA_SEQS``, timed beside the
+    bound, the plain version and SDPA; returns one row a case."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    _, randn, _ = seeded_inputs(dev, 1, 1, seed=27)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name in (QWEN, MUSICGEN):
+        arch = get_arch(name)
+        hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.head_dim
+        for dtype in (torch.bfloat16, torch.float32):
+            for s in FRONTEND_FA_SEQS:
+                qkv = randn(1, s, hq + 2 * hkv, d, dtype=dtype)
+                q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+                design = fa_ops.design(dtype, d)
+                shape = f"{name} b=1 s={s} hq={hq} hkv={hkv} d={d}"
+                want = fa_ref.attention(*(t.transpose(1, 2).float() for t in (q, k, v))
+                                        ).transpose(1, 2).to(dtype)
+                err = check(f"frontend flash_attention {shape} {dtype} via {design}",
+                            fa_ops.flash_attention(q, k, v), want, FA_TOL[dtype])
+                del want
+                qc, kc, vc = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                rows.append(kernel_row(
+                    "flash_attention", shape, dtype, fa_ops.flash_attention_launch(q, k, v)[1],
+                    lambda: fa_ref.attention(qc, kc, vc),
+                    lambda: sdpa(qc, kc, vc, is_causal=True, enable_gqa=True),
+                    2 * s * (hq + hkv) * d * q.element_size(),
+                    [(4 * hq * d * s * (s + 1) / 2, dtype)], err, fa_ops._FLASH[design].path,
+                    "src/repro/kernels/flash_attention/flash_attention.py:103", design))
+                del qkv, q, k, v, qc, kc, vc
+                torch.cuda.empty_cache()
+    return rows
+
+
+def frontend_gemm_rows(dev) -> dict:
+    """The expert GEMMs at the paper's widths, each against its plain
+    version (``GEMM_TOL``) and timed beside the bound, the plain version
+    and the library's one call: M10B-E16's gelu up and down projections
+    (K 5120, N 20480; 16 experts top-2) over a 512-token prefill, grouped
+    at its capacity and ragged, and the train pass's dh and both dW pairs;
+    super-545b's (160 experts top-6, d_ff 3584: ~19 rows an expert) grouped
+    gate/up and down, ragged fused gate-up and down.  Returns {kernel:
+    rows}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.moe_gemm import ops as mm_ops
+    from repro_torch.kernels.moe_gemm import ref as mm_ref
+    from repro_torch.models.moe import _capacity
+
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows: dict = {}
+
+    def add(row):
+        rows.setdefault(row["name"], []).append(row)
+
+    for name in (M10B, SUPER):
+        arch = get_arch(name)
+        d, f, E, k = arch.d_model, arch.moe.d_ff, arch.moe.num_experts, arch.moe.top_k
+        _, randn, routed_offsets = seeded_inputs(dev, E, k, seed=28)
+        C = _capacity(PIPER_PREFILL, arch.moe)
+        # grouped (capacity): gate/up d -> f on bf16 rows, down f -> d on fp32 h
+        for K_, N_, xdt, tag in ((d, f, bf16, "gate/up"), (f, d, f32, "down")):
+            x, w = randn(E, C, K_, dtype=xdt), randn(E, K_, N_, scale=K_ ** -0.5, dtype=bf16)
+            design = mm_ops.grouped_design(x.dtype, w.dtype, C)
+            shape = f"{name} prefill {tag} ({E},{C},{K_})x({K_},{N_})"
+            err = check(f"frontend grouped_matmul_f32 {shape} via {design}",
+                        mm_ops.grouped_matmul_f32(x, w), mm_ref.grouped_matmul_f32(x, w),
+                        GEMM_TOL)
+            add(kernel_row("grouped_matmul_f32", shape, rate_dtype(x, w),
+                           mm_ops.grouped_matmul_f32_launch(x, w)[1],
+                           lambda: mm_ref.grouped_matmul_f32(x, w),
+                           (lambda: torch.bmm(x, w)) if x.dtype == w.dtype else None,
+                           x.numel() * x.element_size() + w.numel() * 2 + E * C * N_ * 4,
+                           gemm_ops(2 * E * C * K_ * N_, x.dtype, w.dtype), err,
+                           mm_ops._GROUPED[design].path,
+                           "src/repro/kernels/moe_gemm/moe_gemm.py:67", design))
+            del x, w
+        # ragged: T*k rows of a 512-token prefill
+        offs = routed_offsets(PIPER_PREFILL)
+        T = int(offs[-1])
+        touched = int((offs[1:] > offs[:-1]).sum())
+        cases = [(d, f, bf16, "up" if arch.ffn_activation == "gelu" else "gate/up"),
+                 (f, d, f32, "down")]
+        if arch.ffn_activation == "gelu":
+            cases.append((d, f, f32, "train dh"))
+        for K_, N_, xdt, tag in cases:
+            x, w = randn(T, K_, dtype=xdt), randn(E, K_, N_, scale=K_ ** -0.5, dtype=bf16)
+            design = mm_ops.ragged_design(x.dtype, w.dtype, T / E)
+            shape = f"{name} {tag} T={T} ({T},{K_})x({E},{K_},{N_})"
+            if tag == "gate/up":
+                wu = randn(E, K_, N_, scale=K_ ** -0.5, dtype=bf16)
+                errs = [check(f"frontend ragged_gate_up_silu_f32 {shape} {n} via {design}",
+                              a, b, GEMM_TOL)
+                        for n, a, b in zip(("h", "a_g", "a_u"),
+                                           mm_ops.ragged_gate_up_silu_f32(x, w, wu, offs),
+                                           mm_ref.ragged_gate_up_silu_f32(x, w, wu, offs))]
+                add(kernel_row("ragged_gate_up_silu_f32", shape, rate_dtype(x, w),
+                               mm_ops.ragged_gate_up_silu_f32_launch(x, w, wu, offs)[1],
+                               lambda: mm_ref.ragged_gate_up_silu_f32(x, w, wu, offs), None,
+                               T * K_ * 2 + 2 * touched * K_ * N_ * 2 + 3 * T * N_ * 4,
+                               gemm_ops(4 * T * K_ * N_, x.dtype, w.dtype), max(errs),
+                               mm_ops._GATE_UP[design].path,
+                               "src/repro/kernels/moe_gemm/moe_gemm.py:253", design))
+                if grouped_mm:
+                    ms = device_ms(lambda: torch.nn.functional.silu(
+                        grouped_mm(x, w, offs=offs[1:])) * grouped_mm(x, wu, offs=offs[1:]))
+                    log(f"[time] ragged_gate_up_silu_f32 {shape}: two torch._grouped_mm + "
+                        f"SiLU {ms:.4f} ms (informative: three calls, bf16 out)")
+                del wu
+            else:
+                err = check(f"frontend ragged_matmul_f32 {shape} {xdt} via {design}",
+                            mm_ops.ragged_matmul_f32(x, w, offs),
+                            mm_ref.ragged_matmul_f32(x, w, offs), GEMM_TOL)
+                add(kernel_row("ragged_matmul_f32", shape, rate_dtype(x, w),
+                               mm_ops.ragged_matmul_f32_launch(x, w, offs)[1],
+                               lambda: mm_ref.ragged_matmul_f32(x, w, offs),
+                               (lambda: grouped_mm(x, w, offs=offs[1:]))
+                               if grouped_mm and x.dtype == w.dtype else None,
+                               T * K_ * x.element_size() + touched * K_ * N_ * 2 + T * N_ * 4,
+                               gemm_ops(2 * T * K_ * N_, x.dtype, w.dtype), err,
+                               mm_ops._RAGGED[design].path,
+                               "src/repro/kernels/moe_gemm/moe_gemm.py:178", design))
+            del x, w
+            torch.cuda.empty_cache()
+        if arch.ffn_activation != "gelu":
+            continue
+        # the train pass's weight gradients: (bf16 x, fp32 da) for dW_up,
+        # (fp32 h, fp32 dy) for dW_down
+        for xdt, K_, N_, tag in ((bf16, d, f, "dW_up"), (f32, f, d, "dW_down")):
+            x, gr = randn(T, K_, dtype=xdt), randn(T, N_, scale=1e-2)
+            shape = f"{name} {tag} T={T} ({T},{K_})x({T},{N_})"
+            got = mm_ops.ragged_dw_f32(x, gr, offs)
+            err = check(f"frontend ragged_dw_f32 {shape} {xdt}xfp32 via tc", got,
+                        mm_ref.ragged_dw_f32(x, gr, offs), GEMM_TOL)
+            del got
+            torch.cuda.empty_cache()
+            xb, gb = x.to(bf16), gr.to(bf16)
+            add(kernel_row("ragged_dw_f32", shape + " fp32 g", xdt,
+                           mm_ops.ragged_dw_f32_launch(x, gr, offs)[1],
+                           lambda: mm_ref.ragged_dw_f32(x, gr, offs),
+                           (lambda: grouped_mm(xb.t(), gb, offs=offs[1:])) if grouped_mm
+                           else None,
+                           T * K_ * x.element_size() + T * N_ * 4 + E * K_ * N_ * 4,
+                           gemm_ops(2 * T * K_ * N_, x.dtype, gr.dtype), err, mm_ops._DW.path,
+                           "src/repro/kernels/moe_gemm/moe_gemm.py:335", "tc"))
+            del x, gr, xb, gb
+            torch.cuda.empty_cache()
+    return rows
+
+
+def frontend_qwen(dev, counts: dict) -> None:
+    """(b) qwen2-vl-7b at full width and depth: bf16 serving through
+    ``launch.serve.serve`` (all finished, no preemption, exactly one
+    ``flash_attention/tc`` launch an attention layer a prefill, none in
+    decode, no ``/fma``); then fp32, request 0's sequence through the
+    launcher's paged probe and through ``make_prefill_step`` /
+    ``make_decode_step`` against the uncached forward within
+    ``PARITY_BOUND`` x max(1, the logits' largest magnitude); the forward
+    on ``embeds`` set to the table's rows of the same tokens, bitwise the
+    token forward; seeded random ``embeds``: a prefill, then 8 decode
+    steps fed ``{"embeds": (1, 1, d)}`` alone, against the uncached
+    forward over the same embeds, within the same bound.  Each flash
+    call's first at a shape is held against its plain version."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import mrope_sections
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        summ, case = serve.serve(serve.parse_args(QWEN_SERVE_ARGS))
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add_counts(counts, c)
+    arch = case.arch
+    n_attn, prefills = arch.num_attn_layers, summ["requests"] + summ["preemptions"]
+    log(f"[frontend] {QWEN} full width and depth ({arch.total_params() / 1e9:.3f} B params, "
+        f"{n_attn} attention layers, {arch.num_heads} query heads over {arch.num_kv_heads}, "
+        f"M-RoPE sections {mrope_sections(arch.head_dim)}), bf16, paged: "
+        f"{summ['finished']}/{summ['requests']} requests finished, prompts "
+        f"{summ['prefill_tokens']} tokens, prefill mean {summ['prefill_ms_mean']:.2f} ms, "
+        f"decode step p50 {summ['decode_step_p50_ms']:.2f} ms, {summ['decode_tok_s']:.1f} "
+        f"tokens/s, {summ['preemptions']} preemptions, peak torch.cuda.max_memory_allocated "
+        f"{peak:.2f} GB")
+    log(f"[frontend] {QWEN} designs {check_designs(c, QWEN + ' serving')}")
+    want = {"flash_attention": n_attn * prefills, "flash_attention/tc": n_attn * prefills,
+            "flash_attention/fma": 0}
+    got = {n: c[n] for n in want}
+    others = {n: v for n, v in c.items() if v and not n.startswith("flash_attention")}
+    ok = (summ["finished"] == summ["requests"] and summ["preemptions"] == 0 and got == want
+          and not others)
+    log(f"[check] frontend {QWEN} serving: launches {got}, want {n_attn} /tc a prefill x "
+        f"{prefills} prefills and none in decode ({want}); other kernels {others} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{QWEN} serving: requests, preemptions or flash launches are off")
+    first_calls_against_plain(first.calls, c, f"{QWEN} bf16 serving")
+    del first
+
+    params = serve._weights(arch, dev, case.seed, "float32")
+    lm = LanguageModel(arch)
+    seq, plen = case.seq, case.plen
+    toks = torch.from_numpy(seq.astype(np.int64)).to(dev)
+    prefill = make_prefill_step(lm, torch.float32)
+    decode = make_decode_step(lm, torch.float32)
+    lp = plen - 1  # the dense cache decodes the prompt's last token too: 8 steps
+    g = torch.Generator(device=dev).manual_seed(27)
+    emb = torch.randn((1, len(seq), arch.d_model), generator=g, device=dev) * float(
+        params["embed"].std())
+
+    def dense(batch_of, ref):
+        """Prefill ``lp`` positions, then a decode step a position, each
+        step's logits against ``ref``'s; returns (max |dlogits|, steps)."""
+        logits, cache = prefill(params, batch_of(slice(0, lp)))
+        cache = lm.pad_cache(cache, len(seq))
+        errs = [float((logits[0] - ref[0, lp - 1]).abs().max())]
+        for i in range(len(seq) - lp):
+            logits, cache = decode(params, cache, batch_of(slice(lp + i, lp + i + 1)), lp + i)
+            errs.append(float((logits[0] - ref[0, lp + i]).abs().max()))
+        return max(errs), len(errs)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _FirstCalls() as first:
+        with torch.no_grad():
+            full, _, _ = lm.forward(params, {"tokens": toks[None]})
+            rows, _, _ = lm.forward(params, {"embeds": params["embed"][toks[None]]})
+            bitwise = torch.equal(rows, full)
+            del rows
+            ref_e, _, _ = lm.forward(params, {"embeds": emb})
+        layout = dataclasses.replace(case.layout, max_seqs=1,
+                                     num_blocks=-(-len(seq) // case.layout.block_size) + 1)
+        err_p, n_p = serve.parity_probe(lm, params, layout, seq, plen, ref=full)
+        err_d, n_d = dense(lambda sl: {"tokens": toks[None, sl]}, full)
+        err_e, n_e = dense(lambda sl: {"embeds": emb[:, sl]}, ref_e)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    scale = max(1.0, float(full[..., :arch.vocab_size].abs().max()),
+                float(ref_e[..., :arch.vocab_size].abs().max()))
+    bound = serve.PARITY_BOUND * scale
+    # three uncached forwards and three prefills (paged, dense on tokens,
+    # dense on embeds), one /fma launch an attention layer each
+    want = {"flash_attention/fma": 6 * n_attn, "flash_attention/tc": 0}
+    got = {n: c[n] for n in want}
+    log(f"[check] frontend {QWEN} fp32 ({secs:.1f} s in all): forward on embeds = the table's "
+        f"rows of the tokens bitwise the token forward ({bitwise}); flash launches {got}, "
+        f"want {want} {'ok' if bitwise and got == want else 'FAIL'}")
+    if not bitwise or got != want:
+        fail(f"{QWEN} fp32: the embeds forward is not the token forward, or flash launches "
+             f"are off")
+    for what, err, n in (("paged (launch.serve.parity_probe)", err_p, n_p),
+                         ("dense cache (make_prefill_step / make_decode_step)", err_d, n_d),
+                         ("dense cache on seeded random embeds, decode fed embeds only",
+                          err_e, n_e)):
+        ok = err <= bound
+        log(f"[parity] {QWEN} fp32 full width and depth, {what}: prefill {len(seq) - n + 1} "
+            f"+ {n - 1} decode steps vs the uncached forward over {len(seq)}: max |dlogits| = "
+            f"{err:.3e} (gate {serve.PARITY_BOUND:g} x max(1, {scale:.4f}) = {bound:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{QWEN} fp32 {what} disagrees with the uncached forward")
+    del params, full, ref_e, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_calls_against_plain(first.calls, c, f"{QWEN} fp32 forwards and prefills")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_musicgen(dev, counts: dict) -> None:
+    """(c) musicgen-large at full width and depth: ``launch.serve.serve``
+    in bf16, then request 0's sequence in fp32 through the launcher's paged
+    ``parity_probe`` against the uncached forward within ``PARITY_BOUND``
+    x max(1, the logits' largest magnitude), as gemma2-9b is held
+    (``serve.main``'s absolute 1e-5 fails at this depth: 1.144e-05 on an
+    H100, fp32 rounding: the uncached fp32 forward itself lies 1.102e-05
+    from a float64 one, where paged and uncached agree to 1.8e-14,
+    ``scripts/port_parity_witness.py``, PERF.md §6); each flash call's
+    first at a shape held against its plain version.  Then one ``make_train_step`` step on 2 x
+    512 seeded ``embeds`` and labels in bf16 compute: finite loss and grad
+    norm, nothing skipped, the untied ``embed`` table's first and second
+    moments exactly 0 (its gradient 0: no lookup), no kernel launched."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import init_state, make_train_step
+
+    arch = get_arch(MUSICGEN)
+    kernels.reset_launch_counts()
+    with _FirstCalls() as first:
+        summ, case = serve.serve(serve.parse_args(MUSICGEN_SERVE_ARGS))
+        params = serve._weights(arch, dev, case.seed, "float32")
+        lm = LanguageModel(arch)
+        toks = torch.from_numpy(case.seq.astype(np.int64)).to(dev)
+        with torch.no_grad():
+            full, _, _ = lm.forward(params, {"tokens": toks[None]})
+        layout = dataclasses.replace(case.layout, max_seqs=1,
+                                     num_blocks=-(-len(case.seq) // case.layout.block_size) + 1)
+        err, n = serve.parity_probe(lm, params, layout, case.seq, case.plen, ref=full)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    scale = max(1.0, float(full[..., :arch.vocab_size].abs().max()))
+    bound = serve.PARITY_BOUND * scale
+    del params, full
+    n_attn, prefills = arch.num_attn_layers, summ["requests"] + summ["preemptions"]
+    # bf16 prefills take /tc; the fp32 forward and the probe's prefill /fma
+    want = {"flash_attention/tc": n_attn * prefills, "flash_attention/fma": 2 * n_attn}
+    got = {n: c[n] for n in want}
+    ok = (summ["finished"] == summ["requests"] and summ["preemptions"] == 0 and got == want
+          and err <= bound)
+    log(f"[frontend] {MUSICGEN} full width and depth ({arch.total_params() / 1e9:.3f} B "
+        f"params, {arch.num_heads} heads of {arch.head_dim}, no positional embedding), bf16, "
+        f"paged: {summ['finished']}/{summ['requests']} requests finished, decode step p50 "
+        f"{summ['decode_step_p50_ms']:.2f} ms, {summ['decode_tok_s']:.1f} tokens/s, prefill "
+        f"mean {summ['prefill_ms_mean']:.2f} ms")
+    log(f"[parity] {MUSICGEN} fp32 full width and depth, paged (launch.serve.parity_probe): "
+        f"prefill {case.plen} + {n - 1} decode steps vs the uncached forward over "
+        f"{len(case.seq)}: max |dlogits| = {err:.3e} (gate {serve.PARITY_BOUND:g} x max(1, "
+        f"{scale:.4f}) = {bound:.3e})")
+    log(f"[check] frontend {MUSICGEN} serving: all finished, no preemption, fp32 parity, "
+        f"flash launches {got}, want {want} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{MUSICGEN} serving: requests, parity or flash launches are off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_calls_against_plain(first.calls, c, f"{MUSICGEN} bf16 serving and fp32 probe")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lm = LanguageModel(arch)
+    b, s = MUSICGEN_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(lm, torch.Generator(device=dev).manual_seed(0), dev)
+    g = torch.Generator(device=dev).manual_seed(28)
+    batch = {"embeds": torch.randn((b, s, arch.d_model), generator=g, device=dev) * float(
+                 state["params"]["embed"].std()),
+             "labels": torch.randint(0, arch.vocab_size, (b, s), generator=g, device=dev)}
+    step = make_train_step(lm, OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=2))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    launched = {n: v for n, v in c.items() if v}
+    zero = not state["m"]["embed"].any() and not state["v"]["embed"].any()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    modeled = _mem_modeled_gb(arch, b, s, "full")
+    ok = (np.isfinite(loss) and np.isfinite(gnorm) and m["skipped"] == 0 and zero
+          and not launched)
+    log(f"[frontend] {MUSICGEN} train step on {b} x {s} seeded embeds, bf16 compute: loss "
+        f"{loss:.4f}, grad norm {gnorm:.4f}, {m['skipped']} skipped, {secs:.2f} s (the "
+        f"first step), peak torch.cuda.max_memory_allocated {peak:.2f} GB beside the resource "
+        f"model's mem_stage0 {modeled:.2f} GB")
+    log(f"[check] frontend {MUSICGEN} training: finite loss and grad norm, 0 skipped, the "
+        f"embed table's moments exactly 0 ({zero}), kernel launches {launched} (want none) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{MUSICGEN} training on embeds: a non-finite loss, a skip, an embedding "
+             f"gradient or a kernel launch")
+    del state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_piper(dev, counts: dict, name: str, train: bool) -> None:
+    """(d), (e) ``name`` at full width, depth 1: under each dispatch a 1 x
+    512 prefill and 4 greedy decode steps through ``make_prefill_step`` /
+    ``make_decode_step`` (finite logits, the expert kernels' launches
+    exactly ``moe_serve_launches``', flash once a prefill, no ``/fma``);
+    with ``train`` one forward and backward on 1 x 512 (ragged, fp32
+    masters, bf16 compute, no optimizer step: finite loss and gradients,
+    launches exactly ``GELU_TRAIN_LAUNCHES``).  Each kernel's first call at
+    each shape is held against its plain version."""
+    import dataclasses
+    import gc
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import LanguageModel, init_params, tree_paths
+    from repro_torch.training import loss_and_grads, make_decode_step, make_prefill_step
+
+    base = get_arch(name).replace(num_layers=1)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(0), dev, torch.bfloat16)
+    weights = [t for t in tree_paths(params).values() if t.is_floating_point()]
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, base.vocab_size,
+                                                              (1, PIPER_PREFILL + 1)))
+    moe = base.moe
+    desc = (f"{name} full width, depth 1 ({base.total_params() / 1e9:.3f} B params; "
+            f"{moe.num_experts} experts top-{moe.top_k}, expert d_ff {moe.d_ff}, "
+            f"{base.ffn_activation})")
+    for mode in SERVE_MODES:
+        arch = base.replace(moe=dataclasses.replace(moe, dispatch=mode))
+        lm = LanguageModel(arch)
+        prefill, decode = make_prefill_step(lm), make_decode_step(lm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with _FirstCalls(keep=weights) as first:
+            logits, cache = prefill(params, {"tokens": toks[:, :PIPER_PREFILL]})
+            cache = lm.pad_cache(cache, PIPER_PREFILL + PIPER_DECODE)
+            finite = bool(torch.isfinite(logits[..., :arch.vocab_size]).all())
+            for i in range(PIPER_DECODE):
+                logits, _ = decode(params, cache, {"tokens": logits.argmax(-1, keepdim=True)},
+                                   PIPER_PREFILL + i)
+                finite &= bool(torch.isfinite(logits[..., :arch.vocab_size]).all())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        _add_counts(counts, c)
+        want = {**moe_serve_launches(arch, 1 + PIPER_DECODE),
+                "flash_attention": arch.num_attn_layers, "ragged_dw_f32": 0}
+        got = {n: c[n] for n in want}
+        log(f"[frontend] {desc}, {mode}, bf16: 1 x {PIPER_PREFILL} prefill and "
+            f"{PIPER_DECODE} decode steps in {secs:.2f} s, peak "
+            f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"[frontend] {name} {mode} designs {check_designs(c, f'{name} {mode}')}")
+        ok = finite and got == want
+        log(f"[check] frontend {name} {mode} serving: logits finite, launches {got}, want "
+            f"{want} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} {mode}: non-finite logits or launches off the derived counts")
+        del cache, logits
+        first_calls_against_plain(first.calls, c, f"{name} depth 1 {mode} serving")
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not train:
+        return
+    arch = base.replace(moe=dataclasses.replace(moe, dispatch="ragged"))
+    lm = LanguageModel(arch)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev, torch.float32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _FirstCalls() as first:
+        loss, _, grads = loss_and_grads(lm, params, batch, torch.bfloat16)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_paths(grads).values() if g is not None)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    c = kernels.launch_counts()
+    _add_counts(counts, c)
+    want = {n: v * arch.num_moe_layers for n, v in GELU_TRAIN_LAUNCHES.items()}
+    got = {n: c[n] for n in want}
+    log(f"[frontend] {desc}, ragged, fp32 masters, bf16 compute: a 1 x {PIPER_PREFILL} "
+        f"forward and backward (remat full) in {secs:.2f} s, loss {float(loss):.4f}, peak "
+        f"torch.cuda.max_memory_allocated {peak:.2f} GB")
+    log(f"[frontend] {name} train designs {check_designs(c, f'{name} train')}")
+    ok = finite and got == want and c["flash_attention"] == 0
+    log(f"[check] frontend {name} train pass: loss and every gradient finite, launches {got}, "
+        f"want {want} (gelu: no fused gate-up; forward, recompute, dh and dx ragged; dW_down "
+        f"and dW_up) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} train pass: non-finite values or launches off the derived counts")
+    del params, grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    first_calls_against_plain(first.calls, c, f"{name} depth 1 train pass")
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def frontend_phase(dev):
+    """The frontend archs and the paper's configs (phase 18): (a) flash
+    attention at qwen2-vl's and musicgen's heads, then the expert GEMMs at
+    M10B's and super-545b's widths; (b) qwen2-vl-7b; (c) musicgen-large;
+    (d) piper-m10b-e16 at depth 1; (e) piper-super-545b at depth 1.
+    Returns (the launch counts of (b)-(e)'s runs, (a)'s rows by kernel)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = frontend_gemm_rows(dev)
+    rows["flash_attention"] = frontend_flash_checks(dev)
+    done_at = [("a", time.perf_counter() - t0)]
+    counts: dict = {}
+    frontend_qwen(dev, counts)
+    done_at.append(("b", time.perf_counter() - t0))
+    frontend_musicgen(dev, counts)
+    done_at.append(("c", time.perf_counter() - t0))
+    frontend_piper(dev, counts, M10B, train=True)
+    done_at.append(("d", time.perf_counter() - t0))
+    frontend_piper(dev, counts, SUPER, train=False)
+    done_at.append(("e", time.perf_counter() - t0))
+    for name in PATH_KERNELS["frontend"]:
+        if counts.get(name, 0) == 0:
+            fail(f"frontend: no run launched {name}")
+    log(f"[frontend] launches {dict((n, v) for n, v in counts.items() if v)}; parts done at "
+        + ", ".join(f"({p}) {t:.1f} s" for p, t in done_at))
+    return counts, rows
+
+
 def main(names=()) -> None:
     unknown = sorted(set(names) - set(PHASES))
     if unknown:
@@ -5090,6 +5731,8 @@ def main(names=()) -> None:
     counts["memory"] = phase("memory", memory_phase, dev)
     if phase("archs", archs_phase, dev) is not None:
         counts["archs"], fa256 = out["archs"]
+    if phase("frontend", frontend_phase, dev) is not None:
+        counts["frontend"], frontend_rows = out["frontend"]
     # The fork server exits when it reads this process's end; wait for that
     # here so that none outlives the script (``_stop``: the module has no
     # public call for it).
@@ -5101,6 +5744,8 @@ def main(names=()) -> None:
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
     entries["flash_attention"]["head_dim_256"] = fa256  # phase archs (a)
+    for name, rows in frontend_rows.items():  # phase frontend (a)
+        entries[name]["frontend"] = rows
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
              "ragged_matmul_f32", "ragged_dw_f32", "ssd_intra_chunk")
     if sorted(entries) != sorted(names):
@@ -5113,7 +5758,7 @@ def main(names=()) -> None:
 
 PHASES = ("kernels", "model", "small_parity", "serving", "parity", "profile", "dense_cache",
           "ssm_serving", "ssm_parity", "ssm_profile", "ssm_train", "training", "checkpoint",
-          "ep", "migrate", "pipeline", "mesh", "memory", "archs")
+          "ep", "migrate", "pipeline", "mesh", "memory", "archs", "frontend")
 NEEDS = {"parity": "serving", "ssm_profile": "ssm_serving", "ep": "training"}
 
 

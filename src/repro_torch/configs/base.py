@@ -4,9 +4,7 @@ Mirrors ``ArchConfig``, ``MoECfg`` and ``SSMCfg`` of the JAX package (same
 names, same defaults, same parameter accounting and ``reduced()`` shrink
 rule) for the attention + MoE and the Mamba2 (SSM) families the port runs,
 and the properties ``core.resource_model.ModelShape.from_arch`` and the
-planner read.
-Modality frontends and M-RoPE are not carried: no config in this
-package's registry uses them.
+planner read; and the LM family's input shapes (``ShapeSpec``, ``SHAPES``).
 """
 
 from __future__ import annotations
@@ -100,7 +98,7 @@ class ArchConfig:
     block_pattern: Tuple[Block, ...]
     moe: Optional[MoECfg] = None
     ssm: Optional[SSMCfg] = None
-    rope_type: str = "rope"  # rope | none
+    rope_type: str = "rope"  # rope | mrope | none
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # window for "attn_local" mixers
     attn_logit_softcap: Optional[float] = None
@@ -109,6 +107,10 @@ class ArchConfig:
     scale_embeddings: bool = False  # gemma2: the embedding rows times sqrt(d_model)
     norm_eps: float = 1e-6
     ffn_activation: str = "swiglu"  # swiglu (3 matrices) | gelu (2)
+    # modality frontend stub: None | "audio_frames" | "vision_patches".
+    # Non-None => a batch may carry precomputed (b, s, d_model) "embeds"
+    # in place of token ids (backbone-only scope, as the reference).
+    frontend: Optional[str] = None
     # True if the mixers' cost is sub-quadratic in context (SSM / hybrid
     # with bounded-window attention).
     subquadratic: bool = False
@@ -238,3 +240,31 @@ class ArchConfig:
                 self.ssm, state_size=16, head_dim=16, chunk_size=32
             )
         return self.replace(name=self.name + "-reduced", **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the assigned shape pool for the LM family)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """long_500k requires sub-quadratic attention (SSM/hybrid)."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, "full-attention arch: 500k dense-KV decode excluded"
+    return True, ""

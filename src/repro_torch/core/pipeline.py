@@ -197,11 +197,15 @@ class _HandOff(torch.autograd.Function):
         return (None, None, None, torch.zeros(0, device=wire.device)) + tuple(g_payloads)
 
 
-def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig, plan, *,
-                            embed_fn: Callable, embed_params, vstages: Optional[int] = None,
-                            train: bool = True, telemetry=None):
+def pipelined_stack_forward(block_params, inputs: torch.Tensor, arch: ArchConfig, plan, *,
+                            embed_fn: Optional[Callable], embed_params,
+                            vstages: Optional[int] = None, train: bool = True,
+                            telemetry=None):
     """The differentiable pipelined stack (module docstring) on this rank's
-    rows ``tokens`` (M * b_l, s) of every microbatch and its stage's chunks
+    rows ``inputs`` of every microbatch: token ids (M * b_l, s) that stage 0
+    embeds with ``embed_fn(embed_params, tokens)``, or, with ``embed_fn``
+    None, precomputed (M * b_l, s, d) embeddings (a frontend's ``embeds``;
+    the wire then carries their dtype, as the reference's), and its stage's chunks
     ``block_params`` (V * rpc, ...), each layer on its training path, or
     with ``train=False`` on its serving path (the flash-attention and
     expert kernels; ``LanguageModel.forward``, under ``torch.no_grad``).
@@ -214,17 +218,17 @@ def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig
     PP, s = plan.pp, plan.pp_rank
     _, V = resolve_schedule(plan, None, vstages)
     M = plan.num_microbatches
-    n, S = tokens.shape
+    n, S = inputs.shape[:2]
     if n % M:
         raise ValueError(f"{n} rows do not split into {M} microbatches")
     bl = n // M
     ft = sched_lib.forward_tick_tables_v(PP, M, V)
     rpc = transformer.num_reps(block_params) // V
     chunks = [_chunk(block_params, v, rpc) for v in range(V)]
-    positions = torch.arange(S, device=tokens.device)[None].expand(bl, S)
+    positions = torch.arange(S, device=inputs.device)[None].expand(bl, S)
     prev, nxt = _neighbours(PP, s, V)
-    act = _act_dtype(block_params)
-    wire = Wire(plan, act, tokens.device)
+    act = _act_dtype(block_params) if embed_fn is not None else inputs.dtype
+    wire = Wire(plan, act, inputs.device)
     d = arch.d_model
     slots: List[Optional[torch.Tensor]] = [None] * ft.num_slots
     # The chain starts as an empty view of the stage's smallest parameter,
@@ -234,7 +238,7 @@ def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig
     smallest = min((t for t in _leaves(block_params) if t.is_floating_point()),
                    key=lambda t: t.numel())
     chain = smallest.reshape(-1)[:0]
-    aux = z = torch.zeros((), device=tokens.device)
+    aux = z = torch.zeros((), device=inputs.device)
     loads = None
     outs: Dict[int, torch.Tensor] = {}
     y_prev = None  # this rank's F output of the previous tick
@@ -256,7 +260,9 @@ def pipelined_stack_forward(block_params, tokens: torch.Tensor, arch: ArchConfig
             continue
         mb, v = int(ft.mb[s, t]), int(ft.vs[s, t])
         if s == 0 and v == 0:
-            h = embed_fn(embed_params, tokens[mb * bl:(mb + 1) * bl])
+            h = inputs[mb * bl:(mb + 1) * bl]
+            if embed_fn is not None:
+                h = embed_fn(embed_params, h)
         else:
             h, slots[ft.slot[s, t]] = slots[ft.slot[s, t]], None
         y, mets, ld = transformer.stack_forward(chunks[v], h, arch, positions=positions,
@@ -306,16 +312,20 @@ def _grad_leaf(t: torch.Tensor, want: bool) -> torch.Tensor:
     return t.detach().requires_grad_(want) if t.is_floating_point() else t
 
 
-def pipelined_step(block_params, tokens: torch.Tensor, labels: torch.Tensor,
+def pipelined_step(block_params, inputs: torch.Tensor, labels: torch.Tensor,
                    arch: ArchConfig, plan, *, head_fn: Callable, head_params,
-                   embed_fn: Callable, embed_params, schedule: Optional[str] = None,
-                   vstages: Optional[int] = None, telemetry=None):
+                   embed_fn: Optional[Callable], embed_params,
+                   schedule: Optional[str] = None, vstages: Optional[int] = None,
+                   telemetry=None):
     """Execute one training step's forward and backward under a schedule
-    IR (module docstring) on this rank's rows ``tokens``/``labels`` (M *
+    IR (module docstring) on this rank's rows ``inputs``/``labels`` (M *
     b_l, s) and its stage's chunks ``block_params`` (V * rpc, ...).
 
     ``head_fn(head_params, embed, y, labels)`` is the per-microbatch CE
-    sum; ``embed_fn(embed, tokens)`` the stage-0 embedding.  Returns
+    sum; ``embed_fn(embed, tokens)`` the stage-0 embedding of token ids
+    ``inputs``, or None when ``inputs`` are precomputed (M * b_l, s, d)
+    embeddings (the wire and buffers then in their dtype, and the
+    embedding's gradient comes from a tied head alone).  Returns
     (terms, grads, traces, stats): ``terms`` this rank's (ce sum, aux, z)
     before any reduction (aux and z the stage's sums over its F ops, their
     backward seeded with ``1 / (M * stage_size)``), ``grads`` {"blocks":
@@ -328,7 +338,7 @@ def pipelined_step(block_params, tokens: torch.Tensor, labels: torch.Tensor,
     PP, s = plan.pp, plan.pp_rank
     name, V = resolve_schedule(plan, schedule, vstages)
     M = plan.num_microbatches
-    n, S = tokens.shape
+    n, S = inputs.shape[:2]
     if n % M:
         raise ValueError(f"{n} rows do not split into {M} microbatches")
     bl = n // M
@@ -345,12 +355,12 @@ def pipelined_step(block_params, tokens: torch.Tensor, labels: torch.Tensor,
                           cslots=sched.num_cslots_fwd + sched.num_cslots_bwd)
     T = sched.num_ticks
     has_comm = sched.has_comm
-    dev = tokens.device
+    dev = inputs.device
     rpc = transformer.num_reps(block_params) // V
     chunks = [_chunk(block_params, v, rpc) for v in range(V)]
     positions = torch.arange(S, device=dev)[None].expand(bl, S)
     prev, nxt = _neighbours(PP, s, V)
-    act = _act_dtype(block_params)
+    act = _act_dtype(block_params) if embed_fn is not None else inputs.dtype
     wire = Wire(plan, act, dev)
     d = arch.d_model
     inv_m = 1.0 / (M * G)
@@ -397,9 +407,11 @@ def pipelined_step(block_params, tokens: torch.Tensor, labels: torch.Tensor,
         leaves, embed leaf), with autograd on what is wanted."""
         chunk = map_tree(lambda t: _grad_leaf(t, want_params), chunks[v])
         emb = None
-        if first(v):
+        if first(v) and embed_fn is None:
+            inp = rows(inputs, mb)
+        elif first(v):
             emb = _grad_leaf(embed_params, want_params)
-            inp = embed_fn(emb, rows(tokens, mb))
+            inp = embed_fn(emb, rows(inputs, mb))
         else:
             inp = h_in.detach().requires_grad_(want_input)
         y, mets, ld = transformer.stack_forward(chunk, inp, arch, positions=positions,

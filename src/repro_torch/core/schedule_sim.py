@@ -3,8 +3,9 @@ interleaved 1F1B / zero-bubble ZB-H1).
 
 The port's copy of ``repro.core.schedule_sim``'s ``simulate``: the
 resource model replays comm-lane schedules through it to price their
-exposed hand-offs.  The reference's named entry points (``gpipe``,
-``one_f_one_b``, ...) serve its schedule benchmark and are not carried.
+exposed hand-offs; and its named entry points (``gpipe``, ``one_f_one_b``,
+``one_f_one_b_overlap``, ``interleaved_1f1b``, ``zb_h1``, ``BY_NAME``),
+which take full-stage times.
 
 Validates the paper's pipeline analysis (Eq 3–5): peak in-flight microbatch
 (chunk) activations per stage, bubble fraction, and step makespan.  Used by
@@ -48,7 +49,7 @@ hand-offs but not the fill/drain ones.)
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 from repro_torch.core import schedules as sched_lib
 from repro_torch.core.schedules import Schedule
@@ -181,3 +182,48 @@ def simulate(
         exposed_a2a=exposed_a2a,
         peak_comm_inflight=peak_comm,
     )
+
+
+def gpipe(PP: int, M: int, t_fwd: float = 1.0, t_bwd: float = 2.0) -> ScheduleResult:
+    """All forwards, then all backwards."""
+    return simulate(sched_lib.build("gpipe", PP, M), t_fwd, t_bwd)
+
+
+def one_f_one_b(PP: int, M: int, t_fwd: float = 1.0, t_bwd: float = 2.0) -> ScheduleResult:
+    """1F1B (PipeDream-flush)."""
+    return simulate(sched_lib.build("1f1b", PP, M), t_fwd, t_bwd)
+
+
+def one_f_one_b_overlap(PP: int, M: int, t_fwd: float = 1.0, t_bwd: float = 2.0,
+                        t_p2p: float = 0.0, t_a2a: float = 0.0) -> ScheduleResult:
+    """1F1B with the comm lane: :func:`one_f_one_b`'s compute table,
+    residual slots and makespan, with p2p and a2a priced by exposure
+    (the fill staircase is the only p2p that cannot hide)."""
+    return simulate(sched_lib.build("1f1b_overlap", PP, M), t_fwd, t_bwd,
+                    t_p2p=t_p2p, t_a2a=t_a2a)
+
+
+def interleaved_1f1b(PP: int, M: int, V: int = 2, t_fwd: float = 1.0,
+                     t_bwd: float = 2.0) -> ScheduleResult:
+    """Interleaved 1F1B over V virtual stages.  ``t_fwd`` / ``t_bwd`` are
+    the FULL-stage durations; each chunk takes 1/V of them, so makespans
+    compare with :func:`one_f_one_b` at equal total work."""
+    return simulate(sched_lib.build("interleaved_1f1b", PP, M, V), t_fwd / V, t_bwd / V)
+
+
+def zb_h1(PP: int, M: int, t_fwd: float = 1.0, t_bwd: float = 2.0,
+          t_bw: Optional[float] = None) -> ScheduleResult:
+    """Zero-bubble ZB-H1: 1F1B with the backward split into Bi + Bw.
+    ``t_bwd`` is the FULL backward (Bw takes ``t_bw``, default half; Bi
+    the rest), so makespans compare with :func:`one_f_one_b` at equal
+    total work."""
+    return simulate(sched_lib.build("zb_h1", PP, M), t_fwd, t_bwd, t_bw)
+
+
+BY_NAME = {
+    "gpipe": gpipe,
+    "1f1b": one_f_one_b,
+    "1f1b_overlap": one_f_one_b_overlap,
+    "interleaved_1f1b": interleaved_1f1b,
+    "zb_h1": zb_h1,
+}

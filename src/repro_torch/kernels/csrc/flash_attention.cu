@@ -9,7 +9,8 @@
 // serving path, go to fa_tc_kernel (flash_attention_tc.cu, tensor cores);
 // fp32 stays here because the fp32 paged-decode parity probe is held to
 // 1e-5, which TF32 or bf16 products would break.  The wrapper chooses by
-// dtype.
+// dtype, so this library instantiates the kernel for fp32 alone (a bf16
+// set would double its build, the slowest of the port's, and never run).
 //
 // What bounds it on an H100: at granite-moe-3b's serving shapes (24 query
 // heads over 8 KV heads, head_dim 64, prompts of at most 512 tokens) the
@@ -179,27 +180,24 @@ extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
                                    long long v_ss, long long v_sh, int causal,
                                    int window, float softcap, float scale,
                                    void* stream) {
-  if (HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0)
+  if (dt != kF32 || HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const dim3 grid((SQ + BQ - 1) / BQ, HQ, B);
   bool ok = false;
-  with_dtype(dt, [&](auto* tp) {
-    using T = elem_t<decltype(tp)>;
-    auto go = [&](auto dt_) {
-      constexpr int DD = decltype(dt_)::value;
-      fa_fwd_kernel<DD, T><<<grid, BQ * Layout<DD>::TPR, 0, (cudaStream_t)stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(out), HQ, HKV, SQ, SKV, qs,
-          ks, vs, causal, window, softcap, scale);
-      ok = true;
-    };
-    if (D == 16) go(Int<16>{});
-    else if (D == 32) go(Int<32>{});
-    else if (D == 64) go(Int<64>{});
-    else if (D == 128) go(Int<128>{});
-    else if (D == 256) go(Int<256>{});
-  });
+  auto go = [&](auto d_) {
+    constexpr int DD = decltype(d_)::value;
+    fa_fwd_kernel<DD, float><<<grid, BQ * Layout<DD>::TPR, 0, (cudaStream_t)stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), HQ, HKV, SQ, SKV, qs,
+        ks, vs, causal, window, softcap, scale);
+    ok = true;
+  };
+  if (D == 16) go(Int<16>{});
+  else if (D == 32) go(Int<32>{});
+  else if (D == 64) go(Int<64>{});
+  else if (D == 128) go(Int<128>{});
+  else if (D == 256) go(Int<256>{});
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

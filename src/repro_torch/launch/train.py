@@ -301,7 +301,7 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     # Spans are recorded only for a checkpointed or --metrics-out run:
     # without one the loop does no more host work than before.
     ring = obs.RingBufferSink() if args.ckpt_dir or args.metrics_out else None
-    sinks = [ring] if ring else []
+    sinks = [ring] if ring is not None else []
     if args.metrics_out and rank == 0:
         sinks.append(obs.JsonlSink(args.metrics_out))
     telemetry = obs.Telemetry(enabled=ring is not None, sinks=sinks)

@@ -58,9 +58,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> tuple:
+    """Qwen2-VL M-RoPE: the d/2 rotary frequencies split into (temporal,
+    height, width) sections; the published split is (16, 24, 24) at head
+    dim 128, generalized proportionally for other dims."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (b, s, h, d); positions: (3, b, s) int, the (t, h, w) position
+    ids.  Each frequency takes its position from its section's plane; with
+    three equal planes (text) this is :func:`apply_rope` exactly."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    plane = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                       for i, n in enumerate(mrope_sections(x.shape[-1]))])  # (d/2,)
+    pos = positions[plane].permute(1, 2, 0).float()  # (b, s, d/2)
+    angles = pos * freqs
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def positional_embed(x, positions, rope_type: str, theta: float):
     if rope_type == "rope":
         return apply_rope(x, positions, theta)
+    if rope_type == "mrope":
+        return apply_mrope(x, positions[None].expand((3,) + positions.shape), theta)
     if rope_type == "none":
         return x
     raise ValueError(rope_type)

@@ -254,19 +254,40 @@ class LanguageModel:
                                               params["final_norm"].dtype)
         return out
 
+    def _has_embeds(self, batch) -> bool:
+        """A frontend arch's batch that carries precomputed ``embeds``."""
+        return self.arch.frontend is not None and "embeds" in batch
+
     def _embed(self, params, batch) -> torch.Tensor:
+        """The stack's input: a frontend arch's precomputed ``embeds`` (b, s,
+        d) cast to the compute dtype (``final_norm``'s), else the table's
+        rows of ``batch["tokens"]``; either :meth:`_scaled`."""
+        if self._has_embeds(batch):
+            return self._scaled(batch["embeds"].to(params["final_norm"].dtype))
         return self._embed_rows(params["embed"], batch["tokens"])
 
     def _embed_rows(self, table, tokens) -> torch.Tensor:
-        """The table's rows of ``tokens``; with ``scale_embeddings`` (gemma2)
-        times sqrt(d_model) rounded to the rows' dtype first, as the
-        reference's ``jnp.asarray(math.sqrt(d_model), x.dtype)`` (59.75 in
-        bf16 at d_model 3584): the product of two values of that dtype,
-        rounded once."""
-        x = table[tokens.long()]
+        """The table's rows of ``tokens``, :meth:`_scaled`."""
+        return self._scaled(table[tokens.long()])
+
+    def _scaled(self, x) -> torch.Tensor:
+        """With ``scale_embeddings`` (gemma2) ``x`` times sqrt(d_model)
+        rounded to its dtype first, as the reference's
+        ``jnp.asarray(math.sqrt(d_model), x.dtype)`` (59.75 in bf16 at
+        d_model 3584): the product of two values of that dtype, rounded
+        once."""
         if self.arch.scale_embeddings:
             x = x * torch.tensor(math.sqrt(self.arch.d_model), dtype=x.dtype).item()
         return x
+
+    def _pipeline_inputs(self, params, batch):
+        """(inputs, embed_fn) of the pipeline executors: this rank's token
+        ids and the stage-0 lookup, or a frontend's precomputed embeddings
+        (:meth:`_embed`, outside the pipeline as in the reference) and
+        None."""
+        if self._has_embeds(batch):
+            return self._embed(params, batch), None
+        return batch["tokens"], self._embed_rows
 
     def _logits(self, w, x) -> torch.Tensor:
         logits = (x @ w.to(x.dtype)).float()
@@ -304,26 +325,27 @@ class LanguageModel:
         -> ``pipelined_stack_forward``: the port's forward executor without
         autograd, every layer on its serving path (flash attention, the
         expert kernels) as in the forward at world 1, on this rank's rows
-        ``batch["tokens"]`` of every microbatch.  The last stage applies the
-        final norm and the head, and its logits reach every rank of its pp
-        group (the reference's SPMD forward gives every device the whole
-        array).  aux and z are their global values: the ranks' terms summed;
-        the expert loads are gathered over the pp group."""
+        ``batch["tokens"]`` (or ``"embeds"``) of every microbatch.  The last
+        stage applies the final norm and the head, and its logits reach
+        every rank of its pp group (the reference's SPMD forward gives every
+        device the whole array).  aux and z are their global values: the
+        ranks' terms summed; the expert loads are gathered over the pp
+        group."""
         from repro_torch.core import pipeline
 
         plan = self.plan
-        tokens = batch["tokens"]
         with torch.no_grad():
             params = self._whole(params)
+            inputs, embed_fn = self._pipeline_inputs(params, batch)
             y, aux, z, loads = pipeline.pipelined_stack_forward(
-                params["blocks"], tokens, self.arch, plan, embed_fn=self._embed_rows,
+                params["blocks"], inputs, self.arch, plan, embed_fn=embed_fn,
                 embed_params=params["embed"], train=False, telemetry=self.telemetry)
             if y is not None:
                 logits = self._head(params, rms_norm(y, params["final_norm"],
                                                      self.arch.norm_eps))
             else:
-                logits = torch.empty(tokens.shape + (self.vp,), dtype=torch.float32,
-                                     device=tokens.device)
+                logits = torch.empty(inputs.shape[:2] + (self.vp,), dtype=torch.float32,
+                                     device=inputs.device)
             torch.distributed.broadcast(logits, src=plan.stage_peer(plan.pp - 1),
                                         group=plan.pp_group)
             terms = sharding.all_reduce_(torch.stack([aux, z]), plan.world_group)
@@ -405,12 +427,12 @@ class LanguageModel:
         aux and z (``pipelined_stack_forward``)."""
         from repro_torch.core import pipeline
 
-        tokens = batch["tokens"]
         params = self._whole(params)
+        inputs, embed_fn = self._pipeline_inputs(params, batch)
         y, aux, z, loads = pipeline.pipelined_stack_forward(
-            params["blocks"], tokens, self.arch, self.plan, embed_fn=self._embed_rows,
+            params["blocks"], inputs, self.arch, self.plan, embed_fn=embed_fn,
             embed_params=params["embed"], telemetry=self.telemetry)
-        n, s = tokens.shape
+        n, s = inputs.shape[:2]
         b = n * self.plan.stage_size
         ce = (self._chunked_ce(params, y, batch["labels"].long()) / (b * s) if y is not None
               else aux.new_zeros(()))
@@ -459,16 +481,17 @@ class LanguageModel:
         plan = self.plan
         if not self.pipelined:
             raise ValueError("loss_and_grads needs a pipeline plan (plan.pp > 1)")
-        tokens = batch["tokens"]
         # A sliced embedding (and head) is gathered once a step; the
         # executor sums its whole gradient over microbatches, and its
-        # gather's backward runs here, once.
+        # gather's backward runs here, once: on every rank, also where
+        # precomputed ``embeds`` leave it 0 (a tied head aside).
         with torch.no_grad():
             top = self._whole(params)
+            inputs, embed_fn = self._pipeline_inputs(top, batch)
         (ce, aux, z), g, traces, stats = pipeline.pipelined_step(
-            params["blocks"], tokens, batch["labels"], self.arch, plan,
+            params["blocks"], inputs, batch["labels"], self.arch, plan,
             head_fn=self._make_head_fn(), head_params=self._head_params(top),
-            embed_fn=self._embed_rows, embed_params=top["embed"], schedule=schedule,
+            embed_fn=embed_fn, embed_params=top["embed"], schedule=schedule,
             vstages=vstages, telemetry=self.telemetry)
         grads = {"embed": g["embed"], "blocks": g["blocks"],
                  "final_norm": g["head"]["final_norm"]}
@@ -483,12 +506,12 @@ class LanguageModel:
         terms = sharding.all_reduce_(torch.stack([ce, aux * own, z * own]),
                                      plan.world_group)
         M = plan.num_microbatches
-        n, s = tokens.shape
+        n, s = inputs.shape[:2]
         ce_mean = terms[0] / (n * plan.stage_size * s)
         loss = ce_mean + terms[1] / M + terms[2] / M
         occ = torch.stack(traces)  # (3, T) on the host
         if gather_traces:
-            occ = occ.to(tokens.device)
+            occ = occ.to(inputs.device)
             parts = [torch.empty_like(occ) for _ in range(plan.pp)]
             torch.distributed.all_gather(parts, occ, group=plan.pp_group)
             occ = torch.stack(parts, dim=1).cpu()  # (3, PP, T)
@@ -528,7 +551,8 @@ class LanguageModel:
     def prefill_paged(self, params, batch, cache, block_table, lengths):
         """Prompt forward that writes K/V into the paged cache (in place).
 
-        batch: {"tokens": (b, s_pad)} right-padded prompts; lengths: (b,)
+        batch: {"tokens": (b, s_pad)} (or a frontend's {"embeds": (b, s_pad,
+        d)}) right-padded prompts; lengths: (b,)
         true prompt lengths; block_table: (b, nb).  Pad rows never reach the
         pages.  Returns (last-valid-position logits (b, vp), cache).  Every
         rank of a data group runs every prompt whole and writes its pages,
@@ -572,9 +596,10 @@ class LanguageModel:
                           return_loads: bool = False):
         """One continuous-batching decode step over all sequence slots.
 
-        batch: {"tokens": (b, 1)}; lengths: (b,) cache fills (positions of
-        the new tokens); block_table: (b, nb).  Inactive slots (sentinel
-        rows) write nothing and give logits the engine ignores.  Returns
+        batch: {"tokens": (b, 1)} or {"embeds": (b, 1, d)}; lengths: (b,)
+        cache fills (positions of the new tokens); block_table: (b, nb).
+        Inactive slots (sentinel rows) write nothing and give logits the
+        engine ignores.  Returns
         (logits (b, vp), cache), the cache updated in place, and with
         ``return_loads`` the MoE layers' logical expert counts (reps,
         n_moe_positions, E) too (the serving rebalancer's load feed).
@@ -586,7 +611,7 @@ class LanguageModel:
         every rank writes a prefill's), and the logits are all-gathered
         over the data group, so every rank samples the same tokens.
         """
-        rows, split = self._data_share(batch["tokens"].shape[0])
+        rows, split = self._data_share(lengths.shape[0])
         if split:
             block_table, lengths = block_table[rows], lengths[rows]
             batch = {k: v[rows] for k, v in batch.items()}
@@ -675,7 +700,8 @@ class LanguageModel:
         return tuple(out)
 
     def decode_step(self, params, cache, batch, index: int):
-        """One token: batch {"tokens": (b, 1)}; ``index``: the current cache
+        """One token: batch {"tokens": (b, 1)} or {"embeds": (b, 1, d)};
+        ``index``: the current cache
         fill, a Python int (the new token's position: its RoPE position and
         the row each attention layer writes; it reads rows [0, index]).
         Returns (logits (b, vp), cache), the cache updated IN PLACE (the

@@ -1,16 +1,22 @@
-"""Structured telemetry: spans, instants, gauges and histograms fanned out
-to sinks.
+"""Structured telemetry: spans, instants, counters, gauges and histograms
+fanned out to sinks.
 
-The port's copy of what the serving engine and the trainer use of
-``repro.obs.core``.  Events are plain JSON-ready dicts, one schema for
-every sink:
+The port's copy of ``repro.obs.core``.  Events are plain JSON-ready dicts,
+one schema for every sink:
 
-    {"name": str, "kind": "span"|"instant"|"gauge"|"hist",
+    {"name": str, "kind": "span"|"instant"|"counter"|"gauge"|"hist",
      "ts": float seconds since the Telemetry epoch,
      "dur": float seconds (spans only),
-     "value": float (gauges and histograms only),
+     "value": float (counters, gauges and histograms),
+     "total": float (counters only: the running total),
      "tid": int python thread id,
-     "depth": int, "parent": str|None, "attrs": {str: json-able}}
+     "depth": int, "parent": str|None (spans and instants only),
+     "attrs": {str: json-able}}
+
+Besides explicit ``Telemetry`` objects there is one process-global
+telemetry, disabled until :func:`configure` or :func:`set_telemetry`
+installs an enabled one; the module-level :func:`span`, :func:`instant`,
+:func:`counter`, :func:`gauge` and :func:`histogram` record on it.
 
 A disabled ``Telemetry`` hands out one shared do-nothing span, so
 instrumented code costs next to nothing when recording is off.
@@ -88,7 +94,8 @@ class _Span:
 
 class Telemetry:
     """Event router: timestamps events and fans them out to ``sinks``
-    under a lock.  ``hists`` keeps every histogram value by name."""
+    under a lock.  ``hists`` keeps every histogram value by name,
+    ``counters`` every counter's running total."""
 
     def __init__(self, enabled: bool = True, sinks: Optional[List] = None):
         self.enabled = enabled
@@ -97,6 +104,7 @@ class Telemetry:
         self._lock = threading.Lock()
         self._local = threading.local()
         self.hists: Dict[str, List[float]] = {}
+        self.counters: Dict[str, float] = {}
 
     def _stack(self) -> List[_Span]:
         """This thread's stack of open spans."""
@@ -125,6 +133,11 @@ class Telemetry:
             "attrs": attrs,
         })
 
+    def _value(self, name: str, kind: str, attrs, **fields) -> None:
+        """A value event: no depth or parent, as the reference's."""
+        self._emit({"name": name, "kind": kind, "ts": time.perf_counter() - self.epoch,
+                    "tid": threading.get_ident(), **fields, "attrs": attrs})
+
     def record_span(self, name: str, dur_s: float, **attrs) -> None:
         """A span of an externally measured duration (a micro-benchmark's
         seconds a call): the timed region itself stays unobserved; the
@@ -136,19 +149,88 @@ class Telemetry:
         if self.enabled:
             self._point(name, "instant", attrs)
 
+    def counter(self, name: str, inc: float = 1.0, **attrs) -> None:
+        """Add ``inc`` to a running total (e.g. the trainer's host
+        fetches); the event carries both."""
+        if not self.enabled:
+            return
+        with self._lock:
+            total = self.counters.get(name, 0.0) + inc
+            self.counters[name] = total
+        self._value(name, "counter", attrs, value=inc, total=total)
+
     def gauge(self, name: str, value: float, **attrs) -> None:
         """The current value of a quantity (e.g. the logged loss)."""
         if self.enabled:
-            self._point(name, "gauge", attrs, value=float(value))
+            self._value(name, "gauge", attrs, value=float(value))
 
     def histogram(self, name: str, value: float, **attrs) -> None:
         """One sample of a distribution (e.g. a step's seconds)."""
         if self.enabled:
             with self._lock:
                 self.hists.setdefault(name, []).append(float(value))
-            self._point(name, "hist", attrs, value=float(value))
+            self._value(name, "hist", attrs, value=float(value))
+
+    def hist_summary(self, name: str) -> Optional[Dict[str, float]]:
+        """n / min / max / mean over every recorded ``histogram(name, ...)``;
+        None before the first."""
+        with self._lock:
+            vals = list(self.hists.get(name, ()))
+        if not vals:
+            return None
+        return {"n": len(vals), "min": min(vals), "max": max(vals),
+                "mean": sum(vals) / len(vals)}
 
     def close(self) -> None:
+        """Close the sinks; a closed telemetry records nothing more (a
+        launcher's trainer outlives it: its fetches count on)."""
         with self._lock:
+            self.enabled = False
             for sink in self.sinks:
                 sink.close()
+
+
+# -- process-global telemetry (disabled by default) ------------------------
+
+_GLOBAL = Telemetry(enabled=False)
+
+
+def get_telemetry() -> Telemetry:
+    return _GLOBAL
+
+
+def set_telemetry(tel: Telemetry) -> Telemetry:
+    """Install ``tel`` as the process-global telemetry; returns the
+    previous one, so that a caller can put it back."""
+    global _GLOBAL
+    prev = _GLOBAL
+    _GLOBAL = tel
+    return prev
+
+
+def configure(enabled: bool = True, sinks: Optional[List] = None) -> Telemetry:
+    """Build and install a fresh global ``Telemetry``: everything recorded
+    through the module-level helpers goes to ``sinks`` from then on."""
+    tel = Telemetry(enabled=enabled, sinks=sinks)
+    set_telemetry(tel)
+    return tel
+
+
+def span(name: str, **attrs):
+    return _GLOBAL.span(name, **attrs)
+
+
+def instant(name: str, **attrs) -> None:
+    _GLOBAL.instant(name, **attrs)
+
+
+def counter(name: str, inc: float = 1.0, **attrs) -> None:
+    _GLOBAL.counter(name, inc, **attrs)
+
+
+def gauge(name: str, value: float, **attrs) -> None:
+    _GLOBAL.gauge(name, value, **attrs)
+
+
+def histogram(name: str, value: float, **attrs) -> None:
+    _GLOBAL.histogram(name, value, **attrs)

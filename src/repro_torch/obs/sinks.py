@@ -6,8 +6,21 @@ import json
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+__all__ = ["Sink", "RingBufferSink", "JsonlSink"]
 
-class RingBufferSink:
+
+class Sink:
+    """The sink interface; ``Telemetry`` calls ``emit`` under its lock, so
+    a sink needs no lock of its own."""
+
+    def emit(self, event: Dict[str, Any]) -> None:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class RingBufferSink(Sink):
     """Keep the last ``capacity`` events in memory (all of them when
     ``capacity`` is None).  The serving engine's deterministic trace and
     the launchers' end-of-run drift and Chrome reports read one of these."""
@@ -21,11 +34,14 @@ class RingBufferSink:
     def events(self) -> List[Dict[str, Any]]:
         return list(self.buf)
 
-    def close(self) -> None:
-        pass
+    def __len__(self) -> int:
+        return len(self.buf)
+
+    def clear(self) -> None:
+        self.buf.clear()
 
 
-class JsonlSink:
+class JsonlSink(Sink):
     """One JSON object per line, append-only, as ``repro.obs.JsonlSink``
     writes them.  ``--metrics-out`` on the launchers points here."""
 

@@ -29,7 +29,9 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
 
 SITES = ("ckpt.crash_before_rename", "ckpt.crash_after_rename", "ckpt.write_fail",
          "data.transient", "train.nonfinite", "train.slow_step", "train.sigterm",
@@ -74,7 +76,29 @@ class FaultSpec:
 
 @dataclass
 class FaultPlan:
+    """A deterministic, seed-stamped set of faults for one run."""
+
     specs: List[FaultSpec] = field(default_factory=list)
+    seed: int = 0
+
+    @classmethod
+    def random(cls, seed: int, total_steps: int,
+               sites: Sequence[str] = ("data.transient", "train.slow_step",
+                                       "train.nonfinite"),
+               max_faults: int = 3) -> "FaultPlan":
+        """Seed-driven chaos: 1 to ``max_faults`` faults at sites and steps
+        drawn from ``np.random.default_rng(seed)`` in the reference's order,
+        so a seed gives the reference's plan; a ``train.slow_step`` sleeps
+        0.05 s, a ``train.nonfinite`` scales by NaN."""
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(1, max_faults + 1))
+        specs = [FaultSpec(site=sites[int(rng.integers(0, len(sites)))],
+                           step=int(rng.integers(0, max(total_steps, 1))))
+                 for _ in range(n)]
+        for s in specs:
+            if s.site == "train.slow_step":
+                s.payload = 0.05
+        return cls(specs=specs, seed=seed)
 
 
 class FaultInjector:

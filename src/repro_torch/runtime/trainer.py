@@ -115,7 +115,9 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.log = log_fn
         self.injector = injector if injector is not None else FaultInjector(log_fn=log_fn)
-        self.telemetry = telemetry if telemetry is not None else obs.Telemetry(enabled=False)
+        # Without a telemetry of its own the trainer records on the
+        # process-global one (disabled unless ``obs.configure`` ran).
+        self.telemetry = telemetry if telemetry is not None else obs.get_telemetry()
         arch = lm.arch
         self.load_stats = (mig.LoadStats(arch.num_moe_layers, arch.moe.num_experts)
                            if arch.moe else None)
@@ -143,9 +145,11 @@ class Trainer:
         self._stop = False
 
     def _fetch(self, x):
-        """Blocking device->host fetch of a metric value (counted): a
-        number for one element, numpy for more."""
+        """Blocking device->host fetch of a metric value (counted, and a
+        ``train.host_fetches`` counter event): a number for one element,
+        numpy for more."""
         self.host_fetches += 1
+        self.telemetry.counter("train.host_fetches")
         return _host(x) if isinstance(x, torch.Tensor) else x
 
     def _install_signals(self) -> Dict[int, Any]:

@@ -25,6 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclass(frozen=True)
 class PagedLayout:
@@ -213,6 +215,16 @@ class BlockPool:
         row[:] = self.layout.sentinel
         self.lengths[slot] = 0
         self.active[slot] = False
+
+    # -- device snapshots ---------------------------------------------------
+
+    def device_tables(self, device=None):
+        """(block_table (max_seqs, nb), lengths (max_seqs,)) as int32
+        tensors on ``device`` (None: the card): inactive slots carry
+        sentinel rows and zero lengths."""
+        dev = resolve_device(device)
+        return (torch.from_numpy(self.block_table.copy()).to(dev),
+                torch.from_numpy(self.lengths.copy()).to(dev))
 
     def check_invariants(self) -> None:
         """Every page is either free or owned by exactly one (slot, block);

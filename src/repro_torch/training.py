@@ -147,8 +147,10 @@ def loss_and_grads(lm: LanguageModel, params, batch,
         p.requires_grad_(True)
     try:
         loss, metrics = lm.loss(_cast(params, compute_dtype, keep), batch)
-        # A pipeline stage uses only some leaves (the head on the last).
-        flat_grads = iter(torch.autograd.grad(loss, leaves, allow_unused=lm.pipelined))
+        # A pipeline stage uses only some leaves (the head on the last);
+        # precomputed embeds leave an untied table unused (its gradient 0).
+        flat_grads = iter(torch.autograd.grad(
+            loss, leaves, allow_unused=lm.pipelined or lm._has_embeds(batch)))
     finally:
         for p in leaves:
             p.requires_grad_(False)

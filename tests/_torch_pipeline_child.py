@@ -8,9 +8,10 @@
         interleaved_1f1b at (2, 1, 1) with V = 2, 1f1b with compress_p2p at
         (4, 1, 1), and 1f1b at (2, 1, 2) and (2, 2, 2) (cf 16); the
         pipelined ``LanguageModel.forward`` at (2, 1, 1), flat and with V =
-        2; the chunk layout of ``_stage_block_params``; the int8 helpers on
-        seeded arrays.  Writes inputs, losses, gradients, logits and traces
-        to OUT.npz.
+        2; reduced qwen2-vl (M-RoPE) fed precomputed ``embeds`` at (2, 1,
+        1), 1f1b: ``loss_and_grads`` and ``forward``; the chunk layout of
+        ``_stage_block_params``; the int8 helpers on seeded arrays.  Writes
+        inputs, losses, gradients, logits and traces to OUT.npz.
 
     python tests/_torch_pipeline_child.py port REF.npz OUT_DIR
         The port on gloo ranks of this machine's CPU, from the same
@@ -36,6 +37,8 @@ INT8_SIZES = (1000, 3 * 7 * 37, 4096 + 5)  # none a multiple of the 256 block
 STAGED = ("blocks/0/ffn/w_up", "blocks/0/mixer/wq", "blocks/0/norm_mixer")
 # The pipelined forward's plans at (2, 1, 1): flat (1f1b) and interleaved.
 FORWARD_PLANS = {"fwd2": {}, "fwd2v": {"schedule": "interleaved_1f1b", "vstages": 2}}
+# The frontend case: reduced qwen2-vl (2 layers: one a stage at PP 2).
+FRONTEND = "qwen2-vl-7b"
 
 
 def arch_of(get_arch, layers: int = 4, cf: float = 8.0):
@@ -48,6 +51,10 @@ def arch_of(get_arch, layers: int = 4, cf: float = 8.0):
 
 def tokens(b: int = 8, s: int = 32, vocab: int = 512):
     return np.random.default_rng(3).integers(0, vocab, size=(b, s)).astype(np.int32)
+
+
+def frontend_embeds(b: int = 8, s: int = 32, d: int = 64):
+    return np.random.default_rng(4).standard_normal((b, s, d)).astype(np.float32)
 
 
 def int8_inputs():
@@ -118,6 +125,20 @@ def run_jax(out_path: str) -> None:
         with mesh:
             logits, _, loads = jax.jit(lm.forward)(params, {"tokens": jnp.asarray(toks)})
         out[f"{tag}/logits"], out[f"{tag}/loads"] = np.asarray(logits), np.asarray(loads)
+    qarch = get_arch(FRONTEND).reduced()
+    qparams = init_params(qarch, jax.random.PRNGKey(1))
+    out.update({f"qwen/params/{k}": np.asarray(v) for k, v in _paths(qparams).items()})
+    mesh = host_mesh((2, 1, 1), names)
+    lm = LanguageModel(qarch, make_plan(mesh, qarch, pipeline_on_pod=True))
+    batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks),
+             "embeds": jnp.asarray(frontend_embeds())}
+    with mesh:
+        loss, grads, _ = jax.jit(lm.loss_and_grads)(qparams, batch)
+        logits, _, _ = jax.jit(lm.forward)(qparams, batch)
+    out["qwen/loss"], out["qwen/logits"] = np.asarray(loss), np.asarray(logits)
+    for k, v in _paths(grads).items():
+        if np.issubdtype(np.asarray(v).dtype, np.floating):
+            out[f"qwen/grad/{k}"] = np.asarray(v)
     arch16 = arch_of(get_arch, cf=16.0)
     for mesh, (b, s) in MESH_EP.items():
         run(f"ep/{mesh}", arch16, tuple(int(n) for n in mesh.split(",")), tokens(b, s),
@@ -184,14 +205,14 @@ def _rank_main(rank: int, world: int, phase: str, ref_path: str, out_dir: str) -
         dist.destroy_process_group()
 
 
-def _setup(ref):
+def _setup(ref, prefix: str = "params/"):
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.convert import params_from_numpy
 
     params = params_from_numpy(
-        _unflatten({k[len("params/"):]: v for k, v in ref.items() if k.startswith("params/")}),
+        _unflatten({k[len(prefix):]: v for k, v in ref.items() if k.startswith(prefix)}),
         "cpu")
     return get_arch, params, torch
 
@@ -269,23 +290,26 @@ def _forward_loss(arch, plan, params, batch):
 
 
 def _pipelined_forward(res, tag, arch, plan, params, batch):
-    """``LanguageModel.forward`` under ``plan`` on this rank's rows: rank
-    0's logits, aux, z and loads to ``res``, and the largest gap of any
-    rank's logits from the world-1 forward of its rows."""
+    """``LanguageModel.forward`` under ``plan`` on this rank's rows (its
+    tokens, or a frontend's embeds): rank 0's logits, aux, z and loads to
+    ``res``, and the largest gap of any rank's logits from the world-1
+    forward of its rows."""
     import torch
 
     from repro_torch import sharding, training
     from repro_torch.convert import shard_params
     from repro_torch.models.model import LanguageModel
 
-    toks = torch.as_tensor(training.shard_batch(batch, plan)["tokens"])
-    logits, aux, loads = LanguageModel(arch, plan).forward(shard_params(params, plan),
-                                                           {"tokens": toks})
-    one, aux1, loads1 = LanguageModel(arch).forward(params, {"tokens": toks})
+    mine = {k: torch.as_tensor(v) for k, v in training.shard_batch(batch, plan).items()
+            if k in ("tokens", "embeds")}
+    logits, aux, loads = LanguageModel(arch, plan).forward(shard_params(params, plan), mine)
+    one, aux1, loads1 = LanguageModel(arch).forward(params, mine)
     gap = (logits - one).abs().max()
     torch.distributed.all_reduce(gap, op=torch.distributed.ReduceOp.MAX)
     res[f"{tag}/logits"] = logits.numpy()
     res[f"{tag}/gap_world1"] = gap.numpy()
+    if loads is None:
+        return
     res[f"{tag}/loads"] = loads.numpy()
     res[f"{tag}/world1_loads"] = sharding.all_reduce_(loads1.clone(),
                                                        plan.stage_group).numpy()
@@ -397,6 +421,14 @@ def _phase_pp2(rank: int, ref):
                            sharding.make_plan(arch, (2, 1, 1), pipeline_on_pod=True, **kw),
                            params, {"tokens": ref["toks"]})
     _world1(res, "world1", arch, params, batch, rank)
+    # The frontend case: reduced qwen2-vl on precomputed embeds, 1f1b.
+    _, qparams, _ = _setup(ref, "qwen/params/")
+    qarch = get_arch(FRONTEND).reduced()
+    qbatch = {"tokens": ref["toks"], "labels": ref["toks"], "embeds": frontend_embeds()}
+    qplan = sharding.make_plan(qarch, (2, 1, 1), pipeline_on_pod=True)
+    _pipelined(res, "qwen", qarch, qplan, params=qparams, batch=qbatch, traces=False)
+    _pipelined_forward(res, "qwen", qarch, qplan, qparams, qbatch)
+    _world1(res, "qwen1", qarch, qparams, qbatch, rank)
     return res
 
 

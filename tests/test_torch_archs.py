@@ -77,10 +77,10 @@ def _fields(a):
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("name", NAMES)
 def test_config_equals_the_reference(name, reduced):
-    """Every field the port carries equals the reference's with ``==``
-    (``scale_embeddings`` among them; of the two it does not carry, the
-    modality frontend is None there and ``MoECfg.router_dtype``, which
-    nothing reads, is "float32"), and so does ``total_params()``."""
+    """Every field of the reference's equals the port's with ``==``
+    (``scale_embeddings`` and ``frontend``, None for these archs, among
+    them; the port does not carry ``MoECfg.router_dtype``, which nothing
+    reads and which is "float32" there), and so does ``total_params()``."""
     mine, ref = get_arch(name), jget_arch(name)
     if reduced:
         mine, ref = mine.reduced(), ref.reduced()
@@ -88,7 +88,8 @@ def test_config_equals_the_reference(name, reduced):
     want = {k: ({kk: getattr(v, kk) for kk in got[k]} if isinstance(got[k], dict) else v)
             for k in got for v in (getattr(ref, k),)}
     assert got == want
-    assert set(_fields(ref)) - set(got) == {"frontend"} and ref.frontend is None
+    assert set(_fields(ref)) == set(got)
+    assert mine.frontend is None and ref.frontend is None
     if ref.moe is not None:
         assert set(_fields(ref.moe)) - set(got["moe"]) == {"router_dtype"}
         assert ref.moe.router_dtype == "float32"

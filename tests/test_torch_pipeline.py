@@ -421,3 +421,25 @@ def test_pipelined_forward_under_pp_x_ep_matches_world1(runs, mesh):
     tag = f"fwd32/{mesh}"
     assert float(res[f"{tag}/gap_world1"]) <= LOSS_ATOL
     np.testing.assert_array_equal(res[f"{tag}/loads"], res[f"{tag}/world1_loads"])
+
+
+def test_frontend_embeds_under_the_pipeline_match_the_jax_executor(runs):
+    """Reduced qwen2-vl (M-RoPE) fed precomputed ``embeds`` at (2, 1, 1),
+    1f1b: the embeds split into microbatches outside the executor, the
+    wire in their dtype.  The loss and every gradient against the
+    reference's pipelined ``loss_and_grads`` (the child's gates), the
+    ``embed`` gradient exactly 0 on both sides (no lookup, untied head),
+    the loss against world 1; the pipelined forward's logits against the
+    reference's pipelined ``forward`` and against world 1 at 1e-5."""
+    ref, res, _, _ = runs
+    assert abs(float(res["qwen/loss"]) - float(ref["qwen/loss"])) < LOSS_ATOL
+    assert abs(float(res["qwen/loss"]) - float(res["qwen1/loss"])) < LOSS_ATOL
+    got, want = grads_of(res, "qwen"), grads_of(ref, "qwen")
+    assert sorted(got) == sorted(want) and len(got) == 12
+    assert not got["embed"].any() and not want["embed"].any()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=GRAD_ATOL, err_msg=k)
+    grad_close(grads_of(res, "qwen1"), got, GRAD_ATOL, 0.05)
+    assert float(res["qwen/gap_world1"]) <= LOSS_ATOL
+    np.testing.assert_allclose(res["qwen/logits"], ref["qwen/logits"], rtol=0,
+                               atol=LOSS_ATOL)
