@@ -6,10 +6,9 @@
 With no argument it runs every phase below.  With phase names
 (``PHASES``: kernels, model, small_parity, serving, parity, profile,
 dense_cache, ssm_serving, ssm_parity, ssm_profile, ssm_train, training,
-checkpoint, ep, migrate, pipeline, mesh, memory, archs, frontend) it builds the
-kernels
-and runs those phases alone, with what they need (parity the serving
-phase, ssm_profile SSM serving, ep training), under the same set-up,
+checkpoint, ep, migrate, pipeline, mesh, memory, archs, frontend, dryrun) it builds
+the kernels and runs those phases alone, with what they need (parity the
+serving phase, ssm_profile SSM serving, ep and dryrun training), under the same set-up,
 and prints each phase's seconds instead of the ``kernels`` and ``ok``
 lines.
 
@@ -333,6 +332,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    each kernel call's first at a shape is held against its plain version
    and no launch takes ``/fma`` in bf16.  The launch counts of (b)-(e)
    are this path's.
+19. dryrun: ``repro_torch.launch.dryrun`` on this machine's CPU, no
+   kernel.  (a) The training phase's step (granite, 2 x 512, ragged,
+   remat full) traced at world 1 on fake tensors: its peak beside the
+   training phase's ``torch.cuda.max_memory_allocated`` and its FLOPs
+   beside 6 N_active tokens.  (b) The granite train_4k cell on a fake
+   process group of 256 ranks, in a process started with the script: a
+   rank's peak beside the resource model's mem_stage0.  Fails only if a
+   trace errors or the record lacks a field.
 
 The last two lines are a JSON object of per-kernel numbers and the result
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -5655,6 +5662,112 @@ def frontend_phase(dev):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run (launch.dryrun), traced on the host
+# ---------------------------------------------------------------------------
+
+# (b)'s cell: the reference's recorded granite cell at the 256-rank grid.
+DRYRUN_CELL = ("granite-moe-3b-a800m", "train_4k")
+DRYRUN_FIELDS = ("chips", "ep", "tp", "pp", "memory", "cost", "collectives", "kernels",
+                 "dispatch_model", "a2a_model", "schedule_model", "robustness_model",
+                 "model_mem_stage0_bytes", "routing", "path")
+
+
+def _dryrun_cell(rank: int, tmp: str) -> None:
+    """(b) in its own process (``torch.multiprocessing`` target, beside (a)):
+    the cell's record to ``tmp/cell.json``, or the failure there."""
+    import traceback
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        from repro_torch.launch import dryrun
+
+        rec = dryrun.run_cell(*DRYRUN_CELL, False, save=False)
+    except Exception as e:  # reported to the parent, which fails the phase
+        rec = {"status": "error", "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-3000:]}
+    Path(tmp, "cell.json").write_text(json.dumps(rec))
+
+
+def dryrun_start():
+    """Start (b) of phase "dryrun" in its own process, so that its trace
+    (CPU-bound) runs beside (a)'s.  It starts after every phase that times
+    something, so that no figure of the script is taken beside it."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    ctx = mp.start_processes(_dryrun_cell, args=(tmp,), nprocs=1, start_method=RANK_START,
+                             join=False, daemon=True)  # ends with the script if it fails
+    return ctx, tmp, time.perf_counter()
+
+
+def dryrun_phase(train_summary) -> None:
+    """The dry run on this machine's CPU, beside what phase "training"
+    measured on the card: (a) granite's 2 x 512 full-depth train step of
+    phase "training" (ragged, remat full, fp32 AdamW) traced at world 1 on
+    fake tensors, its peak beside the measured
+    ``torch.cuda.max_memory_allocated`` and its FLOPs beside 6 N_active
+    tokens; (b) the granite train_4k cell on a fake process group of 256
+    ranks (``launch.dryrun.run_cell``, in the process :func:`dryrun_start`
+    starts), a rank's peak beside the resource model's mem_stage0 for the
+    same plan.  Fails only if a trace errors or a record lacks a field."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+
+    ctx, tmp, t_start = dryrun_start()
+    args = dict(zip(TRAIN_ARGS[::2], TRAIN_ARGS[1::2]))
+    b, s = int(args["--batch"]), int(args["--seq"])
+    base = get_arch(args["--arch"])
+    arch = base.replace(moe=dataclasses.replace(base.moe, dispatch=args["--dispatch"]))
+    t0 = time.perf_counter()
+    try:
+        try:
+            a = dryrun.trace_step(arch, "train", None, b, s)
+        except Exception as e:  # noqa: BLE001
+            fail(f"dryrun (a): the trace failed: {type(e).__name__}: {e}")
+        t_a = time.perf_counter() - t0
+        while not ctx.join():
+            pass
+        rec = json.loads(Path(tmp, "cell.json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_b = time.perf_counter() - t_start
+    measured = train_summary["peak_mem_gb"]
+    traced = a["memory"]["peak_bytes"] / 1e9
+    mf = 6.0 * arch.active_params() * b * s
+    log(f"[dryrun] (a) {arch.name} full width and depth, {b} x {s}, ragged, remat full, world "
+        f"1, fake tensors (plain path, balanced routing): traced peak {traced:.2f} GB vs phase "
+        f"training's measured torch.cuda.max_memory_allocated {measured:.2f} GB (ratio "
+        f"{traced / measured:.3f}); traced FLOPs {a['cost']['flops']:.4e} vs 6 N_active "
+        f"tokens {mf:.4e} (ratio {a['cost']['flops'] / mf:.3f}); state "
+        f"{a['memory']['state_bytes'] / 1e9:.2f} GB; kernels as ops {a['kernels']}; "
+        f"traced in {t_a:.1f} s")
+    if rec.get("status") != "ok":
+        fail(f"dryrun (b): {rec.get('error')}\n{rec.get('traceback', '')}")
+    missing = [k for k in DRYRUN_FIELDS if k not in rec]
+    missing += [f"memory/{k}" for k in ("param_bytes", "grad_bytes", "optimizer_bytes",
+                                       "state_bytes", "peak_bytes", "fits")
+                if k not in rec["memory"]]
+    missing += [f"cost/{k}" for k in ("flops", "bytes_accessed", "bytes_large")
+                if k not in rec["cost"]]
+    if missing:
+        fail(f"dryrun (b): the record lacks {missing}")
+    mem, col = rec["memory"], rec["collectives"]
+    log(f"[dryrun] (b) {rec['cell']} on a fake process group of {rec['chips']} ranks (ep "
+        f"{rec['ep']}, tp {rec['tp']}, pp {rec['pp']}, {rec['optimizer_dtype']} moments, remat "
+        f"{rec['remat']}): a rank's traced peak {mem['peak_bytes'] / 1e9:.2f} GB vs the "
+        f"resource model's mem_stage0 {rec['model_mem_stage0_bytes'] / 1e9:.2f} GB (modeled "
+        f"for h100-sxm; ratio {mem['peak_bytes'] / rec['model_mem_stage0_bytes']:.3f}); state "
+        f"{mem['state_bytes'] / 1e9:.3f} GB; FLOPs {rec['cost']['flops']:.4e}, bytes_large "
+        f"{rec['cost']['bytes_large']:.4e}; collectives {col['counts']}, wire bytes "
+        f"{ {k: f'{v:.4e}' for k, v in col['wire_bytes'].items()} }; traced in "
+        f"{rec['trace_seconds']:.1f} s, done {t_b:.1f} s after its start, beside (a)")
+    log(f"[check] dryrun (a) and (b): both traces ran, the record has its "
+        f"{len(DRYRUN_FIELDS)} fields ok")
+
+
 def main(names=()) -> None:
     unknown = sorted(set(names) - set(PHASES))
     if unknown:
@@ -5733,6 +5846,7 @@ def main(names=()) -> None:
         counts["archs"], fa256 = out["archs"]
     if phase("frontend", frontend_phase, dev) is not None:
         counts["frontend"], frontend_rows = out["frontend"]
+    phase("dryrun", lambda: dryrun_phase(out["training"][1]))
     # The fork server exits when it reads this process's end; wait for that
     # here so that none outlives the script (``_stop``: the module has no
     # public call for it).
@@ -5758,8 +5872,9 @@ def main(names=()) -> None:
 
 PHASES = ("kernels", "model", "small_parity", "serving", "parity", "profile", "dense_cache",
           "ssm_serving", "ssm_parity", "ssm_profile", "ssm_train", "training", "checkpoint",
-          "ep", "migrate", "pipeline", "mesh", "memory", "archs", "frontend")
-NEEDS = {"parity": "serving", "ssm_profile": "ssm_serving", "ep": "training"}
+          "ep", "migrate", "pipeline", "mesh", "memory", "archs", "frontend", "dryrun")
+NEEDS = {"parity": "serving", "ssm_profile": "ssm_serving", "ep": "training",
+         "dryrun": "training"}
 
 
 if __name__ == "__main__":

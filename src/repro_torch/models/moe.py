@@ -276,6 +276,56 @@ def _unsort(ys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return ys.new_zeros(ys.shape).index_copy(0, order, ys)
 
 
+def _ragged_send(flat_e: torch.Tensor, E: int, ep: int, S: int, rep=None):
+    """The send side of :func:`_moe_ragged_sharded`'s layout: the (T*k,)
+    expert ids sorted by global expert (experts contiguous per rank), each
+    row's destination rank ``dest`` and its position ``posd`` ranked among
+    the rows for that destination (S, the cut-off extra slot, for a row past
+    the budget or a replica row: ``keep_s`` False), and the kept rows per
+    (destination, local expert) as ``send_counts`` (ep, E/ep) int32.
+    Returns (order, inv, dest, posd, keep_s, send_counts)."""
+    Tk, E_l = flat_e.shape[0], E // ep
+    order, inv, _ = _sort_dispatch(flat_e, E)
+    sorted_e = flat_e[order]
+    dest = torch.div(sorted_e, E_l, rounding_mode="floor")  # nondecreasing
+    if rep is None:
+        dcounts = _counts(dest, ep)
+        pos = torch.arange(Tk, device=flat_e.device) - (dcounts.cumsum(0) - dcounts)[dest]
+        keep_s = pos < S  # rank-budget overflow (sorted order)
+    else:
+        valid = ~rep[0][order]
+        vi = valid.long()
+        dcounts = torch.zeros(ep, dtype=torch.long, device=flat_e.device).index_add_(
+            0, dest, vi)
+        pos = vi.cumsum(0) - 1 - (dcounts.cumsum(0) - dcounts)[dest]
+        keep_s = valid & (pos < S)
+    posd = torch.where(keep_s, pos, S)
+    lid = sorted_e - dest * E_l
+    send_counts = torch.zeros((ep, E_l), dtype=torch.int32, device=flat_e.device)
+    send_counts.index_put_((dest, lid), keep_s.to(torch.int32), accumulate=True)
+    return order, inv, dest, posd, keep_s, send_counts
+
+
+def _payload_ids(send_counts: torch.Tensor, S: int, exchange) -> torch.Tensor:
+    """The receiver's (ep, S) local expert id of every slot of the payload:
+    the counts exchange (``exchange``, one for all chunks) gives each
+    source's rows per local expert, and source chunk i is [c_i0 rows of
+    expert 0, c_i1 of expert 1, ..., sentinel E_l padding] by construction,
+    so the ids are rebuilt without a host sync."""
+    recv_counts = exchange(send_counts)
+    ep, E_l = recv_counts.shape
+    reps = torch.cat([recv_counts, S - recv_counts.sum(1, keepdim=True)], 1)
+    ids = torch.arange(E_l + 1, device=send_counts.device).repeat(ep)
+    return torch.repeat_interleave(ids, reps.reshape(-1).long(),
+                                   output_size=ep * S).reshape(ep, S)
+
+
+def _chunk_rows(recv_id: torch.Tensor, start: int, size: int, E_l: int):
+    """:func:`_ragged_rows` of the payload's slots [start, start + size) of
+    every source, in (source, slot) order."""
+    return _ragged_rows(recv_id[:, start:start + size].reshape(-1), E_l)
+
+
 def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
                         activation: str, moe: MoECfg, plan, capacity: int,
                         telemetry=None, rep=None):
@@ -297,45 +347,19 @@ def _moe_ragged_sharded(xt, top_phys, top_w, w_up, w_gate, w_down,
     E_l = E // ep
     flat_e = top_phys.reshape(-1)
     flat_w = top_w.reshape(-1)
-    Tk = flat_e.shape[0]
-    order, inv, _ = _sort_dispatch(flat_e, E)
-    sorted_e = flat_e[order]
-    xs = _token_rows(xt, order, k)  # (Tk, d) expert-sorted
     S = E_l * capacity
-    dest = torch.div(sorted_e, E_l, rounding_mode="floor")  # nondecreasing
-    if rep is None:
-        dcounts = _counts(dest, ep)
-        pos = torch.arange(Tk, device=xt.device) - (dcounts.cumsum(0) - dcounts)[dest]
-        keep_s = pos < S  # rank-budget overflow (sorted order)
-    else:
-        valid = ~rep[0][order]
-        vi = valid.long()
-        dcounts = torch.zeros(ep, dtype=torch.long, device=xt.device).index_add_(0, dest, vi)
-        pos = vi.cumsum(0) - 1 - (dcounts.cumsum(0) - dcounts)[dest]
-        keep_s = valid & (pos < S)
-    posd = torch.where(keep_s, pos, S)  # the extra slot S is cut off below
+    order, inv, dest, posd, keep_s, send_counts = _ragged_send(flat_e, E, ep, S, rep)
+    xs = _token_rows(xt, order, k)  # (Tk, d) expert-sorted
     send_x = xs.new_zeros((ep * (S + 1), d)).index_copy(0, dest * (S + 1) + posd, xs)
     send_x = send_x.reshape(ep, S + 1, d)[:, :S]
-    lid = sorted_e - dest * E_l
-    send_counts = torch.zeros((ep, E_l), dtype=torch.int32, device=xt.device)
-    send_counts.index_put_((dest, lid), keep_s.to(torch.int32), accumulate=True)
     xfer = _select_a2a(plan)
     with _a2a_span(telemetry, plan, part="ragged", rows=S, d=d):
-        # Counts exchange (one for all chunks): receiver-side segment
-        # structure, so each chunk's expert ids are known before its rows.
-        recv_counts = _select_a2a(plan, counts=True)(send_counts)
-        # Source chunk i is [c_i0 rows of expert 0, c_i1 of expert 1, ...,
-        # sentinel padding] by construction; rebuilt without a host sync.
-        reps = torch.cat([recv_counts, S - recv_counts.sum(1, keepdim=True)], 1)
-        ids = torch.arange(E_l + 1, device=xt.device).repeat(ep)
-        recv_id = torch.repeat_interleave(ids, reps.reshape(-1).long(),
-                                          output_size=ep * S).reshape(ep, S)
+        recv_id = _payload_ids(send_counts, S, _select_a2a(plan, counts=True))
 
         def compute(recv, start, size):
             # Per-chunk re-sort: each row's output depends only on its own
             # value and expert, so chunking is exact.
-            order_c, offsets_c = _ragged_rows(
-                recv_id[:, start:start + size].reshape(-1), E_l)
+            order_c, offsets_c = _chunk_rows(recv_id, start, size, E_l)
             ys = moe_ops.ragged_ffn(recv.reshape(ep * size, d)[order_c], w_up, w_gate,
                                     w_down, offsets_c, activation)
             return _unsort(ys, order_c).reshape(ep, size, d)
@@ -377,6 +401,17 @@ def _moe_capacity_sharded(buf, w_up, w_gate, w_down, activation: str, ffn,
     return y.reshape(E, capacity, d)
 
 
+def _decode_rows(flat_e: torch.Tensor, E_l: int, ep_rank: int, rep=None):
+    """:func:`_ragged_rows` of the (T*k,) expert ids by this rank's LOCAL
+    expert id: other ranks' rows, and with ``rep`` the replica rows, get
+    the sentinel E_l."""
+    lid = flat_e - ep_rank * E_l
+    local = (lid >= 0) & (lid < E_l)
+    if rep is not None:
+        local = local & ~rep[0]
+    return _ragged_rows(torch.where(local, lid, E_l), E_l)
+
+
 def _moe_ragged_decode(xt, top_phys, top_w, w_up, w_gate, w_down,
                        activation: str, moe: MoECfg, plan, rep=None):
     """Ragged weight-parallel decode: tokens are replicated over the EP
@@ -389,12 +424,7 @@ def _moe_ragged_decode(xt, top_phys, top_w, w_up, w_gate, w_down,
     k, E = moe.top_k, moe.num_experts
     E_l = E // plan.ep
     flat_e = top_phys.reshape(-1)
-    lid = flat_e - plan.ep_rank * E_l
-    local = (lid >= 0) & (lid < E_l)
-    if rep is not None:
-        local = local & ~rep[0]
-    lid = torch.where(local, lid, E_l)
-    order, offsets = _ragged_rows(lid, E_l)
+    order, offsets = _decode_rows(flat_e, E_l, plan.ep_rank, rep)
     xs = xt[torch.div(order, k, rounding_mode="floor")]
     ys = moe_ops.ragged_ffn(xs, w_up, w_gate, w_down, offsets, activation)
     vals = sharding.all_reduce(_unsort(ys, order), plan.ep_group)

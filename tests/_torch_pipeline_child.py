@@ -23,6 +23,7 @@ Only this file's ``jax`` mode imports JAX; the ``port`` mode imports
 ``repro_torch`` alone.
 """
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -81,6 +82,41 @@ def _paths(tree, prefix=""):
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _recorded_hand_offs(out):
+    """Every compressed hand-off's input before quantisation, a stage's in
+    tick order, to ``out["handoff/jax/<fwd|bwd>/<stage>"]`` (ticks, *shape).
+    A host callback cannot run in a partly automatic ``shard_map``, so the
+    block runs the reference's fully manual composition (its own fallback,
+    ``core.pipeline._composition``): the same schedule, hand-offs and
+    quantiser."""
+    import jax
+    from jax import lax
+
+    from repro import compat
+    from repro.core import compression as jcomp
+
+    seen = {}
+    orig, auto = jcomp.compressed_ppermute, compat.partial_auto_shard_map
+
+    def recorded(x, axis_name, perm, block=256):
+        direction = "fwd" if perm[0][1] > perm[0][0] else "bwd"
+
+        def keep(xv, stage):
+            seen.setdefault((direction, int(stage)), []).append(np.array(xv))
+
+        jax.debug.callback(keep, x, lax.axis_index(axis_name))
+        return orig(x, axis_name, perm, block)
+
+    jcomp.compressed_ppermute, compat.partial_auto_shard_map = recorded, lambda: False
+    try:
+        yield
+    finally:
+        jcomp.compressed_ppermute, compat.partial_auto_shard_map = orig, auto
+    for (direction, stage), xs in seen.items():
+        out[f"handoff/jax/{direction}/{stage}"] = np.stack(xs)
+
+
 def run_jax(out_path: str) -> None:
     import jax
     import jax.numpy as jnp
@@ -119,6 +155,8 @@ def run_jax(out_path: str) -> None:
     run("pp2/interleaved_1f1b", arch, (2, 1, 1), toks, schedule="interleaved_1f1b",
         vstages=2)
     run("pp4/compress", arch, (4, 1, 1), toks, schedule="1f1b", compress_p2p=True)
+    with _recorded_hand_offs(out):
+        run("pp4/compress_rec", arch, (4, 1, 1), toks, schedule="1f1b", compress_p2p=True)
     for tag, kw in FORWARD_PLANS.items():
         mesh = host_mesh((2, 1, 1), names)
         lm = LanguageModel(arch, make_plan(mesh, arch, pipeline_on_pod=True, **kw))
@@ -317,6 +355,40 @@ def _pipelined_forward(res, tag, arch, plan, params, batch):
         res[f"{tag}/{k}"] = aux[k].numpy()
 
 
+@contextlib.contextmanager
+def _recorded_wire(res):
+    """Every hand-off this rank sends, before quantisation, with its stage
+    and microbatch (the executor's ``s`` and the ``mb`` of the op that made
+    it, read off the caller's frame), gathered to ``res`` as
+    ``handoff/port/<fwd|bwd>/<stage>`` (sends, *shape) and ``.../mb``."""
+    import torch
+
+    from repro_torch.core import pipeline
+
+    seen = []
+    orig = pipeline.Wire.exchange
+
+    def recorded(self, sends, recvs):
+        f = sys._getframe(1).f_locals
+        for direction, _, t in sends:
+            seen.append((direction, int(f["s"]), int(f["mb"]), t.detach().float().numpy()))
+        return orig(self, sends, recvs)
+
+    pipeline.Wire.exchange = recorded
+    try:
+        yield
+    finally:
+        pipeline.Wire.exchange = orig
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, seen)
+    by = {}
+    for direction, stage, mb, x in (r for rank in every for r in rank):
+        by.setdefault((direction, stage), []).append((mb, x))
+    for (direction, stage), items in by.items():
+        res[f"handoff/port/{direction}/{stage}"] = np.stack([x for _, x in items])
+        res[f"handoff/port/{direction}/{stage}/mb"] = np.asarray([mb for mb, _ in items])
+
+
 def _phase_pp4(rank: int, ref):
     import torch
 
@@ -340,7 +412,8 @@ def _phase_pp4(rank: int, ref):
 
     # int8 hand-offs: the step, and the forward's loss.
     cplan = sharding.make_plan(arch, (4, 1, 1), pipeline_on_pod=True, compress_p2p=True)
-    _pipelined(res, "pp4/compress", arch, cplan, params, batch, traces=False)
+    with _recorded_wire(res):
+        _pipelined(res, "pp4/compress", arch, cplan, params, batch, traces=False)
     res["forward4c/loss"] = np.asarray(_forward_loss(arch, cplan, params, batch))
 
     _pp_x_ep(res, "2,1,2", arch16, params, rank)

@@ -23,13 +23,16 @@
         reference's plan (granite, ragged; the mixed config), the
         non-expert bytes a rank holds, a swap-only migration, the engine's
         tokens; at (2, 1, 2) the pipeline executors' gradients, a PP 2
-        checkpoint at world 1, and the pod folded into data against its
-        control.  Each rank writes ``OUT_DIR/r4_rank<r>.npz``.
+        checkpoint at world 1, the pod folded into data against its
+        control, and the dry run's count of a train step at (2, 2) on real
+        tensors (``launch.dryrun.trace_step``).  Each rank writes
+        ``OUT_DIR/r4_rank<r>.npz``.
 
 Only the ``jax`` mode imports JAX.
 """
 
 import dataclasses
+import json
 import os
 import sys
 from pathlib import Path
@@ -55,6 +58,11 @@ PP_SCHEDULES = ("1f1b", "zb_h1")
 SERVE = dict(max_seqs=2, block_size=4, num_blocks=32, cache_dtype="float32")
 SWAP = (0, 5)  # a migration swapping these slots of every rep (EP ranks 0 and 1)
 ZERO_TAGS = ("vocab", "embed", "model_out", "ssm_inner")
+DRYRUN_MODES = MODES
+# The dry run's train step at (2, 2): batch, sequence.  33 tokens make a
+# rank's T k = 132 rows no multiple of E = 8, so its EP ranks receive
+# different row counts under the balanced routing.
+DRYRUN_BATCH = (8, 33)
 
 
 def arch_of(base, mode="ragged", experts=8, **kw):
@@ -390,6 +398,18 @@ def _phase4(rank: int, ref, out_dir: str):
     for kind, p in (("sliced", plan), ("whole", whole_control(plan))):
         _run(res, f"fold/{kind}", LanguageModel(arch, p), params, batch, torch.float32)
         _step(res, f"fold/step/{kind}", LanguageModel(arch, p), params, batch, opt)
+
+    # 6. The dry run's count of one train step on real tensors at (2, 2),
+    # under its balanced routing: this rank's collectives, FLOPs and peak.
+    from repro_torch.launch import dryrun
+
+    for mode in DRYRUN_MODES:
+        arch = arch_of(base, mode)
+        got = dryrun.trace_step(arch, "train", sharding.make_plan(arch, (2, 2)), *DRYRUN_BATCH,
+                                fake=False)
+        res[f"dryrun/{mode}"] = np.asarray(json.dumps(
+            {"collectives": got["collectives"], "flops": got["cost"]["flops"],
+             "peak_bytes": got["memory"]["peak_bytes"]}))
     return res
 
 

@@ -105,6 +105,32 @@ def test_layout_manifest_and_in_place_restore(tmp_path):
     assert leaf_crc32s(live) == manifest["crc32"]
 
 
+def test_threaded_crcs_equal_one_threads(tmp_path):
+    """The manifest's CRC32 map, made on ``CRC_THREADS`` threads, and
+    ``leaf_crc32s`` equal one thread's ``zlib.crc32`` of every leaf's host
+    bytes (bf16 bits, large and small leaves); the threaded verify still
+    names the first bad leaf in key order."""
+    import zlib
+
+    g = torch.Generator().manual_seed(0)
+    state = {"big": {str(i): torch.randn(257, 1031, generator=g) for i in range(6)},
+             "m": torch.randn(4099, generator=g).to(torch.bfloat16),
+             "small": torch.arange(3, dtype=torch.int32), "step": torch.tensor(2)}
+    one = {k: zlib.crc32(np.ascontiguousarray(a).data)
+           for k, a in checkpointing.snapshot(state).items()}
+    assert checkpointing.CRC_THREADS > 1
+    path = save_checkpoint(tmp_path, 1, state)
+    assert json.loads((path / "manifest.json").read_text())["crc32"] == one
+    assert leaf_crc32s(state) == one
+    assert verify_checkpoint(path) == (True, "ok")
+    for key in ("big/4", "big/1"):  # both bad: big/1 comes first
+        f = path / f"{key.replace('/', '.')}.npy"
+        raw = bytearray(f.read_bytes())
+        raw[-1] ^= 0xFF
+        f.write_bytes(bytes(raw))
+    assert verify_checkpoint(path) == (False, "crc32 mismatch for 'big/1'")
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "key"])
 def test_restore_refuses_a_mismatched_state_before_writing(tmp_path, bad):
     save_checkpoint(tmp_path, 1, _state(1.0))

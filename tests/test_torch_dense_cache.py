@@ -15,9 +15,15 @@ dropped), the same with a sliding-window layer, and the reduced jamba
 Tolerances are the reference's: 1e-5 against its prefill and decode
 (fp32 on both sides, summation order); 2e-4 between a prefill plus decode
 and the uncached forward (``tests/test_archs_smoke.py``); 1e-5 between
-the dense and the paged steps (``launch/serve.py:PARITY_BOUND``).
+the dense and the paged steps (``launch/serve.py:PARITY_BOUND``).  An SSM
+state leaf is held at 1e-5 x max(1, its largest magnitude), the rule
+jamba's logits already follow: a decode step's ``dt * x * B`` can lift a
+state element from ~0 to ~3 at once, and each package's fp32 rounding of
+that product lies a few ppm from float64 on its own side
+(``test_ssm_states_lie_no_further_from_float64_than_the_reference``).
 """
 
+import contextlib
 import dataclasses
 from functools import lru_cache
 
@@ -36,7 +42,7 @@ from repro_torch import training
 from repro_torch.configs import get_arch
 from repro_torch.convert import cache_from_numpy, cache_to_numpy, params_from_numpy
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.model import LanguageModel, tree_paths
+from repro_torch.models.model import LanguageModel, map_tree, tree_paths
 from repro_torch.serving.kv_cache import PagedLayout
 
 GRANITE, JAMBA = "granite-moe-3b-a800m", "jamba-1.5-large-398b"
@@ -101,12 +107,15 @@ def _pad_jax(cache, cache_len):
 
 
 def _close_caches(got, want, atol, what):
+    """Every leaf within ``atol``; an SSM state within ``atol`` x max(1, its
+    largest magnitude) (module docstring)."""
     want = tree_paths(jax.tree.map(np.asarray, want))
     got = tree_paths(cache_to_numpy(got))
     assert got.keys() == want.keys(), what
     for path, w in want.items():
         assert got[path].shape == w.shape, (what, path)
-        np.testing.assert_allclose(got[path], w, rtol=0, atol=atol, err_msg=f"{what} {path}")
+        tol = atol * max(1.0, float(np.abs(w).max())) if path.endswith("/ssm") else atol
+        np.testing.assert_allclose(got[path], w, rtol=0, atol=tol, err_msg=f"{what} {path}")
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +169,122 @@ def test_prefill_and_decode_match_reference(case):
         np.testing.assert_allclose(_np(lt), np.asarray(lj), rtol=0, atol=ATOL,
                                    err_msg=f"decode step {i}")
         _close_caches(ct, cj, ATOL, f"decode step {i}")
+
+
+@contextlib.contextmanager
+def _float_is_double():
+    """Every ``Tensor.float()`` of the port's model returns float64 inside
+    the block (``scripts/port_parity_witness.py``'s widening)."""
+    old = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.to(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = old
+
+
+@contextlib.contextmanager
+def _jax_float_is_double():
+    """The reference's model in float64 inside the block: 64-bit types on,
+    every ``jnp.float32`` it names read as ``jnp.float64``, and a
+    "float64" compute dtype."""
+    old = jnp.float32
+    with jax.enable_x64(True):
+        jnp.float32 = jnp.float64
+        jtraining.DTYPES["float64"] = jnp.float64
+        try:
+            yield
+        finally:
+            jnp.float32 = old
+            del jtraining.DTYPES["float64"]
+
+
+def _ssm_leaves(cache):
+    return {p: np.asarray(v, np.float64) for p, v in cache.items() if p.endswith("/ssm")}
+
+
+def _reference_in_float64(case, toks, l, k):
+    """The reference's SSM states after its prefill and each decode step,
+    evaluated in float64 (:func:`_jax_float_is_double`)."""
+    plan, lm_j, params_j, _, _ = setup(case)
+    out = []
+    with _jax_float_is_double():
+        plan64 = dataclasses.replace(plan, compute_dtype="float64")
+        lm64 = JLM(lm_j.arch, plan64, impl="xla")
+        p64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64))
+                           if a.dtype == np.float32 else a, params_j)
+        prefill = jax.jit(jtraining.make_prefill_step(lm64))
+        decode = jax.jit(jtraining.make_decode_step(lm64))
+        with plan64.mesh:
+            _, c = prefill(p64, {"tokens": jnp.asarray(toks[:, :l])})
+            out.append(_ssm_leaves(tree_paths(jax.tree.map(np.asarray, c))))
+            c = _pad_jax(c, l + k)
+            for i in range(k):
+                _, c = decode(p64, c, {"tokens": jnp.asarray(toks[:, l + i:l + i + 1])},
+                              jnp.int32(l + i))
+                out.append(_ssm_leaves(tree_paths(jax.tree.map(np.asarray, c))))
+    return out
+
+
+def ssm_state_errors(case="jamba"):
+    """[(step, {SSM path: (max |port - f64|, max |reference - f64|, max
+    |port - f64'|, max |reference - f64'|, max |f64|, max |f64 - f64'|)})] over
+    ``test_prefill_and_decode_match_reference``'s prefill and decode
+    steps: f64 is the port's model with every weight, cache and upcast
+    widened, f64' the reference's (:func:`_reference_in_float64`)."""
+    plan, _, params_j, lm_t, params_t = setup(case)
+    l, k = STEPS_CASES[case]
+    toks = _tokens(2, l + k, seed=l + k)
+    jprefill, jdecode = _jax_steps(case)
+    params_d = map_tree(lambda t: t.double() if t.is_floating_point() else t, params_t)
+    exact_ref = iter(_reference_in_float64(case, toks, l, k))
+    out = []
+
+    def record(step, ct, cj, cd):
+        want = _ssm_leaves(tree_paths(jax.tree.map(np.asarray, cj)))
+        got = _ssm_leaves(tree_paths(cache_to_numpy(ct)))
+        exact = _ssm_leaves({p: v.numpy() for p, v in tree_paths(cd).items()})
+        other = next(exact_ref)
+
+        def gap(x, y):
+            return float(np.abs(x - y).max())
+
+        out.append((step, {p: (gap(got[p], exact[p]), gap(want[p], exact[p]),
+                               gap(got[p], other[p]), gap(want[p], other[p]),
+                               float(np.abs(exact[p]).max()), gap(exact[p], other[p]))
+                           for p in want}))
+
+    with plan.mesh:
+        _, cj = jprefill(params_j, {"tokens": jnp.asarray(toks[:, :l])})
+    _, ct = training.make_prefill_step(lm_t, torch.float32)(params_t, {"tokens": toks[:, :l]})
+    with _float_is_double():
+        _, cd = training.make_prefill_step(lm_t, torch.float64)(params_d,
+                                                                {"tokens": toks[:, :l]})
+        cd = lm_t.pad_cache(cd, l + k)
+    record("prefill", ct, cj, cd)
+    cj, ct = _pad_jax(cj, l + k), lm_t.pad_cache(ct, l + k)
+    for i in range(k):
+        tok = toks[:, l + i:l + i + 1]
+        with plan.mesh:
+            _, cj = jdecode(params_j, cj, {"tokens": jnp.asarray(tok)}, jnp.int32(l + i))
+        training.make_decode_step(lm_t, torch.float32)(params_t, ct, {"tokens": tok}, l + i)
+        with _float_is_double():
+            training.make_decode_step(lm_t, torch.float64)(params_d, cd, {"tokens": tok},
+                                                           l + i)
+        record(f"decode {i}", ct, cj, cd)
+    return out
+
+
+def test_ssm_states_lie_no_further_from_float64_than_the_reference():
+    """The witness of the SSM rule: over jamba's prefill and decode steps,
+    the port's largest state error is no larger than the reference's,
+    measured from the port's model in float64 and from the reference's in
+    float64 alike, and within the rule's bound."""
+    errs = [e for _, leaves in ssm_state_errors() for e in leaves.values()]
+    for port, ref in ((0, 1), (2, 3)):
+        assert max(e[port] for e in errs) <= max(e[ref] for e in errs), (port, ref)
+    for e in errs:
+        assert max(e[0], e[2]) <= ATOL * max(1.0, e[4]), e
 
 
 @pytest.mark.parametrize("case", list(STEPS_CASES))
@@ -300,3 +425,12 @@ def test_paged_serving_still_refuses_mamba():
     with pytest.raises(NotImplementedError, match="attention mixers only"):
         lm_t.init_paged_cache(PagedLayout(num_blocks=4, block_size=8, max_seqs=1,
                                           max_blocks_per_seq=4), device="cpu")
+
+
+if __name__ == "__main__":
+    print("f64: the port's model in float64; f64': the reference's")
+    for step, leaves in ssm_state_errors():
+        for path, (p, r, p2, r2, mag, both) in leaves.items():
+            print(f"{step:9s} {path:6s} |port - f64| {p:.3e}  |reference - f64| {r:.3e}  "
+                  f"|port - f64'| {p2:.3e}  |reference - f64'| {r2:.3e}  max |f64| {mag:.3f}  "
+                  f"|f64 - f64'| {both:.3e}")

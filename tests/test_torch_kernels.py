@@ -196,7 +196,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 10
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/checkpoint/__init__.py",
-            "src/repro_torch/checkpoint/checkpointing.py"} <= scanned
+            "src/repro_torch/checkpoint/checkpointing.py",
+            "src/repro_torch/launch/cost.py", "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/roofline.py"} <= scanned
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -23,9 +23,15 @@ has no wire, the same run with the wire in fp32 at 1e-5 / 1e-4: with the
 bf16 wire the 4-layer stack's gradients lie up to 0.147 of a leaf's
 largest magnitude from world 1's at EP alone (``--mesh 1,2``) as under
 the pipeline, too loose a gate to see a pipeline fault.  int8 hand-offs
-against the JAX executor's: ``close_wire`` again (a last-bit difference
-can move an element one int8 step, 1/127 of its block's largest
-magnitude).
+against the JAX executor's: both children record every hand-off before
+quantisation (``hand_off_codes``).  Where both runs' inputs agree to fp32
+noise, an int8 code differs only where the value sat within a few ulps of
+a rounding tie in both (``test_int8_codes_differ_only_at_rounding_ties``).
+One such code moves an element by one int8 step, 1/127 of its block's
+largest magnitude, and with it the rest of that microbatch's chain.  So
+the step is held at ``GRAD_ATOL`` everywhere but in the embedding rows of
+the tokens of the microbatches that carried a differing code, which keep
+``close_wire``'s max-error bound.
 """
 
 import json
@@ -75,7 +81,12 @@ def _run(args, env=None):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    d = tmp_path_factory.mktemp("pipeline")
+    return _run_children(tmp_path_factory.mktemp("pipeline"))
+
+
+def _run_children(d):
+    """The launcher beside the JAX child then the port child, in ``d``:
+    (reference results, port results, launcher stdout, d)."""
     # The launcher runs beside the children (it needs none of their output).
     launch = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
@@ -248,16 +259,85 @@ def test_int8_helpers_equal_the_reference_bitwise(runs, i):
     assert np.array_equal(np.asarray(jcomp.quantize_int8(x)[0]), ref[f"int8/{i}/q"])
 
 
+# The order in which a microbatch's hand-offs depend on one another at PP 4,
+# V = 1: the forward's, then the backward's from the last stage down.
+CHAIN = [("fwd", 0), ("fwd", 1), ("fwd", 2), ("bwd", 3), ("bwd", 2), ("bwd", 1)]
+TIE_ULPS = 4  # how far from a rounding tie fp32 noise may leave a value
+
+
+def hand_off_codes(ref, res):
+    """{(direction, stage, mb): (relative input gap, [(port ulps, reference
+    ulps) from the tie, a differing code])}: each of the port's recorded
+    hand-offs beside the reference's record nearest to it (the reference
+    records a stage's every tick, idle ones too), both quantised by the
+    port's ``quantize_int8`` (bitwise the reference's)."""
+    out = {}
+    for direction, stage in CHAIN:
+        key = f"handoff/port/{direction}/{stage}"
+        theirs = ref[f"handoff/jax/{direction}/{stage}"]
+        theirs = theirs.reshape(len(theirs), -1)
+        for x, mb in zip(res[key], res[key + "/mb"]):
+            x = x.reshape(-1)
+            y = theirs[np.abs(theirs - x).max(axis=1).argmin()]
+            codes, units = [], []
+            for v in (x, y):
+                q, sc = compression.quantize_int8(torch.from_numpy(v))
+                codes.append(q.numpy())
+                units.append(np.abs(v / np.repeat(sc.numpy(), compression.BLOCK)[:v.size]))
+            ties = [tuple(float(abs(u[i] - np.floor(u[i]) - 0.5) / np.spacing(u[i]))
+                          for u in units)
+                    for i in np.flatnonzero(codes[0] != codes[1])]
+            out[direction, stage, int(mb)] = (float(np.abs(x - y).max() / np.abs(y).max()),
+                                             ties)
+    return out
+
+
+def test_int8_codes_differ_only_at_rounding_ties(runs):
+    """Where no earlier hand-off of a microbatch's chain carried a differing
+    code, the port's and the reference's inputs agree to fp32 noise, and
+    every code that differs sat within ``TIE_ULPS`` of a tie in both runs:
+    fp32 noise that both packages make, not a different value."""
+    ref, res, _, _ = runs
+    codes = hand_off_codes(ref, res)
+    assert len(codes) == len(CHAIN) * 8
+    tainted = set()
+    for direction, stage in CHAIN:
+        for mb in range(8):
+            gap, ties = codes[direction, stage, mb]
+            if mb in tainted:
+                continue
+            assert gap < 1e-5, (direction, stage, mb, gap)
+            assert all(max(t) <= TIE_ULPS for t in ties), (direction, stage, mb, ties)
+            if ties:
+                tainted.add(mb)
+
+
 def test_compressed_hand_offs_match_the_jax_executor(runs):
     """1f1b with compress_p2p at PP 4: the step against the JAX executor's
-    (close_wire, module docstring), its wire bytes a quarter of fp32's plus
-    the scales, and the forward's loss within 0.1 of the uncompressed."""
+    (module docstring: ``GRAD_ATOL`` but in the embedding rows of the
+    microbatches whose hand-offs carried a differing int8 code, which keep
+    ``close_wire``'s max-error bound), its wire bytes a quarter of fp32's
+    plus the scales, and the forward's loss within 0.1 of the
+    uncompressed."""
     ref, res, _, _ = runs
     tag = "pp4/compress"
     assert abs(float(res[f"{tag}/loss"]) - float(ref[f"{tag}/loss"])) < LOSS_ATOL
     got, want = grads_of(res, tag), grads_of(ref, tag)
+    # The recorded reference run (its fully manual composition) is the
+    # compared one but for fp32 noise, so its records stand for this run's.
+    rec = grads_of(ref, "pp4/compress_rec")
     for k in want:
-        close_wire(got[k], want[k], GRAD_ATOL)
+        np.testing.assert_allclose(rec[k], want[k], rtol=0, atol=1e-8, err_msg=k)
+    flipped = sorted({mb for (_, _, mb), (_, ties) in hand_off_codes(ref, res).items()
+                      if ties})
+    rows = np.zeros(want["embed"].shape[0], bool)
+    rows[ref["toks"].reshape(8, -1)[flipped].reshape(-1)] = True  # mb m: rows m * b / 8 on
+    for k in want:
+        near = rows if k == "embed" else np.zeros(want[k].shape[:1], bool)
+        np.testing.assert_allclose(got[k][~near], want[k][~near], rtol=0, atol=GRAD_ATOL,
+                                   err_msg=k)
+        bound = GRAD_ATOL + 2.0 ** -7 * float(np.abs(want[k]).max())
+        assert np.abs(got[k][near] - want[k][near]).max(initial=0.0) <= bound, k
     sent = int(res[f"{tag}/sent"])
     assert sent == int(res["pp4/1f1b/sent"]) > 0
     n = int(res["pp4/1f1b/sent_bytes"]) // (4 * sent)  # fp32 values a hand-off
@@ -443,3 +523,26 @@ def test_frontend_embeds_under_the_pipeline_match_the_jax_executor(runs):
     assert float(res["qwen/gap_world1"]) <= LOSS_ATOL
     np.testing.assert_allclose(res["qwen/logits"], ref["qwen/logits"], rtol=0,
                                atol=LOSS_ATOL)
+
+
+if __name__ == "__main__":
+    # The int8 witness's numbers: each hand-off with a differing code, and
+    # where the compressed step's embedding gradient leaves GRAD_ATOL.
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, res, _, _ = _run_children(Path(tmp))
+    for (direction, stage, mb), (gap, ties) in hand_off_codes(ref, res).items():
+        if ties:
+            print(f"{direction} stage {stage} mb {mb}: input gap {gap:.3e} of its largest "
+                  f"magnitude, {len(ties)} differing codes, (port, reference) ulps from the "
+                  f"tie of the first: {ties[0]}")
+    flipped = sorted({mb for (_, _, mb), (_, t) in hand_off_codes(ref, res).items() if t})
+    near = np.zeros(512, bool)
+    near[ref["toks"].reshape(8, -1)[flipped].reshape(-1)] = True
+    want, got = ref["pp4/compress/grad/embed"], res["pp4/compress/grad/embed"]
+    err = np.abs(got.astype(np.float64) - want)
+    print(f"embed: {(err > GRAD_ATOL).mean():.4f} of its elements past {GRAD_ATOL}, in "
+          f"{len(np.unique(np.argwhere(err > GRAD_ATOL)[:, 0]))} rows; microbatches with a "
+          f"differing code {flipped}, whose {int(near.sum())} token rows hold a largest gap "
+          f"of {err[near].max():.3e}, the other rows {err[~near].max():.3e}")

@@ -25,6 +25,7 @@ pipeline tests' 1e-5 loss and ``close_wire`` 1e-4.  Layouts, bytes,
 checkpoints, migration and served tokens: exact.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -36,15 +37,18 @@ import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.models.model import param_tree as jparam_tree
+from repro_torch import sharding
 from repro_torch.configs import get_arch
 from repro_torch.convert import shard_params
+from repro_torch.launch import dryrun
 from repro_torch.models.model import logical_tags, param_tree, tree_paths
 from repro_torch.optim import OptimizerConfig
 from repro_torch.optim.optimizer import lr_schedule
 
 from _torch_ep_child import _paths
 from _torch_zero_child import (
-    LAYOUT_GRIDS, MODES, NAME, PP_SCHEDULES, R2_GRIDS, REMATS, arch_of, mixed_of,
+    DRYRUN_BATCH, DRYRUN_MODES, LAYOUT_GRIDS, MODES, NAME, PP_SCHEDULES, R2_GRIDS, REMATS,
+    arch_of, mixed_of,
 )
 from test_torch_ep import close_wire, grad_gate_failures
 from test_torch_mesh import _groups
@@ -366,3 +370,23 @@ def test_pod_folded_into_data_keeps_the_function(runs):
     got, want = _tree(r0, "fold/step/sliced/params"), _tree(r0, "fold/step/whole/params")
     for k in want:
         assert np.abs(got[k] - want[k]).max() <= TWO_LR, k
+
+
+@pytest.mark.parametrize("mode", DRYRUN_MODES)
+@pytest.mark.parametrize("rank", [0, 3])
+def test_dry_run_tally_at_a_fake_world_of_4_equals_gloo(runs, mode, rank):
+    """The dry run's trace of a train step at (2, 2) on a fake process
+    group of 4, this rank's, counts the collectives (count, result and
+    wire bytes by kind), the FLOPs and the peak bytes that the same
+    counter counts on real tensors across 4 gloo ranks (the child's
+    section 6)."""
+    _, _, r4 = runs
+    want = json.loads(str(r4[rank][f"dryrun/{mode}"]))
+    arch = arch_of(get_arch(NAME).reduced(), mode)
+    with dryrun.fake_world(4, rank=rank):
+        got = dryrun.trace_step(arch, "train", sharding.make_plan(arch, (2, 2)),
+                                *DRYRUN_BATCH)
+    assert got["collectives"] == want["collectives"]
+    assert set(want["collectives"]["counts"]) >= {"all-to-all", "all-reduce"}
+    assert got["cost"]["flops"] == want["flops"]
+    assert got["memory"]["peak_bytes"] == want["peak_bytes"]
