@@ -117,7 +117,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    measured step p50 and peak memory.  Then one more step under
    ``torch.profiler``;
 11. checkpoint: ``repro_torch.runtime.trainer.Trainer`` on granite at full
-   width and depth 2 (ragged, batch 2 x 512): run A, 12 steps with no
+   width and depth 1 (ragged, batch 2 x 512): run A, 12 steps with no
    checkpoint (the launch counts zeroed before it and read after it,
    held per step as in phase 10); run B, checkpoints every 4
    steps, keep 2, NaN at steps 5-7 (rolled back to 4) and SIGTERM at 10
@@ -152,7 +152,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    just before the two-rank runs and read just after on each rank; every
    kernel of the path must be there, none through ``/fma``.  gloo stages
    CUDA tensors through the host, so no all-to-all time is printed; the
-   a2a micro-benchmarks run at world 1 and print no time either;
+   a2a micro-benchmarks run at world 1 and print no time either.  Every
+   multi-rank run gives a rank the reference's block of the batch (its
+   rows over data, its sequence slice over ep x tp).  (d) The train
+   launcher on four gloo ranks at ``--mesh 2,2`` (full width, depth 1, 2 x
+   512: a rank holds one row's 256 positions, so ep rank 1 attends to
+   keys ep rank 0 holds) beside the same launch at world 1: the final
+   loss within 2e-3, each rank's ``[mesh]`` line naming its rows and
+   positions;
 13. migrate: expert migration, hot-expert replicas, serving rebalance and
    the EP-agnostic checkpoint, on the same two gloo ranks, granite at full
    width and depth 1, EP = 2, cf 16, bf16, tokens in [0, 4) (the
@@ -197,8 +204,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    within 0.1 of the bf16 hand-offs', the bytes a hand-off beside
    ``resource_model.p2p_bytes_per_boundary``.  (f) ``torchrun
    --nproc-per-node 2`` of ``repro_torch.launch.train --mesh 2,1,1
-   --pipeline`` at full width, depth 16 (8 layers a rank; 32 until the
-   budget rule cut it), 3 steps: finite losses, a
+   --pipeline`` at full width, depth 8 (4 layers a rank; 32, then 16,
+   until the budget rule cut it), 3 steps: finite losses, a
    valid trace with two stage lanes, each rank's peak memory beside the
    modeled mem_stage0.  (g) Each schedule's step seconds, bubble fraction
    (``bubble_fraction`` and the IR's idle share), hand-offs and their
@@ -210,9 +217,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode step of a data rank's share, the grouped GEMMs of the capacity
    paths and flash attention at every prefill bucket, against their plain
    versions.  (b) Six ranks at ``--mesh 1,6`` (ep 2 x tp 3), depth 1, 6 x
-   512: loss and gathered gradients against the data grid ``--mesh 3,2``
-   (the same sequence a rank, EP 2, no tp) at phase 12's gates (halved
-   expert gradients must fail them), one AdamW step against the grid's as
+   384 (6 rows x 64 positions a rank): loss and gathered gradients
+   against the data grid ``--mesh 3,2`` (2 rows x 192 positions a rank, EP
+   2, no tp) at the reference's EP gates (halved expert gradients must
+   fail phase 12's), one AdamW step against the grid's as
    in phase 12, both grids against world 1 at the reference's EP gates
    (loss 2e-3, element-wise 2e-3, the embedding's relative norm 0.05), and
    the tp lanes of each EP rank holding bitwise-equal params after the
@@ -248,7 +256,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    peaks beside mem_stage0.  (c) Full depth, 2 x 512, 5 steps with fp32
    and bf16 Adam moments: 4 and 2 B a float parameter a moment exactly,
    the losses within ``MEM_MOMENT_REL``, both peaks.  (d) Four gloo ranks
-   sharing the card at ``--mesh 2,2`` (D 2 x ep 2), depth 2, 4 x 512, under
+   sharing the card at ``--mesh 2,2`` (D 2 x ep 2), depth 1, 4 x 512, under
    three plans: "whole" (every leaf whole on each rank), "split" (the
    expert d_ff split in 2 alone) and "sliced" (the default: the rule table
    slices the embedding and attention leaves 4 ways too).  Each rank's
@@ -1827,10 +1835,11 @@ def training_phase():
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: checkpoint, rollback and preemption at full width, depth 2
+# Phase 11: checkpoint, rollback and preemption at full width, depth 1
 # ---------------------------------------------------------------------------
 
-CKPT_DEPTH, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 2, 12, 4, 2
+# Depth 2 until PR 29's budget cut (PERF.md §6).
+CKPT_DEPTH, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 1, 12, 4, 2
 CKPT_NAN_AT, CKPT_SIGTERM_AT = 5, 10  # train.nonfinite x 3 from 5; train.sigterm at 10
 PATH_KERNELS["checkpoint"] = PATH_KERNELS["train"]
 
@@ -2128,7 +2137,7 @@ EP_DEPTH, EP_CF, EP_RANKS = 1, 16.0, 2
 # (dispatch, a2a_chunks) of the two-rank train steps.
 EP_CASES = (("ragged", 1), ("ragged", 2), ("capacity", 1), ("capacity", 2))
 EP_SERVE = dict(requests=4, prompt=(64, 512), max_new=8, max_seqs=4)
-EP_BATCH = (2, 512)  # the global train batch, split over the ranks by whole sequences
+EP_BATCH = (2, 512)  # the global train batch: its sequence split over the ranks
 # The EP gradient gates: the reference's check_moe_ep (loss and gradients
 # 2e-3, the embedding at relative 0.05 in norm) and, on every leaf, its
 # largest gap at most EP_GRAD_REL of its largest magnitude, so that a
@@ -2474,6 +2483,98 @@ def _ep_rank_body(rank: int, world: int, tmp: str) -> dict:
     return out
 
 
+# (d) of phase "ep": the train launcher on four gloo ranks at --mesh 2,2 (D 2 x
+# ep 2), granite full width at EP_DEPTH, against the same launch at world 1.
+# A rank holds one row's 256 positions: ep rank 1's queries attend to keys
+# that ep rank 0 holds.
+EP_SEQ_MESH, EP_SEQ_RANKS = "2,2", 4
+EP_SEQ_ARGS = TRAIN_ARGS[:2] + ["--steps", "2"] + TRAIN_ARGS[4:]
+
+
+def launcher_script(tmp: Path, depth: int) -> Path:
+    """A wrapper of ``repro_torch.launch.train`` that cuts the registry's
+    granite to ``depth`` layers in its process, the launcher unchanged."""
+    launcher = tmp / "launch_train.py"
+    launcher.write_text(
+        "import sys\n"
+        "from repro_torch.configs import ARCHS\n"
+        f"ARCHS[{ARCH!r}] = ARCHS[{ARCH!r}].replace(num_layers={depth})\n"
+        "from repro_torch.launch import ranks, train\n"
+        "try:\n"
+        "    train.main(sys.argv[1:])\n"
+        "finally:\n"
+        "    ranks.shutdown()\n")
+    return launcher
+
+
+def ep_seq_launcher() -> None:
+    """(d) ``repro_torch.launch.train --mesh 2,2`` on four gloo ranks at full
+    width, depth ``EP_DEPTH`` (rows over data, the sequence over ep), and
+    beside it the same launch at world 1: the final loss held to world 1's
+    at phase 12's loss gate (2e-3), and every rank's ``[mesh]`` line naming
+    the rows and positions it holds."""
+    import os
+    import re
+
+    src = Path(__file__).resolve().parent / "src"
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ep_seq_"))
+    launcher = launcher_script(tmp, EP_DEPTH)
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    cmds = {"world 1": [sys.executable, str(launcher)] + EP_SEQ_ARGS,
+            f"mesh {EP_SEQ_MESH}": [sys.executable, "-m", "torch.distributed.run",
+                                    "--standalone", "--nproc-per-node", str(EP_SEQ_RANKS),
+                                    str(launcher), "--mesh", EP_SEQ_MESH, "--backend",
+                                    "gloo"] + EP_SEQ_ARGS}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for k, c in cmds.items():
+            procs[k] = subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True, env=env)
+        outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+    finally:
+        for p in procs.values():  # stops what a timeout or an error left running
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = {}
+    for k, (out, err) in outs.items():
+        if procs[k].returncode != 0:
+            errors = [l for l in err.splitlines() if "Error" in l][-12:]
+            fail(f"ep (d) {k}: the launcher exited {procs[k].returncode}: " + "\n".join(errors))
+        for line in out.splitlines():
+            if line.startswith(("[mesh]", "[done]")):
+                log(f"[ep] (d) {k}: {line}")
+        m = re.search(r"\[done\] step=1 loss=(\S+) skipped=0", out)
+        if m is None:
+            fail(f"ep (d) {k}: no [done] line at step 1 without a skip")
+        losses[k] = float(m.group(1))
+    args = dict(zip(EP_SEQ_ARGS[::2], EP_SEQ_ARGS[1::2]))
+    b, s = int(args["--batch"]), int(args["--seq"])
+    D, n = (int(x) for x in EP_SEQ_MESH.split(","))
+    sl = s // n
+    want = {f"[mesh] rank {r} (p, d, e, t) = (0, {r // n}, {r % n}, 0): rows "
+            f"[{r // n * (b // D)}, {(r // n + 1) * (b // D)}) x positions [{r % n * sl}, "
+            f"{(r % n + 1) * sl}): {b // D * sl} tokens" for r in range(EP_SEQ_RANKS)}
+    # The ranks print at once through one pipe, so a line may follow
+    # another's without its newline: find them in the whole stream.
+    got = set(re.findall(r"\[mesh\] rank \d+ \(p, d, e, t\) = \([^)]*\): rows \[\d+, \d+\)"
+                         r" x positions \[\d+, \d+\): \d+ tokens",
+                         outs[f"mesh {EP_SEQ_MESH}"][0]))
+    one, grid = losses["world 1"], losses[f"mesh {EP_SEQ_MESH}"]
+    ok = got == want and abs(grid - one) < 2e-3
+    log(f"[check] ep (d) the train launcher at --mesh {EP_SEQ_MESH} ({EP_SEQ_RANKS} gloo "
+        f"ranks, full width, depth {EP_DEPTH}, {b} x {s}, 2 steps; the sequence over ep) vs "
+        f"world 1: final loss {grid!r} vs {one!r} (|d| {abs(grid - one):.3e} < 2e-3); every "
+        f"rank's [mesh] line names its rows and positions: {got == want} "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s, both launches side by "
+        f"side)")
+    if not ok:
+        fail(f"ep (d): the sequence-sharded launch disagrees with world 1 or its ranks' "
+             f"blocks ({sorted(got)})")
+
+
 def _bf16(params):
     from repro_torch.models.model import map_tree
 
@@ -2483,9 +2584,10 @@ def _bf16(params):
 def ep_phase(dev):
     """Two gloo ranks on the one card (EP = 2; granite full width, depth
     2, capacity factor 16): the train steps of ``EP_CASES`` and serving
-    under both dispatches against world 1 on rank 0.  Returns the two
-    ranks' summed launch counts of those runs (not of the world-1
-    references)."""
+    under both dispatches against world 1 on rank 0; then (d), the train
+    launcher on four gloo ranks at ``EP_SEQ_MESH`` against world 1
+    (:func:`ep_seq_launcher`).  Returns the two ranks' summed launch
+    counts of the first part (not of the world-1 references or of (d))."""
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
@@ -2531,10 +2633,12 @@ def ep_phase(dev):
         fail("ep: an a2a micro-benchmark did not run")
     log("[ep] a2a micro-benchmarks (core/microbench.py) ran at world 1: nothing measured "
         "(one card has no all-to-all; their times are not printed)")
-    log(f"[ep] phase {time.perf_counter() - t0:.1f} s (EP runs {res[0]['seconds']:.1f} s on "
-        f"rank 0)")
     if not res[0]["ok"]:
         fail("ep: a two-rank run disagrees with world 1")
+    torch.cuda.empty_cache()
+    ep_seq_launcher()
+    log(f"[ep] phase {time.perf_counter() - t0:.1f} s (EP runs {res[0]['seconds']:.1f} s on "
+        f"rank 0)")
     return counts
 
 
@@ -3052,8 +3156,10 @@ PIPE_OP_LAUNCHES = {"F": (1, 1, 0), "B": (2, 5, 3), "Bi": (2, 5, 0), "Bw": (2, 5
 PIPE_KERNELS = ("ragged_gate_up_silu_f32", "ragged_matmul_f32", "ragged_dw_f32")
 PATH_KERNELS["pipeline"] = PIPE_KERNELS
 # (f)'s depth: PERF.md's budget rule cut it from 32 layers to 16 (8 a
-# rank) once a whole run passed ~1100 s (1153 s on an H100, PERF.md §6).
-PIPE_LAUNCH_DEPTH = 16
+# rank) once a whole run passed ~1100 s (1153 s on an H100, PERF.md §6),
+# and to 8 (4 a rank) when the sequence layout's run took 1192 s on a
+# slower host (PERF.md §6, PR 29).
+PIPE_LAUNCH_DEPTH = 8
 PIPE_LAUNCH_ARGS = ["--arch", ARCH, "--mesh", "2,1,1", "--pipeline", "--schedule", "1f1b",
                     "--backend", "gloo", "--steps", "3", "--batch", "4", "--seq", "512",
                     "--seed", "0", "--dispatch", "ragged"]
@@ -3325,16 +3431,7 @@ def pipe_launcher(dev) -> None:
 
     src = Path(__file__).resolve().parent / "src"
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pipe_launch_"))
-    launcher = tmp / "launch_train.py"
-    launcher.write_text(
-        "import sys\n"
-        "from repro_torch.configs import ARCHS\n"
-        f"ARCHS[{ARCH!r}] = ARCHS[{ARCH!r}].replace(num_layers={PIPE_LAUNCH_DEPTH})\n"
-        "from repro_torch.launch import ranks, train\n"
-        "try:\n"
-        "    train.main(sys.argv[1:])\n"
-        "finally:\n"
-        "    ranks.shutdown()\n")
+    launcher = launcher_script(tmp, PIPE_LAUNCH_DEPTH)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
            "2", str(launcher)] + PIPE_LAUNCH_ARGS + ["--metrics-out", str(tmp / "m.jsonl")]
     t0 = time.perf_counter()
@@ -3426,14 +3523,17 @@ def pipeline_phase(dev):
 # under a pipeline, serving data parallelism), gloo ranks on the card
 # ---------------------------------------------------------------------------
 
-MESH_TP, MESH_TP_BATCH = (1, 6), (6, 512)  # ep = gcd(40, 6) = 2, tp = 3
-# The tp grid's control: D 3 x ep 2, the same sequence a rank and the same
-# EP degree, no tp lanes.  In bf16 compute both lie as far from world 1 at
-# 6 x 512 (a worst leaf 2.6e-2 of its largest magnitude, past phase 12's
-# 0.02, which was set at 2 x 512); against each other only the expert
-# gradients differ, by the bf16 rounding of each rank's partial sum.
+# ep = gcd(40, 6) = 2, tp = 3; the sequence split over ep x tp = 6 ranks
+# (6 x 384: 6 rows x 64 positions a rank).
+MESH_TP, MESH_TP_BATCH = (1, 6), (6, 384)
+# The tp grid's control: D 3 x ep 2, as many tokens a rank (2 rows x 192
+# positions) and the same EP degree, no tp lanes.  In bf16 compute both lie
+# as far from world 1 at 6 x 512 (a worst leaf 2.6e-2 of its largest
+# magnitude, past phase 12's 0.02, which was set at 2 x 512); the two grids
+# give a rank other blocks of the batch, so they are held to each other at
+# the reference's check_moe_ep gates.
 MESH_TP_CONTROL = (3, 2)
-# (d) at PIPE_M microbatches; (e) at 2, a sequence a rank of each and
+# (d) at PIPE_M microbatches; (e) at 2, 2 rows x 128 positions a rank of each and
 # phase 13's 1024 tokens a step (every layer's all-to-all ships the cf-16
 # wire through gloo, about 6 s a step at 4 x 512).
 MESH_PP_BATCH, MESH_PP_EP_BATCH, MESH_PP_EP_M = (4, 512), (4, 256), 2
@@ -3680,10 +3780,10 @@ def _mesh_serve(arch, plan, params, dev) -> list:
 def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
     """(b), (c): six ranks at ``MESH_TP`` (ep 2 x tp 3), granite at depth
     ``EP_DEPTH``.
-    Training is held to the data grid ``MESH_TP_CONTROL`` (D 3 x ep 2: the
-    same sequence a rank and the same EP degree, no tp lanes) at phase 12's
-    gates, and both grids to world 1 (rank 0) at the reference's own EP
-    gates; serving to world 1."""
+    Training is held to the data grid ``MESH_TP_CONTROL`` (D 3 x ep 2: as
+    many tokens a rank and the same EP degree, no tp lanes), and both grids
+    to world 1 (rank 0), at the reference's own EP gates; serving to world
+    1."""
     import torch.distributed as dist
 
     from repro_torch import sharding, training
@@ -3745,9 +3845,12 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
     gn0, _, want_after, _, _ = step(control)
     del control
     plan = sharding.make_plan(arch, MESH_TP)
+    blk, cblk = (training.batch_block(p, *MESH_TP_BATCH)
+                 for p in (plan, sharding.MeshPlan(dp=MESH_TP_CONTROL[0], ep=plan.ep)))
     run.note("tp/plan", f"--mesh {','.join(map(str, MESH_TP))}: ep {plan.ep}, tp {plan.tp}; "
-                        f"batch {MESH_TP_BATCH[0]} x {MESH_TP_BATCH[1]}, a sequence a rank; the "
-                        f"control grid --mesh {','.join(map(str, MESH_TP_CONTROL))}")
+                        f"batch {MESH_TP_BATCH[0]} x {MESH_TP_BATCH[1]}, {blk[0]} rows x "
+                        f"{blk[1]} positions a rank; the control grid --mesh "
+                        f"{','.join(map(str, MESH_TP_CONTROL))}, {cblk[0]} rows x {cblk[1]}")
     (loss, full), secs_g = _timed(lambda: grads(plan))
     gn, skipped, after, mine, secs = step(plan)
     peaks = run.peak_gb()
@@ -3756,22 +3859,23 @@ def _mesh_tp(rank: int, world: int, tmp: str) -> dict:
         k: c for k, c in leaf_crc32s(mine).items() if k not in plan.layout}])
     del mine
     if run.lead:
-        ok_g, rows = ep_grad_gate(full, want)
+        ok_g, gap_g, emb_g, rel_g = reference_gate(full, want)
+        rows = ep_grad_gate(full, want)[1]
         worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], 1e-30))
-        same = [k for k in want if torch.equal(full[k], want[k])]
-        run.record("tp/train", (loss == want_loss or abs(loss - want_loss) <= 1e-6) and ok_g,
-                   f"against the control grid: loss {loss!r} vs {want_loss!r} "
-                   f"({'bitwise' if loss == want_loss else f'|d| {abs(loss - want_loss):.3e}'}, "
-                   f"else 1e-6); {len(same)} of {len(want)} gradient leaves bitwise; worst leaf "
-                   f"{worst} max |d| {rows[worst][0]:.3e} of max |want| {rows[worst][1]:.3e} "
-                   f"(relative {rows[worst][0] / rows[worst][1]:.2e} <= {EP_GRAD_REL:g}; "
-                   f"< 2e-3; embed relative norm < 0.05)")
+        run.record("tp/train", abs(loss - want_loss) < 2e-3 and ok_g,
+                   f"against the control grid at the reference's EP gates: loss {loss!r} vs "
+                   f"{want_loss!r} (|d| {abs(loss - want_loss):.3e} < 2e-3); worst element-wise "
+                   f"gap {gap_g:.3e} (< 2e-3, the embedding aside), embed relative norm "
+                   f"{emb_g:.3e} (< 0.05); worst leaf {worst} max |d| {rows[worst][0]:.3e} of "
+                   f"max |want| {rows[worst][1]:.3e} (relative {rel_g:.2e})")
         experts = sharding.expert_paths(full)
         bad = {k: v * 0.5 if k in experts else v for k, v in full.items()}
         caught = sorted(k for k, r in ep_grad_gate(bad, want)[1].items() if not r[2])
-        run.record("tp/planted", caught == sorted(experts),
-                   f"expert gradients x 0.5 fail the gate at {len(caught)} of {len(experts)} "
-                   f"expert leaves, nothing else")
+        failing = {k for k, r in rows.items() if not r[2]}  # past the gate unplanted
+        run.record("tp/planted", set(experts) <= set(caught) <= set(experts) | failing,
+                   f"expert gradients x 0.5 fail phase 12's gate at {len(caught)} leaves: all "
+                   f"{len(experts)} expert leaves, and no other leaf but the {len(failing)} "
+                   f"past it unplanted")
         m_rows = ep_grad_gate(after["m"], want_after["m"])[1]
         m_rel = max(r[0] / max(r[1], 1e-30) for r in m_rows.values())
         p_gap = {k: (after["params"][k] - w).abs() for k, w in want_after["params"].items()}
@@ -4180,7 +4284,7 @@ MEM_MOMENT_REL = 1e-4
 # does not see, so it recomputes them as "full" does.
 MEM_REMAT_LAUNCHES = {"none": (1, 4, 3), "dots": (2, 5, 3), "full": (2, 5, 3)}
 MEM_SPLIT_MESH, MEM_SPLIT_BATCH = (2, 2), (4, 512)  # D 2 x ep 2: d_ff 512 in 2 slices
-MEM_SPLIT_DEPTH = 2
+MEM_SPLIT_DEPTH = 1  # 2 until PR 29's budget cut (PERF.md §6)
 MEM_SWAP = (0, 25)  # slots swapped in every rep: EP rank 0's and EP rank 1's
 PATH_KERNELS["memory"] = PIPE_KERNELS
 
@@ -5709,8 +5813,9 @@ def dryrun_phase(train_summary) -> None:
     ``torch.cuda.max_memory_allocated`` and its FLOPs beside 6 N_active
     tokens; (b) the granite train_4k cell on a fake process group of 256
     ranks (``launch.dryrun.run_cell``, in the process :func:`dryrun_start`
-    starts), a rank's peak beside the resource model's mem_stage0 for the
-    same plan.  Fails only if a trace errors or a record lacks a field."""
+    starts; a rank holds 16 rows x 256 positions, and its collectives count
+    the sequence gathers), a rank's peak beside the resource model's
+    mem_stage0 for the same plan.  Fails only if a trace errors or a record lacks a field."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -5755,9 +5860,16 @@ def dryrun_phase(train_summary) -> None:
     if missing:
         fail(f"dryrun (b): the record lacks {missing}")
     mem, col = rec["memory"], rec["collectives"]
+    from repro_torch.configs import SHAPES
+
+    shape = SHAPES[DRYRUN_CELL[1]]
+    rows, positions = (shape.global_batch // rec["dp"],
+                       shape.seq_len // (rec["ep"] * rec["tp"]))
     log(f"[dryrun] (b) {rec['cell']} on a fake process group of {rec['chips']} ranks (ep "
         f"{rec['ep']}, tp {rec['tp']}, pp {rec['pp']}, {rec['optimizer_dtype']} moments, remat "
-        f"{rec['remat']}): a rank's traced peak {mem['peak_bytes'] / 1e9:.2f} GB vs the "
+        f"{rec['remat']}; a rank's block {rows} rows x {positions} positions of the "
+        f"{shape.global_batch} x {shape.seq_len} batch): a rank's traced peak "
+        f"{mem['peak_bytes'] / 1e9:.2f} GB vs the "
         f"resource model's mem_stage0 {rec['model_mem_stage0_bytes'] / 1e9:.2f} GB (modeled "
         f"for h100-sxm; ratio {mem['peak_bytes'] / rec['model_mem_stage0_bytes']:.3f}); state "
         f"{mem['state_bytes'] / 1e9:.3f} GB; FLOPs {rec['cost']['flops']:.4e}, bytes_large "

@@ -4,12 +4,14 @@
 The layer stack is cut into ``PP * V`` chunks, chunk ``c = v * PP + s`` on
 pipeline stage ``s`` as its virtual stage ``v`` (``convert.shard_params``
 gives each rank its stage's chunks).  Each stage runs on the ranks of its
-stage group; the rank at (s, d, e) hands its rows of every microbatch to
-(s +- 1, d, e) over the pp group, so collectives (the EP all-to-all, the
-MoE metric sums) stay inside a stage and only point-to-point hand-offs
-cross the pod axis.  Microbatch mb of the global batch is its rows
-``[mb * b_mu, (mb + 1) * b_mu)``; each rank of a stage holds its ``b_mu /
-(D * ep)`` whole sequences of every microbatch (``training.shard_batch``).
+stage group; the rank at (s, d, e, t) hands its (b_l, s_l, d) block of
+every microbatch to (s +- 1, d, e, t) over the pp group, so collectives
+(the EP all-to-all, the MoE metric sums, the sequence gathers) stay inside
+a stage and only point-to-point hand-offs cross the pod axis.  Microbatch
+mb of the global batch is its rows ``[mb * b_mu, (mb + 1) * b_mu)``; each
+rank of a stage holds ``b_l = b_mu / D`` of its rows and its sequence
+slice of ``s_l = s / (ep * tp)`` positions (``training.shard_batch``, the
+reference's ``P(dp, sp, None)`` activations).
 
 Two executors interpret the schedule IR of ``core.schedules``:
 
@@ -28,7 +30,8 @@ Two executors interpret the schedule IR of ``core.schedules``:
   IR's ``num_slots`` residual slots.  **B** recomputes the chunk from its
   slot and applies the cotangent, handed back by the next chunk or, on
   chunk (PP - 1, V - 1), seeded by the per-microbatch loss head
-  (``1 / (b s)``; ``1 / M`` for the aux and z losses), taking the
+  (``1 / (b s)``, the global token count; ``1 / M`` for the aux and z
+  losses), taking the
   gradients of the input, the chunk's parameters and the embedding.
   **Bi** takes the input gradient alone and parks (input, cotangent) in
   one of ``num_wslots`` W-stash slots; **Bw** drains one, recomputes the
@@ -68,7 +71,7 @@ from repro_torch.core import compression
 from repro_torch.core import schedules as sched_lib
 from repro_torch.core.schedules import OP_B, OP_BI, OP_BW, OP_F
 from repro_torch.models import transformer
-from repro_torch.models.model import map_tree, tree_paths
+from repro_torch.models.model import LanguageModel, map_tree, tree_paths
 
 # Point-to-point tags: a tick boundary may carry a forward and a backward
 # payload between the same two ranks (a two-stage ring), each with its
@@ -202,7 +205,7 @@ def pipelined_stack_forward(block_params, inputs: torch.Tensor, arch: ArchConfig
                             vstages: Optional[int] = None, train: bool = True,
                             telemetry=None):
     """The differentiable pipelined stack (module docstring) on this rank's
-    rows ``inputs`` of every microbatch: token ids (M * b_l, s) that stage 0
+    block ``inputs`` of every microbatch: token ids (M * b_l, s_l) that stage 0
     embeds with ``embed_fn(embed_params, tokens)``, or, with ``embed_fn``
     None, precomputed (M * b_l, s, d) embeddings (a frontend's ``embeds``;
     the wire then carries their dtype, as the reference's), and its stage's chunks
@@ -225,7 +228,7 @@ def pipelined_stack_forward(block_params, inputs: torch.Tensor, arch: ArchConfig
     ft = sched_lib.forward_tick_tables_v(PP, M, V)
     rpc = transformer.num_reps(block_params) // V
     chunks = [_chunk(block_params, v, rpc) for v in range(V)]
-    positions = torch.arange(S, device=inputs.device)[None].expand(bl, S)
+    positions = LanguageModel._positions(bl, S, inputs.device, plan.seq_offset(S))
     prev, nxt = _neighbours(PP, s, V)
     act = _act_dtype(block_params) if embed_fn is not None else inputs.dtype
     wire = Wire(plan, act, inputs.device)
@@ -358,7 +361,7 @@ def pipelined_step(block_params, inputs: torch.Tensor, labels: torch.Tensor,
     dev = inputs.device
     rpc = transformer.num_reps(block_params) // V
     chunks = [_chunk(block_params, v, rpc) for v in range(V)]
-    positions = torch.arange(S, device=dev)[None].expand(bl, S)
+    positions = LanguageModel._positions(bl, S, dev, plan.seq_offset(S))
     prev, nxt = _neighbours(PP, s, V)
     act = _act_dtype(block_params) if embed_fn is not None else inputs.dtype
     wire = Wire(plan, act, dev)

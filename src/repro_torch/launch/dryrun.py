@@ -495,17 +495,6 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, pipeline: bool = 
                   compress_p2p=compress_p2p)
         stages = []
         pp = grid[0] if pipeline else 1
-        if pipeline:
-            # The executor gives every rank of a stage whole sequences of
-            # each microbatch: M * (ranks a stage) must divide the batch.
-            G = chips // pp
-            M = max(m for m in range(1, 2 * pp + 1) if shape.global_batch % (m * G) == 0)
-            kw["microbatches"] = M
-            record["microbatches"] = M
-            if M != 2 * pp:
-                record["notes"] = (f"{M} microbatch(es), not 2 * PP = {2 * pp}: the batch "
-                                   f"of {shape.global_batch} sequences gives each of a "
-                                   f"stage's {G} ranks whole sequences only so")
         for s in range(pp):
             with fake_world(chips, rank=s * (chips // pp)):
                 plan = sharding.make_plan(arch, grid, **kw)
@@ -516,6 +505,8 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool, pipeline: bool = 
                         vstages=plan.vstages if plan.pp > 1 else None,
                         optimizer_dtype=opt_dtype, remat=plan.remat,
                         **model_records(arch, shape, plan))
+                    if plan.pp > 1:
+                        record["microbatches"] = plan.num_microbatches
                 with obs.span("dryrun.trace", cell=cell, stage=s):
                     got = trace_step(arch, shape.kind, plan, shape.global_batch,
                                      shape.seq_len)

@@ -14,12 +14,16 @@ third resumes the second's checkpoint at step 4 and trains to 6):
         --batch 2 --seq 32 --ckpt-dir /tmp/ckpt
 
 Expert parallelism over ranks (``torchrun``; ``--mesh D,M`` gives world
-D*M, EP = gcd(E, M) and TP = M / EP lanes, each lane a token-parallel copy
-of its EP group; each rank takes ``batch / world`` whole sequences), and
-the pipeline (``--mesh P,D,M --pipeline``: P stages of D*M ranks, each
-stage running its EP layer, the schedule ``--schedule`` with
-``--vstages``; each rank takes ``b_mu / (D*M)`` whole sequences of every
-one of the n_mb microbatches, ``batch % (n_mb*D*M) == 0``):
+D*M, EP = gcd(E, M) and TP = M / EP lanes), and the pipeline (``--mesh
+P,D,M --pipeline``: P stages of D*M ranks, each stage running its EP
+layer, the schedule ``--schedule`` with ``--vstages``).  A rank holds the
+reference's block of the batch (``training.shard_batch``): its rows over
+data (``batch / D``; the pod joins data without ``--pipeline``; under it
+``b_mu / D`` rows of each of the n_mb = 2 P microbatches) and its slice of
+the sequence over the model axis (``seq / M`` positions).  So ``--seq``
+must divide by M and ``--batch`` by D (by n_mb * D under ``--pipeline``),
+or the launch is refused; the ``[mesh]`` line ends with the rank's rows
+and positions:
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --mesh 1,2 --steps 5 --batch 2 --seq 512            # one card each
@@ -28,7 +32,7 @@ one of the n_mb microbatches, ``batch % (n_mb*D*M) == 0``):
         --steps 3 --batch 8 --seq 32                        # gloo on the CPU
     PYTHONPATH=src torchrun --nproc-per-node 6 -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --reduced --device cpu --mesh 1,6 \\
-        --steps 3 --batch 6 --seq 32                        # ep 2, tp 3
+        --steps 3 --batch 6 --seq 48                        # ep 2, tp 3
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch granite-moe-3b-a800m --reduced --device cpu --mesh 2,1,2 \\
         --pipeline --schedule zb_h1 --steps 4 --batch 8 --seq 32 \\
@@ -99,6 +103,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import os
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -117,6 +123,7 @@ from repro_torch.optim import OptimizerConfig
 from repro_torch.optim.optimizer import adamw_init
 from repro_torch.sharding import OPTIMIZER_DTYPES, REMAT_MODES
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.training import batch_block, describe_block
 
 # The platform the planner and the drift report price (a test swaps it).
 PLATFORM = H100
@@ -295,7 +302,15 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     device, mesh = ranks.init(args, arch, a2a_algo, a2a_chunks, schedule=schedule,
                               vstages=vstages if args.pipeline else 1, remat=remat,
                               optimizer_dtype=opt_dtype)
-    say(mesh.describe())
+    rows, positions = batch_block(mesh, args.batch, args.seq)
+    say(mesh.describe() + f" batch: {rows} rows x {positions} positions a rank"
+        + (f" (of each of {mesh.num_microbatches} microbatches)" if mesh.pp > 1 else "")
+        + (f", the sequence over ep x tp = {mesh.seq_size}" if mesh.seq_size > 1 else ""))
+    if mesh.world > 1:  # every rank names the tokens it holds, in one write
+        sys.stdout.flush()
+        os.write(sys.stdout.fileno(), (
+            f"[mesh] rank {rank} (p, d, e, t) = {(mesh.pp_rank,) + mesh.coords}: "
+            f"{describe_block(mesh, args.batch, args.seq)}\n").encode())
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     # Spans are recorded only for a checkpointed or --metrics-out run:
@@ -320,11 +335,10 @@ def train(args: argparse.Namespace) -> Tuple[Dict[str, Any], Trainer, Dict[str, 
     say(f"[model] {arch.name} on {device}: {n_params / 1e6:.1f}M params, fp32 "
         f"masters, {mesh.optimizer_dtype} moments, bf16 compute, remat {mesh.remat}, "
         f"batch {args.batch} x seq {args.seq}"
-        + (f" ({args.batch // mesh.world} sequences a rank)" if mesh.world > 1
-           and mesh.pp == 1 else "")
+        + (f" ({rows * positions} tokens a rank)" if mesh.world > 1 and mesh.pp == 1
+           else "")
         + (f" ({mesh.num_microbatches} microbatches of {args.batch // mesh.num_microbatches}"
-           f" sequences, {args.batch // mesh.num_microbatches // mesh.stage_size} a rank)"
-           if mesh.pp > 1 else ""))
+           f" sequences, {rows * positions} tokens of each a rank)" if mesh.pp > 1 else ""))
     if args.corpus:
         source = MemmapCorpus(args.corpus, args.batch, args.seq, seed=args.seed)
     else:

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.serving import kv_cache as kv_lib
 
@@ -167,7 +168,7 @@ def attention(q, k, v, *, q_offset=0, window: Optional[int] = None,
 
 
 def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
-                   cache_index=None, write=None, return_kv=False, train=False):
+                   cache_index=None, write=None, return_kv=False, train=False, seq=None):
     """Full attention sub-layer: QKV proj -> rope -> attention -> out proj.
 
     ``cache=None`` (prefill / uncached forward): the flash kernel, and with
@@ -184,8 +185,17 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     rows are written at ``cache_index`` (a Python int, so no device sync)
     IN PLACE, and eager attention runs over rows ``[0, cache_index + s)``
     with ``q_offset=cache_index``.  The reference's update clamps an index
-    past the end and overwrites the last row; here it raises.  Returns
-    (out, new_cache).
+    past the end and overwrites the last row; here it raises.
+    ``seq`` (no cache): a ``sharding.MeshPlan`` whose sequence group holds
+    the sequence, ``x`` and ``positions`` this rank's slice of it.  In
+    training K/V are gathered over the group once a layer, after RoPE
+    (``sharding.seq_gather``; the reference's ``kv_gathered``, recomputed
+    under remat), and q stays local with ``q_offset`` at the slice's
+    start, so the causal mask, a sliding window and the softcap see global
+    positions (every rank scores its queries against every key, masked,
+    as each of the reference's shards does).  The serving path
+    gathers q too and keeps its slice of the flash kernel's output (the
+    kernel's causal mask starts at position 0).  Returns (out, new_cache).
     """
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
@@ -220,12 +230,26 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
         out = attention(q, ck, cv, q_offset=lens, window=window,
                         logit_softcap=cfg.attn_logit_softcap, kv_len=lens + s)
     else:
+        split = seq is not None and seq.seq_size > 1
+        off = seq.seq_offset(s) if split else 0
         if train:
+            if split:  # the whole sequence's K/V
+                kv = sharding.seq_gather(torch.cat([k, v], dim=-1), seq)
+                k, v = kv.split(cfg.head_dim, dim=-1)
             # Bound the fp32 score temp to ~512 query rows per chunk.
             q_chunks = max(s // 512, 1) if s >= 1024 else 1
-            out = attention(q, k, v, window=window,
+            out = attention(q, k, v, q_offset=off, window=window,
                             logit_softcap=cfg.attn_logit_softcap,
                             q_chunks=q_chunks)
+        elif split:
+            hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+            qkv = sharding.seq_gather(torch.cat([q.flatten(2), k.flatten(2), v.flatten(2)],
+                                                dim=-1), seq)
+            shape = (b, qkv.shape[1], -1, cfg.head_dim)
+            qw, kw, vw = (t.reshape(shape).contiguous()
+                          for t in qkv.split([hq, hkv, hkv], dim=-1))
+            out = fa_ops.flash_attention(qw, kw, vw, causal=True, window=window,
+                                         logit_softcap=cfg.attn_logit_softcap)[:, off:off + s]
         else:
             out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
                                          logit_softcap=cfg.attn_logit_softcap)

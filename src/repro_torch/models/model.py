@@ -215,7 +215,9 @@ class LanguageModel:
     every leaf the plan's rules slice (``convert.shard_params``; each
     forward gathers the embedding once and each layer its own leaves,
     ``sharding.gather_leaf``): ``forward`` and ``loss`` take this rank's
-    own sequences (token-sharded), the paged serving steps take the same
+    block of the batch (``training.shard_batch``: its rows over data, its
+    sequence slice over (ep, tp); the mixers gather what crosses slices
+    over the sequence group), the paged serving steps take the same
     requests on every rank (prefill: each rank's sequence shard of every MoE
     layer's input; decode: weight-parallel, the batch split over the data
     group when it divides it, :meth:`decode_step_paged`).  ``plan=None`` is one rank.
@@ -223,7 +225,7 @@ class LanguageModel:
     stage's chunks too, ``loss`` runs the differentiable pipelined forward,
     ``forward`` the same executor without autograd, and ``loss_and_grads``
     the schedule-executing step (``core.pipeline``), each on this rank's
-    rows of every microbatch (``training.shard_batch``); the serving steps
+    block of every microbatch (``training.shard_batch``); the serving steps
     are not pipelined.
     ``telemetry`` (an ``obs.Telemetry``) gets the MoE layers' ``a2a.layer``
     spans in ``forward`` and ``loss`` (and the pipeline's schedule span and
@@ -300,22 +302,30 @@ class LanguageModel:
         return self._logits(w, x)
 
     @staticmethod
-    def _positions(b: int, s: int, device) -> torch.Tensor:
-        return torch.arange(s, device=device)[None].expand(b, s)
+    def _positions(b: int, s: int, device, offset: int = 0) -> torch.Tensor:
+        """(b, s) positions ``offset, ..., offset + s - 1`` (M-RoPE takes
+        them as its three planes)."""
+        return torch.arange(offset, offset + s, device=device)[None].expand(b, s)
+
+    def _seq_positions(self, b: int, s: int, device) -> torch.Tensor:
+        """:meth:`_positions` of this rank's sequence slice of ``s`` tokens
+        under the plan (``sharding.MeshPlan.seq_offset``)."""
+        return self._positions(b, s, device, 0 if self.plan is None
+                               else self.plan.seq_offset(s))
 
     # -- forward ------------------------------------------------------------
 
     def forward(self, params, batch):
         """Uncached forward: (logits (b, s, vp) fp32, {"moe_aux_loss",
-        "moe_z_loss"}, expert loads).  Under a pipeline plan:
-        :meth:`_pipelined_forward`."""
+        "moe_z_loss"}, expert loads), of this rank's block of the batch
+        under a plan.  Under a pipeline plan: :meth:`_pipelined_forward`."""
         if self.pipelined:
             return self._pipelined_forward(params, batch)
         params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
-            params["blocks"], x, self.arch, positions=self._positions(b, s, x.device),
+            params["blocks"], x, self.arch, positions=self._seq_positions(b, s, x.device),
             plan=self.plan, telemetry=self.telemetry)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
         return self._head(params, x), aux, loads
@@ -324,7 +334,7 @@ class LanguageModel:
         """``forward`` under a pipeline plan, the reference's ``_stack_out``
         -> ``pipelined_stack_forward``: the port's forward executor without
         autograd, every layer on its serving path (flash attention, the
-        expert kernels) as in the forward at world 1, on this rank's rows
+        expert kernels) as in the forward at world 1, on this rank's block
         ``batch["tokens"]`` (or ``"embeds"``) of every microbatch.  The last
         stage applies the final norm and the head, and its logits reach
         every rank of its pp group (the reference's SPMD forward gives every
@@ -354,14 +364,17 @@ class LanguageModel:
     # -- training loss --------------------------------------------------------
 
     def _loss_chunks(self, b: int, s: int) -> int:
-        """Chunk the CE loss so the fp32 logits stay <= ~128 MB: the
-        reference's rule with one device (no data or sequence shards to
-        divide the tokens by)."""
-        tokens = max(b * s, 1)
+        """Chunks of the CE loss so a rank's fp32 logits stay <= ~128 MB:
+        the reference's rule, the global ``b * s`` tokens divided by the
+        data and sequence shards.  The count divides the rank's sequence
+        slice (``s / (ep * tp)``), which the port chunks."""
+        div = 1 if self.plan is None else self.plan.dp * self.plan.seq_size
+        sl = s // (1 if self.plan is None else self.plan.seq_size)
+        tokens = max(b * s // div, 1)
         target_tokens = max(int(128e6 // (self.vp * 4)), 1)
         need = max(1, -(-tokens // target_tokens))
-        for nc in range(need, min(s, 256) + 1):  # a divisor of s, capped
-            if s % nc == 0:
+        for nc in range(need, min(sl, 256) + 1):  # a divisor of the slice, capped
+            if sl % nc == 0:
                 return nc
         return 1
 
@@ -380,9 +393,10 @@ class LanguageModel:
         ``torch.utils.checkpoint``, so its (tokens, vocab) fp32 logits are
         recomputed in the backward instead of kept.
 
-        Over W ranks, each holding b whole sequences, it is this rank's term
-        of the global loss ``ce_sum / (W b s) + aux + z``: its own ``ce_sum``
-        over the global token count plus ``(aux + z) / W`` (aux and z are
+        Over W ranks, each holding its block of b rows and s positions
+        (``training.shard_batch``), it is this rank's term of the global
+        loss ``ce_sum / (W b s) + aux + z``: its own ``ce_sum`` over the
+        global token count ``W b s`` plus ``(aux + z) / W`` (aux and z are
         global on every rank); the terms sum to the global loss, and so do
         the ranks' gradients.  "loss" and "ce" in the metrics are the
         rank's terms too (``training`` sums them).  Under a pipeline plan
@@ -396,7 +410,7 @@ class LanguageModel:
         b, s = x.shape[:2]
         x, aux, loads = transformer.stack_forward(
             params["blocks"], x, self.arch,
-            positions=self._positions(b, s, x.device), train=True, plan=self.plan,
+            positions=self._seq_positions(b, s, x.device), train=True, plan=self.plan,
             telemetry=self.telemetry)
         total_ce = self._chunked_ce(params, x, batch["labels"].long())
         w = self.world
@@ -408,7 +422,8 @@ class LanguageModel:
 
     def _chunked_ce(self, params, x, labels) -> torch.Tensor:
         b, s = x.shape[:2]
-        nc = self._loss_chunks(b, s)
+        D, n = (1, 1) if self.plan is None else (self.plan.dp, self.plan.seq_size)
+        nc = self._loss_chunks(b * D, s * n)
         if nc <= 1:
             return self._ce_sum(params, x, labels)
         sc = s // nc
@@ -422,7 +437,7 @@ class LanguageModel:
     # -- pipelined training (core.pipeline) -----------------------------------
 
     def _pipelined_loss(self, params, batch):
-        """This rank's term of the pipelined loss: the CE of its rows of the
+        """This rank's term of the pipelined loss: the CE of its block of the
         last stage's output over the global token count, plus its terms of
         aux and z (``pipelined_stack_forward``)."""
         from repro_torch.core import pipeline

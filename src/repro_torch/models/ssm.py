@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import rms_norm
@@ -173,9 +174,19 @@ def mamba_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     return_cache: bool = False,
     train: bool = False,
+    seq=None,
 ):
     """Mamba2 mixer sub-layer.  Returns (out (b, l, d), new cache or None).
     ``train`` runs the SSD's differentiable path (:func:`ssd_chunked`).
+
+    ``seq`` (no cache): a ``sharding.MeshPlan`` whose sequence group holds
+    the sequence, ``x`` this rank's slice of it.  The projections and the
+    gated norm are position-wise and run on the slice; the causal conv and
+    the scan cross slices, so their inputs (the x, B, C and dt
+    projections) are gathered over the group in one collective
+    (``sharding.seq_gather``) and run over the whole sequence, the rank
+    keeping its slice: the same function as one rank's, and the same work
+    on every rank of the group.
 
     cache = {"ssm": (b, h, p, n), "conv_x": (b, w-1, d_in), "conv_B",
     "conv_C"} runs one decode token (l = 1) and updates the cache IN PLACE
@@ -221,17 +232,24 @@ def mamba_block(
             cache[key].copy_(win[:, 1:])
         new_cache = cache
     else:
-        xs_c = F.silu(_causal_conv(xs, params["conv_x_w"], params["conv_x_b"])).to(x.dtype)
-        B_c = F.silu(_causal_conv(Bp, params["conv_B_w"], params["conv_B_b"])).to(x.dtype)
-        C_c = F.silu(_causal_conv(Cp, params["conv_C_w"], params["conv_C_b"])).to(x.dtype)
-        dt_s = F.softplus(dt.float() + params["dt_bias"])  # (b, l, nh)
-        xh = xs_c.reshape(b, l, nh, s.head_dim)
-        Bg = B_c.reshape(b, l, s.n_groups, s.state_size)
-        Cg = C_c.reshape(b, l, s.n_groups, s.state_size)
-        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, l),
+        off, L, xs_l, Bp_l, Cp_l, dt_l = 0, l, xs, Bp, Cp, dt
+        if seq is not None and seq.seq_size > 1:
+            gn = s.n_groups * s.state_size
+            off = seq.seq_offset(l)
+            full = sharding.seq_gather(torch.cat([xs, Bp, Cp, dt], dim=-1), seq)
+            L = full.shape[1]
+            xs_l, Bp_l, Cp_l, dt_l = full.split([d_in, gn, gn, nh], dim=-1)
+        xs_c = F.silu(_causal_conv(xs_l, params["conv_x_w"], params["conv_x_b"])).to(x.dtype)
+        B_c = F.silu(_causal_conv(Bp_l, params["conv_B_w"], params["conv_B_b"])).to(x.dtype)
+        C_c = F.silu(_causal_conv(Cp_l, params["conv_C_w"], params["conv_C_b"])).to(x.dtype)
+        dt_s = F.softplus(dt_l.float() + params["dt_bias"])  # (b, L, nh)
+        xh = xs_c.reshape(b, L, nh, s.head_dim)
+        Bg = B_c.reshape(b, L, s.n_groups, s.state_size)
+        Cg = C_c.reshape(b, L, s.n_groups, s.state_size)
+        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, L),
                                train=train)
         y = y + xh * params["D"][None, None, :, None].to(x.dtype)
-        y = y.reshape(b, l, d_in)
+        y = y.reshape(b, L, d_in)[:, off:off + l]
         if return_cache:
             w = s.conv_width
 

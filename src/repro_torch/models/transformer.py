@@ -13,7 +13,8 @@ recomputes the rep in the backward (``torch.utils.checkpoint``); "dots"
 keeps the outputs of the matrix products without batch dims (``aten.mm``,
 ``aten.addmm``: ``dots_with_no_batch_dims_saveable``) and recomputes the
 rest; "none" keeps everything.  A recompute runs the rep's collectives
-again (the EP all-to-all, the metric sums, the weights' gathers), on every rank
+again (the EP all-to-all, the metric sums, the weights' gathers, the
+sequence gathers: the reference's ``kv_gathered`` is recomputed too), on every rank
 in the backward's order, so it always runs to the rep's end; its outputs
 are dropped, so no metric counts twice, and its ``a2a.layer`` spans are
 named ``a2a.layer.recompute``.  "dots" sees aten ops only: a kernel
@@ -71,6 +72,7 @@ def apply_block(
     token_sharded: bool = True,
     seq_shard: bool = False,
     data_split: bool = True,
+    seq=None,
     telemetry=None,
 ):
     """One (mixer, ffn) block with pre-norms and residuals.  Returns
@@ -81,8 +83,11 @@ def apply_block(
     ``layers.attention_proj``).  ``train`` selects the differentiable
     attention, SSD and capacity-FFN paths.  ``plan``, ``token_sharded``,
     ``seq_shard``, ``data_split`` and ``telemetry`` go to
-    :func:`moe.moe_ffn` (the mixer needs no ranks: every rank holds whole
-    sequences).  The mixer's and a dense FFN's leaves that ``plan`` slices
+    :func:`moe.moe_ffn`.  ``seq``: the plan whose sequence group holds the
+    sequence, x this rank's slice of it (training and the uncached
+    forward); the mixer gathers what crosses slices
+    (``layers.attention_proj``, ``ssm.mamba_block``).  The mixer's and a
+    dense FFN's leaves that ``plan`` slices
     are gathered whole in x's dtype just before they are used
     (``sharding.gather_block``; a recompute gathers them again)."""
     mixer, ffn = block
@@ -93,11 +98,12 @@ def apply_block(
         window = arch.sliding_window if mixer == "attn_local" else None
         out, new_cache = L.attention_proj(
             mp, h, arch, positions, window=window, cache=cache, cache_index=cache_index,
-            write=write, return_kv=return_cache and cache is None, train=train,
+            write=write, return_kv=return_cache and cache is None, train=train, seq=seq,
         )
     elif mixer == "mamba":
         out, new_cache = ssm_lib.mamba_block(mp, h, arch, cache=cache,
-                                             return_cache=return_cache, train=train)
+                                             return_cache=return_cache, train=train,
+                                             seq=seq)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
     x = x + out
@@ -152,7 +158,7 @@ def _rep(blocks, x, aux, z, arch: ArchConfig, *, positions, train, plan, telemet
     loads = []
     for pos, blk in enumerate(arch.block_pattern):
         x, metrics, _ = apply_block(blk, blocks[pos], x, arch, positions=positions,
-                                    train=train, plan=plan, telemetry=telemetry)
+                                    train=train, plan=plan, seq=plan, telemetry=telemetry)
         if metrics:
             aux = aux + metrics["moe_aux_loss"]
             z = z + metrics["moe_z_loss"]
@@ -182,7 +188,8 @@ def stack_forward(block_params, x: torch.Tensor, arch: ArchConfig, *,
                   positions: torch.Tensor, train: bool = False, plan=None,
                   telemetry=None):
     """Run the layer stack the leaves hold (every rep, or a pipeline
-    chunk's), token-sharded over ``plan``'s ranks (``train``,
+    chunk's) on this rank's block of the batch under ``plan``: its rows and
+    its sequence slice, ``positions`` their global positions (``train``,
     ``telemetry``: see :func:`apply_block`), each rep under the plan's
     remat when autograd records (module docstring).  Returns (x,
     {"moe_aux_loss", "moe_z_loss"} scalars, expert_load (reps,

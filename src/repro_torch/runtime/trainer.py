@@ -34,8 +34,10 @@ on every rank of an expert-parallel run in lockstep.
 
 Over several ranks (``models.model.LanguageModel`` with a mesh plan: any
 (pod, data, ep, tp) grid, pipelined or not) every rank runs this loop on
-the same global batch stream; the train step takes the rank's rows and
-reduces the gradients, so every rank sees the same loss, grad norm and
+the same global batch stream (``batch_at`` of a step is the global batch,
+so a resume feeds every rank its block of the same one); the train step
+takes the rank's block (its rows over data, its sequence slice over (ep,
+tp): ``training.shard_batch``) and reduces the gradients, so every rank sees the same loss, grad norm and
 expert loads and skips, rolls back, migrates or steps together (each
 migration checks that every rank of the world planned the same).  The
 checkpoint does not depend on the mesh: the expert leaves of params, m and

@@ -17,7 +17,10 @@ the model reduces, exchanges or hands off over gets its own process group:
   (p, e), which hold the same expert slots of the same stage and sum their
   expert gradients (the data group itself when tp = 1);
 * the **model group**: the ``ep * tp`` ranks that share its (p, d), the
-  reference's "model" axis;
+  reference's "model" axis, and the **sequence group**: a training batch's
+  sequence is split over it (the reference's "seq" rule, ``("ep",
+  "tp")``), the rank at (e, t) holding slice ``e * tp + t``
+  (:attr:`MeshPlan.seq_rank`);
 * the **stage group**: the ``D * ep * tp`` ranks of its pipeline stage p,
   which run the same stage's layers on their own tokens; the token-sharded
   MoE metrics (aux losses, expert loads) are meaned over it;
@@ -35,6 +38,16 @@ stage group is the world.  With it, ``pp = P`` stages run the schedule
 ``schedule`` (``vstages`` virtual stages a stage for ``interleaved_1f1b``)
 over ``microbatches`` microbatches (None: 2 * PP), the hand-offs in int8
 with ``compress_p2p`` (``core.compression``).
+
+The batch (the reference's ``batch_specs``, ``training.shard_batch``): a
+rank holds its rows of the batch over data (pod x data without a pod
+pipeline; under one, its rows of every microbatch) and its slice of the
+sequence over (ep, tp), ``[j * s_l, (j + 1) * s_l)`` with ``j`` its
+sequence rank and ``s_l = s / (ep * tp)``.  A layer that mixes positions
+gathers what it needs over the sequence group (:func:`seq_gather`, one
+all-gather a call whose backward sums the cotangent over the group and
+keeps the slice): attention its K/V once a layer, a Mamba2 mixer its conv
+and scan inputs.
 
 Layout (the reference's rule table, ``MeshPlan.rules``, :func:`default_rules`).
 Every parameter carries the reference's logical dim tags
@@ -61,7 +74,8 @@ The experts (the reference's expert-data parallelism; the rules'
 "expert" and "expert_ffn" entries, which ``make_plan`` reads into ``ep``
 and ``ffn_split``): each EP rank holds the physical expert slots
 ``[e * E_l, (e + 1) * E_l)``, and every rank routes its own tokens: a tp
-lane is one more token-parallel lane of its EP group.  The slots' d_ff is
+lane holds its own sequence slice and dispatches through its own EP
+group.  The slots' d_ff is
 split over the expert-gradient group (the reference's ZeRO-3 of the
 ``"expert_ffn"`` dim over ("data", "tp")): with ``n = D * tp > 1`` dividing
 the expert d_ff, the rank at (d, t) holds slice ``d * tp + t`` of ``n``
@@ -227,6 +241,23 @@ class MeshPlan:
         in the expert-gradient group)."""
         d, _, t = self.coords
         return d * self.tp + t
+
+    @property
+    def seq_size(self) -> int:
+        """Sequence shards of a training batch: ep * tp (the "seq" rule)."""
+        return self.ep * self.tp
+
+    @property
+    def seq_rank(self) -> int:
+        """This rank's sequence shard, e * tp + t: its place in the sequence
+        (model) group."""
+        _, e, t = self.coords
+        return e * self.tp + t
+
+    def seq_offset(self, s_l: int) -> int:
+        """The first position of this rank's sequence slice of ``s_l``
+        tokens."""
+        return self.seq_rank * s_l
 
     @property
     def num_microbatches(self) -> int:
@@ -483,6 +514,40 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     if group is not None:
         dist.all_reduce(t, group=group)
     return t
+
+
+class _SeqGather(torch.autograd.Function):
+    """The sequence slices of the group's ranks all-gathered along ``dim``,
+    in sequence-rank order, one collective.  The backward sums the
+    cotangent in fp32 over the group (every rank's positions took part of
+    it) and keeps this rank's slice, cast back: an all-reduce and a
+    narrow, as :func:`reduce_slice` does (gloo has no usable
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.group, ctx.dim, ctx.index, ctx.n = group, dim, index, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(group_size(group))]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = all_reduce_(g.to(torch.float32, memory_format=torch.contiguous_format,
+                                copy=True), ctx.group)
+        return (full.narrow(ctx.dim, ctx.index * ctx.n, ctx.n).to(g.dtype), None, None,
+                None)
+
+
+def seq_gather(x: torch.Tensor, plan, dim: int = 1) -> torch.Tensor:
+    """The whole sequence from this rank's slice ``x`` (its ``dim`` the
+    sequence): differentiable, one all-gather over the sequence group (the
+    model group, :class:`_SeqGather`); ``x`` itself where the plan does not
+    split the sequence."""
+    if plan is None or plan.seq_size == 1:
+        return x
+    return _SeqGather.apply(x, plan.model_group, dim, plan.seq_rank)
 
 
 class _AllReduce(torch.autograd.Function):

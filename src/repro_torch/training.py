@@ -5,14 +5,15 @@ The step differentiates ``LanguageModel.loss`` with autograd: the fp32
 master weights are cast to the compute dtype inside the graph, so autograd
 carries the gradients back to fp32 through the casts; the AdamW update then
 runs in place (``optim.adamw_update``).  Over the ranks of the model's
-``sharding.MeshPlan`` each rank takes its own rows of the global batch,
+``sharding.MeshPlan`` each rank takes its block of the global batch (its
+rows over data, its sequence slice over (ep, tp): :func:`shard_batch`),
 differentiates its term of the global loss, and sums the gradients: a
 sliced leaf's in its gather's backward (``sharding.gather_leaf``,
 ``sharding.gather_ffn``), the whole ones over the world, the whole-slot
 expert ones over the expert-gradient group (the data ranks and tp lanes
 that hold the same expert slots).  Under a pipeline plan
 the step is the schedule-executing one (``LanguageModel.loss_and_grads``,
-``core.pipeline``): each rank takes its rows of every microbatch, and the
+``core.pipeline``): each rank takes its block of every microbatch, and the
 block gradients are summed over the rank's stage (``sharding
 .reduce_grads_``).
 ``make_prefill_step`` / ``make_decode_step`` cast every floating leaf to
@@ -88,32 +89,68 @@ def make_decode_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloa
     return decode_step
 
 
+def batch_block(plan, b: int, s: int):
+    """(rows, positions) of this rank's block of a (b, s) batch under
+    ``plan`` (:func:`shard_batch`): ``b / D`` rows (``b_mu / D`` of each of
+    the M microbatches under a pipeline) and ``s / (ep * tp)`` positions.
+    A grid that does not divide them is refused with a ValueError, as the
+    reference's ``P(dp, ("ep", "tp"))`` of ``moe_ffn`` refuses it."""
+    D, n = plan.dp, plan.seq_size
+    dp = " x ".join(plan.dp_axes)
+    if s % n:
+        raise ValueError(f"sequence {s} does not split over ep x tp = {n} ranks (the "
+                         f"reference's \"seq\" rule: s % (ep * tp) != 0)")
+    if plan.pp > 1:
+        M = plan.num_microbatches
+        if b % (M * D):
+            raise ValueError(f"batch {b} does not split into {M} microbatches over "
+                             f"{dp} = {D} ranks (b % (M * D) != 0)")
+        return b // (M * D), s // n
+    if b % D:
+        raise ValueError(f"batch {b} does not split over {dp} = {D} ranks (the "
+                         f"reference's \"batch\" rule: b % D != 0)")
+    return b // D, s // n
+
+
+def describe_block(plan, b: int, s: int) -> str:
+    """This rank's block of a (b, s) batch in words: its rows (of each
+    microbatch under a pipeline), its positions and its token count."""
+    bl, sl = batch_block(plan, b, s)
+    d, off = plan.coords[0], plan.seq_offset(sl)
+    mb = f" of each of {plan.num_microbatches} microbatches" if plan.pp > 1 else ""
+    n = bl * sl * (plan.num_microbatches if plan.pp > 1 else 1)
+    return (f"rows [{d * bl}, {(d + 1) * bl}){mb} x positions [{off}, {off + sl}): "
+            f"{n} tokens")
+
+
 def shard_batch(batch, plan):
-    """This rank's rows of a global batch.  Without a pipeline: ``b /
-    world`` whole sequences, rank r rows ``[r * b_l, (r + 1) * b_l)``.
-    Under one: microbatch mb is rows ``[mb * b_mu, (mb + 1) * b_mu)`` (the
-    reference's ``x.reshape(M, b_mu, ...)``), and the rank at place g of
-    its stage group takes ``b_l = b_mu / stage_size`` whole sequences of
-    each, ``[mb * b_mu + g * b_l, mb * b_mu + (g + 1) * b_l)``, in
-    microbatch order; the microbatches are the reference's."""
+    """This rank's block of a global batch, the reference's ``batch_specs``
+    layout: rows over the data axes (``plan.dp_axes``; the pod joins data
+    without a pipeline), the sequence over (ep, tp) (the "seq" rule).  The
+    rank at (d, e, t) takes rows ``[d * b_l, (d + 1) * b_l)``, ``b_l = b /
+    D``, and positions ``[j * s_l, (j + 1) * s_l)``, ``j = e * tp + t``
+    and ``s_l = s / (ep * tp)``.  Under a pipeline microbatch mb is rows
+    ``[mb * b_mu, (mb + 1) * b_mu)`` (the reference's ``x.reshape(M, b_mu,
+    ...)``), and the rank takes ``b_l = b_mu / D`` of its rows, ``[mb *
+    b_mu + d * b_l, mb * b_mu + (d + 1) * b_l)``, and the same sequence
+    slice, in microbatch order.  Every leaf (``tokens``, ``labels``,
+    ``embeds``) splits alike; the labels are shifted in the data, so none
+    crosses a slice.  A grid that does not divide the batch or the
+    sequence is refused (:func:`batch_block`)."""
+    d = plan.coords[0]
     out = {}
     for k, v in batch.items():
-        b = v.shape[0]
+        b, s = v.shape[:2]
+        bl, sl = batch_block(plan, b, s)
+        cols = slice(plan.seq_offset(sl), plan.seq_offset(sl) + sl)
         if plan.pp > 1:
-            M, G = plan.num_microbatches, plan.stage_size
-            if b % (M * G):
-                raise ValueError(f"batch {b} does not split into {M} microbatches of "
-                                 f"{G} ranks' whole sequences (b % (M * D * ep * tp) != 0)")
-            b_mu, bl = b // M, b // (M * G)
-            g = plan.stage_rank
-            rows = [v[mb * b_mu + g * bl:mb * b_mu + (g + 1) * bl] for mb in range(M)]
+            b_mu = b // plan.num_microbatches
+            rows = [v[mb * b_mu + d * bl:mb * b_mu + (d + 1) * bl, cols]
+                    for mb in range(plan.num_microbatches)]
             out[k] = (torch.cat(rows) if isinstance(v, torch.Tensor)
                       else np.concatenate(rows))
-            continue
-        if b % plan.world:
-            raise ValueError(f"batch {b} does not split over {plan.world} ranks")
-        bl = b // plan.world
-        out[k] = v[plan.rank * bl:(plan.rank + 1) * bl]
+        else:
+            out[k] = v[d * bl:(d + 1) * bl, cols]
     return out
 
 
@@ -123,7 +160,7 @@ def loss_and_grads(lm: LanguageModel, params, batch,
     ``batch`` (the global batch; device tensors or host arrays).  Returns
     (loss, metrics, grads) with detached metrics and ``grads`` in the
     params' tree (None for integer tables).  Over several ranks each takes
-    its rows (:func:`shard_batch`), and the gradients are summed in place
+    its block (:func:`shard_batch`), and the gradients are summed in place
     into the global ones (``sharding.reduce_grads_``), the loss and "ce"
     terms likewise.  Under a pipeline plan it is the schedule-executing
     ``lm.loss_and_grads`` (its traces not gathered), unless ``autograd``:

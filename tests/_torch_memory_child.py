@@ -43,7 +43,7 @@ MODES = ("capacity", "ragged")
 # tag -> (mesh, experts): D 2 x ep 2, and ep 2 x tp 2; both split the
 # reduced d_ff (64) in two.
 GRIDS = {"dp": ((2, 2), 8), "tp": ((1, 4), 6)}
-BATCH = (8, 16)  # (b, s): two sequences a rank
+BATCH = (8, 16)  # (b, s): 32 tokens a rank at 4 ranks
 PP_DEPTH, PP_BATCH = 4, (8, 16)
 PP_SCHEDULES = (("1f1b", 1), ("zb_h1", 1), ("interleaved_1f1b", 2))
 REMATS = ("none", "dots", "full")

@@ -24,7 +24,23 @@
         of a PP 2 checkpoint at world 1 and under interleaved_1f1b V 2.
         Each rank writes ``OUT_DIR/pp_rank<r>.npz``.
 
-Only the ``jax`` mode imports JAX.
+    python tests/_torch_mesh_child.py seq-jax OUT.npz PART
+        For ``test_torch_seq_shard.py``: the JAX package on 8 fake host
+        devices, the wire's bf16 cast replaced by the identity.  Every
+        device's block of ``batch_specs``' sharding at four grids (and of a
+        microbatch's activations under the pod pipeline), and the loss and
+        gradients of each ``SEQ_CASES`` case on the reference's plan at
+        its grid, and of 1f1b at PP 2 x ep 2 (``SEQ_PP``): the part
+        ``SEQ_JAX_PARTS[PART]`` of them.  The weights are the port's
+        ``init_params`` (seed 0), so the parts and the next mode need
+        nothing of each other and run side by side.
+
+    python tests/_torch_mesh_child.py seq-port OUT_DIR
+        The port's side of the same cases on 4 gloo ranks, the wire in
+        fp32, and world 1 on rank 0.  Each rank writes
+        ``OUT_DIR/seq_rank<r>.npz``.
+
+Only the ``jax`` and ``seq-jax`` modes import JAX.
 """
 
 import dataclasses
@@ -41,8 +57,8 @@ from _torch_migration_child import controller_ema, skewed_batch
 NAME = "granite-moe-3b-a800m"
 MODES = ("capacity", "ragged")
 TP_MESH, TP_E = (1, 4), 6  # ep = gcd(6, 4) = 2, tp = 2
-TP_CONTROL = (2, 2)  # D 2 x ep 2: the same two sequences a rank, no tp
-TP_BATCH = (8, 16)  # (b, s): two sequences a rank
+TP_CONTROL = (2, 2)  # D 2 x ep 2: as many tokens a rank, no tp
+TP_BATCH = (8, 16)  # (b, s): 32 tokens a rank at (1, 4) and at (2, 2)
 DP_MESHES = ((2, 2), (2, 1, 2))  # D 2 x ep 2; the pod joining data
 PP_MESH, PP_DEPTH = (2, 1, 2), 4  # PP 2 x EP 2, two reps a stage
 DECODE = dict(plen=8, total=12)  # the reference's check_paged_decode_on_mesh
@@ -196,6 +212,183 @@ def run_jax(out_path: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The sequence-sharded training layout (tests/test_torch_seq_shard.py)
+# ---------------------------------------------------------------------------
+
+# Layout grids: tag -> (mesh, arch).  Granite's 8 experts give ep 4 at
+# (1, 4) and ep 2 at (2, 2); "tp1,4" takes TP_E experts (ep 2, tp 2); the
+# pod joins data at (2, 1, 2); qwen2-vl (a dense arch: ep is the model axis)
+# carries ``embeds`` too.
+SEQ_LAYOUTS = {"1,4": ((1, 4), "granite"), "2,2": ((2, 2), "qwen2"),
+               "2,1,2": ((2, 1, 2), "granite"), "tp1,4": ((1, 4), "tp")}
+SEQ_LAYOUT_BATCH = (8, 16)  # (b, s), values that name their (row, position)
+SEQ_PP = ((2, 1, 2), 4)  # PP 2 x ep 2, M = 2 PP microbatches
+SEQ_B, SEQ_S = 4, 64  # (2, 2): 2 rows x 32 positions a rank; (1, 4): 4 x 16
+# Each case: (arch, grid).  The slices cross gemma2's window (32) and the
+# SSM chunk (32).  Granite runs at the reduced capacity factor 1.25, where
+# tokens drop; jamba at cf 16 (its world-1 twin drops no token either).
+SEQ_CASES = {"granite/capacity": ("granite-moe-3b-a800m", (2, 2)),
+             "granite/ragged": ("granite-moe-3b-a800m", (2, 2)),
+             "gemma2": ("gemma2-9b", (1, 4)),
+             "qwen2": ("qwen2-vl-7b", (1, 4)),
+             "mamba2": ("mamba2-370m", (2, 2)),
+             "jamba": ("jamba-1.5-large-398b", (2, 2))}
+# 1f1b at SEQ_PP, ragged, cf 16, aux loss 0 (the pipeline means the aux
+# loss over microbatches, world 1 over the batch: another function).
+SEQ_PP_CASE = "granite/pp"
+
+
+def seq_arch(get_arch, case: str):
+    """A case's reduced arch: granite in the case's dispatch mode (the
+    pipelined case ragged at cf 16 without the aux loss), jamba at one rep
+    of its pattern and cf 16."""
+    name = SEQ_CASES[case][0] if case in SEQ_CASES else "granite-moe-3b-a800m"
+    a = get_arch(name).reduced()
+    if case == SEQ_PP_CASE:
+        a = a.replace(moe=dataclasses.replace(a.moe, dispatch="ragged", capacity_factor=16.0,
+                                              aux_loss_coef=0.0))
+    elif case.startswith("granite/"):
+        a = a.replace(moe=dataclasses.replace(a.moe, dispatch=case.split("/")[1]))
+    elif name.startswith("jamba"):
+        a = a.replace(num_layers=len(a.block_pattern),
+                      moe=dataclasses.replace(a.moe, capacity_factor=16.0))
+    return a
+
+
+def layout_arch(get_arch, tag: str):
+    base = get_arch(NAME).reduced()
+    kind = SEQ_LAYOUTS[tag][1]
+    if kind == "tp":
+        return arch_tp(base, "ragged")
+    return get_arch("qwen2-vl-7b").reduced() if kind == "qwen2" else base
+
+
+def seq_tokens(b=SEQ_B, s=SEQ_S, seed=5):
+    return np.random.default_rng(seed).integers(0, 512, size=(b, s)).astype(np.int32)
+
+
+def seq_batch(arch):
+    toks = seq_tokens()
+    batch = {"tokens": toks, "labels": toks}
+    if arch.frontend is not None:  # qwen2-vl: precomputed embeds beside the ids
+        batch["embeds"] = np.random.default_rng(6).standard_normal(
+            (SEQ_B, SEQ_S, arch.d_model)).astype(np.float32)
+    return batch
+
+
+def layout_batch():
+    b, s = SEQ_LAYOUT_BATCH
+    toks = (np.arange(b)[:, None] * 1000 + np.arange(s)[None]).astype(np.int32)
+    return {"tokens": toks, "labels": toks + 1,
+            "embeds": (toks[..., None] * 10 + np.arange(3)).astype(np.float32)}
+
+
+def seq_params(arch):
+    """The case's weights, drawn by the port (seed 0) as numpy: both sides
+    start from them (a flat {path: array})."""
+    import torch
+
+    from repro_torch.models.model import init_params, tree_paths
+
+    p = init_params(arch, torch.Generator().manual_seed(0), "cpu")
+    return {k: v.numpy() for k, v in tree_paths(p).items()}
+
+
+# The seq-jax mode's two halves, each a process of its own (the test starts
+# both at once): the layout and the cheap cases; jamba and the pipeline.
+SEQ_JAX_PARTS = (("layout", "granite/capacity", "granite/ragged", "gemma2", "qwen2",
+                  "mamba2"), ("jamba", SEQ_PP_CASE))
+
+
+def run_seq_jax(out_path: str, part: int) -> None:
+    """The reference's blocks and steps for the sequence-sharded layout:
+    ``SEQ_JAX_PARTS[part]``'s."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import training as jtraining
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import moe as moe_lib
+    from repro.models.model import LanguageModel
+    from repro.sharding import host_mesh, make_plan
+
+    assert len(jax.devices()) == 8, jax.devices()
+    moe_lib._transport_bf16 = lambda a2a_fn, x: a2a_fn(x)  # the wire in fp32
+    out = {}
+
+    def blocks(plan, arr, spec, tag):
+        x = jax.device_put(arr, NamedSharding(plan.mesh, spec))
+        devs = plan.mesh.devices
+        where = {d.id: np.ravel_multi_index(tuple(np.argwhere(devs == d)[0]), devs.shape)
+                 for d in devs.flat}
+        for sh in x.addressable_shards:
+            out[f"{tag}/{where[sh.device.id]}"] = np.asarray(sh.data)
+
+    todo = SEQ_JAX_PARTS[part]
+    # 1. The layout: every device's block of batch_specs' sharding.
+    lb = layout_batch()
+    b, s = SEQ_LAYOUT_BATCH
+    shape = ShapeSpec("layout", s, b, "train")
+    for tag, (grid, _) in SEQ_LAYOUTS.items() if "layout" in todo else ():
+        arch = layout_arch(get_arch, tag)
+        names = ("pod", "data", "model")[-len(grid):]
+        plan = make_plan(host_mesh(grid, names), arch)
+        specs = jtraining.batch_specs(LanguageModel(arch, plan), shape)
+        out[f"layout/{tag}/plan"] = np.asarray([plan.ep, plan.tp])
+        out[f"layout/{tag}/keys"] = np.asarray(sorted(specs))
+        for k, spec in specs.items():
+            blocks(plan, lb[k], spec, f"layout/{tag}/{k}")
+    # ... and under the pod pipeline: microbatch mb is rows [mb b_mu, (mb+1)
+    # b_mu), each laid out as the executor's activations, P(dp, sp).
+    if "layout" in todo:
+        grid, M = SEQ_PP
+        arch = get_arch(NAME).reduced()
+        plan = make_plan(host_mesh(grid, ("pod", "data", "model")), arch,
+                         pipeline_on_pod=True)
+        spec = P(None, tuple(plan.dp_axes), tuple(plan.sp_axes))
+        blocks(plan, lb["tokens"].reshape(M, b // M, s), spec, "layout/pp/tokens")
+
+    # 2. Each case's loss and gradients on the reference's plan at its grid.
+    def grads_of(tag, g):
+        for k, v in _paths(g).items():
+            if np.issubdtype(np.asarray(v).dtype, np.floating):
+                out[f"{tag}/grad/{k}"] = np.asarray(v)
+
+    for case, (_, grid) in SEQ_CASES.items():
+        if case not in todo:
+            continue
+        arch = seq_arch(get_arch, case)
+        params = jax.tree.map(jnp.asarray, _unflatten(seq_params(arch)))
+        batch = {k: jnp.asarray(v) for k, v in seq_batch(arch).items()}
+        plan = make_plan(host_mesh(grid, ("data", "model")), arch)
+        lm = LanguageModel(arch, plan)
+        with plan.mesh:
+            (loss, _), g = jax.jit(jax.value_and_grad(
+                lambda p, lm=lm: lm.loss(p, batch), has_aux=True, allow_int=True))(params)
+        out[f"{case}/loss"] = np.asarray(loss)
+        grads_of(case, g)
+
+    # 3. 1f1b at PP 2 x ep 2, M = 2 PP: the pipelined step.
+    if SEQ_PP_CASE not in todo:
+        np.savez(out_path, **out)
+        return
+    arch = seq_arch(get_arch, SEQ_PP_CASE)
+    params = jax.tree.map(jnp.asarray, _unflatten(seq_params(arch)))
+    toks = seq_tokens(8, 32)
+    batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    plan = make_plan(host_mesh(SEQ_PP[0], ("pod", "data", "model")), arch,
+                     pipeline_on_pod=True, schedule="1f1b")
+    lm = LanguageModel(arch, plan)
+    with plan.mesh:
+        loss, g, _ = jax.jit(lm.loss_and_grads)(params, batch)
+    out[f"{SEQ_PP_CASE}/loss"] = np.asarray(loss)
+    grads_of(SEQ_PP_CASE, g)
+    np.savez(out_path, **out)
+
+
+# ---------------------------------------------------------------------------
 # Port ranks
 # ---------------------------------------------------------------------------
 
@@ -210,6 +403,7 @@ def _rank_main(rank: int, world: int, phase: str, ref_path: str, out_dir: str) -
                             rank=rank, world_size=world)
     try:
         res = (_phase_pp(rank, out_dir) if phase == "pp"
+               else _phase_seq(rank) if phase == "seq"
                else _phase4(rank, dict(np.load(ref_path)), out_dir))
         np.savez(Path(out_dir) / f"{phase}_rank{rank}.npz", **res)
         dist.barrier()
@@ -289,7 +483,7 @@ def _phase4(rank: int, ref, out_dir: str):
                 moe.WIRE_DTYPE = wire
             res[f"{tag}/{mode}/loss"] = loss.numpy()
             _flat_np(f"{tag}/{mode}/grad", gather_params(grads, plan), res)
-        # The data grid with the same rows a rank and EP degree, no tp lanes.
+        # The data grid with as many tokens a rank and the EP degree, no tp.
         dplan = sharding.make_plan(arch, TP_CONTROL)
         loss, _, grads = training.loss_and_grads(LanguageModel(arch, dplan),
                                                  shard_params(params, dplan), batch,
@@ -569,6 +763,54 @@ def _phase_pp(rank: int, out_dir: str):
     return res
 
 
+def _phase_seq(rank: int):
+    """The port's side of ``run_seq_jax``: each case at its grid (the
+    gathered gradients), world 1 on rank 0, and 1f1b at ``SEQ_PP``."""
+    import torch
+
+    from repro_torch import sharding, training
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import gather_params, params_from_numpy, shard_params
+    from repro_torch.models import moe
+    from repro_torch.models.model import LanguageModel
+
+    res = {}
+    moe.WIRE_DTYPE = torch.float32
+
+    def run(tag, arch, plan, batch):
+        loss, _, grads = training.loss_and_grads(LanguageModel(arch, plan), shard_params(
+            params, plan), batch, torch.float32)
+        res[f"{tag}/loss"] = loss.numpy()
+        _flat_np(f"{tag}/grad", grads if plan is None else gather_params(grads, plan), res)
+
+    for case, (_, grid) in SEQ_CASES.items():
+        arch = seq_arch(get_arch, case)
+        params = params_from_numpy(_unflatten(seq_params(arch)), "cpu")
+        batch = seq_batch(arch)
+        plan = sharding.make_plan(arch, grid)
+        res[f"{case}/block"] = np.asarray(training.batch_block(plan, SEQ_B, SEQ_S))
+        run(case, arch, plan, batch)
+        if rank == 0:
+            run(f"{case}/world1", arch, None, batch)
+    arch = seq_arch(get_arch, SEQ_PP_CASE)
+    params = params_from_numpy(_unflatten(seq_params(arch)), "cpu")
+    toks = seq_tokens(8, 32)
+    batch = {"tokens": toks, "labels": toks}
+    plan = sharding.make_plan(arch, SEQ_PP[0], pipeline_on_pod=True, schedule="1f1b")
+    res["pp/microbatches"] = np.asarray(plan.num_microbatches)
+    run(SEQ_PP_CASE, arch, plan, batch)
+    if rank == 0:
+        run(f"{SEQ_PP_CASE}/world1", arch, None, batch)
+    return res
+
+
+def run_seq_port(out_dir: str) -> None:
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_main, args=(4, "seq", "", out_dir), nprocs=4,
+                       start_method="spawn")
+
+
 def run_port(ref_path: str, out_dir: str) -> None:
     import torch.multiprocessing as mp
 
@@ -586,9 +828,13 @@ def run_pp(out_dir: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1] == "jax":
         run_jax(sys.argv[2])
+    elif sys.argv[1] == "seq-jax":
+        run_seq_jax(sys.argv[2], int(sys.argv[3]))
     else:
         os.environ.setdefault("OMP_NUM_THREADS", "1")
         if sys.argv[1] == "pp":
             run_pp(sys.argv[2])
+        elif sys.argv[1] == "seq-port":
+            run_seq_port(sys.argv[2])
         else:
             run_port(sys.argv[2], sys.argv[3])

@@ -328,10 +328,10 @@ def _forward_loss(arch, plan, params, batch):
 
 
 def _pipelined_forward(res, tag, arch, plan, params, batch):
-    """``LanguageModel.forward`` under ``plan`` on this rank's rows (its
-    tokens, or a frontend's embeds): rank 0's logits, aux, z and loads to
-    ``res``, and the largest gap of any rank's logits from the world-1
-    forward of its rows."""
+    """``LanguageModel.forward`` under ``plan`` on this rank's block (its
+    tokens, or a frontend's embeds: its rows, its sequence slice): rank 0's
+    logits, aux, z and loads to ``res``, and the largest gap of any rank's
+    logits from the world-1 forward of its whole rows, at its positions."""
     import torch
 
     from repro_torch import sharding, training
@@ -341,16 +341,21 @@ def _pipelined_forward(res, tag, arch, plan, params, batch):
     mine = {k: torch.as_tensor(v) for k, v in training.shard_batch(batch, plan).items()
             if k in ("tokens", "embeds")}
     logits, aux, loads = LanguageModel(arch, plan).forward(shard_params(params, plan), mine)
-    one, aux1, loads1 = LanguageModel(arch).forward(params, mine)
-    gap = (logits - one).abs().max()
+    b, s = np.asarray(batch["tokens"]).shape
+    where = training.shard_batch({"tokens": np.arange(b * s).reshape(b, s)}, plan)["tokens"]
+    rows, cols = where[:, 0] // s, where[0] % s
+    whole = {k: torch.as_tensor(np.asarray(batch[k])[rows]) for k in ("tokens", "embeds")
+             if k in batch}
+    one, aux1, loads1 = LanguageModel(arch).forward(params, whole)
+    gap = (logits - one[:, cols]).abs().max()
     torch.distributed.all_reduce(gap, op=torch.distributed.ReduceOp.MAX)
     res[f"{tag}/logits"] = logits.numpy()
     res[f"{tag}/gap_world1"] = gap.numpy()
     if loads is None:
         return
     res[f"{tag}/loads"] = loads.numpy()
-    res[f"{tag}/world1_loads"] = sharding.all_reduce_(loads1.clone(),
-                                                       plan.stage_group).numpy()
+    # The data ranks' rows make the batch (a sequence group shares its rows).
+    res[f"{tag}/world1_loads"] = sharding.all_reduce_(loads1.clone(), plan.dp_group).numpy()
     for k in ("moe_aux_loss", "moe_z_loss"):
         res[f"{tag}/{k}"] = aux[k].numpy()
 

@@ -52,17 +52,17 @@ REMATS = ("none", "full")
 LAYOUT_GRIDS = {"2,2": ((2, 2), 8, False), "1,4": ((1, 4), 6, False),
                 "2,1,2pp": ((2, 1, 2), 8, True), "2,1,2": ((2, 1, 2), 8, False)}
 R2_GRIDS = ((1, 2), (2, 1))
-BATCH = (8, 16)  # two sequences a rank at 4 ranks
+BATCH = (8, 16)  # 32 tokens a rank at 4 ranks
 PP_MESH, PP_DEPTH, PP_BATCH = (2, 1, 2), 4, (8, 32)
 PP_SCHEDULES = ("1f1b", "zb_h1")
 SERVE = dict(max_seqs=2, block_size=4, num_blocks=32, cache_dtype="float32")
 SWAP = (0, 5)  # a migration swapping these slots of every rep (EP ranks 0 and 1)
 ZERO_TAGS = ("vocab", "embed", "model_out", "ssm_inner")
 DRYRUN_MODES = MODES
-# The dry run's train step at (2, 2): batch, sequence.  33 tokens make a
-# rank's T k = 132 rows no multiple of E = 8, so its EP ranks receive
-# different row counts under the balanced routing.
-DRYRUN_BATCH = (8, 33)
+# The dry run's train step at (2, 2): batch, sequence.  A rank holds 3 rows
+# of 17 positions, so its T k = 102 rows are no multiple of E = 8, and its
+# EP ranks receive different row counts under the balanced routing.
+DRYRUN_BATCH = (6, 34)
 
 
 def arch_of(base, mode="ragged", experts=8, **kw):

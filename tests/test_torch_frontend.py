@@ -16,7 +16,7 @@ AdamW step, ``prefill`` then embeds-only ``decode_step`` and
 ``prefill_paged`` then ``decode_step_paged``, each against the reference's
 steps.  ``embeds`` equal to the table's rows give the token path's logits
 bit for bit, and ``training.shard_batch`` splits ``embeds`` as it splits
-``tokens``.
+``tokens``, each rank taking its rows and its sequence slice.
 
 Tolerances: the reference's model parity 1e-5 (absolute and relative;
 both sides fp32, summation order alone); ``apply_mrope`` 1e-6 (one
@@ -326,9 +326,10 @@ def test_paged_prefill_and_decode_with_embeds_match_reference(name):
 
 @pytest.mark.parametrize("pipeline", [False, True])
 def test_shard_batch_splits_embeds_as_tokens(pipeline):
-    """Each rank's rows of ``embeds`` are the rows it takes of ``tokens``
-    (and of ``labels``), with or without a pipeline's microbatches; host
-    arrays and tensors alike."""
+    """Each rank's block of ``embeds`` is the block it takes of ``tokens``
+    (and of ``labels``): its rows over data (of each of a pipeline's
+    microbatches) and its sequence slice over (ep, tp), the reference's
+    ``batch_specs`` layout; host arrays and tensors alike."""
     b, s = 8, 4
     toks = np.arange(b * s).reshape(b, s)
     emb = np.repeat(toks[..., None], 3, axis=-1).astype(np.float32)
@@ -343,3 +344,10 @@ def test_shard_batch_splits_embeds_as_tokens(pipeline):
             assert got_e.shape == got_t.shape + (3,)
             np.testing.assert_array_equal(got_e, np.repeat(got_t[..., None], 3, -1))
             np.testing.assert_array_equal(np.asarray(part["labels"]), got_t)
+            M, D, n = plan.num_microbatches if pipeline else 1, grid[1], grid[2] * grid[3]
+            bl, sl, (d, _, _) = b // (M * D), s // n, plan.coords
+            rows = np.concatenate([np.arange(m * b // M + d * bl, m * b // M + (d + 1) * bl)
+                                   for m in range(M)])
+            j = plan.seq_rank
+            np.testing.assert_array_equal(got_t, rows[:, None] * s
+                                          + np.arange(j * sl, (j + 1) * sl)[None])

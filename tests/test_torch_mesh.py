@@ -16,10 +16,11 @@ tp 2 plan: the EP tests' gates (``test_torch_ep.grad_gate_failures``: loss
 dispatch payload through a bf16 wire (measured: loss 4.8e-7, worst leaf
 1.4e-3 of its magnitude).  The same run with the wire in fp32 against the
 port's world 1, which has no wire: the loss bitwise, else 1e-6; gradients
-1e-5 (measured 1.5e-8).  Against the (2, 2) data grid, which gives every
-rank the same sequences and EP degree without tp lanes: the loss and the
-non-expert gradients bitwise, the expert gradients (summed over other
-rank sets) 1e-6.  Paged decode at (2, 2) against the reference's on
+1e-5 (measured 1.5e-8).  Against the (2, 2) data grid, the same EP
+degree and as many tokens a rank without tp lanes: the EP gates, since the
+two grids give a rank other blocks of the batch (``training.shard_batch``:
+8 rows x 4 positions at (1, 4), 4 x 8 at (2, 2)) and each side's bf16 wire
+rounds its own payloads.  Paged decode at (2, 2) against the reference's on
 the same mesh: the reference's own 5e-3 (``tests/_serving_child.py``
 ``check_paged_decode_on_mesh``; measured 3.4e-7).  Served tokens, plans,
 migrated states, the swap-only trajectory and the checkpoint runs: exact.
@@ -207,21 +208,19 @@ def test_tp_with_an_fp32_wire_matches_world_1(runs, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_tp_equals_the_data_grid_it_replaces(runs, mode):
-    """(1, 4) against (2, 2): the same two sequences a rank and the same EP
-    degree, tp lanes in place of data ranks.  Every rank's tokens take the
-    same path, so the loss and every non-expert gradient are bitwise
-    equal; the expert gradients are summed over other rank sets (1e-6)."""
+    """(1, 4) against (2, 2): the same EP degree and as many tokens a rank,
+    tp lanes in place of data ranks.  The grids give a rank other blocks
+    of the batch (8 rows x 4 positions against 4 x 8), so the two are held
+    at the EP gates, which a halved expert gradient fails."""
     _, r4, _ = runs
     r0 = r4[0]
-    assert float(r0[f"tp/{mode}/loss"]) == float(r0[f"tpdp/{mode}/loss"])
+    assert abs(float(r0[f"tp/{mode}/loss"]) - float(r0[f"tpdp/{mode}/loss"])) < 2e-3
     got, want = _grads(r0, f"tp/{mode}"), _grads(r0, f"tpdp/{mode}")
     experts = sharding.expert_paths(want)
     assert experts and sorted(got) == sorted(want)
-    for k in want:
-        if k in experts:
-            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
-        else:
-            assert np.array_equal(got[k], want[k]), k
+    assert grad_gate_failures(got, want) == []
+    halved = {k: v * (0.5 if k in experts else 1.0) for k, v in got.items()}
+    assert sorted(grad_gate_failures(halved, want)) == sorted(experts)
 
 
 @pytest.mark.parametrize("mode", MODES)
