@@ -3546,6 +3546,17 @@ MESH_DP = ((2, 2), (2, 1, 2))  # D 2 x ep 2; the pod joining data
 MESH_SERVE = dict(requests=4, prompt=(64, 256), max_new=8, max_seqs=4)
 PATH_KERNELS["mesh"] = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",
                         "ragged_matmul_f32", "ragged_dw_f32")
+# (g) the reference's "seq" / "kv_seq" serving layout through the dense-cache
+# steps, on (e)'s four ranks: each case's arch, grid, depth and (b, prompt,
+# cache rows, decode steps) of its bf16 greedy run and its fp32 run.  The
+# bf16 run's prompts are the batch the check holds; the fp32 run takes the
+# first rows the data grid splits (a prefill batch must divide over it).
+SEQ_SERVE = (("granite", ARCH, (2, 2), 2, (4, 4096, 8192, 16), (2, 4096, 8192, 8)),
+             ("gemma2", "gemma2-9b", (1, 4), 2, (1, 8192, 12288, 8), (1, 8192, 12288, 8)))
+# (a') flash attention with a query offset at the cases' heads: the
+# sequence split 4 ways (s, and gemma2's window and softcap from its arch).
+SEQ_FA = ((ARCH, 4096), ("gemma2-9b", 8192))
+SEQ_SPLIT = 4
 
 
 def mesh_prompts(vocab: int) -> list:
@@ -3668,6 +3679,246 @@ def mesh_kernel_checks(dev) -> None:
     log(f"[check] mesh path kernels at phase 15's shapes (E_l={E_l}, cf {EP_CF:g}, NaN "
         f"sentinel tails, buckets {buckets}): {n_checks} checks ok "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def seq_flash_checks(dev) -> list:
+    """(a') ``flash_attention`` with ``q_offset`` against its plain version
+    (bf16 ``/tc``, fp32 ``/fma``) at each ``SEQ_FA`` shape, the sequence
+    split ``SEQ_SPLIT`` ways: each rank's slice of the queries against the
+    whole sequence's keys, as the sharded prefill calls it.  Each slice's
+    ``kernel_row`` (its bound counts the keys its rows see, causal and
+    window: rank j of n does about (2j + 1) / n^2 of the whole call's work;
+    SDPA takes an explicit boolean mask, as its ``is_causal`` aligns the
+    mask top-left: no offset) also carries the whole call's time and the
+    slice's share of its work; returns one row a dtype, shape and slice."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    _, randn, _ = seeded_inputs(dev, 1, 1, seed=30)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows, t0 = [], time.perf_counter()
+    for name, s in SEQ_FA:
+        arch = get_arch(name)
+        hq, hkv, d = arch.num_heads, arch.num_kv_heads, arch.head_dim
+        W = arch.sliding_window if any(m == "attn_local" for m, _ in arch.block_pattern) \
+            else None
+        cap = arch.attn_logit_softcap
+        sl = s // SEQ_SPLIT
+        pos = torch.arange(s, device=dev)
+        visible = pos + 1 if W is None else torch.clamp(pos + 1, max=W)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = randn(1, s, hq + 2 * hkv, d, dtype=dtype)
+            q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+            kc, vc = (t.transpose(1, 2).contiguous() for t in (k, v))
+            design = fa_ops.design(dtype, d)
+            whole_ms = device_ms(fa_ops.flash_attention_launch(
+                q, k, v, window=W, logit_softcap=cap)[1], reps=10, warmup=2)
+            sz = q.element_size()
+            for j in range(SEQ_SPLIT):
+                off = j * sl
+                qs = q[:, off:off + sl]
+                qsc = qs.transpose(1, 2).contiguous()
+                shape = (f"b=1 s={s} hq={hq} hkv={hkv} d={d} window={W} softcap={cap} "
+                         f"q_offset={off} sq={sl}")
+                want = fa_ref.attention(qsc.float(), kc.float(), vc.float(), window=W,
+                                        softcap=cap, q_offset=off).transpose(1, 2).to(dtype)
+                err = check(f"mesh (a') flash_attention {shape} {dtype} via {design}",
+                            fa_ops.flash_attention(qs, k, v, window=W, logit_softcap=cap,
+                                                   q_offset=off), want, FA_TOL[dtype])
+                del want
+                p = pos[off:off + sl, None]
+                mask = (pos[None] <= p) & ((pos[None] > p - W) if W is not None else True)
+                # The keys the slice's rows see: [max(0, off - W + 1), off + sl).
+                span = off + sl - (0 if W is None else max(0, off - W + 1))
+                seen = float(visible[off:off + sl].sum())
+                share = seen / float(visible.sum())
+                row = kernel_row(
+                    "flash_attention", shape, dtype,
+                    fa_ops.flash_attention_launch(qs, k, v, window=W, logit_softcap=cap,
+                                                  q_offset=off)[1],
+                    lambda: fa_ref.attention(qsc, kc, vc, window=W, softcap=cap, q_offset=off),
+                    lambda: sdpa(qsc, kc, vc, attn_mask=mask, enable_gqa=True),
+                    (2 * sl * hq + 2 * span * hkv) * d * sz, [(4 * hq * d * seen, dtype)],
+                    err, fa_ops._FLASH[design].path,
+                    "src/repro/kernels/flash_attention/flash_attention.py:103", design)
+                row.update(whole_ms=whole_ms, work_share=share)
+                log(f"[time] flash_attention {row['shape']}: the whole call {whole_ms:.4f} ms, "
+                    f"this slice's share of its work {share:.4f}; library: SDPA enable_gqa, an "
+                    f"explicit causal{' and window' if W else ''} mask, no softcap (it has "
+                    f"none)")
+                rows.append(row)
+                del mask, qsc
+            del qkv, q, k, v, kc, vc
+            torch.cuda.empty_cache()
+    log(f"[mesh] (a') flash_attention with q_offset: {len(rows)} slices checked and timed "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
+def _seq_generate(lm, params, prompts, rows: int, steps: int, feed=None) -> dict:
+    """``prompts`` (b, l) through ``make_prefill_step``, ``pad_cache`` to
+    ``rows`` and ``steps`` calls of ``make_decode_step`` in the params'
+    dtype, each step fed the last logits' argmax or, with ``feed`` (b,
+    steps), its next column.  Returns each step's argmax, top-2 gap and fp32
+    logits (host), the prefill's launches, the attention cache's bytes, and
+    the prefill's and each decode step's seconds."""
+    from repro_torch import kernels
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    dtype = params["final_norm"].dtype
+    prefill, decode = make_prefill_step(lm, dtype), make_decode_step(lm, dtype)
+    before = kernels.launch_counts()
+    (logits, cache), pre_s = _timed(lambda: prefill(params, {"tokens": prompts}))
+    after = kernels.launch_counts()
+    cache = lm.pad_cache(cache, rows)
+    nbytes = sum(t.numel() * t.element_size() for c in cache if "k" in c for t in c.values())
+    l, out = prompts.shape[1], {"tokens": [], "gaps": [], "logits": [], "step_s": []}
+    for i in range(steps + 1):
+        top = logits.float().topk(2, dim=-1)
+        out["tokens"].append(top.indices[:, :1])
+        out["gaps"].append(top.values[:, 0] - top.values[:, 1])
+        out["logits"].append(logits.float().cpu())
+        if i == steps:
+            break
+        nxt = out["tokens"][-1] if feed is None else torch.as_tensor(
+            feed[:, i:i + 1], device=logits.device)
+        (logits, _), secs = _timed(lambda: decode(params, cache, {"tokens": nxt}, l + i))
+        out["step_s"].append(secs)
+    del cache
+    return {"tokens": torch.cat(out["tokens"], 1).cpu().numpy(),
+            "gaps": torch.stack(out["gaps"], 1).cpu().numpy(), "logits": out["logits"],
+            "launched": {n: after[n] - before.get(n, 0) for n in after},
+            "cache_bytes": nbytes, "prefill_s": pre_s, "step_s": out["step_s"]}
+
+
+def _seq_inputs(case, vocab: int):
+    """A ``SEQ_SERVE`` case's bf16 prompts, its fp32 prompts and their fed
+    next tokens, from seed 20."""
+    _, _, _, _, (b, l, _, _), (fb, fl, _, fk) = case
+    rng = np.random.default_rng(20)
+    prompts = rng.integers(0, vocab, size=(b, l))
+    feed = rng.integers(0, vocab, size=(fb, fl + fk))
+    return prompts, feed[:, :fl], feed[:, fl:]
+
+
+def _seq_arch(case):
+    from repro_torch.configs import get_arch
+
+    tag, name, _, depth = case[:4]
+    return _mesh_arch(depth) if tag == "granite" else get_arch(name).replace(num_layers=depth)
+
+
+def _seq_world1(dev) -> dict:
+    """(g)'s world-1 references on the lead rank, before the counts start:
+    each case's bf16 greedy run and fp32 run through the dense-cache steps
+    on one rank."""
+    from repro_torch.models.model import LanguageModel, init_params
+
+    refs = {}
+    for case in SEQ_SERVE:
+        arch = _seq_arch(case)
+        (_, _, bc, bk), (_, _, fc, fk) = case[4], case[5]
+        prompts, fprompts, feed = _seq_inputs(case, arch.vocab_size)
+        params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+        lm = LanguageModel(arch)
+        refs[case[0]] = {"bf16": _seq_generate(lm, _bf16(params), prompts, bc, bk),
+                         "fp32": _seq_generate(lm, params, fprompts, fc, fk, feed)}
+        del params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_seq_serve(run, dev, refs: dict) -> None:
+    """(g) The reference's "seq" / "kv_seq" serving layout on the four
+    ranks: each ``SEQ_SERVE`` case's prefill block a rank (its rows over
+    data, its slice of the prompt over (ep, tp)) and decode against its
+    "kv_seq" block of the cache, every leaf of the weights whole on each
+    rank (phase 16 (d)'s control: the check is the batch's and the cache's
+    layout, not the weights' gathers through gloo).  bf16: greedy tokens
+    against world 1's (a divergence only where world 1's top-2 gap is under
+    ``DENSE_TIE``); fp32 (the EP payload in fp32 as in the tests: world 1
+    has no wire; its launches counted, and apart in the rank's
+    ``fp32_counts``): every step's logits within
+    ``PARITY_BOUND`` x max(1, their magnitude) of world 1's; the attention
+    cache's bytes a rank world 1's / (D ep tp) exactly; the bf16 prefill's
+    flash launches one ``/tc`` an attention layer, none ``/fma``."""
+    from repro_torch import kernels, sharding
+    from repro_torch.convert import shard_params
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import LanguageModel, init_params
+
+    for case in SEQ_SERVE:
+        tag, name, grid = case[:3]
+        arch = _seq_arch(case)
+        (_, _, bc, bk), (_, _, fc, fk) = case[4], case[5]
+        prompts, fprompts, feed = _seq_inputs(case, arch.vocab_size)
+        plan = _mem_plans(sharding.make_plan(arch, grid))["whole"]
+        lm = LanguageModel(arch, plan)
+        params = shard_params(init_params(arch, torch.Generator(device=dev).manual_seed(0), dev),
+                              plan)
+        attn = sum(m.startswith("attn") for m, _ in arch.block_pattern) * (
+            arch.num_layers // len(arch.block_pattern))
+        split = plan.dp * plan.seq_size
+        got = _seq_generate(lm, _bf16(params), prompts, bc, bk)
+        wire, before = moe.WIRE_DTYPE, kernels.launch_counts()
+        try:  # the EP payload in fp32, as world 1 has no wire to round it
+            moe.WIRE_DTYPE = torch.float32
+            got32 = _seq_generate(lm, params, fprompts, fc, fk, feed)
+        finally:
+            moe.WIRE_DTYPE = wire
+        fp32 = run.out.setdefault("fp32_counts", {})
+        for n, c in kernels.launch_counts().items():
+            fp32[n] = fp32.get(n, 0) + c - before.get(n, 0)
+        del params
+        torch.cuda.empty_cache()
+        pre = f"seq/{tag}"
+        launched = got["launched"]
+        ok = (launched["flash_attention/tc"] == attn and launched["flash_attention/fma"] == 0)
+        run.record(f"{pre}/launches", ok,
+                   f"{name} depth {arch.num_layers} at --mesh {','.join(map(str, grid))} (dp "
+                   f"{plan.dp} x ep {plan.ep} x tp {plan.tp}): the bf16 prefill of a rank's "
+                   f"{prompts.shape[0] // plan.dp} x {prompts.shape[1] // plan.seq_size} block "
+                   f"launched flash /tc {launched['flash_attention/tc']} (want {attn}: one an "
+                   f"attention layer), /fma {launched['flash_attention/fma']}")
+        for dt, g, rows, size in (("bf16", got, bc, 2), ("fp32", got32, fc, 4)):
+            # World 1's K and V: reps x b x rows x kv heads x head dim each.
+            whole = 2 * attn * g["tokens"].shape[0] * rows * arch.num_kv_heads * \
+                arch.head_dim * size
+            ok = g["cache_bytes"] * split == whole
+            run.record(f"{pre}/{dt} cache bytes", ok,
+                       f"{name} {dt}: the attention cache {g['cache_bytes']} B a rank, world "
+                       f"1's {whole} B / (D {plan.dp} x ep {plan.ep} x tp {plan.tp})")
+        if not run.lead:
+            continue
+        ref, ref32 = refs[tag]["bf16"], refs[tag]["fp32"]
+        same = ref["tokens"].shape == got["tokens"].shape and bool(
+            (ref["tokens"] == got["tokens"]).all())
+        line = (f"{name} bf16 {prompts.shape[0]} x {prompts.shape[1]} + {bk} greedy steps into "
+                f"{bc} rows: tokens equal world 1's")
+        if not same:
+            rows, cols = np.nonzero(ref["tokens"] != got["tokens"])
+            first = {int(r): int(c) for r, c in zip(rows[::-1], cols[::-1])}
+            worst = max(float(ref["gaps"][r, c]) for r, c in first.items())
+            same = worst < DENSE_TIE
+            line = (f"{name} bf16: {len(first)} rows diverge from world 1's, at {first}; world "
+                    f"1's top-2 gap there at most {worst:.3e} (< {DENSE_TIE:g}: a near-tie)")
+        run.record(f"{pre}/bf16 tokens", same, line)
+        V = arch.vocab_size  # the padded vocab's -1e30 columns are no magnitude
+        err = max(float((a[:, :V] - b[:, :V]).abs().max())
+                  for a, b in zip(got32["logits"], ref32["logits"]))
+        mag = max(float(b[:, :V].abs().max()) for b in ref32["logits"])
+        bound = serve.PARITY_BOUND * max(1.0, mag)
+        run.record(f"{pre}/fp32 logits", err <= bound,
+                   f"{name} fp32 {fprompts.shape[0]} x {fprompts.shape[1]} + {fk} steps into {fc} "
+                   f"rows: max |dlogits| against world 1 {err:.3e} (bound {bound:.3e} = "
+                   f"{serve.PARITY_BOUND:g} x max(1, {mag:.2f}))")
+        p50 = 1e3 * float(np.median(got["step_s"]))
+        p50_1 = 1e3 * float(np.median(ref["step_s"]))
+        run.note(f"{pre}/time", f"{name} bf16: prefill {1e3 * got['prefill_s']:.2f} ms, decode "
+                 f"p50 {p50:.2f} ms a step; world 1 prefill {1e3 * ref['prefill_s']:.2f} ms, "
+                 f"decode p50 {p50_1:.2f} ms (gloo through the host: not NVLink or NCCL)")
 
 
 def _mesh_rank(rank: int, world: int, tmp: str, part: str) -> None:
@@ -4078,6 +4329,7 @@ def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     sparams = init_params(sarch, torch.Generator(device=dev).manual_seed(0), dev)
     ref = ({mode: _mesh_serve(_mesh_arch(EP_DEPTH, mode), None, sparams, dev)
             for mode in SERVE_MODES} if run.lead else {})
+    seq_refs = _seq_world1(dev) if run.lead else {}
     run.start()
 
     # (e) Migrations every MIG_EVERY of MESH_MIG_STEPS steps, swap-only.
@@ -4214,6 +4466,13 @@ def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
                            f"{len(tokens)} requests, tokens equal world 1's: {ok} (first: "
                            f"{tokens[0][:8]}); {secs:.2f} s")
     run.note("dp/peak", f"peak GB a rank {run.peak_gb()}")
+
+    # (g) The "seq" / "kv_seq" serving layout.
+    del sparams
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    _mesh_seq_serve(run, dev, seq_refs)
+    run.note("seq/peak", f"peak GB a rank {run.peak_gb()}; (g) {time.perf_counter() - t1:.1f} s")
     return run.finish()
 
 
@@ -4226,6 +4485,7 @@ def mesh_phase(dev):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mesh_kernel_checks(dev)
+    q_offset_rows = seq_flash_checks(dev)
     log(f"[mesh] gloo ranks on one {torch.cuda.get_device_name(0)}: every collective and "
         f"hand-off stages through the host, so no all-to-all, hand-off or all-gather time "
         f"of this phase measures NVLink or NCCL")
@@ -4254,7 +4514,11 @@ def mesh_phase(dev):
     for part, rs in res.items():
         for r in rs:
             label = f"mesh {part} rank {r['rank']}"
-            log(f"[mesh] {label} designs {check_designs(r['counts'], label)}")
+            fp32 = r.get("fp32_counts", {})  # (g)'s fp32 runs: the fp32 designs, by intent
+            bf16 = {name: n - fp32.get(name, 0) for name, n in r["counts"].items()}
+            fp32 = {name: n for name, n in fp32.items() if "/" in name and n}
+            log(f"[mesh] {label} designs {check_designs(bf16, label)}"
+                + (f"; (g)'s fp32 runs besides: {fp32}" if fp32 else ""))
             for name, n in r["counts"].items():
                 counts[name] = counts.get(name, 0) + n
     for name in PATH_KERNELS["mesh"]:
@@ -4263,7 +4527,7 @@ def mesh_phase(dev):
     if not all(r["ok"] for rs in res.values() for r in rs):
         fail("mesh: a check of the multi-rank runs failed")
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
-    return counts
+    return counts, q_offset_rows
 
 
 # ---------------------------------------------------------------------------
@@ -5952,7 +6216,8 @@ def main(names=()) -> None:
     counts["ep"] = phase("ep", lambda: (ep_world1_phase(out["training"][1]), ep_phase(dev))[1])
     counts["migrate"] = phase("migrate", migrate_phase, dev)
     counts["pipeline"] = phase("pipeline", pipeline_phase, dev)
-    counts["mesh"] = phase("mesh", mesh_phase, dev)
+    if phase("mesh", mesh_phase, dev) is not None:
+        counts["mesh"], q_offset_rows = out["mesh"]
     counts["memory"] = phase("memory", memory_phase, dev)
     if phase("archs", archs_phase, dev) is not None:
         counts["archs"], fa256 = out["archs"]
@@ -5970,6 +6235,7 @@ def main(names=()) -> None:
         e["launches_by_path"] = {path: counts[path][name] for path in PATH_KERNELS}
         e["launches"] = sum(e["launches_by_path"].values())
     entries["flash_attention"]["head_dim_256"] = fa256  # phase archs (a)
+    entries["flash_attention"]["q_offset"] = q_offset_rows  # phase mesh (a')
     for name, rows in frontend_rows.items():  # phase frontend (a)
         entries[name]["frontend"] = rows
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",

@@ -26,7 +26,12 @@
 // updated every 16 keys with the TPU kernel's rule: scores of masked keys
 // are -1e30 and still enter exp(s - m), so rows agree with the TPU kernel;
 // keys past the sequence end are excluded outright.  KV tiles wholly above
-// the causal diagonal or left of the window are skipped.  Inputs are read
+// the causal diagonal or left of the window are skipped.  A query offset
+// (the reference attention's q_offset) places query row i at position
+// q_offset + i against keys 0 .. SKV - 1, for a rank that holds a slice of
+// the sequence's queries and the whole sequence's keys; the masks and the
+// tile skip read that position, so q_offset = 0 is the kernel it was.
+// Inputs are read
 // through strides, so the model's (b, s, h, d) layout needs no transpose
 // copy; the output is written in that layout.
 //
@@ -67,7 +72,7 @@ __global__ void __launch_bounds__(BQ * Layout<D>::TPR)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out, int HQ, int HKV,
               int SQ, int SKV, Strides qs, Strides ks, Strides vs, int causal,
-              int window, float softcap, float scale) {
+              int window, float softcap, float scale, int q_offset) {
   constexpr int TPR = Layout<D>::TPR, BKV = Layout<D>::BKV, THREADS = BQ * TPR;
   constexpr int NC = D / 4 / TPR;  // float4 chunks of the row a thread holds
   static_assert(2 * BKV * D * 4 <= 48 * 1024, "static shared memory");
@@ -77,6 +82,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (HQ / HKV);
   const int part = threadIdx.x % TPR;  // this thread's chunks: part + c * TPR
   const int qi = q_start + threadIdx.x / TPR;
+  const int qpos = q_offset + qi;  // the row's global position, as the masks see it
   const bool q_ok = qi < SQ;
 
   float qr[4 * NC], acc[4 * NC];
@@ -91,11 +97,12 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = NEG_INF, l = 0.f;
 
   // Block-level relevance: keys <= the tile's last row (causal), keys
-  // > its first row - window (sliding window).
+  // > its first row - window (sliding window), rows at their global
+  // positions q_offset + i.
   int kv_end = SKV;
-  if (causal) kv_end = min(SKV, q_start + BQ);
+  if (causal) kv_end = min(SKV, q_offset + q_start + BQ);
   int kv_begin = 0;
-  if (window > 0) kv_begin = max(0, q_start - (window - 1)) / BKV * BKV;
+  if (window > 0) kv_begin = max(0, q_offset + q_start - (window - 1)) / BKV * BKV;
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
@@ -132,8 +139,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float sc = dot * scale;
         if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
         bool vis = true;
-        if (causal) vis = vis && key <= qi;
-        if (window > 0) vis = vis && key > qi - window;
+        if (causal) vis = vis && key <= qpos;
+        if (window > 0) vis = vis && key > qpos - window;
         sc = vis ? sc : NEG_INF;
         s[j] = key < SKV ? sc : -INFINITY;  // past the end: not a key at all
         m_new = fmaxf(m_new, s[j]);
@@ -179,8 +186,8 @@ extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
                                    long long k_ss, long long k_sh, long long v_sb,
                                    long long v_ss, long long v_sh, int causal,
                                    int window, float softcap, float scale,
-                                   void* stream) {
-  if (dt != kF32 || HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0)
+                                   int q_offset, void* stream) {
+  if (dt != kF32 || HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const dim3 grid((SQ + BQ - 1) / BQ, HQ, B);
@@ -190,7 +197,7 @@ extern "C" int flash_attention_fma(const void* q, const void* k, const void* v,
     fa_fwd_kernel<DD, float><<<grid, BQ * Layout<DD>::TPR, 0, (cudaStream_t)stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), HQ, HKV, SQ, SKV, qs,
-        ks, vs, causal, window, softcap, scale);
+        ks, vs, causal, window, softcap, scale, q_offset);
     ok = true;
   };
   if (D == 16) go(Int<16>{});

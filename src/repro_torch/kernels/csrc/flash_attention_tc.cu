@@ -10,7 +10,10 @@
 // GQA (kv head h // groups, no K/V repeat), sliding window, logit softcap,
 // the TPU masking rule (masked scores are -1e30 and still enter
 // exp(s - m); keys past the end are -inf) and the l == 0 guard; key tiles
-// wholly above the causal diagonal or left of the window are skipped.
+// wholly above the causal diagonal or left of the window are skipped.  A
+// query offset (the reference attention's q_offset) places query row i at
+// position q_offset + i against keys 0 .. SKV - 1: the masks and the tile
+// skip read that position, so q_offset = 0 is the kernel it was.
 //
 // What bounds it on an H100: at granite-moe-3b's prefill (b = 1, s = 512,
 // 24 query heads over 8 KV heads, d = 64) one call is 0.81 GFLOP causal
@@ -99,7 +102,7 @@ __global__ void __launch_bounds__(THREADS)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ out, int HQ, int HKV, int SQ,
              int SKV, Strides qs, Strides ks, Strides vs, int causal, int window,
-             float softcap, float scale) {
+             float softcap, float scale, int q_offset) {
   constexpr int BKV = Layout<D>::BKV, STAGES = Layout<D>::STAGES;
   constexpr bool Q_REGS = Layout<D>::Q_REGS;
   constexpr int LD = D + 8, KD = D / 16, NT = BKV / 8, DT = D / 8;
@@ -116,9 +119,11 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
   // Block-level relevance: keys <= the tile's last row (causal), keys
-  // > its first row - window (sliding window).
-  const int kv_end = causal ? min(SKV, q_start + BQ) : SKV;
-  const int kv_begin = window > 0 ? max(0, q_start - (window - 1)) / BKV * BKV : 0;
+  // > its first row - window (sliding window), rows at their global
+  // positions q_offset + i.
+  const int q_pos0 = q_offset + q_start;
+  const int kv_end = causal ? min(SKV, q_pos0 + BQ) : SKV;
+  const int kv_begin = window > 0 ? max(0, q_pos0 - (window - 1)) / BKV * BKV : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
 
   auto load_kv = [&](int j) {
@@ -151,6 +156,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; c < 4; ++c) o[dt][c] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
   const int qi0 = q_start + warp * 16 + g, qi1 = qi0 + 8;
+  const int qp0 = q_offset + qi0, qp1 = qp0 + 8;  // their global positions
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait<STAGES - 2>();  // tile j has landed
@@ -190,7 +196,7 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int key = k0 + nt * 8 + 2 * t + (c & 1), qi = c < 2 ? qi0 : qi1;
+        const int key = k0 + nt * 8 + 2 * t + (c & 1), qi = c < 2 ? qp0 : qp1;
         float sc = s[nt][c] * scale;
         if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
         bool vis = true;
@@ -277,8 +283,9 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
                                   long long q_sb, long long q_ss, long long q_sh,
                                   long long k_sb, long long k_ss, long long k_sh,
                                   long long v_sb, long long v_ss, long long v_sh, int causal,
-                                  int window, float softcap, float scale, void* stream) {
-  if (dt != kBF16 || HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0)
+                                  int window, float softcap, float scale, int q_offset,
+                                  void* stream) {
+  if (dt != kBF16 || HKV <= 0 || HQ % HKV != 0 || SQ <= 0 || SKV <= 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const dim3 grid((SQ + BQ - 1) / BQ, HQ, B);
@@ -291,7 +298,8 @@ extern "C" int flash_attention_tc(const void* q, const void* k, const void* v, v
     if (attr != cudaSuccess) { rc = (int)attr; return; }
     fa_tc_kernel<DD><<<grid, THREADS, SMEM, (cudaStream_t)stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), HQ, HKV, SQ, SKV, qs, ks, vs, causal, window, softcap, scale);
+        static_cast<bf16*>(out), HQ, HKV, SQ, SKV, qs, ks, vs, causal, window, softcap, scale,
+        q_offset);
     rc = (int)cudaGetLastError();
   };
   if (D == 16) go(Int<16>{});

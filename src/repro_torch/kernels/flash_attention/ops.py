@@ -12,13 +12,17 @@ tensor-core kernel (``csrc/flash_attention_tc.cu``, entry point
 (``csrc/flash_attention.cu``, ``flash_attention_fma``,
 ``flash_attention/fma``), which keeps fp32 products.  Either launch also
 counts once under ``flash_attention``.  Both take head dims 16 to 256
-(d = 256 in a layout of its own in each source).
+(d = 256 in a layout of its own in each source), and a query offset
+``q_offset`` (the reference attention's): query row ``i`` sits at
+position ``q_offset + i`` against keys ``0 .. skv - 1``, as when a rank
+holds a slice of a sequence's queries and the whole sequence's keys.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import operator
 from typing import Optional
 
 import torch
@@ -29,7 +33,7 @@ from repro_torch.kernels.flash_attention import ref
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 _ARGS = ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
-         + [_L] * 9 + [_I, _I, ctypes.c_float, ctypes.c_float])
+         + [_L] * 9 + [_I, _I, ctypes.c_float, ctypes.c_float, _I])
 _FLASH = {
     "tc": Kernel("flash_attention_tc", "flash_attention_tc", _ARGS,
                  ("flash_attention", "flash_attention/tc")),
@@ -60,9 +64,17 @@ def _check_rows_aligned(**tensors: torch.Tensor) -> None:
                              f"(data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()})")
 
 
+def _checked_offset(q_offset, sq: int, skv: int) -> int:
+    """``q_offset`` as an int, its last query row inside the keys."""
+    q_offset = operator.index(q_offset)
+    if q_offset < 0 or q_offset + sq > skv:
+        raise ValueError(f"flash_attention: q_offset {q_offset} + sq {sq} past skv {skv}")
+    return q_offset
+
+
 def flash_attention_launch(q, k, v, *, causal: bool = True,
                            window: Optional[int] = None,
-                           logit_softcap: Optional[float] = None):
+                           logit_softcap: Optional[float] = None, q_offset: int = 0):
     """Validate a flash-attention call on CUDA tensors and allocate its
     output; returns (out, launch), where ``launch()`` enqueues the kernel of
     :func:`design` alone."""
@@ -81,13 +93,14 @@ def flash_attention_launch(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention: window {window} < 1")
     if logit_softcap is not None and logit_softcap <= 0:
         raise ValueError(f"flash_attention: softcap {logit_softcap} <= 0")
+    q_offset = _checked_offset(q_offset, sq, skv)
     kind = design(q.dtype, d)
     if kind == "tc":
         _check_rows_aligned(q=q, k=k, v=v)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1), t.stride(2))]
     args = (q, k, v, out, dtype_code("q", q), b, hq, hkv, sq, skv, d, *strides,
-            int(causal), window or 0, logit_softcap or 0.0, 1.0 / math.sqrt(d))
+            int(causal), window or 0, logit_softcap or 0.0, 1.0 / math.sqrt(d), q_offset)
     return out, lambda: _FLASH[kind](*args)
 
 
@@ -99,13 +112,15 @@ def flash_attention(
     causal: bool = True,
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     if on_cpu(q, k, v):
+        q_offset = _checked_offset(q_offset, q.shape[1], k.shape[1])
         return ref.attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, window=window, softcap=logit_softcap,
+            causal=causal, window=window, softcap=logit_softcap, q_offset=q_offset,
         ).transpose(1, 2)
     out, launch = flash_attention_launch(q, k, v, causal=causal, window=window,
-                                         logit_softcap=logit_softcap)
+                                         logit_softcap=logit_softcap, q_offset=q_offset)
     launch()
     return out

@@ -14,9 +14,10 @@ NEG_INF = -1e30
 
 
 def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
-              softcap: Optional[float] = None) -> torch.Tensor:
+              softcap: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
     """q (b, hq, sq, d), k/v (b, hkv, skv, d) -> (b, hq, sq, d) in q.dtype;
-    fp32 scores and softmax."""
+    fp32 scores and softmax.  Query row ``i`` sits at position ``q_offset +
+    i`` (the reference attention's ``q_offset``), keys at ``0 .. skv - 1``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -25,7 +26,7 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) / math.sqrt(d)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
+    q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

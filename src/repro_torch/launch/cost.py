@@ -17,9 +17,10 @@ on real CPU tensors) and counts:
 * the live bytes of every storage the ops make, freed when its last
   tensor dies, and their ``peak``;
 * collectives by kind at the c10d ops the port issues (all-reduce,
-  all-gather, reduce-scatter, all-to-all, and the pipeline's send as
-  "collective-permute"): count, result bytes and wire bytes by the
-  reference's ring model (:func:`wire_estimate`).
+  all-gather, reduce-scatter, all-to-all, the pipeline's send as
+  "collective-permute", and a broadcast: the serving prefill's last
+  logits, the payload once a rank): count, result bytes and wire bytes by
+  the reference's ring model (:func:`wire_estimate`).
 
 A kernel wrapper's plain version runs inside :meth:`CostCounter.kernel`:
 its FLOPs count, but it is one op, as the kernel is on the card, whose
@@ -43,7 +44,8 @@ from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute",
+         "broadcast")
 LARGE = 1 << 20  # hlo_analysis.py's threshold of an HBM-resident operand
 
 # c10d op -> kind.  The first argument of each is the result (or the
@@ -56,7 +58,7 @@ _C10D = {
     "reduce_scatter_": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
     "reduce_scatter_tensor_coalesced_": "reduce-scatter",
     "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
-    "send": "collective-permute",
+    "send": "collective-permute", "broadcast_": "broadcast",
 }
 _FREE = {"detach", "alias", "lift_fresh", "lift_fresh_copy", "_local_scalar_dense",
          "empty", "empty_strided", "empty_like", "set_", "resize_"}

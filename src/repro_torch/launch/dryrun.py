@@ -377,9 +377,13 @@ def trace_step(arch, kind: str, plan, batch: int, seq: int, *, fake: bool = True
     :class:`cost.CostCounter` with bf16 compute and weights made from seed
     0, on fake tensors or (``fake=False``) real CPU ones: ``kind`` "train"
     (AdamW, the global batch ``batch`` x
-    ``seq`` of which this rank takes its rows), "prefill" (this rank's
-    share of ``batch`` prompts of ``seq`` tokens) or "decode" (one token a
-    sequence at the end of a ``seq``-row cache).  Returns {"memory",
+    ``seq`` of which this rank takes its block), "prefill" (this rank's
+    block of ``batch`` prompts of ``seq`` tokens: its rows over data, its
+    positions over (ep, tp)) or "decode" (one token a sequence at the end
+    of a ``seq``-row cache: the rank's rows over data and its "kv_seq"
+    block of the cache's positions).  The serving steps take the global
+    batch as a host array, which is not counted (a rank's block of it is
+    a few KB).  Returns {"memory",
     "cost", "collectives", "kernels"}; the memory's ``peak_bytes`` is the
     step's peak of live bytes with the state (``state_bytes``) in it."""
     from torch._subclasses.fake_tensor import FakeTensorMode, unset_fake_temporarily
@@ -402,17 +406,14 @@ def trace_step(arch, kind: str, plan, batch: int, seq: int, *, fake: bool = True
         local = init_params(arch, torch.Generator().manual_seed(0), "cpu", torch.float32)
         if world > 1:
             local = shard_params(local, plan)
-        rng = np.random.default_rng(0)
+        toks = np.random.default_rng(0).integers(
+            0, arch.vocab_size, (batch, seq if kind != "decode" else 1), dtype=np.int64)
         if kind == "train":
-            rows = batch
-        else:
-            rows, _ = lm._data_share(batch) if plan is not None else (slice(0, batch), False)
-            rows = rows.stop - rows.start
-        toks = torch.from_numpy(rng.integers(0, arch.vocab_size, (rows, seq if kind != "decode"
-                                                                   else 1), dtype=np.int64))
+            toks = torch.from_numpy(toks)
         with counter:
             local = map_tree(lambda t: t.clone(), local)
-            counter.track(toks)
+            if kind == "train":
+                counter.track(toks)
             mem = {"param_bytes": _bytes(local)}
             if kind == "train":
                 state = {"params": local, **adamw_init(local, plan.optimizer_dtype
@@ -428,7 +429,7 @@ def trace_step(arch, kind: str, plan, batch: int, seq: int, *, fake: bool = True
                 step = training.make_prefill_step(lm, compute_dtype)
                 args = (local, {"tokens": toks})
             else:
-                cache = lm.init_cache(rows, seq, compute_dtype, "cpu")
+                cache = lm.init_cache(batch, seq, compute_dtype, "cpu")
                 mem["cache_bytes"] = _bytes(cache)
                 step = training.make_decode_step(lm, compute_dtype)
                 args = (local, cache, {"tokens": toks}, seq - 1)

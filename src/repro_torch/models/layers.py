@@ -1,9 +1,11 @@
 """Core transformer layers: norms, rotary embeddings, GQA attention, FFN.
 
 Functions of tensors; parameters are plain dicts, as in the JAX package.
-Prefill attention runs the flash kernel (``kernels.flash_attention``);
-decode, paged (gathering its pages) or over a dense cache, runs the eager
-``attention`` here, which the JAX package likewise leaves to XLA.
+Prefill attention runs the flash kernel (``kernels.flash_attention``;
+a rank holding a slice of the sequence passes its ``q_offset``); decode,
+paged (gathering its pages) or over a dense cache (whole, or a rank's
+"kv_seq" block combined over its sequence group), runs eagerly here, as
+the JAX package leaves it to XLA.
 Training runs the eager ``attention`` with autograd too: the flash kernel
 has no backward, in the JAX package or here.
 """
@@ -167,6 +169,67 @@ def attention(q, k, v, *, q_offset=0, window: Optional[int] = None,
     return out.reshape(b, s_q, hq, d)
 
 
+def kv_block_attention(q, k, v, cache, index: int, seq, *, window: Optional[int] = None,
+                       logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """One decode token's attention over a dense cache in the reference's
+    "kv_seq" layout: ``cache`` {"k", "v"} (b, C_l, kv, hd) holds rows ``[j
+    C_l, (j + 1) C_l)`` of the sequence's cache, ``j`` the rank's place in
+    ``seq``'s sequence group (``sharding.MeshPlan.kv_rows``).  The rank
+    whose rows hold ``index`` writes the new K/V row ``k``, ``v`` (b, 1,
+    kv, hd) there, IN PLACE.  Each rank scores q (b, 1, hq, hd) against its
+    own rows that the token sees (``<= index`` and inside ``window``),
+    with the softcap, in fp32, and keeps its row max m_j and the sum l_j of
+    exp(score - m_j); a rank that sees none of its rows keeps (-1e30, 0),
+    so it adds zero weight and no NaN (the owner of ``index`` always sees
+    a row, so the group's max M is finite).  One all-gather of (m_j, l_j)
+    over the group gives M and the softmax's sum L = sum_j e^(m_j - M) l_j;
+    each rank's probabilities e^(score - M) / L are rounded to V's dtype,
+    as the reference rounds its softmax before P.V, and their fp32 product
+    with its rows of V is summed over the group by an all-reduce (which
+    leaves every rank the same sum), then rounded to q's dtype: the
+    reference's function and its rounding, its fp32 sums in another order.
+    Returns (b, 1, hq, hd)."""
+    b, s, hq, d = q.shape
+    if s != 1:
+        raise ValueError(f"a kv_seq cache takes one decode token, got {s}")
+    c_l, hkv = cache["k"].shape[1], cache["k"].shape[2]
+    first = seq.seq_rank * c_l
+    if first <= index < first + c_l:
+        cache["k"][:, index - first] = k[:, 0]
+        cache["v"][:, index - first] = v[:, 0]
+    lo = max(first, index - window + 1) if window is not None else first
+    hi = min(first + c_l, index + 1)
+    qh = q.reshape(b, hkv, hq // hkv, d).float()
+    if hi > lo:
+        ks = cache["k"][:, lo - first:hi - first].float()
+        scores = softcap(torch.einsum("bhgd,bkhd->bhgk", qh, ks) / math.sqrt(d), logit_softcap)
+        m = scores.amax(dim=-1, keepdim=True)
+        stats = torch.cat([m, torch.exp(scores - m).sum(dim=-1, keepdim=True)], dim=-1)
+    else:
+        stats = torch.zeros(qh.shape[:-1] + (2,), dtype=torch.float32, device=q.device)
+        stats[..., 0] = NEG_INF
+    stats = _gather_stack(stats, seq.model_group)
+    M = stats[..., :1].amax(dim=0)
+    L = (torch.exp(stats[..., :1] - M) * stats[..., 1:]).sum(dim=0)
+    if hi > lo:
+        probs = (torch.exp(scores - M) / L).to(cache["v"].dtype)
+        o = torch.einsum("bhgk,bkhd->bhgd", probs.float(),
+                         cache["v"][:, lo - first:hi - first].float())
+    else:
+        o = qh.new_zeros(qh.shape)
+    o = o.contiguous()
+    torch.distributed.all_reduce(o, group=seq.model_group)
+    return o.to(q.dtype).reshape(b, 1, hq, d)
+
+
+def _gather_stack(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` of every rank of ``group``, stacked in rank order (one
+    all-gather)."""
+    parts = [torch.empty_like(t) for _ in range(sharding.group_size(group))]
+    torch.distributed.all_gather(parts, t.contiguous(), group=group)
+    return torch.stack(parts)
+
+
 def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
                    cache_index=None, write=None, return_kv=False, train=False, seq=None):
     """Full attention sub-layer: QKV proj -> rope -> attention -> out proj.
@@ -185,17 +248,20 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     rows are written at ``cache_index`` (a Python int, so no device sync)
     IN PLACE, and eager attention runs over rows ``[0, cache_index + s)``
     with ``q_offset=cache_index``.  The reference's update clamps an index
-    past the end and overwrites the last row; here it raises.
+    past the end and overwrites the last row; here it raises.  With
+    ``seq`` the dense cache is this rank's block of the reference's
+    "kv_seq" layout (:func:`kv_block_attention`).
     ``seq`` (no cache): a ``sharding.MeshPlan`` whose sequence group holds
-    the sequence, ``x`` and ``positions`` this rank's slice of it.  In
-    training K/V are gathered over the group once a layer, after RoPE
+    the sequence, ``x`` and ``positions`` this rank's slice of it.  K/V
+    are gathered over the group once a layer, after RoPE
     (``sharding.seq_gather``; the reference's ``kv_gathered``, recomputed
-    under remat), and q stays local with ``q_offset`` at the slice's
-    start, so the causal mask, a sliding window and the softcap see global
-    positions (every rank scores its queries against every key, masked,
-    as each of the reference's shards does).  The serving path
-    gathers q too and keeps its slice of the flash kernel's output (the
-    kernel's causal mask starts at position 0).  Returns (out, new_cache).
+    under remat in training), and q stays local with ``q_offset`` at the
+    slice's start, so the causal mask, a sliding window and the softcap
+    see global positions (every rank scores its queries against every
+    key, masked, as each of the reference's shards does): the eager
+    ``attention`` in training, the flash kernel's ``q_offset`` otherwise;
+    ``return_kv`` returns the rank's own K/V slice.  Returns (out,
+    new_cache).
     """
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
@@ -205,7 +271,11 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     k = positional_embed(k, positions, cfg.rope_type, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None and "block_table" not in cache:
+    if cache is not None and "block_table" not in cache and seq is not None:
+        out = kv_block_attention(q, k, v, cache, operator.index(cache_index), seq,
+                                 window=window, logit_softcap=cfg.attn_logit_softcap)
+        new_cache = cache
+    elif cache is not None and "block_table" not in cache:
         idx = operator.index(cache_index)
         kv_len = idx + s
         if idx < 0 or kv_len > cache["k"].shape[1]:
@@ -232,29 +302,20 @@ def attention_proj(params, x, cfg, positions, *, window=None, cache=None,
     else:
         split = seq is not None and seq.seq_size > 1
         off = seq.seq_offset(s) if split else 0
+        if return_kv:
+            new_cache = {"k": k, "v": v}
+        if split:  # the whole sequence's K/V
+            kv = sharding.seq_gather(torch.cat([k, v], dim=-1), seq)
+            k, v = kv.split(cfg.head_dim, dim=-1)
         if train:
-            if split:  # the whole sequence's K/V
-                kv = sharding.seq_gather(torch.cat([k, v], dim=-1), seq)
-                k, v = kv.split(cfg.head_dim, dim=-1)
             # Bound the fp32 score temp to ~512 query rows per chunk.
             q_chunks = max(s // 512, 1) if s >= 1024 else 1
             out = attention(q, k, v, q_offset=off, window=window,
                             logit_softcap=cfg.attn_logit_softcap,
                             q_chunks=q_chunks)
-        elif split:
-            hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-            qkv = sharding.seq_gather(torch.cat([q.flatten(2), k.flatten(2), v.flatten(2)],
-                                                dim=-1), seq)
-            shape = (b, qkv.shape[1], -1, cfg.head_dim)
-            qw, kw, vw = (t.reshape(shape).contiguous()
-                          for t in qkv.split([hq, hkv, hkv], dim=-1))
-            out = fa_ops.flash_attention(qw, kw, vw, causal=True, window=window,
-                                         logit_softcap=cfg.attn_logit_softcap)[:, off:off + s]
         else:
             out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
-                                         logit_softcap=cfg.attn_logit_softcap)
-        if return_kv:
-            new_cache = {"k": k, "v": v}
+                                         logit_softcap=cfg.attn_logit_softcap, q_offset=off)
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
     return out @ params["wo"], new_cache
 

@@ -133,12 +133,15 @@ def _block_tree(a: ArchConfig, block) -> Dict[str, Any]:
 def map_tree(fn, tree, *, with_path: bool = False, _prefix: str = ""):
     """``fn`` applied to every leaf of a nested dict/tuple tree; with
     ``with_path`` it is called as ``fn(path, leaf)``, the path spelled as
-    :func:`tree_paths` spells it."""
+    :func:`tree_paths` spells it.  A :class:`KVBlock` maps to a KVBlock of
+    the same ``cache_len``."""
     if isinstance(tree, (dict, tuple, list)):
         items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {k: map_tree(fn, v, with_path=with_path,
                            _prefix=f"{_prefix}/{k}" if _prefix else str(k))
                for k, v in items}
+        if isinstance(tree, KVBlock):
+            return KVBlock(out["k"], out["v"], tree.cache_len)
         return out if isinstance(tree, dict) else tuple(out.values())
     return fn(_prefix, tree) if with_path else fn(tree)
 
@@ -204,6 +207,23 @@ def init_params(a: ArchConfig, generator: torch.Generator, device=None,
 # ---------------------------------------------------------------------------
 
 
+class KVBlock(dict):
+    """A rank's block of a dense attention cache under the reference's
+    "kv_seq" rule: {"k", "v"} (reps, b, C / n, kv_heads, head_dim), rows
+    ``[j C / n, (j + 1) C / n)`` of a ``cache_len`` = C row cache
+    (``sharding.MeshPlan.kv_rows``).  A dict whose ``cache_len`` says the
+    whole cache's length, which the block's own shape cannot (a block of
+    C / n rows and a whole cache of as many look alike); a cache that a
+    plan keeps whole is a plain dict.  :func:`map_tree` keeps the type;
+    a map that makes plain dicts of a block loses it, and
+    :meth:`LanguageModel.decode_step` refuses a plain dict that the plan
+    would have split."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, cache_len: int):
+        super().__init__(k=k, v=v)
+        self.cache_len = cache_len
+
+
 class LanguageModel:
     """An ArchConfig's forward, training loss and serving steps (whatever
     device the params live on): paged for attention mixers, a dense
@@ -214,13 +234,17 @@ class LanguageModel:
     ranks, on params that hold this rank's expert slots and its slice of
     every leaf the plan's rules slice (``convert.shard_params``; each
     forward gathers the embedding once and each layer its own leaves,
-    ``sharding.gather_leaf``): ``forward`` and ``loss`` take this rank's
-    block of the batch (``training.shard_batch``: its rows over data, its
-    sequence slice over (ep, tp); the mixers gather what crosses slices
-    over the sequence group), the paged serving steps take the same
-    requests on every rank (prefill: each rank's sequence shard of every MoE
-    layer's input; decode: weight-parallel, the batch split over the data
-    group when it divides it, :meth:`decode_step_paged`).  ``plan=None`` is one rank.
+    ``sharding.gather_leaf``): ``forward``, ``loss`` and the dense-cache
+    ``prefill`` take this rank's block of the batch
+    (``training.shard_batch``: its rows over data, its sequence slice over
+    (ep, tp); the mixers gather what crosses slices over the sequence
+    group), the dense-cache ``decode_step`` the whole batch, of which it
+    decodes its rows over data against its "kv_seq" block of the cache
+    (:meth:`init_cache`, :meth:`pad_cache`); the paged serving steps take
+    the same requests on every rank (prefill: each rank's sequence shard of
+    every MoE layer's input; decode: weight-parallel, the batch split over
+    the data group when it divides it, :meth:`decode_step_paged`).
+    ``plan=None`` is one rank.
     Under a pipeline plan (``plan.pp`` > 1) the params hold the rank's
     stage's chunks too, ``loss`` runs the differentiable pipelined forward,
     ``forward`` the same executor without autograd, and ``loss_and_grads``
@@ -646,34 +670,45 @@ class LanguageModel:
             if mets:
                 loads[r].append(mets["expert_load"])
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
-        logits = self._head(params, x)[:, 0]
-        if split:
-            parts = [torch.empty_like(logits) for _ in range(self.plan.dp)]
-            torch.distributed.all_gather(parts, logits.contiguous(),
-                                         group=self.plan.dp_group)
-            logits = torch.cat(parts)
+        logits = self._gather_rows(self._head(params, x)[:, 0], split)
         if return_loads:
             return logits, cache, torch.stack([torch.stack(l) for l in loads])
         return logits, cache
 
     # -- dense-cache serving -------------------------------------------------
 
+    def _serving_plan(self):
+        """The plan of the dense-cache steps: None at world 1; a pipeline
+        plan is refused (the serving steps are not pipelined)."""
+        if self.pipelined:
+            raise ValueError("the dense-cache serving steps are not pipelined (plan.pp > 1)")
+        return self.plan if self.world > 1 else None
+
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16, device=None):
         """One dense cache per pattern position, leaves stacked (reps, ...):
         {"k", "v"} (reps, batch, cache_len, kv_heads, head_dim) for an
         attention mixer, {"ssm", "conv_x", "conv_B", "conv_C"} for a mamba
         mixer (whose state does not grow with ``cache_len``).  Zeros,
-        allocated (``decode_step`` updates them in place)."""
+        allocated (``decode_step`` updates them in place).  Under a plan,
+        this rank's block of the reference's ``cache_specs`` for a
+        ``batch``-row decode: its rows over data where D divides ``batch``
+        (:meth:`_data_share`), and an attention cache's positions over (ep,
+        tp) where ep * tp divides ``cache_len`` (a :class:`KVBlock`;
+        ``sharding.MeshPlan.kv_rows``), the SSM state whole over them."""
         device = resolve_device(device)
         a = self.arch
+        plan = self._serving_plan()
+        rows, _ = self._data_share(batch)
+        b = rows.stop - rows.start
+        n = cache_len if plan is None else plan.kv_rows(cache_len)[1]
         caches = []
         for mixer, _ in a.block_pattern:
             if mixer.startswith("attn"):
-                shape = (self.reps, batch, cache_len, a.num_kv_heads, a.head_dim)
-                caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                               "v": torch.zeros(shape, dtype=dtype, device=device)})
+                shape = (self.reps, b, n, a.num_kv_heads, a.head_dim)
+                k, v = (torch.zeros(shape, dtype=dtype, device=device) for _ in "kv")
+                caches.append(KVBlock(k, v, cache_len) if n != cache_len else {"k": k, "v": v})
             else:
-                c = ssm_lib.init_ssm_cache(a, batch, dtype, device)
+                c = ssm_lib.init_ssm_cache(a, b, dtype, device)
                 caches.append({k: v[None].repeat((self.reps,) + (1,) * v.dim())
                                for k, v in c.items()})
         return tuple(caches)
@@ -684,35 +719,97 @@ class LanguageModel:
         leaves stacked (reps, ...): the prompt's K/V (reps, b, s, kv, hd) for
         an attention mixer (the reference's ``return_kv``; pad it to a
         ``cache_len`` to decode on, as ``init_cache`` sizes one), the SSM
-        cache for a mamba mixer."""
+        cache for a mamba mixer.
+
+        Under a plan ``batch`` is this rank's block of the global batch
+        (``training.shard_batch``, the reference's prefill ``batch_specs``:
+        its rows over data, its sequence slice over (ep, tp)), and the
+        layers run as in training without autograd: attention gathers K/V
+        over the sequence group and keeps q local (the flash kernel's
+        ``q_offset``), a Mamba2 mixer gathers its conv and scan inputs, the
+        MoE dispatches the rank's own tokens.  The cache is the rank's
+        block: its K/V slice (:meth:`pad_cache` lays it out for decode),
+        the whole sequence's SSM state and conv tails.  The last position
+        lives on the sequence group's last rank: its logits are broadcast
+        over the group, then all-gathered over data, so every rank returns
+        the whole batch's (b, vp)."""
+        plan = self._serving_plan()
         params = self._whole(params)
         x = self._embed(params, batch)
         b, s = x.shape[:2]
-        positions = self._positions(b, s, x.device)
+        positions = self._seq_positions(b, s, x.device)
         caches = [[] for _ in self.arch.block_pattern]
         for _, pos, blk, p in self._layers(params):
             x, _, nc = transformer.apply_block(blk, p, x, self.arch, positions=positions,
-                                               return_cache=True, plan=self.plan)
+                                               return_cache=True, plan=self.plan, seq=plan)
             caches[pos].append(nc)
+        cache = tuple({k: torch.stack([c[k] for c in per_rep]) for k in per_rep[0]}
+                      for per_rep in caches)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
-        logits = self._head(params, x[:, -1:])[:, 0]
-        return logits, tuple({k: torch.stack([c[k] for c in per_rep])
-                              for k in per_rep[0]} for per_rep in caches)
+        if plan is None:
+            return self._head(params, x[:, -1:])[:, 0], cache
+        n = plan.seq_size
+        if plan.seq_rank == n - 1:
+            logits = self._head(params, x[:, -1:])[:, 0].contiguous()
+        else:
+            logits = torch.empty((b, self.vp), dtype=torch.float32, device=x.device)
+        if plan.model_group is not None:
+            torch.distributed.broadcast(logits, src=plan.rank - plan.seq_rank + n - 1,
+                                        group=plan.model_group)
+        return self._gather_rows(logits, plan.dp > 1), cache
+
+    def _gather_rows(self, logits, split: bool):
+        """The whole batch's logits from this data rank's rows: all-gathered
+        over the data group where the rows are split."""
+        if not split:
+            return logits
+        parts = [torch.empty_like(logits) for _ in range(self.plan.dp)]
+        torch.distributed.all_gather(parts, logits.contiguous(), group=self.plan.dp_group)
+        return torch.cat(parts)
 
     def pad_cache(self, cache, cache_len: int):
         """A prefill's cache made ready to decode on: each attention
         position's K/V copied into zeros of ``cache_len`` rows (the padding
-        the reference's callers do by hand); mamba positions as they are."""
+        the reference's callers do by hand); mamba positions as they are.
+
+        Under a plan whose sequence group split the prefill, each rank's
+        K/V are its slice of the prompt's positions; they are all-gathered
+        over the group one layer at a time (K and V in one collective, so
+        one layer's whole K/V is live at once), padded, and the rank keeps
+        its "kv_seq" block of the ``cache_len`` rows (:meth:`init_cache`'s
+        layout: a :class:`KVBlock`, or the whole cache where ep * tp does
+        not divide ``cache_len``)."""
+        plan = self._serving_plan()
+        n = 1 if plan is None else plan.seq_size
         out = []
         for (mixer, _), c in zip(self.arch.block_pattern, cache):
             if mixer.startswith("attn"):
-                s = c["k"].shape[2]
+                s = c["k"].shape[2] * n
                 if s > cache_len:
                     raise ValueError(f"a prompt of {s} tokens does not fit {cache_len} rows")
-                c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, cache_len - s))
-                     for k, v in c.items()}
+                if n == 1:
+                    c = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, cache_len - s))
+                         for k, v in c.items()}
+                else:
+                    c = self._kv_block_of(c, s, cache_len)
             out.append(c)
         return tuple(out)
+
+    def _kv_block_of(self, c, s: int, cache_len: int):
+        """This rank's "kv_seq" block of a ``cache_len``-row cache whose
+        first ``s`` rows are the prompt's K/V, of which ``c`` holds the
+        rank's sequence slice (:meth:`pad_cache`)."""
+        plan = self.plan
+        first, rows = plan.kv_rows(cache_len)
+        reps, b, _, kv, hd = c["k"].shape
+        k = c["k"].new_zeros((reps, b, rows, kv, hd))
+        v = torch.zeros_like(k)
+        lo, hi = min(first, s), min(first + rows, s)
+        for r in range(reps):
+            whole = sharding.seq_gather(torch.cat([c["k"][r], c["v"][r]], dim=-1), plan)
+            k[r, :, :hi - lo], v[r, :, :hi - lo] = whole[:, lo:hi].split(hd, dim=-1)
+            del whole
+        return KVBlock(k, v, cache_len) if rows != cache_len else {"k": k, "v": v}
 
     def decode_step(self, params, cache, batch, index: int):
         """One token: batch {"tokens": (b, 1)} or {"embeds": (b, 1, d)};
@@ -722,22 +819,49 @@ class LanguageModel:
         Returns (logits (b, vp), cache), the cache updated IN PLACE (the
         reference returns a new one).  An index past an attention cache's
         end raises before any layer runs (the reference clamps it and
-        overwrites the last row)."""
+        overwrites the last row).
+
+        Under a plan ``batch`` is the whole batch and ``cache`` this rank's
+        block (:meth:`init_cache`, :meth:`pad_cache`): the rank decodes its
+        rows over data where D divides b (:meth:`_data_share`, the
+        reference's decode ``batch_specs``) against its block, an attention
+        layer over a :class:`KVBlock` writing the new row on the rank that
+        holds it and combining the softmax over the ranks' rows over the
+        sequence group (``layers.kv_block_attention``); the MoE runs
+        weight-parallel as in paged decode, and the logits are all-gathered
+        over data, so every rank returns the whole batch's."""
         index = operator.index(index)
+        plan = self._serving_plan()
         for (mixer, _), c in zip(self.arch.block_pattern, cache):
-            if mixer.startswith("attn") and not 0 <= index < c["k"].shape[2]:
-                raise ValueError(f"decode index {index} past the cache's "
-                                 f"{c['k'].shape[2]} rows")
+            if not mixer.startswith("attn"):
+                continue
+            n = c.cache_len if isinstance(c, KVBlock) else c["k"].shape[2]
+            if plan is not None and not isinstance(c, KVBlock) and plan.kv_rows(n)[1] != n:
+                raise ValueError(
+                    f"a whole {n}-row attention cache under a sequence group of "
+                    f"{plan.seq_size}, which splits {n} rows: a KVBlock that a map made a "
+                    f"plain dict? (init_cache / pad_cache / map_tree keep the layout)")
+            if not 0 <= index < n:
+                raise ValueError(f"decode index {index} past the cache's {n} rows")
+        rows, split = self._data_share(next(iter(batch.values())).shape[0])
+        held = next(iter(cache[0].values())).shape[1]
+        if held != rows.stop - rows.start:
+            raise ValueError(f"the cache holds {held} rows, this rank's share of the batch "
+                             f"{rows.stop - rows.start} (init_cache / pad_cache of the batch)")
+        if split:
+            batch = {k: v[rows] for k, v in batch.items()}
         params = self._whole(params)
         x = self._embed(params, batch)
         positions = torch.full((x.shape[0], 1), index, dtype=torch.long, device=x.device)
         for r, pos, blk, p in self._layers(params):
+            c = cache[pos]
             x, _, _ = transformer.apply_block(
                 blk, p, x, self.arch, positions=positions,
-                cache={k: v[r] for k, v in cache[pos].items()}, cache_index=index,
-                plan=self.plan, token_sharded=False, data_split=False)
+                cache={k: v[r] for k, v in c.items()}, cache_index=index,
+                plan=self.plan, token_sharded=False, data_split=split,
+                seq=plan if isinstance(c, KVBlock) else None)
         x = rms_norm(x, params["final_norm"], self.arch.norm_eps)
-        return self._head(params, x)[:, 0], cache
+        return self._gather_rows(self._head(params, x)[:, 0], split), cache
 
 
 def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
@@ -754,5 +878,5 @@ def tree_paths(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-__all__ = ["LanguageModel", "ParamMeta", "VOCAB_PAD_MULTIPLE", "init_params",
+__all__ = ["KVBlock", "LanguageModel", "ParamMeta", "VOCAB_PAD_MULTIPLE", "init_params",
            "logical_tags", "map_tree", "param_tree", "tree_paths"]

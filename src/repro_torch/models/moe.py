@@ -502,10 +502,11 @@ def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, arch: ArchConfig,
     Under the plan's d_ff split they hold this rank's d_ff slice, gathered
     here in x's dtype before any path (``sharding.gather_ffn``): the
     replica path, the dispatch and the decode all see whole experts.
-    ``token_sharded`` (train, prefill): x is this rank's own tokens,
+    ``token_sharded`` (train, the dense-cache prefill, whose block a
+    rank holds as in training): x is this rank's own tokens,
     dispatched through its EP group's all-to-all; the metrics are meaned
     over the stage group (the world without a pipeline).  With
-    ``seq_shard`` x is replicated over the EP group (and over data and the
+    ``seq_shard`` (the paged prefill) x is replicated over the EP group (and over data and the
     tp lanes, each lane computing the same) and the layer takes this rank's
     sequence shard of it and all-gathers the output back over the EP group
     (the reference's ``P(dp, ("ep", "tp"), None)``, its sequence split over

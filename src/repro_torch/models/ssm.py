@@ -186,7 +186,10 @@ def mamba_block(
     projections) are gathered over the group in one collective
     (``sharding.seq_gather``) and run over the whole sequence, the rank
     keeping its slice: the same function as one rank's, and the same work
-    on every rank of the group.
+    on every rank of the group.  A prefill's cache (``return_cache``) is
+    then the whole sequence's on every rank of the group, as the
+    reference's ``cache_specs`` keeps it (rows over data, whole over (ep,
+    tp)).
 
     cache = {"ssm": (b, h, p, n), "conv_x": (b, w-1, d_in), "conv_B",
     "conv_C"} runs one decode token (l = 1) and updates the cache IN PLACE
@@ -257,8 +260,10 @@ def mamba_block(
                 tl = t[:, -(w - 1):, :]
                 return F.pad(tl, (0, 0, (w - 1) - tl.shape[1], 0))
 
-            new_cache = {"ssm": final.to(x.dtype), "conv_x": tail(xs),
-                         "conv_B": tail(Bp), "conv_C": tail(Cp)}
+            # The whole sequence's (gathered under ``seq``): the conv's
+            # window at the sequence's end, whichever slice a rank holds.
+            new_cache = {"ssm": final.to(x.dtype), "conv_x": tail(xs_l),
+                         "conv_B": tail(Bp_l), "conv_C": tail(Cp_l)}
 
     # Gated RMSNorm + output projection.
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm_scale"], arch.norm_eps)

@@ -84,9 +84,11 @@ def apply_block(
     attention, SSD and capacity-FFN paths.  ``plan``, ``token_sharded``,
     ``seq_shard``, ``data_split`` and ``telemetry`` go to
     :func:`moe.moe_ffn`.  ``seq``: the plan whose sequence group holds the
-    sequence, x this rank's slice of it (training and the uncached
-    forward); the mixer gathers what crosses slices
-    (``layers.attention_proj``, ``ssm.mamba_block``).  The mixer's and a
+    sequence, x this rank's slice of it (training, the uncached forward and
+    the dense-cache prefill); the mixer gathers what crosses slices
+    (``layers.attention_proj``, ``ssm.mamba_block``).  With a dense
+    attention ``cache``, ``seq`` says the cache is the rank's "kv_seq"
+    block (``layers.kv_block_attention``).  The mixer's and a
     dense FFN's leaves that ``plan`` slices
     are gathered whole in x's dtype just before they are used
     (``sharding.gather_block``; a recompute gathers them again)."""

@@ -47,7 +47,12 @@ sequence rank and ``s_l = s / (ep * tp)``.  A layer that mixes positions
 gathers what it needs over the sequence group (:func:`seq_gather`, one
 all-gather a call whose backward sums the cotangent over the group and
 keeps the slice): attention its K/V once a layer, a Mamba2 mixer its conv
-and scan inputs.
+and scan inputs.  A prefill's batch is laid out alike; a decode batch's
+rows go over data where D divides them (the reference's decode
+``batch_specs``, ``("batch", None)``), and a dense attention cache's
+positions over (ep, tp) (the "kv_seq" rule, :meth:`MeshPlan.kv_rows`):
+each rank scores its query against its own rows and the sequence group
+combines the softmax over them (``layers.kv_block_attention``).
 
 Layout (the reference's rule table, ``MeshPlan.rules``, :func:`default_rules`).
 Every parameter carries the reference's logical dim tags
@@ -258,6 +263,19 @@ class MeshPlan:
         """The first position of this rank's sequence slice of ``s_l``
         tokens."""
         return self.seq_rank * s_l
+
+    def kv_rows(self, cache_len: int) -> Tuple[int, int]:
+        """(first, count) of this rank's rows of a ``cache_len``-row dense
+        attention cache under the reference's "kv_seq" rule (the cache's
+        positions over (ep, tp)): ``[j * C / n, (j + 1) * C / n)`` with
+        ``j`` its sequence rank and ``n = ep * tp``; all ``C`` rows where
+        n does not divide C (the reference's ``safe_spec`` drops the
+        axis)."""
+        n = self.seq_size
+        if n == 1 or cache_len % n:
+            return 0, cache_len
+        rows = cache_len // n
+        return self.seq_rank * rows, rows
 
     @property
     def num_microbatches(self) -> int:

@@ -18,7 +18,9 @@ block gradients are summed over the rank's stage (``sharding
 .reduce_grads_``).
 ``make_prefill_step`` / ``make_decode_step`` cast every floating leaf to
 the compute dtype and run ``LanguageModel.prefill`` / ``decode_step``
-without autograd.
+without autograd, on the global batch: the prefill's block a rank as in
+training, the decode's rows over data, the cache's positions over (ep,
+tp) (the reference's "kv_seq" rule).
 """
 
 from __future__ import annotations
@@ -67,9 +69,14 @@ def _cast(params, dtype: torch.dtype, keep=()):
 
 def make_prefill_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloat16):
     """``prefill_step(params, batch) -> (last-position logits, cache)``;
-    ``batch["tokens"]`` is a host (numpy) or torch (b, l) array."""
+    ``batch["tokens"]`` is a host (numpy) or torch (b, l) array, the global
+    batch: over several ranks each takes its block (:func:`shard_batch`,
+    the reference's prefill ``batch_specs``) and returns the whole batch's
+    logits and its block of the cache (``LanguageModel.prefill``)."""
     @torch.no_grad()
     def prefill_step(params, batch):
+        if lm.world > 1:
+            batch = shard_batch(batch, lm.plan)
         device = params["embed"].device
         batch = {k: _to_device(v, device) for k, v in batch.items()}
         return lm.prefill(_cast(params, compute_dtype), batch)
@@ -79,7 +86,11 @@ def make_prefill_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bflo
 
 def make_decode_step(lm: LanguageModel, compute_dtype: torch.dtype = torch.bfloat16):
     """``decode_step(params, cache, batch, index) -> (logits, cache)``, the
-    cache updated in place."""
+    cache updated in place; ``batch`` is the global (b, 1) batch, of which
+    each rank decodes its rows over data where D divides b (the
+    reference's decode ``batch_specs``, ``("batch", None)``) against its
+    block of the cache, every rank returning the whole batch's logits
+    (``LanguageModel.decode_step``)."""
     @torch.no_grad()
     def decode_step(params, cache, batch, index):
         device = params["embed"].device

@@ -40,7 +40,19 @@
         fp32, and world 1 on rank 0.  Each rank writes
         ``OUT_DIR/seq_rank<r>.npz``.
 
-Only the ``jax`` and ``seq-jax`` modes import JAX.
+    python tests/_torch_mesh_child.py serve-jax OUT.npz PART
+        For ``test_torch_seq_serve.py``: the JAX package on 8 fake host
+        devices, its wire in fp32: every device's block of the prefill and
+        decode ``batch_specs`` and of ``cache_specs``, and each
+        ``SERVE_CASES`` case's jitted ``make_prefill_step`` /
+        ``make_decode_step`` under those shardings (the part
+        ``SERVE_JAX_PARTS[PART]`` of them), from the port's ``init_params``.
+
+    python tests/_torch_mesh_child.py serve-port OUT_DIR
+        The port's side on 4 gloo ranks, and world 1 on rank 0.  Each rank
+        writes ``OUT_DIR/serve_rank<r>.npz``.
+
+Only the ``jax``, ``seq-jax`` and ``serve-jax`` modes import JAX.
 """
 
 import dataclasses
@@ -300,6 +312,17 @@ SEQ_JAX_PARTS = (("layout", "granite/capacity", "granite/ragged", "gemma2", "qwe
                   "mamba2"), ("jamba", SEQ_PP_CASE))
 
 
+def _jax_blocks(plan, x, out: dict, tag: str) -> None:
+    """Every device's block of the sharded array ``x`` into ``out``, keyed
+    ``tag/<r>`` with r the device's row-major place in the plan's mesh
+    (the port's rank at the same coordinates)."""
+    devs = plan.mesh.devices
+    where = {d.id: np.ravel_multi_index(tuple(np.argwhere(devs == d)[0]), devs.shape)
+             for d in devs.flat}
+    for sh in x.addressable_shards:
+        out[f"{tag}/{where[sh.device.id]}"] = np.asarray(sh.data)
+
+
 def run_seq_jax(out_path: str, part: int) -> None:
     """The reference's blocks and steps for the sequence-sharded layout:
     ``SEQ_JAX_PARTS[part]``'s."""
@@ -319,12 +342,7 @@ def run_seq_jax(out_path: str, part: int) -> None:
     out = {}
 
     def blocks(plan, arr, spec, tag):
-        x = jax.device_put(arr, NamedSharding(plan.mesh, spec))
-        devs = plan.mesh.devices
-        where = {d.id: np.ravel_multi_index(tuple(np.argwhere(devs == d)[0]), devs.shape)
-                 for d in devs.flat}
-        for sh in x.addressable_shards:
-            out[f"{tag}/{where[sh.device.id]}"] = np.asarray(sh.data)
+        _jax_blocks(plan, jax.device_put(arr, NamedSharding(plan.mesh, spec)), out, tag)
 
     todo = SEQ_JAX_PARTS[part]
     # 1. The layout: every device's block of batch_specs' sharding.
@@ -389,6 +407,168 @@ def run_seq_jax(out_path: str, part: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The sequence-sharded serving layout (tests/test_torch_seq_serve.py)
+# ---------------------------------------------------------------------------
+
+# Each case: (arch, grid, dispatch, capacity factor, b, prompt, cache rows,
+# decode steps).  Granite's prompt is 16 positions a rank at (1, 4), 32 at
+# (2, 2) (one row a data rank); the drop case runs the reduced capacity
+# factor 1.25, where which tokens drop depends on the tokens a rank holds.
+# gemma2's window (32) leaves rank 0's 32 rows from the first decode index
+# (64) on.  mamba2 and jamba: 32 positions a rank (one SSM chunk).
+SERVE_CASES = {
+    "granite/capacity/1,4": ("granite-moe-3b-a800m", (1, 4), "capacity", 16.0, 2, 64, 128, 8),
+    "granite/capacity/2,2": ("granite-moe-3b-a800m", (2, 2), "capacity", 16.0, 2, 64, 128, 8),
+    "granite/ragged/1,4": ("granite-moe-3b-a800m", (1, 4), "ragged", 16.0, 2, 64, 128, 8),
+    "granite/ragged/2,2": ("granite-moe-3b-a800m", (2, 2), "ragged", 16.0, 2, 64, 128, 8),
+    "granite/drop/2,2": ("granite-moe-3b-a800m", (2, 2), "capacity", 1.25, 2, 64, 128, 8),
+    "gemma2/1,4": ("gemma2-9b", (1, 4), None, None, 2, 64, 128, 40),
+    "qwen2/1,4": ("qwen2-vl-7b", (1, 4), None, None, 2, 64, 128, 8),
+    "mamba2/2,2": ("mamba2-370m", (2, 2), None, None, 2, 64, 128, 4),
+    "jamba/2,2": ("jamba-1.5-large-398b", (2, 2), "ragged", 16.0, 2, 64, 128, 4),
+}
+# The serve-jax mode's parts, each a process of its own (started at once).
+SERVE_JAX_PARTS = (("layout", "granite/capacity/1,4", "granite/capacity/2,2",
+                    "granite/drop/2,2"),
+                   ("granite/ragged/1,4", "granite/ragged/2,2", "qwen2/1,4"),
+                   ("gemma2/1,4", "mamba2/2,2", "jamba/2,2"))
+# The cache layout: rows a cache, at every SEQ_LAYOUTS grid (18 splits over
+# 2 sequence ranks, not over 4: whole there); decode batches of 8 and 3 rows
+# (3 splits over no data grid: whole).
+SERVE_CACHE_ROWS, SERVE_DECODE_ROWS = (32, 18), (8, 3)
+
+
+def serve_arch(get_arch, case: str):
+    """A case's reduced arch (jamba at one rep of its pattern)."""
+    name, _, mode, cf = SERVE_CASES[case][:4]
+    a = get_arch(name).reduced()
+    if name.startswith("jamba"):
+        a = a.replace(num_layers=len(a.block_pattern))
+    if mode is not None:
+        a = a.replace(moe=dataclasses.replace(a.moe, dispatch=mode, capacity_factor=cf))
+    return a
+
+
+def serve_batch(arch, case: str) -> dict:
+    """The prompt and the decode steps' true next inputs: (b, prompt +
+    steps) tokens, and a frontend arch's seeded ``embeds`` beside them."""
+    b, l, _, k = SERVE_CASES[case][4:]
+    toks = np.random.default_rng(8).integers(0, 512, size=(b, l + k)).astype(np.int32)
+    out = {"tokens": toks}
+    if arch.frontend is not None:
+        out["embeds"] = np.random.default_rng(9).standard_normal(
+            (b, l + k, arch.d_model)).astype(np.float32)
+    return out
+
+
+def serve_layout_kv(arch, b: int, s: int):
+    """A prompt's K (and V = -K) of every attention position, (reps, b, s,
+    kv, hd) values that name their place."""
+    reps = arch.num_layers // len(arch.block_pattern)
+    shape = (reps, b, s, arch.num_kv_heads, arch.head_dim)
+    k = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape) + 1
+    return [(k, -k) if m.startswith("attn") else None for m, _ in arch.block_pattern]
+
+
+def run_serve_jax(out_path: str, part: int) -> None:
+    """The reference's dense-cache serving on 8 fake host devices, its wire
+    in fp32: ``SERVE_JAX_PARTS[part]``.  "layout": every device's block of
+    the prefill and decode ``batch_specs`` and of ``cache_specs`` at each
+    ``SEQ_LAYOUTS`` grid.  A case: the jitted ``make_prefill_step`` with
+    the prefill ``batch_specs`` in, the K/V padded to the cache's rows by
+    hand (as its callers do) and laid out by ``cache_specs``, then the
+    jitted ``make_decode_step`` on the true next tokens with the decode
+    ``batch_specs`` and ``cache_specs`` in and the cache's out: every
+    step's logits and every device's cache block after the prefill and
+    after the last step."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro import training as jtraining
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeSpec
+    from repro.models import moe as moe_lib
+    from repro.models.model import LanguageModel
+    from repro.sharding import host_mesh, make_plan
+
+    assert len(jax.devices()) == 8, jax.devices()
+    moe_lib._transport_bf16 = lambda a2a_fn, x: a2a_fn(x)  # the wire in fp32
+    out, todo = {}, SERVE_JAX_PARTS[part]
+
+    def plan_at(arch, grid):
+        plan = make_plan(host_mesh(grid, ("pod", "data", "model")[-len(grid):]), arch)
+        return dataclasses.replace(plan, compute_dtype="float32")
+
+    def ns(plan, tree):
+        return jax.tree.map(lambda sp: NamedSharding(plan.mesh, sp), tree,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    def pad(cache, rows):
+        return tuple({k: jnp.pad(v, ((0, 0), (0, 0), (0, rows - v.shape[2]), (0, 0),
+                                     (0, 0))) for k, v in c.items()} if "k" in c else c
+                     for c in cache)
+
+    def cache_blocks(plan, cache, tag):
+        for pos, c in enumerate(cache):
+            for k, v in c.items():
+                _jax_blocks(plan, v, out, f"{tag}/{pos}/{k}")
+
+    if "layout" in todo:
+        lb = layout_batch()
+        b, s = SEQ_LAYOUT_BATCH
+        for tag, (grid, _) in SEQ_LAYOUTS.items():
+            arch = layout_arch(get_arch, tag)
+            plan = plan_at(arch, grid)
+            lm = LanguageModel(arch, plan)
+            specs = jtraining.batch_specs(lm, ShapeSpec("p", s, b, "prefill"))
+            for k, spec in specs.items():
+                _jax_blocks(plan, jax.device_put(lb[k], NamedSharding(plan.mesh, spec)), out,
+                            f"serve/layout/{tag}/prefill/{k}")
+            for rows in SERVE_DECODE_ROWS:
+                spec = jtraining.batch_specs(lm, ShapeSpec("d", s, rows, "decode"))["tokens"]
+                _jax_blocks(plan, jax.device_put(lb["tokens"][:rows, :1],
+                                                 NamedSharding(plan.mesh, spec)), out,
+                            f"serve/layout/{tag}/decode/{rows}")
+            kv = serve_layout_kv(arch, b, s)
+            for rows in SERVE_CACHE_ROWS:
+                cache = pad(tuple({"k": jnp.asarray(p[0]), "v": jnp.asarray(p[1])}
+                                  for p in kv), rows)
+                cache = jax.device_put(cache, ns(plan, lm.cache_specs(b, rows)))
+                cache_blocks(plan, cache, f"serve/layout/{tag}/cache/{rows}")
+
+    for case, (_, grid, *_rest) in SERVE_CASES.items():
+        if case not in todo:
+            continue
+        b, l, rows, steps = SERVE_CASES[case][4:]
+        arch = serve_arch(get_arch, case)
+        params = jax.tree.map(jnp.asarray, _unflatten(seq_params(arch)))
+        batch = {k: jnp.asarray(v) for k, v in serve_batch(arch, case).items()}
+        plan = plan_at(arch, grid)
+        lm = LanguageModel(arch, plan)
+        pspecs = jtraining.batch_specs(lm, ShapeSpec("p", l, b, "prefill"))
+        dspecs = jtraining.batch_specs(lm, ShapeSpec("d", rows, b, "decode"))
+        cache_sh = ns(plan, lm.cache_specs(b, rows))
+        prefill = jax.jit(jtraining.make_prefill_step(lm),
+                          in_shardings=(None, ns(plan, {k: pspecs[k] for k in batch})))
+        decode = jax.jit(jtraining.make_decode_step(lm),
+                         in_shardings=(None, cache_sh, ns(plan, {k: dspecs[k] for k in batch}),
+                                       None), out_shardings=(None, cache_sh))
+        with plan.mesh:
+            logits, cache = prefill(params, {k: v[:, :l] for k, v in batch.items()})
+            cache = jax.device_put(pad(cache, rows), cache_sh)
+            out[f"serve/{case}/logits/0"] = np.asarray(logits)
+            cache_blocks(plan, cache, f"serve/{case}/cache0")
+            for i in range(steps):
+                logits, cache = decode(params, cache,
+                                       {k: v[:, l + i:l + i + 1] for k, v in batch.items()},
+                                       jnp.int32(l + i))
+                out[f"serve/{case}/logits/{i + 1}"] = np.asarray(logits)
+            cache_blocks(plan, cache, f"serve/{case}/cache1")
+    np.savez(out_path, **out)
+
+
+# ---------------------------------------------------------------------------
 # Port ranks
 # ---------------------------------------------------------------------------
 
@@ -404,6 +584,7 @@ def _rank_main(rank: int, world: int, phase: str, ref_path: str, out_dir: str) -
     try:
         res = (_phase_pp(rank, out_dir) if phase == "pp"
                else _phase_seq(rank) if phase == "seq"
+               else _phase_serve(rank) if phase == "serve"
                else _phase4(rank, dict(np.load(ref_path)), out_dir))
         np.savez(Path(out_dir) / f"{phase}_rank{rank}.npz", **res)
         dist.barrier()
@@ -804,6 +985,98 @@ def _phase_seq(rank: int):
     return res
 
 
+def _phase_serve(rank: int):
+    """The port's side of ``run_serve_jax``: the layout (each rank's
+    prefill and decode rows, and the cache block ``pad_cache`` makes from
+    its prefill slice of ``serve_layout_kv``, beside ``init_cache``'s
+    shapes), then every case through ``make_prefill_step`` /
+    ``pad_cache`` / ``make_decode_step`` on its grid, and at world 1 on
+    rank 0."""
+    import torch
+
+    from repro_torch import sharding, training
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import params_from_numpy, shard_params
+    from repro_torch.models import moe
+    from repro_torch.models.model import KVBlock, LanguageModel, map_tree
+
+    res = {}
+    moe.WIRE_DTYPE = torch.float32
+    lb = layout_batch()
+    b, s = SEQ_LAYOUT_BATCH
+    for tag, (grid, _) in SEQ_LAYOUTS.items():
+        arch = layout_arch(get_arch, tag)
+        plan = sharding.make_plan(arch, grid)
+        lm = LanguageModel(arch, plan)
+        pre = f"serve/layout/{tag}"
+        for k, v in training.shard_batch(lb, plan).items():
+            res[f"{pre}/prefill/{k}"] = v
+        for rows in SERVE_DECODE_ROWS:
+            res[f"{pre}/decode/{rows}"] = lb["tokens"][:rows, :1][lm._data_share(rows)[0]]
+        bl, sl = training.batch_block(plan, b, s)
+        d, off = plan.coords[0], plan.seq_offset(sl)
+        mine = tuple({"k": torch.from_numpy(p[0][:, d * bl:(d + 1) * bl, off:off + sl]),
+                      "v": torch.from_numpy(p[1][:, d * bl:(d + 1) * bl, off:off + sl])}
+                     for p in serve_layout_kv(arch, b, s))
+        for rows in SERVE_CACHE_ROWS:
+            blocks = lm.pad_cache(mine, rows)
+            fresh = lm.init_cache(b, rows, torch.float32, "cpu")
+            for pos, c in enumerate(blocks):
+                for k, v in c.items():
+                    res[f"{pre}/cache/{rows}/{pos}/{k}"] = v.numpy()
+                res[f"{pre}/cache/{rows}/{pos}/kv_block"] = np.asarray(
+                    [isinstance(c, KVBlock), isinstance(fresh[pos], KVBlock)])
+                res[f"{pre}/cache/{rows}/{pos}/init_shape"] = np.asarray(fresh[pos]["k"].shape)
+
+    def run(tag, arch, plan, params, batch, l, rows, steps):
+        lm = LanguageModel(arch, plan)
+        prefill = training.make_prefill_step(lm, torch.float32)
+        decode = training.make_decode_step(lm, torch.float32)
+        logits, cache = prefill(params, {k: v[:, :l] for k, v in batch.items()})
+        cache = lm.pad_cache(cache, rows)
+        res[f"{tag}/logits/0"] = logits.numpy()
+        _flat_np(f"{tag}/cache0", _clone(cache), res)  # decode writes the cache in place
+        if any(isinstance(c, KVBlock) for c in cache):
+            first = {k: v[:, l:l + 1] for k, v in batch.items()}
+            # map_tree keeps each "kv_seq" block's layout; a plain dict of one is refused.
+            res[f"{tag}/mapped_logits"] = decode(params, map_tree(torch.clone, cache), first,
+                                                 l)[0].numpy()
+            try:
+                decode(params, tuple(dict(c) for c in cache), first, l)
+                res[f"{tag}/plain_block_raises"] = np.asarray(False)
+            except ValueError as e:  # refused for its layout, not for its index
+                res[f"{tag}/plain_block_raises"] = np.asarray("KVBlock" in str(e))
+        for i in range(steps):
+            logits, cache = decode(params, cache,
+                                   {k: v[:, l + i:l + i + 1] for k, v in batch.items()}, l + i)
+            res[f"{tag}/logits/{i + 1}"] = logits.numpy()
+        _flat_np(f"{tag}/cache1", cache, res)
+        if any(m.startswith("attn") for m, _ in arch.block_pattern):
+            try:  # an index past the cache's rows raises before any layer runs
+                decode(params, cache, {k: v[:, :1] for k, v in batch.items()}, rows)
+                res[f"{tag}/past_end_raises"] = np.asarray(False)
+            except ValueError:
+                res[f"{tag}/past_end_raises"] = np.asarray(True)
+
+    for case, (_, grid, *_rest) in SERVE_CASES.items():
+        _, l, rows, steps = SERVE_CASES[case][4:]
+        arch = serve_arch(get_arch, case)
+        params = params_from_numpy(_unflatten(seq_params(arch)), "cpu")
+        batch = serve_batch(arch, case)
+        plan = sharding.make_plan(arch, grid)
+        run(f"serve/{case}", arch, plan, shard_params(params, plan), batch, l, rows, steps)
+        if rank == 0:
+            run(f"serve/{case}/world1", arch, None, params, batch, l, rows, steps)
+    return res
+
+
+def run_serve_port(out_dir: str) -> None:
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_main, args=(4, "serve", "", out_dir), nprocs=4,
+                       start_method="spawn")
+
+
 def run_seq_port(out_dir: str) -> None:
     import torch.multiprocessing as mp
 
@@ -830,11 +1103,15 @@ if __name__ == "__main__":
         run_jax(sys.argv[2])
     elif sys.argv[1] == "seq-jax":
         run_seq_jax(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1] == "serve-jax":
+        run_serve_jax(sys.argv[2], int(sys.argv[3]))
     else:
         os.environ.setdefault("OMP_NUM_THREADS", "1")
         if sys.argv[1] == "pp":
             run_pp(sys.argv[2])
         elif sys.argv[1] == "seq-port":
             run_seq_port(sys.argv[2])
+        elif sys.argv[1] == "serve-port":
+            run_serve_port(sys.argv[2])
         else:
             run_port(sys.argv[2], sys.argv[3])

@@ -175,6 +175,28 @@ def test_flash_attention(b, hq, hkv, s, d, window, cap, dtype):
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=4 * tol)
 
 
+@pytest.mark.parametrize("q_offset", [0, 24, 48])  # the first, a middle and the last slice
+@pytest.mark.parametrize("d,window,cap", [(64, None, None), (64, 16, 50.0), (256, None, 30.0),
+                                          (256, 16, None)])
+def test_flash_attention_q_offset_matches_the_reference_attention(q_offset, d, window, cap):
+    """A rank's 16 queries at positions q_offset .. q_offset + 15 against
+    the whole sequence's 64 keys: the plain version against the
+    reference's ``layers.attention(q_offset=...)``, fp32."""
+    from repro.models import layers as jlayers
+
+    rng = np.random.default_rng(1)
+    b, sq, skv, hq, hkv = 2, 16, 64, 4, 2
+    jq, tq = _pair(rng.standard_normal((b, sq, hq, d)), "float32")
+    jk, tk = _pair(rng.standard_normal((b, skv, hkv, d)), "float32")
+    jv, tv = _pair(rng.standard_normal((b, skv, hkv, d)), "float32")
+    want = jlayers.attention(jq, jk, jv, q_offset=q_offset, window=window, logit_softcap=cap)
+    got = fa_ops.flash_attention(tq, tk, tv, window=window, logit_softcap=cap,
+                                 q_offset=q_offset)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa_ops.flash_attention(tq, tk, tv, q_offset=skv - sq + 1)
+
+
 # ---------------------------------------------------------------------------
 # Hygiene
 # ---------------------------------------------------------------------------

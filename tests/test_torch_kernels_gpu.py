@@ -432,6 +432,39 @@ def test_flash_attention_fma_design_at_head_dim_256(dev, hq, hkv, s, window, cap
     _close(got, want, **FA_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,hq,hkv", [(64, 6, 2), (128, 7, 1), (256, 16, 8)])
+@pytest.mark.parametrize("q_offset,sq", [(0, 80), (100, 80), (240, 80), (128, 128)])
+@pytest.mark.parametrize("window,cap", [(None, None), (64, 50.0)])
+def test_flash_attention_q_offset_designs(dev, d, hq, hkv, q_offset, sq, window, cap, dtype,
+                                          no_plain):
+    """A rank's ``sq`` queries at positions ``q_offset ..`` against the
+    whole sequence's 320 keys, through the dtype's design, against the
+    plain version with the same offset.  Where the offset and the slice
+    fall on the 64-row query tiles, the slice is bitwise the whole call's
+    rows (the same tiles of keys, in the same order)."""
+    skv = 320
+    rng = np.random.default_rng(d + q_offset)
+    qkv = _t(rng.standard_normal((2, skv, hq + 2 * hkv, d)), dtype, dev)
+    q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    qs = q[:, q_offset:q_offset + sq]
+    kind = fa_ops.design(dtype, d)
+    before = _designs("flash_attention")
+    got = fa_ops.flash_attention(qs, k, v, window=window, logit_softcap=cap, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert _delta(before, _designs("flash_attention")) == {
+        "flash_attention": 1, "flash_attention/tc": int(kind == "tc"),
+        "flash_attention/fma": int(kind == "fma")}
+    f = lambda t: t.transpose(1, 2).float().cpu()  # noqa: E731
+    want = _ATTN(f(qs), f(k), f(v), window=window, softcap=cap,
+                 q_offset=q_offset).transpose(1, 2)
+    assert got.dtype == dtype and got.shape == (2, sq, hq, d)
+    _close(got, want.to(dtype), **FA_TOL[dtype])
+    if q_offset % 64 == 0 and sq % 64 == 0:
+        whole = fa_ops.flash_attention(q, k, v, window=window, logit_softcap=cap)
+        assert torch.equal(got, whole[:, q_offset:q_offset + sq])
+
+
 def test_fp32_calls_take_the_fma_designs(dev):
     x = torch.randn((3, 20, 32), device=dev)
     w = torch.randn((3, 32, 24), device=dev)
