@@ -3553,6 +3553,21 @@ PATH_KERNELS["mesh"] = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up
 # first rows the data grid splits (a prefill batch must divide over it).
 SEQ_SERVE = (("granite", ARCH, (2, 2), 2, (4, 4096, 8192, 16), (2, 4096, 8192, 8)),
              ("gemma2", "gemma2-9b", (1, 4), 2, (1, 8192, 12288, 8), (1, 8192, 12288, 8)))
+# (h) the Mamba2 mixer across sequence slices, on (e)'s four ranks at
+# --mesh 1,4 (ep 4: 512 positions a rank of 2048, two chunks), every leaf
+# whole: mamba2-370m full width and depth, (b, prompt, decode steps) of the
+# bf16 greedy run and of the fp32 fed run, and the fp32 training pass at
+# full width, depth SEQ_SSM_TRAIN_DEPTH, (b, s).
+SEQ_SSM = dict(mesh=(1, 4), bf16=(4, 2048, 16), fp32=(2, 2048, 8), train=(4, 2048))
+SEQ_SSM_TRAIN_DEPTH = 4
+SEQ_SSM_LEAF, SEQ_SSM_LOSS, SEQ_SSM_GRAD = 1e-5, 1e-5, 1e-4  # each x max(1, |want|)
+# (h2)'s fp32 gates are PARITY_BOUND and SEQ_SSM_LEAF, or SEQ_SSM_TWIN times
+# world 1's own spread in the same run (its rows prefilled one at a time:
+# other GEMM shapes, the same function), whichever is larger: at 48 layers
+# that spread alone exceeds them, and each fp32 order lies about as far
+# from a float64 run (scripts/port_ssm_seq_witness.py; PERF.md §6).
+SEQ_SSM_TWIN = 2.0
+PATH_KERNELS["mesh"] += ("ssd_intra_chunk",)
 # (a') flash attention with a query offset at the cases' heads: the
 # sequence split 4 ways (s, and gemma2's window and softcap from its arch).
 SEQ_FA = ((ARCH, 4096), ("gemma2-9b", 8192))
@@ -3756,14 +3771,17 @@ def seq_flash_checks(dev) -> list:
     return rows
 
 
-def _seq_generate(lm, params, prompts, rows: int, steps: int, feed=None) -> dict:
+def _seq_generate(lm, params, prompts, rows: int, steps: int, feed=None,
+                  keep_cache: bool = False) -> dict:
     """``prompts`` (b, l) through ``make_prefill_step``, ``pad_cache`` to
     ``rows`` and ``steps`` calls of ``make_decode_step`` in the params'
     dtype, each step fed the last logits' argmax or, with ``feed`` (b,
     steps), its next column.  Returns each step's argmax, top-2 gap and fp32
     logits (host), the prefill's launches, the attention cache's bytes, and
-    the prefill's and each decode step's seconds."""
+    the prefill's and each decode step's seconds; with ``keep_cache`` also
+    the prefill's cache on the host (``"cache"``: {path: tensor})."""
     from repro_torch import kernels
+    from repro_torch.models.model import tree_paths
     from repro_torch.training import make_decode_step, make_prefill_step
 
     dtype = params["final_norm"].dtype
@@ -3771,6 +3789,8 @@ def _seq_generate(lm, params, prompts, rows: int, steps: int, feed=None) -> dict
     before = kernels.launch_counts()
     (logits, cache), pre_s = _timed(lambda: prefill(params, {"tokens": prompts}))
     after = kernels.launch_counts()
+    kept = ({k: v.to("cpu", copy=True) for k, v in tree_paths(cache).items()} if keep_cache
+            else None)  # a copy: the decode steps write the cache in place
     cache = lm.pad_cache(cache, rows)
     nbytes = sum(t.numel() * t.element_size() for c in cache if "k" in c for t in c.values())
     l, out = prompts.shape[1], {"tokens": [], "gaps": [], "logits": [], "step_s": []}
@@ -3789,7 +3809,42 @@ def _seq_generate(lm, params, prompts, rows: int, steps: int, feed=None) -> dict
     return {"tokens": torch.cat(out["tokens"], 1).cpu().numpy(),
             "gaps": torch.stack(out["gaps"], 1).cpu().numpy(), "logits": out["logits"],
             "launched": {n: after[n] - before.get(n, 0) for n in after},
-            "cache_bytes": nbytes, "prefill_s": pre_s, "step_s": out["step_s"]}
+            "cache_bytes": nbytes, "prefill_s": pre_s, "step_s": out["step_s"],
+            "cache": kept}
+
+
+def _tokens_held(name: str, ref: dict, got: dict, what: str):
+    """(ok, line): ``got``'s greedy tokens equal ``ref``'s (world 1's), or
+    diverge only where world 1's top-2 gap is under ``DENSE_TIE``."""
+    same = ref["tokens"].shape == got["tokens"].shape and bool(
+        (ref["tokens"] == got["tokens"]).all())
+    if same:
+        return True, f"{name} {what}: tokens equal world 1's"
+    rows, cols = np.nonzero(ref["tokens"] != got["tokens"])
+    first = {int(r): int(c) for r, c in zip(rows[::-1], cols[::-1])}
+    worst = max(float(ref["gaps"][r, c]) for r, c in first.items())
+    return worst < DENSE_TIE, (f"{name} {what}: {len(first)} rows diverge from world 1's, at "
+                               f"{first}; world 1's top-2 gap there at most {worst:.3e} (< "
+                               f"{DENSE_TIE:g}: a near-tie)")
+
+
+def _logits_gap(name, arch, got: list, want: list, floor: float = 0.0):
+    """(ok, line): every step's fp32 logits over the real vocabulary (the
+    padded columns' -1e30 are no magnitude) within ``PARITY_BOUND`` x
+    max(1, their magnitude) of world 1's, or within ``floor`` where that
+    is larger."""
+    from repro_torch.launch import serve
+
+    V = arch.vocab_size
+    err = max(float((a[:, :V] - b[:, :V]).abs().max()) for a, b in zip(got, want))
+    mag = max(float(b[:, :V].abs().max()) for b in want)
+    bound = serve.PARITY_BOUND * max(1.0, mag)
+    line = f"{bound:.3e} = {serve.PARITY_BOUND:g} x max(1, {mag:.2f})"
+    if floor:
+        line = (f"{max(bound, floor):.3e} = max({line}, {SEQ_SSM_TWIN:g} x world 1's twin's "
+                f"{floor / SEQ_SSM_TWIN:.3e})")
+    bound = max(bound, floor)
+    return err <= bound, f"{name}: max |dlogits| against world 1 {err:.3e} (bound {line})"
 
 
 def _seq_inputs(case, vocab: int):
@@ -3845,7 +3900,6 @@ def _mesh_seq_serve(run, dev, refs: dict) -> None:
     flash launches one ``/tc`` an attention layer, none ``/fma``."""
     from repro_torch import kernels, sharding
     from repro_torch.convert import shard_params
-    from repro_torch.launch import serve
     from repro_torch.models import moe
     from repro_torch.models.model import LanguageModel, init_params
 
@@ -3893,32 +3947,249 @@ def _mesh_seq_serve(run, dev, refs: dict) -> None:
         if not run.lead:
             continue
         ref, ref32 = refs[tag]["bf16"], refs[tag]["fp32"]
-        same = ref["tokens"].shape == got["tokens"].shape and bool(
-            (ref["tokens"] == got["tokens"]).all())
-        line = (f"{name} bf16 {prompts.shape[0]} x {prompts.shape[1]} + {bk} greedy steps into "
-                f"{bc} rows: tokens equal world 1's")
-        if not same:
-            rows, cols = np.nonzero(ref["tokens"] != got["tokens"])
-            first = {int(r): int(c) for r, c in zip(rows[::-1], cols[::-1])}
-            worst = max(float(ref["gaps"][r, c]) for r, c in first.items())
-            same = worst < DENSE_TIE
-            line = (f"{name} bf16: {len(first)} rows diverge from world 1's, at {first}; world "
-                    f"1's top-2 gap there at most {worst:.3e} (< {DENSE_TIE:g}: a near-tie)")
-        run.record(f"{pre}/bf16 tokens", same, line)
-        V = arch.vocab_size  # the padded vocab's -1e30 columns are no magnitude
-        err = max(float((a[:, :V] - b[:, :V]).abs().max())
-                  for a, b in zip(got32["logits"], ref32["logits"]))
-        mag = max(float(b[:, :V].abs().max()) for b in ref32["logits"])
-        bound = serve.PARITY_BOUND * max(1.0, mag)
-        run.record(f"{pre}/fp32 logits", err <= bound,
-                   f"{name} fp32 {fprompts.shape[0]} x {fprompts.shape[1]} + {fk} steps into {fc} "
-                   f"rows: max |dlogits| against world 1 {err:.3e} (bound {bound:.3e} = "
-                   f"{serve.PARITY_BOUND:g} x max(1, {mag:.2f}))")
+        run.record(f"{pre}/bf16 tokens", *_tokens_held(
+            name, ref, got, f"bf16 {prompts.shape[0]} x {prompts.shape[1]} + {bk} greedy steps "
+                            f"into {bc} rows"))
+        run.record(f"{pre}/fp32 logits", *_logits_gap(
+            f"{name} fp32 {fprompts.shape[0]} x {fprompts.shape[1]} + {fk} steps into {fc} rows",
+            arch, got32["logits"], ref32["logits"]))
         p50 = 1e3 * float(np.median(got["step_s"]))
         p50_1 = 1e3 * float(np.median(ref["step_s"]))
         run.note(f"{pre}/time", f"{name} bf16: prefill {1e3 * got['prefill_s']:.2f} ms, decode "
                  f"p50 {p50:.2f} ms a step; world 1 prefill {1e3 * ref['prefill_s']:.2f} ms, "
                  f"decode p50 {p50_1:.2f} ms (gloo through the host: not NVLink or NCCL)")
+
+
+def _seq_ssm_case(dev, depth=None):
+    """(h)'s mamba2-370m (at ``depth`` layers, else full), its fp32 weights
+    from seed 0, and its inputs from seed 21: the bf16 prompts, the fp32
+    prompts and their fed tokens, the training batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import init_params
+
+    arch = get_arch(SSM_ARCH)
+    if depth is not None:
+        arch = arch.replace(num_layers=depth)
+    params = init_params(arch, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(21)
+    (b, l, _), (fb, fl, fk), (tb, tl) = SEQ_SSM["bf16"], SEQ_SSM["fp32"], SEQ_SSM["train"]
+    feed = rng.integers(0, arch.vocab_size, size=(fb, fl + fk))
+    toks = rng.integers(0, arch.vocab_size, size=(tb, tl + 1))
+    return arch, params, {"bf16": rng.integers(0, arch.vocab_size, size=(b, l)),
+                          "fp32": feed[:, :fl], "feed": feed[:, fl:],
+                          "train": {"tokens": toks[:, :-1], "labels": toks[:, 1:]}}
+
+
+def _leaf_gap(got, want) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    w = want.double()
+    return float((got.double() - w).abs().max()) / max(1.0, float(w.abs().max()))
+
+
+def _seq_ssm_world1(dev, tmp: str) -> dict:
+    """(h)'s world-1 references on the lead rank, before the counts start:
+    the bf16 greedy run and the fp32 fed run (its prefill's cache) through
+    the dense-cache steps, the fp32 run's twin (``SEQ_SSM_TWIN``: its
+    logits' and its cache's largest gap from world 1's) and the fp32
+    training pass at depth ``SEQ_SSM_TRAIN_DEPTH``.  The cache, the twin's
+    cache gap, the loss and the gradients go to ``tmp/seq_ssm_ref.pt`` too,
+    for every rank to hold its own against."""
+    from repro_torch.models.model import LanguageModel, tree_paths
+    from repro_torch.training import loss_and_grads
+
+    arch, params, inp = _seq_ssm_case(dev)
+    lm = LanguageModel(arch)
+    (b, l, k), (fb, fl, fk) = SEQ_SSM["bf16"], SEQ_SSM["fp32"]
+    refs = {"bf16": _seq_generate(lm, _bf16(params), inp["bf16"], l + k, k),
+            "fp32": _seq_generate(lm, params, inp["fp32"], fl + fk, fk, inp["feed"],
+                                  keep_cache=True)}
+    # World 1's twin: each row prefilled and decoded alone.
+    rows = [_seq_generate(lm, params, inp["fp32"][i:i + 1], fl + fk, fk,
+                          inp["feed"][i:i + 1], keep_cache=True) for i in range(fb)]
+    V = arch.vocab_size
+    refs["twin"] = max(float((torch.cat([r["logits"][i] for r in rows])[:, :V]
+                              - refs["fp32"]["logits"][i][:, :V]).abs().max())
+                       for i in range(fk + 1))
+    twin_cache = max(_leaf_gap(torch.cat([r["cache"][path] for r in rows], dim=1), want)
+                     for path, want in refs["fp32"]["cache"].items())
+    del params, rows
+    arch, params, inp = _seq_ssm_case(dev, SEQ_SSM_TRAIN_DEPTH)
+    loss, _, grads = loss_and_grads(LanguageModel(arch), params, inp["train"], torch.float32)
+    torch.save({"cache": refs["fp32"]["cache"], "twin_cache": twin_cache, "loss": float(loss),
+                "grads": {k: v.cpu() for k, v in tree_paths(grads).items() if v is not None}},
+               f"{tmp}/seq_ssm_ref.pt")
+    del params, grads
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _mesh_seq_ssm(run, dev, refs: dict) -> list:
+    """(h) The reference's "seq" layout through the Mamba2 mixer: each rank
+    convolves and scans its 512 positions of a 2048 prompt, the state handed
+    rank to rank (``sharding.seq_shift``) on the four ranks at ``--mesh
+    1,4``, every leaf whole.  (h1) bf16 4 x 2048 + 16 greedy steps: tokens
+    against world 1's (a divergence only at a near-tie, ``DENSE_TIE``);
+    (h2) fp32 2 x 2048 + 8 fed steps: logits within ``PARITY_BOUND`` x
+    max(1, their magnitude) of world 1's, and every rank's returned SSM
+    state and conv tails within ``SEQ_SSM_LEAF`` x max(1, the leaf's
+    magnitude), or each within ``SEQ_SSM_TWIN`` times world 1's twin's gap
+    where that is larger; (h3) one fp32 loss-and-gradients pass at depth
+    ``SEQ_SSM_TRAIN_DEPTH``, 4 x 2048: the loss and every gathered gradient
+    within ``SEQ_SSM_LOSS`` / ``SEQ_SSM_GRAD`` x max(1, |want|); (h4) the
+    bf16 prefill launches ``ssd_intra_chunk/tc`` once a layer, no ``/fma``
+    in the bf16 runs, and each rank's first call at its slice's shape
+    against its plain version at ``SSD_TOL`` through ``kernel_row``, the
+    ranks one after another (they share the card).  The (h2) and (h3)
+    launches go to the rank's ``fp32_counts``.  Returns the rank's
+    ``kernel_row`` of (h4)."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels, sharding
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models.model import LanguageModel, tree_paths
+    from repro_torch.training import loss_and_grads
+
+    t0 = time.perf_counter()
+    mesh = ",".join(map(str, SEQ_SSM["mesh"]))
+    arch, params, inp = _seq_ssm_case(dev)
+    plan = _mem_plans(sharding.make_plan(arch, SEQ_SSM["mesh"]))["whole"]
+    lm, n = LanguageModel(arch, plan), plan.seq_size
+    params = shard_params(params, plan)
+    (b, l, k), (fb, fl, fk) = SEQ_SSM["bf16"], SEQ_SSM["fp32"]
+    layers = arch.num_mamba_layers
+    pre = "ssm"
+
+    # (h1), (h4): the bf16 run, its first kernel call at the slice's shape.
+    sharding.reset_handoff()
+    torch.cuda.reset_peak_memory_stats()
+    with _FirstCalls() as first:
+        got = _seq_generate(lm, _bf16(params), inp["bf16"], l + k, k)
+    handoff = dict(sharding.HANDOFF)
+    launched = got["launched"]
+    ok = (launched["ssd_intra_chunk/tc"] == layers and launched["ssd_intra_chunk/fma"] == 0)
+    run.record(f"{pre}/launches", ok,
+               f"{SSM_ARCH} at --mesh {mesh} (ep {plan.ep} x tp {plan.tp}): the bf16 prefill of "
+               f"a rank's {b} x {l // n} slice launched ssd_intra_chunk /tc "
+               f"{launched['ssd_intra_chunk/tc']} (want {layers}: one a layer), /fma "
+               f"{launched['ssd_intra_chunk/fma']}")
+    calls = [c for c in first.calls if c[0] == "ssd_intra_chunk"]
+    row, counted = None, kernels.launch_counts()
+    for r in range(n):  # one rank at a time: the ranks share the card
+        if r == plan.rank and calls:
+            x, dA, B, C = calls[0][1]
+            fold = [t.flatten(0, 1) for t in (x, dA.to(x.dtype), B, C)]
+            want = ssd_ref.ssd_intra_chunk(*(t.float() for t in fold)).to(x.dtype)
+            got_k = ssd_ops.ssd_intra_chunk(x, dA, B, C).flatten(0, 1)
+            err = float((got_k.float() - want.float()).abs().max())
+            ok = bool(torch.isfinite(got_k).all()) and torch.allclose(
+                got_k.float(), want.float(), **SSD_TOL[x.dtype])
+            G, cl, hh, pp = fold[0].shape
+            nn = fold[2].shape[-1]
+            shape = f"mesh (h) slice of rank {r} (g={G},cl={cl},h={hh},p={pp},n={nn})"
+            run.checks.append(ok)
+            run.out[f"{pre}/first call rank {r}"] = (
+                f"ssd_intra_chunk {shape} bf16 via tc against its plain version: max_abs_err "
+                f"{err:.3e} tol(rtol={SSD_TOL[x.dtype]['rtol']:g}, atol="
+                f"{SSD_TOL[x.dtype]['atol']:g}) {'ok' if ok else 'FAIL'}")
+            pairs = G * hh * cl * (cl + 1) / 2
+            sz = x.element_size()
+            row = kernel_row("ssd_intra_chunk", shape, x.dtype,
+                             ssd_ops.ssd_intra_chunk_launch(*fold)[1],
+                             lambda: ssd_ref.ssd_intra_chunk(*fold), None,
+                             2 * G * cl * hh * pp * sz + 2 * G * cl * nn * sz + G * cl * hh * sz,
+                             [(pairs / hh * 2 * nn, torch.bfloat16),
+                              *gemm_ops(pairs * 2 * pp, torch.float32, torch.bfloat16)],
+                             err, ssd_ops._SSD["tc"].path, "src/repro/kernels/ssd/ssd.py:51",
+                             "tc")
+            del fold, want, got_k
+        dist.barrier()
+    kernels._build.COUNTS.update(counted)  # the check's and the timer's launches do not count
+    if not calls:
+        run.checks.append(False)
+        run.out[f"{pre}/first call rank {plan.rank}"] = "no ssd_intra_chunk call captured FAIL"
+    del first, calls
+
+    # (h2): fp32, the prefill's cache held on every rank.
+    before = kernels.launch_counts()
+    got32 = _seq_generate(lm, params, inp["fp32"], fl + fk, fk, inp["feed"], keep_cache=True)
+    ref_file = torch.load(f"{run.tmp}/seq_ssm_ref.pt")
+    cache_bound = max(SEQ_SSM_LEAF, SEQ_SSM_TWIN * ref_file["twin_cache"])
+    gaps = {path: (_leaf_gap(got32["cache"][path], want)
+                   if got32["cache"][path].shape == want.shape else float("inf"))
+            for path, want in ref_file["cache"].items()}
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    run.checks.append(worst[1] <= cache_bound)
+    del params
+    torch.cuda.empty_cache()
+
+    # (h3): one fp32 training pass at depth SEQ_SSM_TRAIN_DEPTH.
+    tarch, tparams, tinp = _seq_ssm_case(dev, SEQ_SSM_TRAIN_DEPTH)
+    tplan = _mem_plans(sharding.make_plan(tarch, SEQ_SSM["mesh"]))["whole"]
+    sharding.reset_handoff()
+    (loss, _, grads), train_s = _timed(lambda: loss_and_grads(
+        LanguageModel(tarch, tplan), shard_params(tparams, tplan), tinp["train"], torch.float32))
+    train_handoff = dict(sharding.HANDOFF)
+    grads = tree_paths(gather_params(grads, tplan))
+    want = ref_file["loss"]
+    loss_ok = abs(float(loss) - want) <= SEQ_SSM_LOSS * max(1.0, abs(want))
+    ggaps = {path: _leaf_gap(grads[path].cpu(), w) for path, w in ref_file["grads"].items()}
+    gworst = max(ggaps.items(), key=lambda kv: kv[1])
+    run.checks += [loss_ok, gworst[1] <= SEQ_SSM_GRAD]
+    fp32 = run.out.setdefault("fp32_counts", {})
+    for name, c in kernels.launch_counts().items():
+        fp32[name] = fp32.get(name, 0) + c - before.get(name, 0)
+    del tparams, grads
+    torch.cuda.empty_cache()
+
+    mine = {"cache": worst, "grad": gworst, "handoff": handoff,
+            "train_handoff": train_handoff, "train_s": train_s}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    peaks = run.peak_gb()
+    if run.lead:
+        ref, ref32 = refs["bf16"], refs["fp32"]
+        run.record(f"{pre}/bf16 tokens", *_tokens_held(
+            SSM_ARCH, ref, got, f"bf16 {b} x {l} + {k} greedy steps"))
+        run.record(f"{pre}/fp32 logits", *_logits_gap(
+            f"{SSM_ARCH} fp32 {fb} x {fl} + {fk} fed steps", arch, got32["logits"],
+            ref32["logits"], floor=SEQ_SSM_TWIN * refs["twin"]))
+        run.record(f"{pre}/fp32 cache", all(e["cache"][1] <= cache_bound for e in every),
+                   f"every rank's returned ssm state and conv tails against world 1's, worst "
+                   f"leaf's max |d| / max(1, |leaf|) a rank: " + ", ".join(
+                       f"rank {r} {e['cache'][0]} {e['cache'][1]:.3e}"
+                       for r, e in enumerate(every))
+                   + f" (bound {cache_bound:.3e} = max({SEQ_SSM_LEAF:g}, {SEQ_SSM_TWIN:g} x "
+                     f"world 1's twin's {ref_file['twin_cache']:.3e}))")
+        tb, tl = SEQ_SSM["train"]
+        run.record(f"{pre}/train loss", loss_ok,
+                   f"{SSM_ARCH} depth {SEQ_SSM_TRAIN_DEPTH} fp32 {tb} x {tl}: loss "
+                   f"{float(loss):.7f} against world 1's {want:.7f} (<= {SEQ_SSM_LOSS:g} x "
+                   f"max(1, |loss|))")
+        run.record(f"{pre}/train grads", all(e["grad"][1] <= SEQ_SSM_GRAD for e in every),
+                   f"{len(ggaps)} gathered gradient leaves against world 1's, worst leaf's max "
+                   f"|d| / max(1, |leaf|) a rank: " + ", ".join(
+                       f"rank {r} {e['grad'][0]} {e['grad'][1]:.3e}"
+                       for r, e in enumerate(every)) + f" (<= {SEQ_SSM_GRAD:g})")
+        p50 = 1e3 * float(np.median(got["step_s"]))
+        p50_1 = 1e3 * float(np.median(ref["step_s"]))
+        run.note(f"{pre}/time", (
+            f"{SSM_ARCH} bf16: prefill {1e3 * got['prefill_s']:.2f} ms, decode p50 {p50:.2f} "
+            f"ms a step; world 1 prefill {1e3 * ref['prefill_s']:.2f} ms, decode p50 "
+            f"{p50_1:.2f} ms; the fp32 training pass {[round(e['train_s'], 3) for e in every]} "
+            f"s a rank (gloo through the host: not NVLink or NCCL)"))
+        run.note(f"{pre}/hand-offs", (
+            "the mixer's hand-offs a rank, bf16 prefill (rounds, tensors sent, bytes sent, of "
+            "them staged through the host for gloo): " + "; ".join(
+                f"rank {r} {e['handoff']['rounds']}, {e['handoff']['tensors']}, "
+                f"{e['handoff']['bytes']}, {e['handoff']['host_bytes']}"
+                for r, e in enumerate(every))
+            + "; the fp32 training pass (forward, recompute, backward): " + "; ".join(
+                f"rank {r} {e['train_handoff']['rounds']}, {e['train_handoff']['bytes']}"
+                for r, e in enumerate(every))))
+        run.note(f"{pre}/peak", f"peak GB a rank {peaks}; (h) {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 def _mesh_rank(rank: int, world: int, tmp: str, part: str) -> None:
@@ -4310,7 +4581,9 @@ def _mesh_pp(rank: int, world: int, tmp: str) -> dict:
 def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     """(e) migration at PP 2 x EP 2 (2, 1, 2), granite at depth
     ``MESH_PP_EP_DEPTH``, skewed tokens; (f) serving data parallelism at
-    ``MESH_DP``, depth ``EP_DEPTH``, against world 1 on rank 0."""
+    ``MESH_DP``, depth ``EP_DEPTH``, against world 1 on rank 0; (g) the
+    "seq" / "kv_seq" serving layout; (h) the Mamba2 mixer across sequence
+    slices."""
     import torch.distributed as dist
 
     from repro_torch import sharding
@@ -4330,6 +4603,7 @@ def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     ref = ({mode: _mesh_serve(_mesh_arch(EP_DEPTH, mode), None, sparams, dev)
             for mode in SERVE_MODES} if run.lead else {})
     seq_refs = _seq_world1(dev) if run.lead else {}
+    ssm_refs = _seq_ssm_world1(dev, tmp) if run.lead else {}
     run.start()
 
     # (e) Migrations every MIG_EVERY of MESH_MIG_STEPS steps, swap-only.
@@ -4473,13 +4747,18 @@ def _mesh_r4(rank: int, world: int, tmp: str) -> dict:
     t1 = time.perf_counter()
     _mesh_seq_serve(run, dev, seq_refs)
     run.note("seq/peak", f"peak GB a rank {run.peak_gb()}; (g) {time.perf_counter() - t1:.1f} s")
+
+    # (h) The Mamba2 mixer across sequence slices.
+    run.out["ssd_row"] = _mesh_seq_ssm(run, dev, ssm_refs)
     return run.finish()
 
 
 def mesh_phase(dev):
     """Phase 15: (a) the kernels at its shapes; (b), (c) six gloo ranks at
     ``MESH_TP``; (d) two at PP 2 with checkpoints; (e), (f) four at PP 2 x
-    EP 2 and at D 2 x EP 2.  Returns every rank's summed launch counts."""
+    EP 2 and at D 2 x EP 2, then (g) and (h) on them.  Returns every rank's
+    summed launch counts, (a')'s rows and (h)'s ``ssd_intra_chunk`` row a
+    rank."""
     import torch.multiprocessing as mp
 
     torch.cuda.empty_cache()
@@ -4509,6 +4788,10 @@ def mesh_phase(dev):
             if "/" in k:
                 tag = "[check]" if v.endswith(("ok", "FAIL")) else "[mesh]"
                 log(f"{tag} mesh {part} x{world} {k}: {v}")
+        for r in res[part][1:]:  # (h)'s first kernel call, held on every rank
+            for k, v in r.items():
+                if k.startswith("ssm/first call"):
+                    log(f"[check] mesh {part} x{world} {k}: {v}")
         log(f"[mesh] {part}: {world} ranks, {time.perf_counter() - t1:.1f} s")
     counts = {}
     for part, rs in res.items():
@@ -4527,7 +4810,7 @@ def mesh_phase(dev):
     if not all(r["ok"] for rs in res.values() for r in rs):
         fail("mesh: a check of the multi-rank runs failed")
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
-    return counts, q_offset_rows
+    return counts, q_offset_rows, [r["ssd_row"] for r in res["r4"]]
 
 
 # ---------------------------------------------------------------------------
@@ -6217,7 +6500,7 @@ def main(names=()) -> None:
     counts["migrate"] = phase("migrate", migrate_phase, dev)
     counts["pipeline"] = phase("pipeline", pipeline_phase, dev)
     if phase("mesh", mesh_phase, dev) is not None:
-        counts["mesh"], q_offset_rows = out["mesh"]
+        counts["mesh"], q_offset_rows, ssd_slice_rows = out["mesh"]
     counts["memory"] = phase("memory", memory_phase, dev)
     if phase("archs", archs_phase, dev) is not None:
         counts["archs"], fa256 = out["archs"]
@@ -6236,6 +6519,7 @@ def main(names=()) -> None:
         e["launches"] = sum(e["launches_by_path"].values())
     entries["flash_attention"]["head_dim_256"] = fa256  # phase archs (a)
     entries["flash_attention"]["q_offset"] = q_offset_rows  # phase mesh (a')
+    entries["ssd_intra_chunk"]["mesh_slice"] = ssd_slice_rows  # phase mesh (h4), a rank each
     for name, rows in frontend_rows.items():  # phase frontend (a)
         entries[name]["frontend"] = rows
     names = ("flash_attention", "grouped_matmul_f32", "ragged_gate_up_silu_f32",

@@ -726,8 +726,9 @@ class LanguageModel:
         its rows over data, its sequence slice over (ep, tp)), and the
         layers run as in training without autograd: attention gathers K/V
         over the sequence group and keeps q local (the flash kernel's
-        ``q_offset``), a Mamba2 mixer gathers its conv and scan inputs, the
-        MoE dispatches the rank's own tokens.  The cache is the rank's
+        ``q_offset``), a Mamba2 mixer scans its slice and takes the state
+        entering it from the ranks before (``ssm.mamba_block``), the MoE
+        dispatches the rank's own tokens.  The cache is the rank's
         block: its K/V slice (:meth:`pad_cache` lays it out for decode),
         the whole sequence's SSM state and conv tails.  The last position
         lives on the sequence group's last rank: its logits are broadcast

@@ -25,11 +25,28 @@ of ``head_group`` heads runs under ``torch.utils.checkpoint``, as the
 reference's ``jax.checkpoint`` does, so its (b, nc, h, cl, cl) decay is
 recomputed in the backward rather than kept.  Layouts and dtype casts
 follow the reference, so fp32 runs agree with it to rounding.
+
+Across sequence slices (the reference's "seq" layout: the sequence over
+the (ep, tp) ranks) each rank convolves and scans only its own slice, as
+the reference's ``lax.associative_scan`` over sharded chunks lowers to a
+log-depth collective-permute chain.  What crosses ranks is a state and,
+for the causal conv, the ``conv_width - 1`` rows before a slice, through
+an injected ``shift(tensors, k, fills=None)`` (``sharding.seq_shift`` on the
+ranks; a test passes a shift along a leading rank dim of its own):
+:func:`conv_halo` takes the rows; :func:`slice_terms` computes the slice's
+chunk terms (the intra-chunk kernel once) and :func:`slice_state` its total
+decay and end state from a zero state; :func:`carry_states` takes the
+inclusive prefix of the slices' (decay, state) pairs under the reference's
+``combine`` in ceil(log2 n) Hillis-Steele rounds, and one more shift gives
+the state entering the slice; :func:`slice_output` runs the slice's chunk
+recurrence from it.  Within a slice that rounds as one rank does; only the
+entering state is summed in another order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,8 +86,7 @@ def ssd_chunked(
     bound the live memory; heads are independent, so the loop here is
     exact, and under ``train`` each group is recomputed in the backward.
     """
-    b, l, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+    h, g = x.shape[2], B.shape[2]
     if h > head_group and h % head_group == 0 and g == 1 and initial_state is None:
         def group(xi, dti, ai, B_, C_):
             return ssd_chunked(xi, dti, ai, B_, C_, chunk, head_group=h, train=train)
@@ -84,6 +100,15 @@ def ssd_chunked(
             ys.append(y)
             fins.append(fin)
         return torch.cat(ys, dim=2), torch.cat(fins, dim=1)
+    return _chunk_recurrence(*_chunk_terms(x, dt, a, B, C, chunk, train), initial_state)
+
+
+def _chunk_terms(x, dt, a, B, C, chunk: int, train: bool):
+    """What :func:`ssd_chunked` computes before the state entering the
+    sequence is known: (Y_diag (b, nc, cl, h, p), the chunks' own states u
+    (b, nc, h, p, n), their decays (b, nc, h) in u's dtype, the prefixes
+    A_cs (b, nc, cl, h), C read by each head (b, nc, cl, h, n))."""
+    b, l, h, p = x.shape
     if l % chunk:
         raise ValueError(f"sequence length {l} is not a multiple of the chunk {chunk}")
     nc = l // chunk
@@ -109,25 +134,119 @@ def ssd_chunked(
     decay_states = torch.exp(A_cs[:, :, -1:, :] - A_cs)  # (b, nc, cl, h)
     states = torch.einsum("bclhn,bclhp->bchpn", Bc,
                           decay_states.to(Bc.dtype)[..., None] * xc)
-
-    # Inter-chunk recurrence s_c = exp(sum dA_c) * s_{c-1} + u_c, taken in
-    # order (the reference's associative scan, sequentially).
     decay_chunk = torch.exp(A_cs[:, :, -1, :]).to(states.dtype)  # (b, nc, h)
+    return Y_diag, states, decay_chunk, A_cs, Cc
+
+
+def _chunk_recurrence(Y_diag, states, decay_chunk, A_cs, Cc, initial_state):
+    """:func:`_chunk_terms`' chunks from ``initial_state`` (None: zeros):
+    the inter-chunk recurrence s_c = exp(sum dA_c) * s_{c-1} + u_c, taken
+    in order (the reference's associative scan, sequentially), and the
+    off-diagonal term.  Returns (y (b, l, h, p), the final state)."""
+    b, nc, cl, h, p = Y_diag.shape
     prev = (initial_state.to(states.dtype) if initial_state is not None
             else torch.zeros_like(states[:, 0]))
     states_prev = []
     for c in range(nc):
         states_prev.append(prev)
         prev = decay_chunk[:, c, :, None, None] * prev + states[:, c]
-    final_state = prev
     states_prev = torch.stack(states_prev, dim=1)  # state entering each chunk
 
     # Off-diagonal (cross-chunk) term.
     state_decay = torch.exp(A_cs).to(Cc.dtype)  # (b, nc, cl, h)
     Y_off = torch.einsum("bclhn,bchpn->bclhp", Cc, states_prev) * state_decay[..., None]
+    return (Y_diag + Y_off).reshape(b, nc * cl, h, p), prev
 
-    y = (Y_diag + Y_off).reshape(b, l, h, p)
-    return y, final_state
+
+# shift(tensors, k, fills=None) -> the tensors of sequence rank j - k (fills
+# where there is none): ``sharding.seq_shift`` bound to a plan.
+Shift = Callable[..., list]
+
+
+def slice_terms(x, dt, a, B, C, chunk: int, *, head_group: int = 32, train: bool = False):
+    """One sequence slice's :func:`_chunk_terms` (shapes as
+    :func:`ssd_chunked`'s, l the slice's length), by head group as
+    :func:`ssd_chunked` walks jamba's heads (each group's recomputed in
+    the backward under ``train``): a list of (heads, terms).  The chunk is
+    ``min(chunk, l)``; a slice longer than it and not a multiple of it is
+    padded at its end with dt = 0 rows (x, B and C zero too), which add
+    nothing to y or to a state and leave it undecayed."""
+    l, h = x.shape[1], x.shape[2]
+    cl = min(chunk, l)
+    pad = -l % cl
+    if pad:
+        x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, B, C))
+    step = head_group if h > head_group and h % head_group == 0 and B.shape[2] == 1 else h
+    terms = functools.partial(_chunk_terms, chunk=cl, train=train)
+    out = []
+    for i in range(0, h, step):
+        part = slice(i, i + step)
+        args = (x[:, :, part], dt[:, :, part], a[part], B, C)
+        out.append((part, checkpoint(terms, *args, use_reentrant=False)
+                    if train and step < h else terms(*args)))
+    return out
+
+
+def slice_state(terms):
+    """A slice's total decay D = exp(sum dt a) (b, h), from the chunks' fp64
+    sums of the kernel's prefixes, and its end state S (b, h, p, n) from a
+    zero state, both in the states' dtype, from :func:`slice_terms`."""
+    D, S = [], []
+    for _, (_, states, decay_chunk, A_cs, _) in terms:
+        D.append(torch.exp(A_cs[:, :, -1].double().sum(1)).to(states.dtype))
+        prev = states[:, 0]
+        for c in range(1, states.shape[1]):
+            prev = decay_chunk[:, c, :, None, None] * prev + states[:, c]
+        S.append(prev)
+    return torch.cat(D, dim=1), torch.cat(S, dim=1)
+
+
+def carry_states(D, S, shift: Shift, n: int):
+    """The state entering each of n sequence slices (zero on the first)
+    from each slice's total decay D (..., b, h) and zero-start end state S
+    (..., b, h, p, n): the inclusive prefix under the reference's
+    ``combine`` (``(d1, s1), (d2, s2) -> (d1 d2, s1 d2 + s2)``, identity
+    (1, 0)) in ceil(log2 n) Hillis-Steele rounds of ``shift`` by 1, 2, 4,
+    ..., each sending D and S in one round, then one more shift by 1; in
+    S's dtype."""
+    k = 1
+    while k < n:
+        Dp, Sp = shift([D, S], k, fills=(1.0, 0.0))
+        S = Sp * D[..., None, None] + S
+        D = Dp * D
+        k *= 2
+    return shift([S], 1)[0]
+
+
+def slice_output(terms, h, l: int):
+    """The slice's y (b, l, h, p) and end state, its chunk recurrence run
+    from the entering state h (b, h, p, n): within the slice the same
+    operations, in the same order, as one rank's :func:`ssd_chunked`."""
+    ys, fins = zip(*(_chunk_recurrence(*t, h[:, part]) for part, t in terms))
+    return torch.cat(ys, dim=2)[:, :l], torch.cat(fins, dim=1)
+
+
+def ssd_slices(x, dt, a, B, C, chunk: int, shift: Shift, n: int, *, train: bool = False):
+    """:func:`ssd_chunked` of the whole sequence, computed on this rank's
+    slice of it: (y of the slice, the state at the slice's end, on the last
+    slice the sequence's final state).  The intra-chunk term runs once."""
+    terms = slice_terms(x, dt, a, B, C, chunk, train=train)
+    return slice_output(terms, carry_states(*slice_state(terms), shift, n), x.shape[1])
+
+
+def conv_halo(t, width: int, shift: Shift):
+    """The ``width - 1`` pre-conv rows (..., width - 1, c) before this
+    slice of ``t`` (..., l, c): the left neighbour's last rows, and where
+    a slice is shorter than that, the ranks' before it too (one shift a
+    rank, by 1, 2, ...); zeros before the sequence's start, the conv's own
+    left padding."""
+    need = width - 1
+    tail = t[..., -need:, :]
+    parts, k = [], 1
+    while sum(q.shape[-2] for q in parts) < need:
+        parts.insert(0, shift([tail], k)[0])
+        k += 1
+    return torch.cat(parts, dim=-2)[..., -need:, :]
 
 
 def _intra_chunk(xc, A_cs, Bg, Cg) -> torch.Tensor:
@@ -180,16 +299,16 @@ def mamba_block(
     ``train`` runs the SSD's differentiable path (:func:`ssd_chunked`).
 
     ``seq`` (no cache): a ``sharding.MeshPlan`` whose sequence group holds
-    the sequence, ``x`` this rank's slice of it.  The projections and the
-    gated norm are position-wise and run on the slice; the causal conv and
-    the scan cross slices, so their inputs (the x, B, C and dt
-    projections) are gathered over the group in one collective
-    (``sharding.seq_gather``) and run over the whole sequence, the rank
-    keeping its slice: the same function as one rank's, and the same work
-    on every rank of the group.  A prefill's cache (``return_cache``) is
-    then the whole sequence's on every rank of the group, as the
-    reference's ``cache_specs`` keeps it (rows over data, whole over (ep,
-    tp)).
+    the sequence, ``x`` this rank's slice of it.  Everything runs on the
+    slice (module docstring): the conv on the left neighbour's last
+    ``conv_width - 1`` pre-conv rows (:func:`conv_halo`) and the slice, the
+    scan from a zero state with the state entering the slice handed along
+    the group (:func:`ssd_slices`): the same function as one rank's, a
+    1 / n share of its work a rank.  A prefill's cache (``return_cache``)
+    is the whole sequence's on every rank of the group, as the reference's
+    ``cache_specs`` keeps it (rows over data, whole over (ep, tp)): the
+    last slice's end state and its conv tails, broadcast from that rank in
+    one collective.
 
     cache = {"ssm": (b, h, p, n), "conv_x": (b, w-1, d_in), "conv_B",
     "conv_C"} runs one decode token (l = 1) and updates the cache IN PLACE
@@ -235,39 +354,61 @@ def mamba_block(
             cache[key].copy_(win[:, 1:])
         new_cache = cache
     else:
-        off, L, xs_l, Bp_l, Cp_l, dt_l = 0, l, xs, Bp, Cp, dt
-        if seq is not None and seq.seq_size > 1:
-            gn = s.n_groups * s.state_size
-            off = seq.seq_offset(l)
-            full = sharding.seq_gather(torch.cat([xs, Bp, Cp, dt], dim=-1), seq)
-            L = full.shape[1]
-            xs_l, Bp_l, Cp_l, dt_l = full.split([d_in, gn, gn, nh], dim=-1)
-        xs_c = F.silu(_causal_conv(xs_l, params["conv_x_w"], params["conv_x_b"])).to(x.dtype)
-        B_c = F.silu(_causal_conv(Bp_l, params["conv_B_w"], params["conv_B_b"])).to(x.dtype)
-        C_c = F.silu(_causal_conv(Cp_l, params["conv_C_w"], params["conv_C_b"])).to(x.dtype)
-        dt_s = F.softplus(dt_l.float() + params["dt_bias"])  # (b, L, nh)
-        xh = xs_c.reshape(b, L, nh, s.head_dim)
-        Bg = B_c.reshape(b, L, s.n_groups, s.state_size)
-        Cg = C_c.reshape(b, L, s.n_groups, s.state_size)
-        y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, L),
-                               train=train)
+        w, gn = s.conv_width, s.n_groups * s.state_size
+        n = 1 if seq is None else seq.seq_size
+        if n > 1:
+            shift = functools.partial(sharding.seq_shift, plan=seq)
+            pre = torch.cat([xs, Bp, Cp], dim=-1)
+            pre = torch.cat([conv_halo(pre, w, shift), pre], dim=1)  # (b, w - 1 + l, .)
+            xs_w, Bp_w, Cp_w = pre.split([d_in, gn, gn], dim=-1)
+        else:
+            xs_w, Bp_w, Cp_w = xs, Bp, Cp
+        xs_c, B_c, C_c = (
+            F.silu(_causal_conv(t, params[f"conv_{k}_w"], params[f"conv_{k}_b"])
+                   [:, t.shape[1] - l:]).to(x.dtype)
+            for t, k in ((xs_w, "x"), (Bp_w, "B"), (Cp_w, "C")))
+        dt_s = F.softplus(dt.float() + params["dt_bias"])  # (b, l, nh)
+        xh = xs_c.reshape(b, l, nh, s.head_dim)
+        Bg = B_c.reshape(b, l, s.n_groups, s.state_size)
+        Cg = C_c.reshape(b, l, s.n_groups, s.state_size)
+        if n > 1:
+            y, final = ssd_slices(xh, dt_s.to(x.dtype), a, Bg, Cg, s.chunk_size, shift, n,
+                                  train=train)
+        else:
+            y, final = ssd_chunked(xh, dt_s.to(x.dtype), a, Bg, Cg, min(s.chunk_size, l),
+                                   train=train)
         y = y + xh * params["D"][None, None, :, None].to(x.dtype)
-        y = y.reshape(b, L, d_in)[:, off:off + l]
+        y = y.reshape(b, l, d_in)
         if return_cache:
-            w = s.conv_width
-
-            def tail(t):
-                tl = t[:, -(w - 1):, :]
-                return F.pad(tl, (0, 0, (w - 1) - tl.shape[1], 0))
-
-            # The whole sequence's (gathered under ``seq``): the conv's
-            # window at the sequence's end, whichever slice a rank holds.
-            new_cache = {"ssm": final.to(x.dtype), "conv_x": tail(xs_l),
-                         "conv_B": tail(Bp_l), "conv_C": tail(Cp_l)}
+            # The conv's window at the sequence's end: the last w - 1 rows
+            # of the slice (under ``seq``, after its halo, so a slice
+            # shorter than that reads its neighbours' rows as the whole
+            # sequence would; zeros before the sequence's start).
+            tails = [F.pad(t, (0, 0, max(0, (w - 1) - t.shape[1]), 0))[:, -(w - 1):]
+                     for t in (xs_w, Bp_w, Cp_w)]
+            ssm = final.to(x.dtype)
+            if n > 1:
+                ssm, *tails = _from_last_slice([ssm] + tails, seq)
+            new_cache = {"ssm": ssm, "conv_x": tails[0], "conv_B": tails[1],
+                         "conv_C": tails[2]}
 
     # Gated RMSNorm + output projection.
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm_scale"], arch.norm_eps)
     return y @ params["out_proj"], new_cache
+
+
+def _from_last_slice(ts, plan) -> list:
+    """``ts`` (one dtype) as the sequence group's last rank holds them, on
+    every rank of the group: one broadcast of them packed flat."""
+    n = plan.seq_size
+    flat = torch.cat([t.reshape(t.shape[0], -1) for t in ts], dim=1).contiguous()
+    torch.distributed.broadcast(flat, src=plan.rank - plan.seq_rank + n - 1,
+                                group=plan.model_group)
+    out = []
+    for t in ts:
+        part, flat = flat[:, :t[0].numel()], flat[:, t[0].numel():]
+        out.append(part.reshape(t.shape))
+    return out
 
 
 def init_ssm_cache(arch: ArchConfig, batch: int, dtype, device) -> Dict[str, torch.Tensor]:

@@ -14,7 +14,8 @@ keeps the outputs of the matrix products without batch dims (``aten.mm``,
 ``aten.addmm``: ``dots_with_no_batch_dims_saveable``) and recomputes the
 rest; "none" keeps everything.  A recompute runs the rep's collectives
 again (the EP all-to-all, the metric sums, the weights' gathers, the
-sequence gathers: the reference's ``kv_gathered`` is recomputed too), on every rank
+sequence gathers: the reference's ``kv_gathered`` is recomputed too; a Mamba2
+mixer's state hand-offs), on every rank
 in the backward's order, so it always runs to the rep's end; its outputs
 are dropped, so no metric counts twice, and its ``a2a.layer`` spans are
 named ``a2a.layer.recompute``.  "dots" sees aten ops only: a kernel
@@ -85,8 +86,9 @@ def apply_block(
     ``seq_shard``, ``data_split`` and ``telemetry`` go to
     :func:`moe.moe_ffn`.  ``seq``: the plan whose sequence group holds the
     sequence, x this rank's slice of it (training, the uncached forward and
-    the dense-cache prefill); the mixer gathers what crosses slices
-    (``layers.attention_proj``, ``ssm.mamba_block``).  With a dense
+    the dense-cache prefill); the mixer takes what crosses slices from the
+    group (``layers.attention_proj`` gathers K/V, ``ssm.mamba_block`` hands
+    states and conv rows rank to rank).  With a dense
     attention ``cache``, ``seq`` says the cache is the rank's "kv_seq"
     block (``layers.kv_block_attention``).  The mixer's and a
     dense FFN's leaves that ``plan`` slices

@@ -46,8 +46,10 @@ sequence over (ep, tp), ``[j * s_l, (j + 1) * s_l)`` with ``j`` its
 sequence rank and ``s_l = s / (ep * tp)``.  A layer that mixes positions
 gathers what it needs over the sequence group (:func:`seq_gather`, one
 all-gather a call whose backward sums the cotangent over the group and
-keeps the slice): attention its K/V once a layer, a Mamba2 mixer its conv
-and scan inputs.  A prefill's batch is laid out alike; a decode batch's
+keeps the slice): attention its K/V once a layer.  A Mamba2 mixer gathers
+nothing: it hands state from rank to rank along the group
+(:func:`seq_shift`, point-to-point, its backward the opposite shift).  A
+prefill's batch is laid out alike; a decode batch's
 rows go over data where D divides them (the reference's decode
 ``batch_specs``, ``("batch", None)``), and a dense attention cache's
 positions over (ep, tp) (the "kv_seq" rule, :meth:`MeshPlan.kv_rows`):
@@ -566,6 +568,81 @@ def seq_gather(x: torch.Tensor, plan, dim: int = 1) -> torch.Tensor:
     if plan is None or plan.seq_size == 1:
         return x
     return _SeqGather.apply(x, plan.model_group, dim, plan.seq_rank)
+
+
+# Bytes and calls of :func:`seq_shift` in this process (:func:`reset_handoff`
+# zeroes them): "rounds" its calls, "tensors" and "bytes" what this rank
+# sent, "host_bytes" the part of it staged through the host (gloo's
+# point-to-point takes host tensors only).
+HANDOFF = {"rounds": 0, "tensors": 0, "bytes": 0, "host_bytes": 0}
+_SHIFT_TAG = 64  # above core.pipeline's hand-off tags
+
+
+def reset_handoff() -> None:
+    for k in HANDOFF:
+        HANDOFF[k] = 0
+
+
+def _shift(ts, k: int, plan, fills) -> List[torch.Tensor]:
+    """Each of ``ts`` sent to sequence rank j + k, what rank j - k sent
+    received (``fills`` where there is no such rank), all posted in one
+    ``batch_isend_irecv``; a CUDA payload crosses a gloo group through the
+    host, as ``core.pipeline.Wire`` stages its hand-offs."""
+    n, j = plan.seq_size, plan.seq_rank
+    base, dst, src = plan.rank - j, j + k, j - k
+    send, recv = 0 <= dst < n, 0 <= src < n
+    host = ts[0].device.type == "cuda" and dist.get_backend() == "gloo"
+    ops, bufs = [], []
+    HANDOFF["rounds"] += 1
+    for i, t in enumerate(ts):
+        if send:
+            payload = t.detach().contiguous()
+            nbytes = payload.numel() * payload.element_size()
+            HANDOFF["tensors"] += 1
+            HANDOFF["bytes"] += nbytes
+            if host:
+                payload = payload.cpu()
+                HANDOFF["host_bytes"] += nbytes
+            ops.append(dist.P2POp(dist.isend, payload, base + dst, tag=_SHIFT_TAG + i))
+        if recv:
+            buf = torch.empty(t.shape, dtype=t.dtype, device="cpu" if host else t.device)
+            ops.append(dist.P2POp(dist.irecv, buf, base + src, tag=_SHIFT_TAG + i))
+            bufs.append(buf)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if not recv:
+        return [torch.full_like(t, f) for t, f in zip(ts, fills)]
+    return [b.to(t.device) for t, b in zip(ts, bufs)]
+
+
+class _SeqShift(torch.autograd.Function):
+    """:func:`seq_shift`; the backward shifts the cotangents back by -k
+    (what rank j + k received from this rank), zeros where that rank does
+    not exist: a filled output depends on no input."""
+
+    @staticmethod
+    def forward(ctx, k, plan, fills, *ts):
+        ctx.k, ctx.plan = k, plan
+        return tuple(_shift(ts, k, plan, fills))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_shift(gs, -ctx.k, ctx.plan, [0.0] * len(gs)))
+
+
+def seq_shift(ts, k: int, plan, fills=None) -> List[torch.Tensor]:
+    """The tensors ``ts`` of sequence rank j - k along the sequence group:
+    this rank's go to rank j + k (a positive ``k`` moves them toward the
+    sequence's end), one ``batch_isend_irecv`` for all of them, so no order
+    of ranks deadlocks; where j - k is no rank, ``fills`` (one value a
+    tensor, default 0) in their shapes.  Differentiable (the backward is
+    the opposite shift).  Peers are global ranks ``plan.rank - j + j'``,
+    the sequence group being the innermost (ep, tp) ranks.  A call is one
+    round of :data:`HANDOFF`; every rank of the group must make it."""
+    ts = list(ts)
+    fills = [0.0] * len(ts) if fills is None else list(fills)
+    return list(_SeqShift.apply(k, plan, fills, *ts))
 
 
 class _AllReduce(torch.autograd.Function):

@@ -237,13 +237,16 @@ SEQ_LAYOUT_BATCH = (8, 16)  # (b, s), values that name their (row, position)
 SEQ_PP = ((2, 1, 2), 4)  # PP 2 x ep 2, M = 2 PP microbatches
 SEQ_B, SEQ_S = 4, 64  # (2, 2): 2 rows x 32 positions a rank; (1, 4): 4 x 16
 # Each case: (arch, grid).  The slices cross gemma2's window (32) and the
-# SSM chunk (32).  Granite runs at the reduced capacity factor 1.25, where
-# tokens drop; jamba at cf 16 (its world-1 twin drops no token either).
+# SSM chunk (32); mamba2 at (1, 4) holds half a chunk a rank, so its state
+# crosses three slice boundaries in two scan rounds.  Granite runs at the
+# reduced capacity factor 1.25, where tokens drop; jamba at cf 16 (its
+# world-1 twin drops no token either).
 SEQ_CASES = {"granite/capacity": ("granite-moe-3b-a800m", (2, 2)),
              "granite/ragged": ("granite-moe-3b-a800m", (2, 2)),
              "gemma2": ("gemma2-9b", (1, 4)),
              "qwen2": ("qwen2-vl-7b", (1, 4)),
              "mamba2": ("mamba2-370m", (2, 2)),
+             "mamba2/1,4": ("mamba2-370m", (1, 4)),
              "jamba": ("jamba-1.5-large-398b", (2, 2))}
 # 1f1b at SEQ_PP, ragged, cf 16, aux loss 0 (the pipeline means the aux
 # loss over microbatches, world 1 over the batch: another function).
@@ -309,7 +312,7 @@ def seq_params(arch):
 # The seq-jax mode's two halves, each a process of its own (the test starts
 # both at once): the layout and the cheap cases; jamba and the pipeline.
 SEQ_JAX_PARTS = (("layout", "granite/capacity", "granite/ragged", "gemma2", "qwen2",
-                  "mamba2"), ("jamba", SEQ_PP_CASE))
+                  "mamba2", "mamba2/1,4"), ("jamba", SEQ_PP_CASE))
 
 
 def _jax_blocks(plan, x, out: dict, tag: str) -> None:
@@ -415,7 +418,9 @@ def run_seq_jax(out_path: str, part: int) -> None:
 # (2, 2) (one row a data rank); the drop case runs the reduced capacity
 # factor 1.25, where which tokens drop depends on the tokens a rank holds.
 # gemma2's window (32) leaves rank 0's 32 rows from the first decode index
-# (64) on.  mamba2 and jamba: 32 positions a rank (one SSM chunk).
+# (64) on.  mamba2 and jamba: 32 positions a rank (one SSM chunk); mamba2 at
+# (1, 4) a 192-token prompt, 48 a rank: above the chunk and not a multiple
+# of it.
 SERVE_CASES = {
     "granite/capacity/1,4": ("granite-moe-3b-a800m", (1, 4), "capacity", 16.0, 2, 64, 128, 8),
     "granite/capacity/2,2": ("granite-moe-3b-a800m", (2, 2), "capacity", 16.0, 2, 64, 128, 8),
@@ -425,12 +430,13 @@ SERVE_CASES = {
     "gemma2/1,4": ("gemma2-9b", (1, 4), None, None, 2, 64, 128, 40),
     "qwen2/1,4": ("qwen2-vl-7b", (1, 4), None, None, 2, 64, 128, 8),
     "mamba2/2,2": ("mamba2-370m", (2, 2), None, None, 2, 64, 128, 4),
+    "mamba2/1,4": ("mamba2-370m", (1, 4), None, None, 2, 192, 256, 4),
     "jamba/2,2": ("jamba-1.5-large-398b", (2, 2), "ragged", 16.0, 2, 64, 128, 4),
 }
 # The serve-jax mode's parts, each a process of its own (started at once).
 SERVE_JAX_PARTS = (("layout", "granite/capacity/1,4", "granite/capacity/2,2",
                     "granite/drop/2,2"),
-                   ("granite/ragged/1,4", "granite/ragged/2,2", "qwen2/1,4"),
+                   ("granite/ragged/1,4", "granite/ragged/2,2", "qwen2/1,4", "mamba2/1,4"),
                    ("gemma2/1,4", "mamba2/2,2", "jamba/2,2"))
 # The cache layout: rows a cache, at every SEQ_LAYOUTS grid (18 splits over
 # 2 sequence ranks, not over 4: whole there); decode batches of 8 and 3 rows

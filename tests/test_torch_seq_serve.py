@@ -34,7 +34,8 @@ decode cell on a fake 16-rank group.
   reduced gemma2 (window 32, both softcaps) at (1, 4), 40 steps, rank 0's
   rows outside the local window from the first; qwen2-vl (M-RoPE) on
   ``embeds`` at (1, 4); mamba2 and jamba (one rep) at (2, 2), 32
-  positions a rank.  Every rank returns the same logits; at every step
+  positions a rank; mamba2 at (1, 4) on a 192-token prompt, 48 positions a
+  rank (above the chunk of 32 and not a multiple of it).  Every rank returns the same logits; at every step
   they are within 1e-5 of the reference's and world 1's (gemma2: 1e-5 of
   the logits' magnitude), and each rank's cache block after the prefill
   and after the last step within 1e-5 of the reference's block on the

@@ -4,7 +4,8 @@ The reference lays a training batch out by its rule table: rows over the
 data axes, the sequence over ``("ep", "tp")`` (``repro.training
 .batch_specs``; ``P(dp, sp, None)`` activations in ``moe_ffn`` and the
 pipeline).  The port's ``training.shard_batch`` gives each rank the same
-block, and its mixers gather what crosses a slice over the sequence group.
+block; attention gathers K/V over the sequence group, and a Mamba2 mixer
+hands its state and conv rows from rank to rank.
 ``_torch_mesh_child.py`` runs both sides, side by side, from the port's
 ``init_params`` (seed 0): its ``seq-jax`` mode on 8 fake host devices
 (two processes, each half of the cases), its ``seq-port`` mode on 4 gloo
@@ -27,9 +28,11 @@ process traces the dry run's pipelined pod2 cell.
   other tokens, so its loss differs.
 * **Shard boundaries.** Reduced gemma2 (window 32, attention and final
   softcaps) and qwen2-vl (M-RoPE, fed ``embeds``) at (1, 4), 16 positions
-  a rank, and reduced mamba2 and jamba (one rep, cf 16) at (2, 2), 32 (one
-  SSM chunk) a rank: against world 1 and the reference's plan at the
-  model-parity 1e-5 (loss) and 1e-4 (gradients).
+  a rank, reduced mamba2 and jamba (one rep, cf 16) at (2, 2), 32 (one
+  SSM chunk) a rank, and mamba2 at (1, 4), 16 a rank (half a chunk: the
+  state crosses three boundaries in two scan rounds): against world 1 and
+  the reference's plan at the model-parity 1e-5 (loss) and 1e-4
+  (gradients).
 * **The pipeline.** 1f1b at PP 2 x ep 2 with M = 2 PP microbatches, each
   stage's ranks holding sequence slices, against the reference's
   pipelined ``loss_and_grads`` and world 1, at the same gates (aux loss 0:
